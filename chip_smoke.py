@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-Drives the port's main path, full-batch GCN inference on the pubmed-sized
-synthetic graph at the paper's full widths (500 features, hidden 16,
-3 classes, 2 layers), through the two hand-written CUDA kernels, and
-checks every result.  Run it from the root of a checkout with no
-arguments:
+Drives the port's two paths on the pubmed-sized synthetic graph at the
+paper's full widths (500 features, hidden 16, 3 classes, 2 layers): GCN
+inference (``forward``) and full-batch GCN training (``train``) with the
+paper's default plan ``("block_diag", "bell")`` and its fused twin
+``("block_diag_fused", "bell_fused")``, through the five hand-written CUDA
+kernels, and checks every result.  Run it from the root of a checkout with
+no arguments:
 
     python3 chip_smoke.py
 
@@ -14,20 +16,35 @@ Phases, each of which raises (exit code != 0) on failure:
 1. build: every kernel source compiles with nvcc for sm_90a, in parallel;
    prints the build time and ptxas register/spill lines;
 2. kernels: each kernel against its plain PyTorch version on the card,
-   float32 and bfloat16, F in {3, 16, 500}, with and without y_in, on the
-   main path's payloads (B = 16) and on synthetic ones with B in {8, 32,
-   64}; tolerances are the reference's (tests/test_fused.py): float32
+   float32 and bfloat16, with and without y_in, on the main path's
+   payloads (B = 16) and on synthetic ones with B in {8, 32, 64}:
+   block_diag_spmm and bell_spmm at F in {3, 16, 500}; the transposed read
+   of block_diag_spmm, block_diag_spmm_fused (both reads), bell_spmm_fused
+   and bell_spmm_dw (over the transpose payload, and over the diagonal
+   blocks with K = 1) at (Fi, Fo) in {(500, 16), (16, 3), (3, 16)};
+   tolerances are the reference's (tests/test_fused.py): float32
    atol = rtol = 1e-4, bfloat16 atol = 2e-1, rtol = 3e-1;
-3. main path: prepare -> init_model -> forward with acc=False and
-   acc=True; launch counts are reset just before and read just after, and
-   each kernel must have launched twice per forward; the logits must be
+3. forward: prepare -> init_model -> forward with acc=False and acc=True;
+   launch counts are reset just before and read just after, and each
+   forward kernel must have launched twice per forward; the logits must be
    finite, of shape (n_pad, 3), and agree (float32 1e-4) with the same
    forward on the CPU (plain versions) and with an independent edge-list
    GCN on the CPU;
-4. timing: median forward time (CUDA events), each kernel's time at the
-   main path's shapes (F = 16 and 3) beside its plain version, one
-   PyTorch library call computing the same function and its bound, a
-   torch.profiler table and the device-busy share of a forward.
+4. gradients: one loss.backward per plan on the card against the same on
+   the CPU, from the same parameters, every gradient within float32 1e-4;
+5. training (the main path): gnn.train for TRAIN_STEPS steps per plan
+   from one parameter set, launch counts reset just before and read just
+   after; the counts must equal TRAIN_STEPS times the per-step counts plus
+   one forward's; each loss curve must fall and agree (atol 5e-3,
+   rtol 1e-2, the reference's own for this comparison in
+   tests/test_fused.py) with the same training on the CPU, with an
+   independent edge-list GCN trained with autograd and the same Adam, and
+   with the other plan's curve;
+6. timing: median forward and training-step times (CUDA events, host
+   launch included), each kernel's time at the main path's shapes beside
+   its plain version, one PyTorch library call (or composite) computing
+   the same function and its bound, and torch.profiler tables with the
+   device-busy share of a forward and of a training step per plan.
 
 Float32 products run in full float32 (TF32 off for matmul and cuDNN).
 The last two lines are the kernels JSON and the device JSON.
@@ -58,7 +75,36 @@ KERNELS = {
     "bell_spmm": dict(
         source="src/repro_torch/kernels/csrc/bell_spmm.cu",
         replaces="src/repro/kernels/bell_spmm.py:69"),
+    "block_diag_spmm_fused": dict(
+        source="src/repro_torch/kernels/csrc/block_diag_spmm_fused.cu",
+        replaces="src/repro/kernels/block_diag_spmm_fused.py:54"),
+    "bell_spmm_fused": dict(
+        source="src/repro_torch/kernels/csrc/bell_spmm_fused.cu",
+        replaces="src/repro/kernels/bell_spmm_fused.py:71"),
+    "bell_spmm_dw": dict(
+        source="src/repro_torch/kernels/csrc/bell_spmm_dw.cu",
+        replaces="src/repro/kernels/bell_spmm_fused.py:145"),
 }
+FORWARD_KERNELS = ("block_diag_spmm", "bell_spmm")
+
+TRAIN_STEPS = 20
+CURVE_TOL = dict(atol=5e-3, rtol=1e-2)    # tests/test_fused.py:136
+PLANS = {"unfused": ("block_diag", "bell"),
+         "fused": ("block_diag_fused", "bell_fused")}
+# kernel launches per training step and per forward of each plan (2
+# layers).  Unfused: per layer one launch of each forward kernel, and one
+# more in the backward (layer 1's too: dW = X^T dH needs dH).  Fused: per
+# layer one launch of each fused kernel and two dW launches; the dX pass
+# over the transpose runs for layer 2 only (layer 1's input is the raw
+# features, which need no gradient).
+PER_STEP = {"unfused": {"block_diag_spmm": 4, "bell_spmm": 4},
+            "fused": {"block_diag_spmm_fused": 3, "bell_spmm_fused": 3,
+                      "bell_spmm_dw": 4}}
+PER_FORWARD = {"unfused": {"block_diag_spmm": 2, "bell_spmm": 2},
+               "fused": {"block_diag_spmm_fused": 2, "bell_spmm_fused": 2}}
+# (Fi, Fo) of the main path's fused kernels: layer 1, layer 2, and layer
+# 2's dX pass over the transpose with W^T
+WIDTHS = ((500, 16), (16, 3), (3, 16))
 
 
 def log(phase: str, msg: str) -> None:
@@ -280,9 +326,9 @@ def bsr_of(torch, bell):
     return bsr
 
 
-def edge_list_gcn(torch, graph, params) -> "torch.Tensor":
-    """Independent CPU reference: the GCN forward on the original edge
-    list (self-loops, symmetric norm, index_add_), in original node order.
+def edge_list(torch, graph):
+    """The GCN's normalized edge list in original node order: (senders,
+    receivers, values) with self-loops and the symmetric norm.
 
     ``add_self_loops`` duplicates the (v, v) edges a graph already has; the
     reference's block formats store such an edge once (both copies carry
@@ -293,22 +339,67 @@ def edge_list_gcn(torch, graph, params) -> "torch.Tensor":
     vals = graph_mod.gcn_norm_values(g.n, g.senders, g.receivers)
     _, first = np.unique(g.receivers.astype(np.int64) * g.n + g.senders,
                          return_index=True)
-    vals = torch.from_numpy(vals[first])
-    snd = torch.from_numpy(g.senders[first]).long()
-    rcv = torch.from_numpy(g.receivers[first]).long()
-    h = torch.from_numpy(graph.features)
+    return (torch.from_numpy(g.senders[first]).long(),
+            torch.from_numpy(g.receivers[first]).long(),
+            torch.from_numpy(vals[first]))
+
+
+def edge_list_forward(torch, feats, edges, params):
+    """GCN forward over ``edge_list`` output with ``index_add_``."""
+    snd, rcv, vals = edges
+    h = feats
     for i, layer in enumerate(params):
-        hw = h @ layer["w"].cpu()
-        y = torch.zeros((g.n, hw.shape[1])).index_add_(
+        hw = h @ layer["w"]
+        y = torch.zeros((feats.shape[0], hw.shape[1])).index_add_(
             0, rcv, hw[snd] * vals[:, None])
-        h = y + layer["b"].cpu()
+        h = y + layer["b"]
         if i != len(params) - 1:
             h = torch.relu(h)
     return h
 
 
+def edge_list_gcn(torch, graph, params) -> "torch.Tensor":
+    """Independent CPU reference: the GCN forward on the original edge
+    list (self-loops, symmetric norm, index_add_), in original node order."""
+    return edge_list_forward(
+        torch, torch.from_numpy(graph.features), edge_list(torch, graph),
+        [{k: v.cpu() for k, v in p.items()} for p in params])
+
+
+def edge_list_train(torch, graph, params, steps: int, lr: float) -> list:
+    """Independent CPU reference for training: the edge-list GCN, the mean
+    negative log-likelihood over every node, torch autograd, and Adam as
+    the reference writes it (repro/core/gnn.py _adam_update) transcribed
+    here.  Returns the loss of each step."""
+    edges = edge_list(torch, graph)
+    feats = torch.from_numpy(graph.features)
+    labels = torch.from_numpy(graph.labels).long()
+    p = [{k: v.detach().cpu().clone() for k, v in q.items()} for q in params]
+    m = [{k: torch.zeros_like(v) for k, v in q.items()} for q in p]
+    v2 = [{k: torch.zeros_like(v) for k, v in q.items()} for q in p]
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    losses = []
+    for t in range(1, steps + 1):
+        leaves = [{k: v.clone().requires_grad_() for k, v in q.items()}
+                  for q in p]
+        loss = torch.nn.functional.cross_entropy(
+            edge_list_forward(torch, feats, edges, leaves), labels)
+        flat = [v for q in leaves for v in q.values()]
+        grads = iter(torch.autograd.grad(loss, flat))
+        losses.append(float(loss.detach()))
+        for q, mq, vq in zip(p, m, v2):
+            for k in q:
+                gk = next(grads)
+                mq[k] = b1 * mq[k] + (1 - b1) * gk
+                vq[k] = b2 * vq[k] + (1 - b2) * gk * gk
+                mh = mq[k] / (1 - b1 ** t)
+                vh = vq[k] / (1 - b2 ** t)
+                q[k] = q[k] - lr * mh / (torch.sqrt(vh) + eps)
+    return losses
+
+
 def phase_main(torch, graph, cfg, dec, counts: dict):
-    """The main path on ``dec``'s device: init_model, then forward with
+    """The forward path on ``dec``'s device: init_model, then forward with
     acc=False and acc=True, with the launch counts set to 0 just before and
     read just after.  Checks the logits against the same forward on the
     CPU and against :func:`edge_list_gcn`.  Returns (plan, params, x,
@@ -352,6 +443,349 @@ def phase_main(torch, graph, cfg, dec, counts: dict):
     return plan, params, x, launches
 
 
+def phase_kernels_train(torch, dec, errs: dict) -> None:
+    """The training path's kernels against their plain versions on
+    ``dec``'s device, adding the largest errors to ``errs``: the transposed
+    read of block_diag_spmm (its backward), block_diag_spmm_fused (both
+    reads), bell_spmm_fused, and bell_spmm_dw over the transpose payload and
+    over the diagonal blocks (K = 1, identity columns, transposed read).
+    dW's cotangent is drawn at the scale of a mean loss's (1 / rows), as in
+    training: at unit scale |dW| reaches 1e4 on the pubmed payload, where
+    float32 sums round beyond atol = 1e-4 in any order."""
+    from repro_torch.kernels import bell_spmm_fused as bellf_mod
+    from repro_torch.kernels import block_diag_spmm as bd_mod
+    from repro_torch.kernels import block_diag_spmm_fused as bdf_mod
+    dev = dec.device
+    gen = torch.Generator(device=dev).manual_seed(2)
+    bd = dec.intra.formats["block_diag"]
+    bell, bell_t = dec.sub("inter").formats["bell"]
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    bd_cases = [bd.blocks] + [randn(40, B, B) for B in (8, 32, 64)]
+    main_bell = [(bell.blocks, bell.col_idx, bell.n_valid, bell.n_cols)]
+    main_bell_t = [(bell_t.blocks, bell_t.col_idx, bell_t.n_valid,
+                    bell_t.n_cols)]
+    synth = [synthetic_bell(torch, gen, B, dev) for B in (8, 32, 64)]
+    n_cases = 0
+
+    def check(name, got, want, dtype, label=None):
+        nonlocal n_cases
+        sync(torch, dev)
+        key = str(dtype).removeprefix("torch.")
+        tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+        e = max_err(got, want)
+        errs[name][key] = max(errs[name][key], e)
+        if label is not None:
+            log("kernel", f"{name} {key} {label}: max|err| {e:.3g}")
+        n_cases += 1
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for Fi, Fo in WIDTHS:
+            w = (randn(Fi, Fo) / Fi ** 0.5).to(dtype)
+            for i, blocks in enumerate(bd_cases):
+                blocks = blocks.to(dtype)
+                n = blocks.shape[0] * blocks.shape[1]
+                x = randn(n, Fi).to(dtype)
+                g = (randn(n, Fo) / n).to(dtype)
+                logged = i == 0
+                check("bell_spmm_dw",
+                      bellf_mod.bell_spmm_dw(blocks.unsqueeze(1), None, x, g,
+                                             transpose=True),
+                      bellf_mod.plain_dw(blocks.unsqueeze(1), None, x, g,
+                                         transpose=True),
+                      dtype, f"diag {Fi}x{Fo}" if logged else None)
+                for with_y in (False, True):
+                    y_in = randn(n, Fo).to(dtype) if with_y else None
+                    yx = randn(n, Fi).to(dtype) if with_y else None
+                    check("block_diag_spmm",
+                          bd_mod.block_diag_spmm(blocks, x, yx,
+                                                 transpose=True),
+                          bd_mod.plain(blocks, x, yx, transpose=True), dtype,
+                          f"transposed F={Fi} y_in={with_y}" if logged
+                          else None)
+                    for transpose in (False, True):
+                        check("block_diag_spmm_fused",
+                              bdf_mod.block_diag_spmm_fused(
+                                  blocks, x, w, y_in, transpose=transpose),
+                              bdf_mod.plain(blocks, x, w, y_in,
+                                            transpose=transpose), dtype,
+                              f"{Fi}x{Fo} y_in={with_y} "
+                              f"transpose={transpose}" if logged else None)
+            for i, (blocks, col_idx, n_valid, n_cols) in enumerate(
+                    main_bell + synth):
+                blocks = blocks.to(dtype)
+                n_rows = blocks.shape[0] * blocks.shape[2]
+                x = randn(n_cols, Fi).to(dtype)
+                for with_y in (False, True):
+                    y_in = randn(n_rows, Fo).to(dtype) if with_y else None
+                    check("bell_spmm_fused",
+                          bellf_mod.bell_spmm_fused(blocks, col_idx, x, w,
+                                                    y_in, n_valid=n_valid),
+                          bellf_mod.plain(blocks, col_idx, x, w, y_in),
+                          dtype, f"{Fi}x{Fo} y_in={with_y}" if i == 0
+                          else None)
+            for i, (blocks, col_idx, n_valid, n_cols) in enumerate(
+                    main_bell_t + synth):
+                blocks = blocks.to(dtype)
+                n_rows = blocks.shape[0] * blocks.shape[2]
+                x = randn(n_rows, Fi).to(dtype)
+                g = (randn(n_cols, Fo) / n_rows).to(dtype)
+                got = bellf_mod.bell_spmm_dw(blocks, col_idx, x, g,
+                                             n_valid=n_valid)
+                if i == 0 and not torch.equal(got, bellf_mod.bell_spmm_dw(
+                        blocks, col_idx, x, g, n_valid=n_valid)):
+                    raise RuntimeError("bell_spmm_dw gave other bits on a "
+                                       "second run")
+                check("bell_spmm_dw", got,
+                      bellf_mod.plain_dw(blocks, col_idx, x, g), dtype,
+                      f"bell_t {Fi}x{Fo} (same bits twice)" if i == 0
+                      else None)
+    log("kernel", f"{n_cases} training-path cases within tolerance "
+        f"(main-path payloads and B in 8, 16, 32, 64); largest errors "
+        f"{errs}")
+
+
+def phase_grads(torch, graph, cfg, dec) -> None:
+    """One loss.backward per plan on ``dec``'s device against the same on
+    the CPU (plain versions), from the same parameters: every parameter's
+    gradient within float32 1e-4."""
+    from repro_torch.core import adaptgear, gnn
+    dec_cpu = dec.to("cpu")
+    feats = torch.from_numpy(graph.features)
+    params = gnn.init_model(torch.Generator().manual_seed(cfg.seed), cfg,
+                            feats.shape[1], graph.n_classes, device="cpu")
+    for name, pair in PLANS.items():
+        got = []
+        for d in (dec, dec_cpu):
+            x = adaptgear.to_reordered(d, feats.to(d.device))
+            labels, mask = gnn.node_targets(graph, d)
+            leaves = [{k: v.clone().to(d.device).requires_grad_()
+                       for k, v in p.items()} for p in params]
+            loss = gnn._loss(leaves, cfg, d, x, labels, mask, pair)
+            loss.backward()
+            got.append((float(loss.detach()), [
+                {k: v.grad.cpu() for k, v in p.items()} for p in leaves]))
+        (l_dev, g_dev), (l_cpu, g_cpu) = got
+        worst, scale = 0.0, 0.0
+        for i, (a, b) in enumerate(zip(g_dev, g_cpu)):
+            for k in a:
+                torch.testing.assert_close(a[k], b[k], **F32_TOL)
+                worst = max(worst, max_err(a[k], b[k]))
+                scale = max(scale, float(b[k].abs().max()))
+        if abs(l_dev - l_cpu) > 1e-4 + 1e-4 * abs(l_cpu):
+            raise RuntimeError(f"{name}: loss {l_dev} on the card, "
+                               f"{l_cpu} on the CPU")
+        log("grads", f"{name} {pair}: loss {l_dev:.6f} (cpu {l_cpu:.6f}); "
+            f"max|grad diff| {worst:.3g} over 4 parameters, "
+            f"largest |grad| {scale:.3g}")
+
+
+def phase_train(torch, graph, cfg, counts: dict) -> dict:
+    """The main path: gnn.train on the card for each plan from one
+    parameter set, with the launch counts set to 0 just before and read
+    just after.  Checks the counts against PER_STEP / PER_FORWARD and each
+    curve against the CPU's, the edge-list GCN's and the other plan's."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.core import gnn
+    params = gnn.init_model(torch.Generator().manual_seed(cfg.seed), cfg,
+                            graph.features.shape[1], graph.n_classes,
+                            device="cpu")
+    results, used = {}, {}
+    for c in counts.values():
+        c.reset()
+    for name, pair in PLANS.items():
+        before = {k: c.value for k, c in counts.items()}
+        results[name] = gnn.train(
+            graph, dataclasses.replace(cfg, fixed_kernels=pair),
+            steps=TRAIN_STEPS, device="cuda", params=params)
+        torch.cuda.synchronize()
+        used[name] = {k: c.value - before[k] for k, c in counts.items()}
+    launches = {k: c.value for k, c in counts.items()}
+    log("train", f"launches over both runs {launches}")
+
+    edge_losses = edge_list_train(torch, graph, params, TRAIN_STEPS, cfg.lr)
+    for name, pair in PLANS.items():
+        r = results[name]
+        want = {k: TRAIN_STEPS * PER_STEP[name].get(k, 0)
+                + PER_FORWARD[name].get(k, 0) for k in counts}
+        if used[name] != want:
+            raise RuntimeError(f"{name}: launches {used[name]}, expected "
+                               f"{want} ({TRAIN_STEPS} steps and one "
+                               "forward)")
+        losses = np.asarray(r.losses)
+        if losses.shape != (TRAIN_STEPS,) or not np.isfinite(losses).all():
+            raise RuntimeError(f"{name}: losses {r.losses}")
+        if not losses[-1] < losses[0]:
+            raise RuntimeError(f"{name}: the loss did not fall: {r.losses}")
+        cpu = gnn.train(graph, dataclasses.replace(cfg, fixed_kernels=pair),
+                        steps=TRAIN_STEPS, device="cpu", params=params)
+        np.testing.assert_allclose(losses, cpu.losses, **CURVE_TOL)
+        np.testing.assert_allclose(losses, edge_losses, **CURVE_TOL)
+        log("train", f"{name} {pair}: {TRAIN_STEPS} steps, launches "
+            f"{used[name]} = {TRAIN_STEPS} x {PER_STEP[name]} + one forward; "
+            f"losses {losses[0]:.6f} -> {losses[-1]:.6f}, accuracy "
+            f"{r.accuracy:.4f}, step {r.step_seconds * 1e3:.3f} ms (host "
+            f"clock, loss read every step); max|card - cpu| "
+            f"{np.abs(losses - cpu.losses).max():.3g}, max|card - edge-list "
+            f"GCN| {np.abs(losses - edge_losses).max():.3g}")
+    np.testing.assert_allclose(results["fused"].losses,
+                               results["unfused"].losses, **CURVE_TOL)
+    log("train", "fused and unfused curves agree: max|diff| "
+        f"{np.abs(np.subtract(results['fused'].losses, results['unfused'].losses)).max():.3g}")
+    return dict(results=results, launches=launches, params=params)
+
+
+def time_train_kernels(torch, dec, flush, bsr, bsr_t) -> dict:
+    """The training path's kernels at both layers' widths (L2 flushed),
+    beside their plain versions, a library composite and their bounds."""
+    from repro_torch.kernels import bell_spmm_fused as bellf_mod
+    from repro_torch.kernels import block_diag_spmm_fused as bdf_mod
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    bd = dec.intra.formats["block_diag"]
+    bell, bell_t = dec.sub("inter").formats["bell"]
+    nb, B = bd.blocks.shape[0], bd.block_size
+    Bb = bell.block_size
+    nv, nv_t = int(bell.n_valid.sum()), int(bell_t.n_valid.sum())
+    n, be = dec.n_pad, 4
+    rows = {k: {} for k in ("block_diag_spmm_fused", "bell_spmm_fused",
+                            "bell_spmm_dw")}
+    for Fi, Fo in WIDTHS[:2]:
+        key = f"{Fi}x{Fo}"
+        x = torch.randn((n, Fi), generator=gen, device="cuda")
+        w = torch.randn((Fi, Fo), generator=gen, device="cuda") / Fi ** 0.5
+        g = torch.randn((n, Fo), generator=gen, device="cuda") / n
+        bt1 = bd.blocks.unsqueeze(1)
+
+        # block_diag_spmm_fused: every row transformed once
+        lib = lambda: torch.bmm(bd.blocks, (x @ w).view(nb, B, Fo))  # noqa: E731
+        torch.testing.assert_close(lib().view(n, Fo), bdf_mod.plain(
+            bd.blocks, x, w), **F32_TOL)
+        b_ms, b_by = bound((nb * B * B + n * Fi + Fi * Fo + n * Fo) * be,
+                           2.0 * n * Fi * Fo + 2.0 * nb * B * B * Fo,
+                           "float32")
+        rows["block_diag_spmm_fused"][key] = dict(
+            ms=graph_ms(torch, lambda: bdf_mod.block_diag_spmm_fused(
+                bd.blocks, x, w), flush),
+            plain_ms=graph_ms(torch, lambda: bdf_mod.plain(bd.blocks, x, w),
+                              flush),
+            library_ms=graph_ms(torch, lib, flush),
+            library_call="torch.bmm(blocks, (x @ w).view(nb, B, Fo))",
+            bound_ms=b_ms, bound_by=b_by,
+            shape=[list(bd.blocks.shape), [n, Fi], [Fi, Fo]])
+
+        # bell_spmm_fused: each stored block transforms its rows again
+        b_ms, b_by = bound(
+            nv * (Bb * Bb * be + 4) + bell.n_brow * 4 + bell.n_cols * Fi * be
+            + Fi * Fo * be + bell.n_rows * Fo * be,
+            nv * (2.0 * Bb * Fi * Fo + 2.0 * Bb * Bb * Fo), "float32")
+        lib_ms = None
+        if bsr is not None:
+            torch.testing.assert_close(bsr @ (x @ w), bellf_mod.plain(
+                bell.blocks, bell.col_idx, x, w), **F32_TOL)
+            lib_ms = eager_ms(torch, lambda: bsr @ (x @ w))
+        rows["bell_spmm_fused"][key] = dict(
+            ms=graph_ms(torch, lambda: bellf_mod.bell_spmm_fused(
+                bell.blocks, bell.col_idx, x, w, n_valid=bell.n_valid), flush),
+            plain_ms=graph_ms(torch, lambda: bellf_mod.plain(
+                bell.blocks, bell.col_idx, x, w), flush),
+            library_ms=lib_ms,
+            library_call="torch BSR(real blocks) @ (x @ w), eager",
+            bound_ms=b_ms, bound_by=b_by,
+            shape=[list(bell.blocks.shape), [nv, "real blocks"], [n, Fi],
+                   [Fi, Fo]])
+
+        # bell_spmm_dw over the transpose payload, and over the diagonal
+        b_ms, b_by = bound(
+            nv_t * (Bb * Bb * be + 4) + bell_t.n_brow * 4 + n * Fi * be
+            + n * Fo * be + Fi * Fo * 4,
+            nv_t * 2.0 * Bb * Bb * Fo + 2.0 * n * Fi * Fo, "float32")
+        lib_ms = None
+        if bsr_t is not None:
+            torch.testing.assert_close(x.T @ (bsr_t @ g), bellf_mod.plain_dw(
+                bell_t.blocks, bell_t.col_idx, x, g), **F32_TOL)
+            lib_ms = eager_ms(torch, lambda: x.T @ (bsr_t @ g))
+        rows["bell_spmm_dw"][key] = dict(
+            ms=graph_ms(torch, lambda: bellf_mod.bell_spmm_dw(
+                bell_t.blocks, bell_t.col_idx, x, g, n_valid=bell_t.n_valid),
+                flush),
+            plain_ms=graph_ms(torch, lambda: bellf_mod.plain_dw(
+                bell_t.blocks, bell_t.col_idx, x, g), flush),
+            library_ms=lib_ms,
+            library_call="x.T @ (torch BSR(bell_t real blocks) @ g), eager",
+            bound_ms=b_ms, bound_by=b_by,
+            shape=[list(bell_t.blocks.shape), [nv_t, "real blocks"], [n, Fi],
+                   [n, Fo]])
+        lib = lambda: x.T @ torch.bmm(  # noqa: E731
+            bd.blocks.transpose(1, 2), g.view(nb, B, Fo)).view(n, Fo)
+        torch.testing.assert_close(lib(), bellf_mod.plain_dw(
+            bt1, None, x, g, transpose=True), **F32_TOL)
+        b_ms, b_by = bound((nb * B * B + n * Fi + n * Fo) * be + Fi * Fo * 4,
+                           2.0 * nb * B * B * Fo + 2.0 * n * Fi * Fo,
+                           "float32")
+        rows["bell_spmm_dw"][f"diag {key}"] = dict(
+            ms=graph_ms(torch, lambda: bellf_mod.bell_spmm_dw(
+                bt1, None, x, g, transpose=True), flush),
+            plain_ms=graph_ms(torch, lambda: bellf_mod.plain_dw(
+                bt1, None, x, g, transpose=True), flush),
+            library_ms=graph_ms(torch, lib, flush),
+            library_call="x.T @ torch.bmm(blocks^T, g.view(nb, B, Fo))",
+            bound_ms=b_ms, bound_by=b_by,
+            shape=[[nb, 1, B, B], [n, Fi], [n, Fo]])
+        for k in rows:
+            for kk in (key, f"diag {key}"):
+                r = rows[k].get(kk)
+                if r is None:
+                    continue
+                lib_s = (f"{r['library_ms']:.4f}" if r["library_ms"]
+                         is not None else "null")
+                log("timing", f"{k} {kk}: {r['ms']:.4f} ms (L2 cold), plain "
+                    f"{r['plain_ms']:.4f} ms, library {lib_s} ms "
+                    f"({r['library_call']}), bound {r['bound_ms']:.4f} ms "
+                    f"({r['bound_by']})")
+    return rows
+
+
+def profile_busy(torch, fn, iters: int, median_ms: float, what: str):
+    """Device time per call of ``fn`` from torch.profiler, its top kernels,
+    and its share of ``median_ms``; None where the profiler saw no device
+    time."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6 / iters
+    dev_rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us > 0 and str(getattr(e, "device_type", "")).endswith("CUDA"):
+            dev_rows.append((us / iters, e.count // iters, e.key))
+    dev_rows.sort(reverse=True)
+    for us, cnt, key in dev_rows[:10]:
+        log("profile", f"{us:9.1f} us/{what}  x{cnt}  {key[:90]}")
+    busy_us = sum(r[0] for r in dev_rows)
+    if busy_us <= 0:
+        log("profile", f"the profiler recorded no device time: device-busy "
+            f"share of a {what} not measured")
+        return None
+    busy = dict(busy_us=busy_us, share_of_profiled_wall=busy_us / wall_us,
+                share_of_median=busy_us / (median_ms * 1e3))
+    log("profile", f"device busy {busy_us:.1f} us per {what}: "
+        f"{100 * busy['share_of_median']:.1f} % of the median {what} "
+        f"({median_ms * 1e3:.1f} us), {100 * busy['share_of_profiled_wall']:.1f}"
+        f" % of the profiled wall ({wall_us:.1f} us)")
+    return busy
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -375,12 +809,18 @@ def main() -> int:
     log("env", f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
+    import dataclasses
     from repro_torch.core import gnn
     from repro_torch.graphs import graph as graph_mod
     from repro_torch.kernels import bell_spmm as bell_mod
+    from repro_torch.kernels import bell_spmm_fused as bellf_mod
     from repro_torch.kernels import block_diag_spmm as bd_mod
+    from repro_torch.kernels import block_diag_spmm_fused as bdf_mod
     counts = {"block_diag_spmm": bd_mod.launches,
-              "bell_spmm": bell_mod.launches}
+              "bell_spmm": bell_mod.launches,
+              "block_diag_spmm_fused": bdf_mod.launches,
+              "bell_spmm_fused": bellf_mod.launches,
+              "bell_spmm_dw": bellf_mod.dw_launches}
 
     # 1. build ---------------------------------------------------------------
     phase_build(torch)
@@ -400,24 +840,49 @@ def main() -> int:
         f"{graph.features.shape[1]} classes={graph.n_classes} "
         f"n_pad={dec.n_pad}; block_diag {tuple(bd.blocks.shape)}, bell "
         f"{tuple(bell.blocks.shape)} ({int(bell.n_valid.sum())} real "
-        f"blocks), bell_t {tuple(bell_t.blocks.shape)}")
+        f"blocks), bell_t {tuple(bell_t.blocks.shape)} "
+        f"({int(bell_t.n_valid.sum())} real blocks)")
 
     # 2. kernels against their plain versions --------------------------------
     errs = phase_kernels(torch, dec)
+    phase_kernels_train(torch, dec, errs)
 
-    # 3. main path -----------------------------------------------------------
-    plan, params, x, launches = phase_main(torch, graph, cfg, dec, counts)
+    # 3. forward -------------------------------------------------------------
+    plan, params, x, launches_fwd = phase_main(torch, graph, cfg, dec, counts)
     n_fwd = 2
-    for k, v in launches.items():
-        if v != 2 * n_fwd:
+    for k, v in launches_fwd.items():
+        want = 2 * n_fwd if k in FORWARD_KERNELS else 0
+        if v != want:
             raise RuntimeError(f"{k} launched {v} times in {n_fwd} "
-                               f"forwards, expected {2 * n_fwd}")
+                               f"forwards, expected {want}")
+
+    # 4. gradients, 5. training (the main path) ------------------------------
+    phase_grads(torch, graph, cfg, dec)
+    trained = phase_train(torch, graph, cfg, counts)
+    launches = trained["launches"]
 
     # 4. timing --------------------------------------------------------------
     fwd_ms = {acc: eager_ms(torch, lambda acc=acc: gnn.forward(
         params, cfg, dec, x, plan, acc=acc)) for acc in (False, True)}
     log("timing", f"forward median (CUDA events, host launch included): "
         f"acc=False {fwd_ms[False]:.4f} ms, acc=True {fwd_ms[True]:.4f} ms")
+
+    # one training step per plan, in turns (unfused, fused, fused, unfused)
+    labels, mask = gnn.node_targets(graph, dec)
+    p0 = [{k: v.cuda() for k, v in q.items()} for q in trained["params"]]
+    steps = {name: gnn.make_train_step(
+        dataclasses.replace(cfg, fixed_kernels=pair), dec, pair)
+        for name, pair in PLANS.items()}
+    opt0 = gnn._adam_init(p0)
+    step_runs = {name: [] for name in PLANS}
+    for name in ("unfused", "fused", "fused", "unfused"):
+        step_runs[name].append(eager_ms(torch, lambda name=name: steps[name](
+            p0, opt0, x, labels, mask)))
+    step_ms = {name: statistics.mean(v) for name, v in step_runs.items()}
+    log("timing", "training step median (CUDA events, host launch "
+        "included; two runs each, in turns): " + ", ".join(
+            f"{n} {step_runs[n][0]:.4f} / {step_runs[n][1]:.4f} ms"
+            for n in PLANS))
 
     scratch = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
     flush = scratch.zero_
@@ -470,59 +935,36 @@ def main() -> int:
                 f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms "
                 f"({r['library_call']}), bound {r['bound_ms']:.4f} ms "
                 f"({r['bound_by']})")
+    rows.update(time_train_kernels(torch, dec, flush, bsr,
+                                   bsr_of(torch, bell_t)))
     del scratch
 
-    prof_iters = 5
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(prof_iters):
-            gnn.forward(params, cfg, dec, x, plan)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6 / prof_iters
-    dev_rows = []
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
-        if us > 0 and str(getattr(e, "device_type", "")).endswith("CUDA"):
-            dev_rows.append((us / prof_iters, e.count // prof_iters, e.key))
-    dev_rows.sort(reverse=True)
-    for us, cnt, key in dev_rows[:8]:
-        log("profile", f"{us:9.1f} us/forward  x{cnt}  {key[:90]}")
-    busy_us = sum(r[0] for r in dev_rows)
-    if busy_us > 0:
-        busy = dict(busy_us_per_forward=busy_us,
-                    share_of_profiled_wall=busy_us / wall_us,
-                    share_of_median_forward=busy_us / (fwd_ms[False] * 1e3))
-        log("profile", f"device busy {busy_us:.1f} us per forward: "
-            f"{100 * busy['share_of_median_forward']:.1f} % of the median "
-            f"forward ({fwd_ms[False] * 1e3:.1f} us), "
-            f"{100 * busy['share_of_profiled_wall']:.1f} % of the profiled "
-            f"wall ({wall_us:.1f} us)")
-    else:
-        busy = None
-        log("profile", "the profiler recorded no device time: device-busy "
-            "share not measured")
+    busy = profile_busy(torch, lambda: gnn.forward(params, cfg, dec, x, plan),
+                        5, fwd_ms[False], "forward")
+    busy_step = {name: profile_busy(
+        torch, lambda name=name: steps[name](p0, opt0, x, labels, mask), 5,
+        step_ms[name], f"{name} step") for name in PLANS}
 
     out = []
     for name, meta in KERNELS.items():
-        r16 = rows[name][16]
+        key = 16 if name in FORWARD_KERNELS else "500x16"
+        r = rows[name][key]
         out.append(dict(
             name=name, route="cuda", source=meta["source"],
             replaces=meta["replaces"], launches=launches[name],
-            launches_per_forward=launches[name] // n_fwd,
+            launches_per_step={p: PER_STEP[p].get(name, 0) for p in PLANS},
+            launches_forward=launches_fwd[name],
             max_abs_err=errs[name]["float32"],
             max_abs_err_bf16=errs[name]["bfloat16"],
-            ms=r16["ms"], plain_ms=r16["plain_ms"],
-            bound_ms=r16["bound_ms"], bound_by=r16["bound_by"],
-            library_ms=r16["library_ms"],
-            dtype="float32", width=16,
-            by_width={str(F): rows[name][F] for F in (16, 3)}))
+            ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"],
+            dtype="float32", width=key,
+            by_width={str(k): v for k, v in rows[name].items()}))
     log("done", f"{time.perf_counter() - t_start:.1f} s; forward_ms "
-        f"{ {str(k): v for k, v in fwd_ms.items()} }; busy {busy}")
+        f"{ {str(k): v for k, v in fwd_ms.items()} }; busy {busy}; "
+        f"step_ms {step_ms}; busy per step {busy_step}; train losses "
+        + json.dumps({n: r.losses for n, r in trained["results"].items()}))
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

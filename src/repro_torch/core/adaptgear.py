@@ -1,6 +1,6 @@
 """AdaptGear aggregation dispatch + the GCN convolution (paper §3/§4).
 
-Counterpart of ``repro/core/adaptgear.py`` for the GCN read path.
+Counterpart of ``repro/core/adaptgear.py`` for GCN.
 ``aggregate`` computes Y = sum_s A_s @ X over the decomposition's
 subgraphs with one registry kernel per subgraph.  With ``acc=True`` one
 output buffer is threaded through the subgraph list (the kernels' ``y_in``
@@ -35,42 +35,62 @@ def from_reordered(dec: Decomposed, xr: torch.Tensor) -> torch.Tensor:
     return xr[: dec.n].index_select(0, dec.perm)
 
 
-def _accumulate(dec: Decomposed, x: torch.Tensor, names: tuple,
-                y: torch.Tensor | None, acc: bool) -> torch.Tensor:
-    for sub, k in zip(dec.subgraphs, names):
-        spec = REGISTRY.get(k)
-        payload = sub.formats[k]
-        if y is None:
-            y = spec.matvec(payload, x)
-        elif acc and spec.matvec_acc is not None:
-            y = spec.matvec_acc(payload, x, y.contiguous())
-        else:
-            y = y + spec.matvec(payload, x)
-    return y
-
-
 def aggregate(dec: Decomposed, x: torch.Tensor,
               kernels: Sequence[str] = DEFAULT_KERNELS, *,
               acc: bool = False) -> torch.Tensor:
-    """Y = A @ X via per-subgraph kernels (x reordered, (n_pad, F))."""
+    """Y = A @ X via per-subgraph kernels (x reordered, (n_pad, F)).
+    Fused kernels need a weight: see :func:`aggregate_transform`."""
     names = plan_mod.normalize_layer(dec, kernels)
-    return _accumulate(dec, x, names, None, acc)
+    y = None
+    for sub, k in zip(dec.subgraphs, names):
+        spec = REGISTRY.get(k)
+        if spec.fused:
+            raise ValueError(f"fused kernel {k!r} needs a weight; use "
+                             "aggregate_transform")
+        payload = sub.formats[spec.payload_key]
+        if y is None:
+            y = spec.matvec(payload, x)
+        elif acc and spec.matvec_acc is not None:
+            y = spec.matvec_acc(payload, x, y)
+        else:
+            y = y + spec.matvec(payload, x)
+    return y
 
 
 def aggregate_transform(dec: Decomposed, x: torch.Tensor, w: torch.Tensor,
                         kernels: Sequence[str] = DEFAULT_KERNELS,
                         bias: torch.Tensor | None = None, *,
                         acc: bool = False) -> torch.Tensor:
-    """Y = A @ (X W) (+ bias), transform first.
+    """Y = A @ (X W) (+ bias), transform first, with per-subgraph fused or
+    unfused kernels.
 
-    H = X W is one dense ``torch.matmul`` (the reference leaves it to XLA,
-    outside any Pallas kernel); the bias seeds the threaded accumulator."""
+    Fused kernels take the raw features and the weight (H = X W never
+    reaches device memory).  H is one dense ``torch.matmul`` (the reference
+    leaves it to XLA, outside any Pallas kernel), formed once and only if
+    some subgraph picked an unfused kernel.  The bias seeds the threaded
+    accumulator."""
     names = plan_mod.normalize_layer(dec, kernels)
-    h = x @ w
+    specs = [REGISTRY.get(k) for k in names]
+    h = x @ w if any(not s.fused for s in specs) else None
     y = None
     if bias is not None:
         y = bias.to(x.dtype).expand(x.shape[0], w.shape[-1])
-    return _accumulate(dec, h, names, y, acc)
+    for sub, spec in zip(dec.subgraphs, specs):
+        payload = sub.formats[spec.payload_key]
+        if spec.fused:
+            if y is None:
+                y = spec.fused_matvec(payload, x, w)
+            elif acc and spec.fused_matvec_acc is not None:
+                y = spec.fused_matvec_acc(payload, x, w, y)
+            else:
+                y = y + spec.fused_matvec(payload, x, w)
+        elif y is None:
+            y = spec.matvec(payload, h)
+        elif acc and spec.matvec_acc is not None:
+            y = spec.matvec_acc(payload, h, y)
+        else:
+            y = y + spec.matvec(payload, h)
+    return y
 
 
 # ---------------------------------------------------------------------------

@@ -20,7 +20,8 @@ def _validate(sub: Subgraph, kernel: str) -> str:
         raise ValueError(
             f"kernel {kernel!r} does not apply to subgraph {sub.name!r} "
             f"(kind={sub.kind!r})")
-    if kernel not in sub.formats:
+    # fused kernels alias their unfused counterpart's payload
+    if spec.payload_key not in sub.formats:
         raise ValueError(
             f"kernel {kernel!r} has no materialized format on subgraph "
             f"{sub.name!r}; available: {tuple(sub.formats)}")

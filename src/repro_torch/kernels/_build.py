@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels.
+"""Build, load and launch-check the port's CUDA kernels.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, loaded with ``ctypes``: no
@@ -20,9 +20,12 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("block_diag_spmm", "bell_spmm")
+SOURCES = ("block_diag_spmm", "bell_spmm", "block_diag_spmm_fused",
+           "bell_spmm_fused", "bell_spmm_dw")
 HEADERS = ("dtype.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -32,9 +35,50 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # argtypes of each library's launch function (pointers and the stream as
 # c_void_p so ctypes never truncates them to 32 bits)
 SIGNATURES = {
-    "block_diag_spmm": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "block_diag_spmm": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "bell_spmm": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "block_diag_spmm_fused": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "bell_spmm_fused": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                        _P),
+    "bell_spmm_dw": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                     _I, _P),
 }
+
+# element types the kernels take, as the dtype code they are passed
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_BLOCK = 64
+
+
+def cuda_dtype_code(floats, ints=(), block_size: int = 1) -> int:
+    """The kernels' dtype code of ``floats[0]``, after checking that the
+    operands can go to a CUDA kernel: on a CUDA device, float32 or
+    bfloat16, int32 indices, all contiguous, and 1 <= block_size <= 64.
+    ``None`` entries (absent optional operands) are skipped."""
+    ts = [t for t in (*floats, *ints) if t is not None]
+    x = floats[0]
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if x.dtype not in DTYPE_CODES:
+        raise ValueError(f"CUDA kernel takes float32 or bfloat16, "
+                         f"got {x.dtype}")
+    if any(t is not None and t.dtype != torch.int32 for t in ints):
+        raise ValueError("index operands must be int32")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("CUDA kernel takes contiguous tensors")
+    if not 1 <= block_size <= MAX_BLOCK:
+        raise ValueError(f"CUDA kernel takes block sizes 1..{MAX_BLOCK}, "
+                         f"got {block_size}")
+    return DTYPE_CODES[x.dtype]
+
+
+def ptr(t: torch.Tensor | None) -> int | None:
+    """Device address of an optional operand (None for an absent one)."""
+    return t.data_ptr() if t is not None else None
+
+
+def stream(t: torch.Tensor) -> int:
+    """The current CUDA stream of ``t``'s device, as ctypes takes it."""
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 @dataclasses.dataclass(frozen=True)

@@ -11,7 +11,6 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.block_diag_spmm import DTYPE_CODES, MAX_BLOCK
 
 plain = ref.bell_spmm
 launches = _build.LaunchCount()
@@ -57,30 +56,14 @@ def bell_spmm(blocks: torch.Tensor, col_idx: torch.Tensor, x: torch.Tensor,
     _check(blocks, col_idx, x, y_in, n_valid)
     if x.device.type == "cpu":
         return plain(blocks, col_idx, x, y_in)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    if x.dtype not in DTYPE_CODES:
-        raise ValueError(f"CUDA kernel takes float32 or bfloat16, "
-                         f"got {x.dtype}")
-    if col_idx.dtype != torch.int32 or (n_valid is not None
-                                        and n_valid.dtype != torch.int32):
-        raise ValueError("col_idx and n_valid must be int32")
-    tensors = [t for t in (blocks, col_idx, x, y_in, n_valid) if t is not None]
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("CUDA kernel takes contiguous tensors")
     nbr, K, B, _ = blocks.shape
-    if not 1 <= B <= MAX_BLOCK:
-        raise ValueError(f"CUDA kernel takes block sizes 1..{MAX_BLOCK}, "
-                         f"got {B}")
+    code = _build.cuda_dtype_code((x, blocks, y_in), (col_idx, n_valid),
+                                  block_size=B)
     y = torch.empty((nbr * B, x.shape[1]), dtype=x.dtype, device=x.device)
     lib = _build.library("bell_spmm")
     with torch.cuda.device(x.device):
-        lib.launch(blocks.data_ptr(), col_idx.data_ptr(),
-                   n_valid.data_ptr() if n_valid is not None else None,
-                   x.data_ptr(),
-                   y_in.data_ptr() if y_in is not None else None,
-                   y.data_ptr(), nbr, K, B, x.shape[1],
-                   DTYPE_CODES[x.dtype],
-                   torch.cuda.current_stream(x.device).cuda_stream)
+        lib.launch(blocks.data_ptr(), col_idx.data_ptr(), _build.ptr(n_valid),
+                   x.data_ptr(), _build.ptr(y_in), y.data_ptr(), nbr, K, B,
+                   x.shape[1], code, _build.stream(x))
     launches.add()
     return y

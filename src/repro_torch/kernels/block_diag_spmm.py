@@ -1,4 +1,5 @@
-"""Block-diagonal SpMM: Y = blockdiag(A_1..A_nb) @ X (+ Y_in).
+"""Block-diagonal SpMM: Y = blockdiag(A_1..A_nb) @ X (+ Y_in), or with
+``transpose`` Y = blockdiag(A_1^T..A_nb^T) @ X (+ Y_in) (the backward pass).
 
 Replaces the Pallas TPU kernel ``repro/kernels/block_diag_spmm.py``
 (``block_diag_spmm``).  On CUDA tensors the wrapper launches the hand
@@ -15,9 +16,6 @@ from repro_torch.kernels import _build, ref
 
 plain = ref.block_diag_spmm
 launches = _build.LaunchCount()
-
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_BLOCK = 64
 
 
 def _check(blocks: torch.Tensor, x: torch.Tensor,
@@ -41,32 +39,23 @@ def _check(blocks: torch.Tensor, x: torch.Tensor,
 
 
 def block_diag_spmm(blocks: torch.Tensor, x: torch.Tensor,
-                    y_in: torch.Tensor | None = None) -> torch.Tensor:
-    """Y = blockdiag(blocks) @ x (+ y_in), float32 accumulation.
+                    y_in: torch.Tensor | None = None, *,
+                    transpose: bool = False) -> torch.Tensor:
+    """Y = blockdiag(blocks) @ x (+ y_in), float32 accumulation; with
+    ``transpose`` each block is read transposed (no copy is made).
 
     blocks: (nb, B, B); x: (nb*B, F); y_in: optional (nb*B, F).  CUDA
     tensors must be contiguous float32 or bfloat16 with B <= 64."""
     _check(blocks, x, y_in)
     if x.device.type == "cpu":
-        return plain(blocks, x, y_in)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    if x.dtype not in DTYPE_CODES:
-        raise ValueError(f"CUDA kernel takes float32 or bfloat16, "
-                         f"got {x.dtype}")
-    tensors = [blocks, x] + ([y_in] if y_in is not None else [])
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("CUDA kernel takes contiguous tensors")
+        return plain(blocks, x, y_in, transpose=transpose)
     nb, B, _ = blocks.shape
-    if not 1 <= B <= MAX_BLOCK:
-        raise ValueError(f"CUDA kernel takes block sizes 1..{MAX_BLOCK}, "
-                         f"got {B}")
+    code = _build.cuda_dtype_code((x, blocks, y_in), block_size=B)
     y = torch.empty_like(x)
     lib = _build.library("block_diag_spmm")
     with torch.cuda.device(x.device):
-        lib.launch(blocks.data_ptr(), x.data_ptr(),
-                   y_in.data_ptr() if y_in is not None else None,
-                   y.data_ptr(), nb, B, x.shape[1], DTYPE_CODES[x.dtype],
-                   torch.cuda.current_stream(x.device).cuda_stream)
+        lib.launch(blocks.data_ptr(), x.data_ptr(), _build.ptr(y_in),
+                   y.data_ptr(), nb, B, x.shape[1], int(transpose), code,
+                   _build.stream(x))
     launches.add()
     return y

@@ -7,15 +7,20 @@ registers one :class:`KernelSpec`:
   kinds      -- subgraph kinds it applies to: ``"diag"`` (the block-diagonal
                 intra-community tier) and/or ``"offdiag"`` (inter tiers)
   build      -- host-side payload builder run once during decomposition:
-                ``build(coo, coo_t, block_size, stats) -> payload``
-  matvec     -- ``matvec(payload, x) -> A @ x``
+                ``build(coo, coo_t, block_size, stats) -> payload``, or None
+                for a spec that aliases another's payload (``payload_of``)
+  matvec     -- ``matvec(payload, x) -> A @ x`` (None for fused specs)
   matvec_acc -- optional ``matvec_acc(payload, x, y_in) -> y_in + A @ x``
+  fused_matvec(_acc) -- fused transform+aggregate
+                ``(payload, x, w[, y_in]) -> A @ (x @ w) [+ y_in]``
   cost       -- analytic cost for the cost-model selector (not ported yet:
                 the stub raises)
 
 Registered here: ``block_diag`` and ``bell`` (hand CUDA kernels), ``ell``
-and ``coo`` (plain PyTorch gather / ``index_add_``).  The fused kernels,
-csr, sell_cs and tcgnn_tile come with later slices (ROADMAP).
+and ``coo`` (plain PyTorch gather / ``index_add_``), and the fused
+``block_diag_fused`` and ``bell_fused`` (hand CUDA kernels over the
+``block_diag`` and ``bell`` payloads).  csr, sell_cs and tcgnn_tile come
+with later slices (ROADMAP).
 """
 from __future__ import annotations
 
@@ -35,15 +40,27 @@ OFFDIAG = "offdiag"    # inter-community subgraph / density bucket
 class KernelSpec:
     name: str
     kinds: frozenset
-    build: Callable[[formats.COO, formats.COO, int, dict], Any]
-    matvec: Callable[[Any, Any], Any]
+    build: Callable[[formats.COO, formats.COO, int, dict], Any] | None
+    matvec: Callable[[Any, Any], Any] | None
     cost: Callable[[Any, Any, Any, Any], float]
     needs_transpose: bool = False   # build consumes coo_t
     matvec_acc: Callable[[Any, Any, Any], Any] | None = None
+    fused_matvec: Callable[..., Any] | None = None
+    fused_matvec_acc: Callable[..., Any] | None = None
+    payload_of: str | None = None   # alias another kernel's format payload
     doc: str = ""
 
     def applies_to(self, kind: str) -> bool:
         return kind in self.kinds
+
+    @property
+    def fused(self) -> bool:
+        return self.fused_matvec is not None
+
+    @property
+    def payload_key(self) -> str:
+        """Key into Subgraph.formats holding this kernel's payload."""
+        return self.payload_of or self.name
 
 
 class KernelRegistry:
@@ -55,6 +72,10 @@ class KernelRegistry:
     def register(self, spec: KernelSpec) -> KernelSpec:
         if spec.name in self._specs:
             raise ValueError(f"kernel {spec.name!r} already registered")
+        if spec.payload_of is not None and spec.payload_of not in self._specs:
+            raise ValueError(
+                f"kernel {spec.name!r} aliases unregistered payload "
+                f"{spec.payload_of!r}")
         self._specs[spec.name] = spec
         return spec
 
@@ -69,9 +90,14 @@ class KernelRegistry:
     def names(self) -> tuple[str, ...]:
         return tuple(self._specs)
 
-    def candidates(self, kind: str) -> tuple[KernelSpec, ...]:
-        """Specs applicable to a subgraph kind, in registration order."""
-        return tuple(s for s in self._specs.values() if s.applies_to(kind))
+    def candidates(self, kind: str, include_fused: bool = False
+                   ) -> tuple[KernelSpec, ...]:
+        """Specs applicable to a subgraph kind, in registration order.
+
+        Fused specs are opt-in: they need the transform operand ``w`` at
+        dispatch time, so only transform-first call sites enumerate them."""
+        return tuple(s for s in self._specs.values()
+                     if s.applies_to(kind) and (include_fused or not s.fused))
 
 
 REGISTRY = KernelRegistry()
@@ -174,4 +200,33 @@ REGISTRY.register(KernelSpec(
     matvec=ops.coo_matvec,
     cost=_cost_not_ported,
     doc="edge-parallel scatter-add (index_add_)",
+))
+
+REGISTRY.register(KernelSpec(
+    name="block_diag_fused",
+    kinds=frozenset({DIAG}),
+    build=None,
+    payload_of="block_diag",
+    matvec=None,
+    fused_matvec=lambda bd, x, w: ops.block_diag_fused_matvec(bd.blocks, x, w),
+    fused_matvec_acc=lambda bd, x, w, y:
+        ops.block_diag_fused_matvec_acc(bd.blocks, x, w, y),
+    cost=_cost_not_ported,
+    doc="fused A @ (X W) over the diagonal blocks, H formed on chip only; "
+        "CUDA kernel",
+))
+
+REGISTRY.register(KernelSpec(
+    name="bell_fused",
+    kinds=frozenset({OFFDIAG}),
+    build=None,
+    payload_of="bell",
+    matvec=None,
+    fused_matvec=lambda p, x, w: ops.bell_fused_matvec(p[0], p[1], x, w),
+    fused_matvec_acc=lambda p, x, w, y:
+        ops.bell_fused_matvec_acc(p[0], p[1], x, w, y),
+    cost=_cost_not_ported,
+    doc="fused blocked-ELL A @ (X W); each stored block transforms its "
+        "gathered rows again (recompute traded for the H round trip); "
+        "CUDA kernel",
 ))

@@ -19,7 +19,10 @@ def from_jax_params(params_np: Sequence[Mapping[str, np.ndarray]],
                     ) -> list[dict[str, torch.Tensor]]:
     """GCN parameters of ``repro.core.gnn.init_model`` (one
     ``dict(w=(in, out), b=(out,))`` per layer, as numpy) as this package's
-    parameters: float32 tensors of the same shapes on ``device``."""
+    parameters: float32 tensors of the same shapes on ``device``, each
+    with storage of its own (never the caller's arrays).  The result can
+    start ``repro_torch.core.gnn.train(params=...)`` directly, which
+    copies it and writes into nothing it was given."""
     dev = resolve_device(device)
     out = []
     for i, layer in enumerate(params_np):

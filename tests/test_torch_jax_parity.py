@@ -115,3 +115,68 @@ def test_gcn_forward_matches_reference_from_carried_params():
         assert tuple(logits.shape) == ref_logits.shape == (dec.n_pad, 3)
         assert bool(torch.isfinite(logits).all())
         tp.assert_close(ref_logits, logits)
+
+
+def test_fused_and_unfused_grads_match_reference_custom_vjps():
+    """A @ (X W) + b through the port's fused and unfused plans, in both
+    accumulation modes, against the reference's aggregate_transform
+    differentiated by jax.grad through its custom_vjps (Pallas kernels in
+    interpret mode): outputs and dx, dW, db."""
+    from repro.core import decompose as RD
+    from repro.graphs import graph as RG
+    from repro_torch.core import decompose as TD
+    n = 180
+    r, c, v = tp.random_edges(n, 1400, 0)
+    args = (n, c, r, np.zeros((n, 3), np.float32), np.zeros(n, np.int32), 2)
+    ref_dec = RD.decompose(RG.Graph(*args), comm_size=8, method="bfs",
+                           edge_vals=v, inter_buckets=2)
+    port_dec = TD.decompose(TG.Graph(*args), comm_size=8, method="bfs",
+                            edge_vals=v, inter_buckets=2, device="cpu")
+    rng = np.random.default_rng(1)
+    x, w, b, cot = (rng.standard_normal(s).astype(np.float32)
+                    for s in ((n, 5), (5, 7), (7,), (n, 7)))
+    for plan in (PLAN, ("block_diag_fused", "bell_fused")):
+        for acc in (False, True):
+            def ref_loss(x, w, b):
+                y = RA.aggregate_transform(ref_dec, RA.to_reordered(
+                    ref_dec, x), w, plan, bias=b, acc=acc)
+                return jnp.sum(RA.from_reordered(ref_dec, y) * cot)
+
+            ref_y = RA.from_reordered(ref_dec, RA.aggregate_transform(
+                ref_dec, RA.to_reordered(ref_dec, jnp.asarray(x)),
+                jnp.asarray(w), plan, bias=jnp.asarray(b), acc=acc))
+            ref_g = jax.grad(ref_loss, argnums=(0, 1, 2))(
+                jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+            xt, wt, bt = (torch.from_numpy(a).requires_grad_()
+                          for a in (x, w, b))
+            port_y = TA.from_reordered(port_dec, TA.aggregate_transform(
+                port_dec, TA.to_reordered(port_dec, xt), wt, plan, bias=bt,
+                acc=acc))
+            (port_y * torch.from_numpy(cot)).sum().backward()
+            tp.assert_close(ref_y, port_y)
+            for rg, pg in zip(ref_g, (xt.grad, wt.grad, bt.grad)):
+                tp.assert_close(rg, pg)
+
+
+def test_training_curves_match_reference_from_its_params():
+    """The port's train from the reference's own initial parameters
+    (init_model(PRNGKey(cfg.seed)), carried by from_jax_params) against
+    repro.core.gnn.train, both plans, 5 steps; the curve tolerance is the
+    reference's own for this comparison (tests/test_fused.py)."""
+    g = tp.ref_graph("pubmed", 0.03, comm_size=8, max_feat=32)
+    port_g = TG.Graph(g.n, g.senders, g.receivers, g.features, g.labels,
+                      g.n_classes, g.name)
+    for plan in (PLAN, ("block_diag_fused", "bell_fused")):
+        ref_cfg = RGNN.GNNConfig(hidden=8, n_layers=2, comm_size=8,
+                                 selector="fixed", fixed_kernels=plan)
+        ref = RGNN.train(g, ref_cfg, steps=5)
+        params = RGNN.init_model(jax.random.PRNGKey(ref_cfg.seed), ref_cfg,
+                                 g.features.shape[1], g.n_classes)
+        params_np = [{k: np.asarray(a) for k, a in p.items()} for p in params]
+        cfg = TGNN.GNNConfig(hidden=8, n_layers=2, comm_size=8,
+                             fixed_kernels=plan)
+        port = TGNN.train(port_g, cfg, steps=5, device="cpu",
+                          params=from_jax_params(params_np, device="cpu"))
+        assert port.kernels == [tuple(k) for k in ref.kernels]
+        np.testing.assert_allclose(port.losses, ref.losses, atol=5e-3,
+                                   rtol=1e-2)

@@ -5,6 +5,9 @@ in tests/test_torch_jax_parity.py; the CUDA kernels are checked on the
 card by tests/test_torch_cuda.py."""
 import torch_parity as tp  # noqa: I001  (first: pins torch to one thread)
 
+import ctypes
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -12,7 +15,9 @@ import torch
 from repro_torch.core import formats as TF
 from repro_torch.kernels import _build
 from repro_torch.kernels import bell_spmm as bell_mod
+from repro_torch.kernels import bell_spmm_fused as bellf_mod
 from repro_torch.kernels import block_diag_spmm as bd_mod
+from repro_torch.kernels import block_diag_spmm_fused as bdf_mod
 
 
 def _block_diag_inputs(B: int, F: int, seed: int, nb: int = 4):
@@ -50,13 +55,45 @@ def test_cpu_tensors_run_the_plain_version_without_launching():
     assert (bd_mod.launches.value, bell_mod.launches.value) == before
 
 
+def test_cpu_tensors_run_the_training_kernels_plain_without_launching():
+    blocks, x, _ = _block_diag_inputs(8, 6, seed=5)
+    bell, bx = _bell_inputs(8, 6, seed=5)
+    blocks, x, bx = map(torch.from_numpy, (blocks, x, bx))
+    w = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (6, 4)).astype(np.float32))
+    counts = (bdf_mod.launches, bellf_mod.launches, bellf_mod.dw_launches,
+              bd_mod.launches)
+    before = [c.value for c in counts]
+    cases = [
+        (bd_mod.block_diag_spmm(blocks, x, transpose=True),
+         bd_mod.plain(blocks, x, transpose=True)),
+        (bdf_mod.block_diag_spmm_fused(blocks, x, w, transpose=True),
+         bdf_mod.plain(blocks, x, w, transpose=True)),
+        (bellf_mod.bell_spmm_fused(bell.blocks, bell.col_idx, bx, w,
+                                   n_valid=bell.n_valid),
+         bellf_mod.plain(bell.blocks, bell.col_idx, bx, w)),
+        (bellf_mod.bell_spmm_dw(bell.blocks, bell.col_idx, bx, bx[:, :4],
+                                n_valid=bell.n_valid),
+         bellf_mod.plain_dw(bell.blocks, bell.col_idx, bx, bx[:, :4])),
+    ]
+    for got, want in cases:
+        assert torch.equal(got, want)
+    # the transposed read is the transpose of each block
+    tp.assert_close(bd_mod.block_diag_spmm(blocks.transpose(1, 2)
+                                           .contiguous(), x), cases[0][0])
+    assert [c.value for c in counts] == before
+
+
 @pytest.mark.parametrize("case", ["bd_shape", "bd_dtype", "bell_col_idx",
-                                  "bell_y_in"])
+                                  "bell_y_in", "bdf_w", "bdf_y_in", "bellf_w",
+                                  "bellf_dtype", "dw_identity_k", "dw_x",
+                                  "dw_g"])
 def test_wrappers_reject_bad_operands(case):
     blocks = torch.zeros((4, 8, 8))
     x = torch.zeros((32, 5))
     bblocks = torch.zeros((4, 3, 8, 8))
     col_idx = torch.zeros((4, 3), dtype=torch.int32)
+    w = torch.zeros((5, 2))
     with pytest.raises(ValueError):
         if case == "bd_shape":
             bd_mod.block_diag_spmm(blocks, torch.zeros((30, 5)))
@@ -64,16 +101,38 @@ def test_wrappers_reject_bad_operands(case):
             bd_mod.block_diag_spmm(blocks.double(), x)
         elif case == "bell_col_idx":
             bell_mod.bell_spmm(bblocks, col_idx[:, :2], x)
-        else:
+        elif case == "bell_y_in":
             bell_mod.bell_spmm(bblocks, col_idx, x, torch.zeros((31, 5)))
+        elif case == "bdf_w":
+            bdf_mod.block_diag_spmm_fused(blocks, x, torch.zeros((4, 2)))
+        elif case == "bdf_y_in":
+            bdf_mod.block_diag_spmm_fused(blocks, x, w, torch.zeros((32, 5)))
+        elif case == "bellf_w":
+            bellf_mod.bell_spmm_fused(bblocks, col_idx, x, torch.zeros((6, 2)))
+        elif case == "bellf_dtype":
+            bellf_mod.bell_spmm_fused(bblocks, col_idx, x, w.double())
+        elif case == "dw_identity_k":      # identity columns need K = 1
+            bellf_mod.bell_spmm_dw(bblocks, None, x, torch.zeros((32, 2)))
+        elif case == "dw_x":
+            bellf_mod.bell_spmm_dw(bblocks, col_idx, torch.zeros((30, 5)),
+                                   torch.zeros((32, 2)))
+        else:
+            bellf_mod.bell_spmm_dw(blocks.unsqueeze(1), None, x,
+                                   torch.zeros((40, 2)))
 
 
 def test_build_targets_hopper_and_names_libraries_by_content():
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     for name in _build.SOURCES:
-        assert (_build.CSRC / f"{name}.cu").is_file()
+        src = (_build.CSRC / f"{name}.cu").read_text()
         assert name in _build.SIGNATURES
-        assert len(_build.SIGNATURES[name]) == (9 if name == "block_diag_spmm"
-                                                else 12)
-    assert _build._digest("bell_spmm") != _build._digest("block_diag_spmm")
+        # the ctypes argtypes match the C launch function's parameter list
+        decl = re.search(rf'extern "C" int {name}_launch\(([^)]*)\)', src)
+        assert decl is not None, name
+        params = decl.group(1).split(",")
+        assert len(_build.SIGNATURES[name]) == len(params), name
+        for p, t in zip(params, _build.SIGNATURES[name]):
+            assert (t is ctypes.c_void_p) == ("*" in p), (name, p)
+    digests = {_build._digest(n) for n in _build.SOURCES}
+    assert len(digests) == len(_build.SOURCES)
