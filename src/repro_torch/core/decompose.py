@@ -152,8 +152,7 @@ def _materialize_subgraph(t: "TierEdges", n_pad: int, block_size: int,
     """Build every registered candidate payload of one tier (paper §3.3:
     once, so any kernel can run without re-conversion) on ``device``."""
     # fused specs alias an unfused spec's payload and build nothing
-    specs = [s for s in REGISTRY.candidates(t.kind, include_fused=True)
-             if s.build is not None]
+    specs = [s for s in REGISTRY.candidates(t.kind) if s.build is not None]
     coo = formats.coo_from_edges(n_pad, n_pad, t.rows, t.cols, t.vals)
     coo_t = (formats.coo_from_edges(n_pad, n_pad, t.cols, t.rows, t.vals)
              if any(s.needs_transpose for s in specs) else None)

@@ -24,8 +24,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("block_diag_spmm", "bell_spmm", "block_diag_spmm_fused",
-           "bell_spmm_fused", "bell_spmm_dw")
+SOURCES = ("block_diag_spmm", "bell_spmm", "bell_spmm_fused", "bell_spmm_dw")
 HEADERS = ("dtype.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -37,9 +36,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "block_diag_spmm": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "bell_spmm": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "block_diag_spmm_fused": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "bell_spmm_fused": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                        _P),
+                        _I, _P),
     "bell_spmm_dw": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                      _I, _P),
 }
@@ -47,6 +45,21 @@ SIGNATURES = {
 # element types the kernels take, as the dtype code they are passed
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_BLOCK = 64
+
+
+def check_operands(floats, ints=()) -> None:
+    """Raise ValueError unless every operand lies on ``floats[0]``'s device
+    and every float operand has its dtype.  ``None`` entries (absent
+    optional operands) are skipped."""
+    fs = [t for t in floats if t is not None]
+    ts = fs + [t for t in ints if t is not None]
+    x = floats[0]
+    if any(t.device != x.device for t in ts):
+        raise ValueError("operands must lie on one device, got "
+                         f"{[str(t.device) for t in ts]}")
+    if any(t.dtype != x.dtype for t in fs):
+        raise ValueError("float operands must share one dtype, got "
+                         f"{[t.dtype for t in fs]}")
 
 
 def cuda_dtype_code(floats, ints=(), block_size: int = 1) -> int:

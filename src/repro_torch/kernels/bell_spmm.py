@@ -33,14 +33,7 @@ def _check(blocks, col_idx, x, y_in, n_valid) -> None:
     if n_valid is not None and tuple(n_valid.shape) != (nbr,):
         raise ValueError(f"n_valid must be {(nbr,)}, "
                          f"got {tuple(n_valid.shape)}")
-    tensors = [t for t in (blocks, col_idx, x, y_in, n_valid) if t is not None]
-    if any(t.device != x.device for t in tensors):
-        raise ValueError("bell_spmm operands must lie on one device, got "
-                         f"{[str(t.device) for t in tensors]}")
-    if any(t.dtype != x.dtype for t in (blocks, y_in) if t is not None):
-        raise ValueError(f"blocks, x and y_in must share one dtype, got "
-                         f"{blocks.dtype}, {x.dtype}"
-                         + (f", {y_in.dtype}" if y_in is not None else ""))
+    _build.check_operands((x, blocks, y_in), (col_idx, n_valid))
 
 
 def bell_spmm(blocks: torch.Tensor, col_idx: torch.Tensor, x: torch.Tensor,

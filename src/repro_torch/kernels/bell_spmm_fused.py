@@ -38,17 +38,6 @@ def _check_bell(blocks, col_idx, n_valid) -> None:
                          f"got {tuple(n_valid.shape)}")
 
 
-def _check_common(floats, ints) -> None:
-    tensors = [t for t in (*floats, *ints) if t is not None]
-    x = floats[0]
-    if any(t.device != x.device for t in tensors):
-        raise ValueError("operands must lie on one device, got "
-                         f"{[str(t.device) for t in tensors]}")
-    if any(t is not None and t.dtype != x.dtype for t in floats):
-        raise ValueError("float operands must share one dtype, got "
-                         f"{[t.dtype for t in floats if t is not None]}")
-
-
 def bell_spmm_fused(blocks: torch.Tensor, col_idx: torch.Tensor,
                     x: torch.Tensor, w: torch.Tensor,
                     y_in: torch.Tensor | None = None,
@@ -71,19 +60,29 @@ def bell_spmm_fused(blocks: torch.Tensor, col_idx: torch.Tensor,
     if y_in is not None and tuple(y_in.shape) != (nbr * B, w.shape[1]):
         raise ValueError(f"y_in must be {(nbr * B, w.shape[1])}, "
                          f"got {tuple(y_in.shape)}")
-    _check_common((x, blocks, w, y_in), (col_idx, n_valid))
+    _build.check_operands((x, blocks, w, y_in), (col_idx, n_valid))
     if x.device.type == "cpu":
         return plain(blocks, col_idx, x, w, y_in)
+    y = launch_fused(blocks, col_idx, n_valid, x, w, y_in)
+    launches.add()
+    return y
+
+
+def launch_fused(blocks, col_idx, n_valid, x, w, y_in, *,
+                 transpose: bool = False) -> torch.Tensor:
+    """Launch ``csrc/bell_spmm_fused.cu`` on checked CUDA operands and
+    return Y; the caller counts the launch.  ``col_idx`` None means
+    identity block columns (K = 1), the block-diagonal form."""
+    nbr, K, B, _ = blocks.shape
     code = _build.cuda_dtype_code((x, blocks, w, y_in), (col_idx, n_valid),
                                   block_size=B)
     Fi, Fo = w.shape
     y = torch.empty((nbr * B, Fo), dtype=x.dtype, device=x.device)
     lib = _build.library("bell_spmm_fused")
     with torch.cuda.device(x.device):
-        lib.launch(blocks.data_ptr(), col_idx.data_ptr(), _build.ptr(n_valid),
+        lib.launch(blocks.data_ptr(), _build.ptr(col_idx), _build.ptr(n_valid),
                    x.data_ptr(), w.data_ptr(), _build.ptr(y_in), y.data_ptr(),
-                   nbr, K, B, Fi, Fo, code, _build.stream(x))
-    launches.add()
+                   nbr, K, B, Fi, Fo, int(transpose), code, _build.stream(x))
     return y
 
 
@@ -111,7 +110,7 @@ def bell_spmm_dw(blocks_t: torch.Tensor, col_idx_t: torch.Tensor | None,
         raise ValueError(f"g must be (n_cols, Fo) with n_cols a multiple of "
                          f"{B} ({nbr * B} for identity columns), "
                          f"got {tuple(g.shape)}")
-    _check_common((x, blocks_t, g), (col_idx_t, n_valid))
+    _build.check_operands((x, blocks_t, g), (col_idx_t, n_valid))
     if x.device.type == "cpu":
         return plain_dw(blocks_t, col_idx_t, x, g, transpose=transpose)
     code = _build.cuda_dtype_code((x, blocks_t, g), (col_idx_t, n_valid),

@@ -29,13 +29,7 @@ def _check(blocks: torch.Tensor, x: torch.Tensor,
     if y_in is not None and y_in.shape != x.shape:
         raise ValueError(f"y_in must be {tuple(x.shape)}, "
                          f"got {tuple(y_in.shape)}")
-    tensors = [blocks, x] + ([y_in] if y_in is not None else [])
-    if any(t.device != x.device for t in tensors):
-        raise ValueError("blocks, x and y_in must lie on one device, got "
-                         f"{[str(t.device) for t in tensors]}")
-    if any(t.dtype != x.dtype for t in tensors):
-        raise ValueError("blocks, x and y_in must share one dtype, got "
-                         f"{[t.dtype for t in tensors]}")
+    _build.check_operands((x, blocks, y_in))
 
 
 def block_diag_spmm(blocks: torch.Tensor, x: torch.Tensor,

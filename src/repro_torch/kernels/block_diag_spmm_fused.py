@@ -2,16 +2,16 @@
 
 Replaces the Pallas TPU kernel ``repro/kernels/block_diag_spmm_fused.py``
 (``block_diag_spmm_fused``).  On CUDA tensors the wrapper launches the
-hand kernel in ``csrc/block_diag_spmm_fused.cu`` (design and bound in its
-header); on CPU tensors it runs the plain version
-``ref.block_diag_spmm_fused``.  There is no fallback between the two: a
-CUDA input launches the kernel or raises.
+hand kernel of ``csrc/bell_spmm_fused.cu`` with K = 1 and identity block
+columns, which is this function (design and bound in its header); on CPU
+tensors it runs the plain version ``ref.block_diag_spmm_fused``.  There is
+no fallback between the two: a CUDA input launches the kernel or raises.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, bell_spmm_fused, ref
 
 plain = ref.block_diag_spmm_fused
 launches = _build.LaunchCount()
@@ -29,13 +29,7 @@ def _check(blocks, x, w, y_in) -> None:
     if y_in is not None and tuple(y_in.shape) != (nb * B, w.shape[1]):
         raise ValueError(f"y_in must be {(nb * B, w.shape[1])}, "
                          f"got {tuple(y_in.shape)}")
-    tensors = [t for t in (blocks, x, w, y_in) if t is not None]
-    if any(t.device != x.device for t in tensors):
-        raise ValueError("blocks, x, w and y_in must lie on one device, got "
-                         f"{[str(t.device) for t in tensors]}")
-    if any(t.dtype != x.dtype for t in tensors):
-        raise ValueError("blocks, x, w and y_in must share one dtype, got "
-                         f"{[t.dtype for t in tensors]}")
+    _build.check_operands((x, blocks, w, y_in))
 
 
 def block_diag_spmm_fused(blocks: torch.Tensor, x: torch.Tensor,
@@ -51,14 +45,7 @@ def block_diag_spmm_fused(blocks: torch.Tensor, x: torch.Tensor,
     _check(blocks, x, w, y_in)
     if x.device.type == "cpu":
         return plain(blocks, x, w, y_in, transpose=transpose)
-    nb, B, _ = blocks.shape
-    code = _build.cuda_dtype_code((x, blocks, w, y_in), block_size=B)
-    Fi, Fo = w.shape
-    y = torch.empty((nb * B, Fo), dtype=x.dtype, device=x.device)
-    lib = _build.library("block_diag_spmm_fused")
-    with torch.cuda.device(x.device):
-        lib.launch(blocks.data_ptr(), x.data_ptr(), w.data_ptr(),
-                   _build.ptr(y_in), y.data_ptr(), nb, B, Fi, Fo,
-                   int(transpose), code, _build.stream(x))
+    y = bell_spmm_fused.launch_fused(blocks.unsqueeze(1), None, None, x, w,
+                                     y_in, transpose=transpose)
     launches.add()
     return y

@@ -1,12 +1,18 @@
 // Fused blocked-ELL transform+aggregate on Hopper:
 //   Y[i] = sum_{k < K_i} blocks[i, k] (X[col_idx[i, k]] W) (+ Y_in[i]).
 //
-// Replaces the Pallas TPU kernel repro/kernels/bell_spmm_fused.py
-// (bell_spmm_fused, _kernel / _kernel_acc).  As there, H = X W never reaches
+// Replaces the Pallas TPU kernels repro/kernels/bell_spmm_fused.py
+// (bell_spmm_fused, _kernel / _kernel_acc) and
+// repro/kernels/block_diag_spmm_fused.py (block_diag_spmm_fused): the
+// block-diagonal form is this kernel with K = 1 and identity block columns
+// (col_idx null), Y[i] = A_i (X_i W).  As on the TPU, H = X W never reaches
 // device memory, and each stored block transforms its gathered (B, Fi) rows
 // of X again: a source block named by k stored blocks is transformed k
-// times.  The fusion trades that recompute for the write and read of H; the
-// selector decides per tier which side wins.
+// times (once on the diagonal tier).  The fusion trades that recompute for
+// the write and read of H; the selector decides per tier which side wins.
+// With the transposed-read flag each stored block is read transposed while
+// it is staged (an index swap), so the backward pass dX = A^T (dY W^T) of
+// the diagonal tier needs no transposed copy of the blocks.
 //
 // Design.  On the TPU the k loop is a sequential grid axis that carries the
 // sum in VMEM.  Here one CTA per (block row, Fo tile of at most 64 columns)
@@ -20,16 +26,17 @@
 // row.  The loop stops at n_valid[i]: padding slots are all-zero blocks by
 // the format's contract, so skipping them changes no sum.
 //
-// Bound.  The in-kernel transform dominates: per stored block 2 B Fi Fo
-// flops for the transform and 2 B B Fo for the product.  At the main path's
-// first layer (62826 stored blocks, B = 16, Fi = 500, Fo = 16) that is
-// 1.66e10 flops against about 40 MB of compulsory bytes, so the kernel is
-// bound by float32 operations outside the tensor cores.  This first version
-// reads both FMA operands from shared memory; register tiling or tensor
-// cores are the next step.
+// Bound.  The function needs each real block, each source row of X and W
+// read once and Y written once, and 2 n Fi Fo + 2 nnzb B B Fo flops: at the
+// main path's first layer (62826 stored blocks, B = 16, Fi = 500, Fo = 16)
+// about 105 MB and 8.3e8 flops, so it is bound by bytes.  This kernel's
+// per-block recompute does 2 B Fi Fo flops per stored block instead, 1.66e10
+// in all, and reads both FMA operands from shared memory: it sits far above
+// the function's bound by design.  Register tiling, tensor cores, or
+// transforming each source block once per CTA are the next steps.
 //
-// Limits.  B <= 64, any Fi >= 1 and Fo >= 1, K >= 1; shared memory is
-// B*B + B*(kc+1) + kc*ft + B*ft floats <= 40 KB.
+// Limits.  B <= 64, any Fi >= 1 and Fo >= 1, K >= 1 (K = 1 when col_idx is
+// null); shared memory is B*B + B*(kc+1) + kc*ft + B*ft floats <= 40 KB.
 #include <cstdint>
 
 #include "dtype.cuh"
@@ -45,14 +52,16 @@ constexpr int kMaxFt = 64;
 constexpr int kMaxChunk = 64;                 // Fi columns per chunk
 constexpr int kSmemFloats = 40 * 1024 / 4;    // 40 KB of float32
 
-template <typename T>
+// kOut: outputs per thread, the least power of two >= B*ft / kThreads, so a
+// launch holds only the registers its shape needs (B = 16, ft = 16 takes 1).
+template <typename T, int kOut>
 __global__ void __launch_bounds__(kThreads)
     bell_fused_kernel(const T* __restrict__ blocks,
                       const int* __restrict__ col_idx,
                       const int* __restrict__ n_valid,
                       const T* __restrict__ x, const T* __restrict__ w,
                       const T* __restrict__ y_in, T* __restrict__ y, int K,
-                      int B, int Fi, int Fo, int ft, int kc) {
+                      int B, int Fi, int Fo, int ft, int kc, int transpose) {
   extern __shared__ float smem[];
   const int xs = kc + 1;             // padded row stride: no bank conflicts
   float* a_s = smem;                 // (B, B)
@@ -69,9 +78,9 @@ __global__ void __launch_bounds__(kThreads)
   const size_t row0 = static_cast<size_t>(i) * B;
   const bool w_once = Fi <= kc;      // one chunk: stage W once per row
 
-  float acc[kMaxOut];
+  float acc[kOut];
 #pragma unroll
-  for (int p = 0; p < kMaxOut; ++p) {
+  for (int p = 0; p < kOut; ++p) {
     const int o = threadIdx.x + p * kThreads;
     acc[p] = 0.f;
     if (y_in != nullptr && o < n_out) {
@@ -89,12 +98,14 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int k = 0; k < kn; ++k) {
     const T* a = blocks + (static_cast<size_t>(i) * K + k) * BB;
-    const size_t src0 = static_cast<size_t>(col_idx[i * K + k]) * B;
-    for (int e = threadIdx.x; e < BB; e += kThreads) a_s[e] = to_f32(a[e]);
+    const size_t src0 =
+        static_cast<size_t>(col_idx != nullptr ? col_idx[i * K + k] : i) * B;
+    for (int e = threadIdx.x; e < BB; e += kThreads)
+      a_s[e] = to_f32(a[transpose ? (e % B) * B + e / B : e]);
 
-    float h[kMaxOut];
+    float h[kOut];
 #pragma unroll
-    for (int p = 0; p < kMaxOut; ++p) h[p] = 0.f;
+    for (int p = 0; p < kOut; ++p) h[p] = 0.f;
     for (int c0 = 0; c0 < Fi; c0 += kc) {
       const int cw = min(kc, Fi - c0);
       for (int e = threadIdx.x; e < B * cw; e += kThreads) {
@@ -112,7 +123,7 @@ __global__ void __launch_bounds__(kThreads)
       }
       __syncthreads();
 #pragma unroll
-      for (int p = 0; p < kMaxOut; ++p) {
+      for (int p = 0; p < kOut; ++p) {
         const int o = threadIdx.x + p * kThreads;
         if (o < n_out) {
           const int r = o / fw;
@@ -128,7 +139,7 @@ __global__ void __launch_bounds__(kThreads)
     }
 
 #pragma unroll
-    for (int p = 0; p < kMaxOut; ++p) {
+    for (int p = 0; p < kOut; ++p) {
       const int o = threadIdx.x + p * kThreads;
       if (o < n_out) {
         const int r = o / fw;
@@ -137,7 +148,7 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
 #pragma unroll
-    for (int p = 0; p < kMaxOut; ++p) {
+    for (int p = 0; p < kOut; ++p) {
       const int o = threadIdx.x + p * kThreads;
       if (o < n_out) {
         const int r = o / fw;
@@ -153,7 +164,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 
 #pragma unroll
-  for (int p = 0; p < kMaxOut; ++p) {
+  for (int p = 0; p < kOut; ++p) {
     const int o = threadIdx.x + p * kThreads;
     if (o < n_out) {
       const int r = o / fw;
@@ -165,7 +176,7 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T>
 cudaError_t launch(const void* blocks, const int* col_idx, const int* n_valid,
                    const void* x, const void* w, const void* y_in, void* y,
-                   int nbr, int K, int B, int Fi, int Fo,
+                   int nbr, int K, int B, int Fi, int Fo, int transpose,
                    cudaStream_t stream) {
   const int ft = Fo < kMaxFt ? Fo : kMaxFt;
   int kc = (kSmemFloats - B * B - B * ft - B) / (B + ft);
@@ -176,27 +187,36 @@ cudaError_t launch(const void* blocks, const int* col_idx, const int* n_valid,
   const size_t smem =
       static_cast<size_t>(B * B + B * (kc + 1) + kc * ft + B * ft) *
       sizeof(float);
-  bell_fused_kernel<T><<<grid, kThreads, smem, stream>>>(
+  const int per = (B * ft + kThreads - 1) / kThreads;
+  auto kernel = per <= 1   ? bell_fused_kernel<T, 1>
+                : per <= 2 ? bell_fused_kernel<T, 2>
+                : per <= 4 ? bell_fused_kernel<T, 4>
+                : per <= 8 ? bell_fused_kernel<T, 8>
+                           : bell_fused_kernel<T, kMaxOut>;
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(blocks), col_idx, n_valid,
       static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<const T*>(y_in), static_cast<T*>(y), K, B, Fi, Fo, ft, kc);
+      static_cast<const T*>(y_in), static_cast<T*>(y), K, B, Fi, Fo, ft, kc,
+      transpose);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Launches on `stream`; returns the cudaError_t of the launch (0 = success).
-// blocks (nbr, K, B, B), col_idx (nbr, K) int32, n_valid (nbr,) int32 or
-// null, x (n_cols, Fi), w (Fi, Fo), y and y_in (nbr*B, Fo) with y_in
-// optional; all contiguous, of the element type `dtype` (0 = float32,
-// 1 = bfloat16).  col_idx entries must name block columns of x.
+// blocks (nbr, K, B, B), col_idx (nbr, K) int32 or null (identity block
+// columns, K = 1), n_valid (nbr,) int32 or null, x (n_cols, Fi), w (Fi, Fo),
+// y and y_in (nbr*B, Fo) with y_in optional; all contiguous, of the element
+// type `dtype` (0 = float32, 1 = bfloat16).  col_idx entries must name block
+// columns of x.  transpose != 0 reads each stored block transposed.
 extern "C" int bell_spmm_fused_launch(const void* blocks, const void* col_idx,
                                       const void* n_valid, const void* x,
                                       const void* w, const void* y_in,
                                       void* y, int nbr, int K, int B, int Fi,
-                                      int Fo, int dtype, void* stream) {
+                                      int Fo, int transpose, int dtype,
+                                      void* stream) {
   if (nbr <= 0 || Fo <= 0) return 0;
-  if (B < 1 || B > 64 || K < 1 || Fi < 1)
+  if (B < 1 || B > 64 || K < 1 || Fi < 1 || (col_idx == nullptr && K != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* ci = static_cast<const int*>(col_idx);
@@ -204,10 +224,10 @@ extern "C" int bell_spmm_fused_launch(const void* blocks, const void* col_idx,
   switch (dtype) {
     case repro_torch::kFloat32:
       return static_cast<int>(launch<float>(blocks, ci, nv, x, w, y_in, y,
-                                            nbr, K, B, Fi, Fo, s));
+                                            nbr, K, B, Fi, Fo, transpose, s));
     case repro_torch::kBFloat16:
       return static_cast<int>(launch<__nv_bfloat16>(
-          blocks, ci, nv, x, w, y_in, y, nbr, K, B, Fi, Fo, s));
+          blocks, ci, nv, x, w, y_in, y, nbr, K, B, Fi, Fo, transpose, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -90,14 +90,10 @@ class KernelRegistry:
     def names(self) -> tuple[str, ...]:
         return tuple(self._specs)
 
-    def candidates(self, kind: str, include_fused: bool = False
-                   ) -> tuple[KernelSpec, ...]:
-        """Specs applicable to a subgraph kind, in registration order.
-
-        Fused specs are opt-in: they need the transform operand ``w`` at
-        dispatch time, so only transform-first call sites enumerate them."""
-        return tuple(s for s in self._specs.values()
-                     if s.applies_to(kind) and (include_fused or not s.fused))
+    def candidates(self, kind: str) -> tuple[KernelSpec, ...]:
+        """Specs applicable to a subgraph kind, in registration order,
+        fused aliases included."""
+        return tuple(s for s in self._specs.values() if s.applies_to(kind))
 
 
 REGISTRY = KernelRegistry()
