@@ -1,13 +1,17 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-Drives the port's two paths on the pubmed-sized synthetic graph at the
+Drives the port's paths on the pubmed-sized synthetic graph at the
 paper's full widths (500 features, hidden 16, 3 classes, 2 layers): GCN
-inference (``forward``) and full-batch GCN training (``train``) with the
-paper's default plan ``("block_diag", "bell")`` and its fused twin
-``("block_diag_fused", "bell_fused")``, through the five hand-written CUDA
-kernels, and checks every result.  Run it from the root of a checkout with
-no arguments:
+inference (``forward``), full-batch GCN training (``train``) with four
+fixed plans, the paper's default ``("block_diag", "bell")``, its fused
+twin ``("block_diag_fused", "bell_fused")`` and the column-condensed
+``("block_diag", "tcgnn_tile")`` and ``("block_diag_fused",
+"tcgnn_tile_fused")``, and the main path: ``train`` with the default
+config, whose feedback selector times every registry candidate of every
+subgraph at both layer widths on the card and commits the fastest.  It
+goes through the eight hand-written CUDA kernels and checks every result.
+Run it from the root of a checkout with no arguments:
 
     python3 chip_smoke.py
 
@@ -18,30 +22,45 @@ Phases, each of which raises (exit code != 0) on failure:
 2. kernels: each kernel against its plain PyTorch version on the card,
    float32 and bfloat16, with and without y_in, on the main path's
    payloads (B = 16) and on synthetic ones with B in {8, 32, 64}:
-   block_diag_spmm and bell_spmm at F in {3, 16, 500}; the transposed read
-   of block_diag_spmm, block_diag_spmm_fused (both reads), bell_spmm_fused
-   and bell_spmm_dw (over the transpose payload, and over the diagonal
-   blocks with K = 1) at (Fi, Fo) in {(500, 16), (16, 3), (3, 16)};
-   tolerances are the reference's (tests/test_fused.py): float32
-   atol = rtol = 1e-4, bfloat16 atol = 2e-1, rtol = 3e-1; dW (float32 on
-   both sides, from unit-scale cotangents) within 1e-5 of max|dW|;
+   block_diag_spmm, bell_spmm and tcgnn_spmm at F in {3, 16, 500}; the
+   transposed read of block_diag_spmm, block_diag_spmm_fused (both reads),
+   bell_spmm_fused, tcgnn_spmm_fused, bell_spmm_dw (over the transpose
+   payload, and over the diagonal blocks with K = 1) and tcgnn_spmm_dw
+   (over the transpose payload) at (Fi, Fo) in {(500, 16), (16, 3),
+   (3, 16)}; tolerances are the reference's (tests/test_fused.py):
+   float32 atol = rtol = 1e-4, bfloat16 atol = 2e-1, rtol = 3e-1; dW
+   (float32 on both sides, from unit-scale cotangents) within 1e-5 of
+   max|dW|, and the same bits on a second run;
 3. forward: prepare -> init_model -> forward with acc=False and acc=True;
    launch counts are reset just before and read just after, and each
    forward kernel must have launched twice per forward; the logits must be
    finite, of shape (n_pad, 3), and agree (float32 1e-4) with the same
    forward on the CPU (plain versions) and with an independent edge-list
    GCN on the CPU;
-4. gradients: one loss.backward per plan on the card against the same on
-   the CPU, from the same parameters, every gradient within float32 1e-4;
-5. training (the main path): gnn.train for TRAIN_STEPS steps per plan
-   from one parameter set, launch counts reset just before and read just
-   after; the counts must equal TRAIN_STEPS times the per-step counts plus
-   one forward's; each loss curve must fall and agree (atol 5e-3,
-   rtol 1e-2, the reference's own for this comparison in
-   tests/test_fused.py) with the same training on the CPU, with an
-   independent edge-list GCN trained with autograd and the same Adam, and
-   with the other plan's curve;
-6. timing: median forward and training-step times (CUDA events, host
+4. gradients: one loss.backward per fixed plan on the card against the
+   same on the CPU, from the same parameters, every gradient within
+   float32 1e-4;
+5. training: gnn.train for TRAIN_STEPS steps per fixed plan from one
+   parameter set, launch counts reset just before and read just after;
+   the counts must equal TRAIN_STEPS times the per-step counts plus one
+   forward's; each loss curve must fall and agree (atol 5e-3, rtol 1e-2,
+   the reference's own for this comparison in tests/test_fused.py) with
+   the same training on the CPU (CPU_STEPS steps), with an independent
+   edge-list GCN trained with autograd and the same Adam, and with the
+   other plans' curves;
+6. feedback (the main path): gnn.train with the default GNNConfig
+   (selector "feedback", warmup_iters 2) for TRAIN_STEPS steps, launch
+   counts reset just before and read just after; they must equal 2 widths
+   x 3 probe calls of each forward kernel (tcgnn_spmm and tcgnn_spmm_fused
+   included) plus what the committed plan launches in TRAIN_STEPS steps
+   and one forward (plan_launches); prints the probe
+   table (subgraph, kernel, widths, median ms, and the H100 cost model's
+   estimate), the committed plan and the cost model's plan; the curve must
+   agree with the same plan trained on the CPU and with the edge-list GCN
+   (whose self-loops follow the committed intra kernel: the block formats
+   store a self-loop that add_self_loops duplicated once, the edge lists
+   twice, as in the reference);
+7. timing: median forward and training-step times (CUDA events, host
    launch included), each kernel's time at the main path's shapes beside
    its plain version, one PyTorch library call (or composite) computing
    the same function and its bound, and torch.profiler tables with the
@@ -91,24 +110,76 @@ KERNELS = {
     "bell_spmm_dw": dict(
         source="src/repro_torch/kernels/csrc/bell_spmm_dw.cu",
         replaces="src/repro/kernels/bell_spmm_fused.py:145"),
+    "tcgnn_spmm": dict(
+        source="src/repro_torch/kernels/csrc/tcgnn_spmm.cu",
+        replaces="src/repro/kernels/tcgnn_tile.py:295"),
+    "tcgnn_spmm_fused": dict(
+        source="src/repro_torch/kernels/csrc/tcgnn_spmm_fused.cu",
+        replaces="src/repro/kernels/tcgnn_tile.py:371"),
+    "tcgnn_spmm_dw": dict(
+        source="src/repro_torch/kernels/csrc/tcgnn_spmm_dw.cu",
+        replaces="src/repro/kernels/tcgnn_tile.py:442"),
 }
 FORWARD_KERNELS = ("block_diag_spmm", "bell_spmm")
+# the CUDA kernels each registry spec launches in a training step
+SPEC_KERNELS = {
+    "block_diag": ("block_diag_spmm",),
+    "bell": ("bell_spmm",),
+    "block_diag_fused": ("block_diag_spmm_fused", "bell_spmm_dw"),
+    "bell_fused": ("bell_spmm_fused", "bell_spmm_dw"),
+    "tcgnn_tile": ("tcgnn_spmm",),
+    "tcgnn_tile_fused": ("tcgnn_spmm_fused", "tcgnn_spmm_dw"),
+}
 
 TRAIN_STEPS = 20
 CURVE_TOL = dict(atol=5e-3, rtol=1e-2)    # tests/test_fused.py:136
 PLANS = {"unfused": ("block_diag", "bell"),
-         "fused": ("block_diag_fused", "bell_fused")}
+         "fused": ("block_diag_fused", "bell_fused"),
+         "tcgnn_unfused": ("block_diag", "tcgnn_tile"),
+         "tcgnn_fused": ("block_diag_fused", "tcgnn_tile_fused")}
+# steps of each plan's CPU comparison run (the plain versions on the CPU)
+CPU_STEPS = {"unfused": 20, "fused": 20, "tcgnn_unfused": 5,
+             "tcgnn_fused": 5}
 # kernel launches per training step and per forward of each plan (2
 # layers).  Unfused: per layer one launch of each forward kernel, and one
 # more in the backward (layer 1's too: dW = X^T dH needs dH).  Fused: per
-# layer one launch of each fused kernel and two dW launches; the dX pass
-# over the transpose runs for layer 2 only (layer 1's input is the raw
-# features, which need no gradient).
+# layer one launch of each fused kernel and one dW launch per tier; the dX
+# pass over the transpose runs for layer 2 only (layer 1's input is the
+# raw features, which need no gradient).
 PER_STEP = {"unfused": {"block_diag_spmm": 4, "bell_spmm": 4},
             "fused": {"block_diag_spmm_fused": 3, "bell_spmm_fused": 3,
-                      "bell_spmm_dw": 4}}
+                      "bell_spmm_dw": 4},
+            "tcgnn_unfused": {"block_diag_spmm": 4, "tcgnn_spmm": 4},
+            "tcgnn_fused": {"block_diag_spmm_fused": 3,
+                            "tcgnn_spmm_fused": 3, "tcgnn_spmm_dw": 2,
+                            "bell_spmm_dw": 2}}
 PER_FORWARD = {"unfused": {"block_diag_spmm": 2, "bell_spmm": 2},
-               "fused": {"block_diag_spmm_fused": 2, "bell_spmm_fused": 2}}
+               "fused": {"block_diag_spmm_fused": 2, "bell_spmm_fused": 2},
+               "tcgnn_unfused": {"block_diag_spmm": 2, "tcgnn_spmm": 2},
+               "tcgnn_fused": {"block_diag_spmm_fused": 2,
+                               "tcgnn_spmm_fused": 2}}
+
+
+def plan_launches(layers, steps: int) -> dict:
+    """CUDA-kernel launches of ``steps`` training steps and one forward of
+    a plan (one kernel-name tuple per layer), by the rules PER_STEP spells
+    out: an unfused kernel runs once forward and once backward; a fused one
+    once forward, once more for dX after the first layer, and its dW
+    kernel once."""
+    out = {k: 0 for k in KERNELS}
+    for li, layer in enumerate(layers):
+        for name in layer:
+            kernels = SPEC_KERNELS.get(name, ())
+            if not kernels:
+                continue                      # torch ops: no CUDA kernel
+            if len(kernels) == 1:
+                out[kernels[0]] += 2 * steps + 1
+            else:
+                out[kernels[0]] += (2 if li else 1) * steps + 1
+                out[kernels[1]] += steps
+    return out
+
+
 # (Fi, Fo) of the main path's fused kernels: layer 1, layer 2, and layer
 # 2's dX pass over the transpose with W^T
 WIDTHS = ((500, 16), (16, 3), (3, 16))
@@ -345,29 +416,42 @@ def bsr_of(torch, bell):
     return bsr
 
 
-def edge_list(torch, graph):
+def edge_list(torch, graph, both_copies: bool = False):
     """The GCN's normalized edge list in original node order: (senders,
     receivers, values) with self-loops and the symmetric norm.
 
-    ``add_self_loops`` duplicates the (v, v) edges a graph already has; the
-    reference's block formats store such an edge once (both copies carry
-    the same norm value), so the edge list keeps the first copy too."""
+    ``add_self_loops`` duplicates the (v, v) edges a graph already has.  The
+    reference's block formats (block_diag, bell, tcgnn_tile) store such an
+    edge once (both copies carry the same norm value), so by default the
+    edge list keeps the first copy too; its edge-list formats (coo, ell,
+    csr, sell_cs) add both copies, which ``both_copies`` keeps."""
     import numpy as np
     from repro_torch.graphs import graph as graph_mod
     g = graph_mod.add_self_loops(graph)
     vals = graph_mod.gcn_norm_values(g.n, g.senders, g.receivers)
-    _, first = np.unique(g.receivers.astype(np.int64) * g.n + g.senders,
-                         return_index=True)
-    return (torch.from_numpy(g.senders[first]).long(),
-            torch.from_numpy(g.receivers[first]).long(),
-            torch.from_numpy(vals[first]))
+    if both_copies:
+        keep = np.arange(len(vals))
+    else:
+        _, keep = np.unique(g.receivers.astype(np.int64) * g.n + g.senders,
+                            return_index=True)
+    return (torch.from_numpy(g.senders[keep]).long(),
+            torch.from_numpy(g.receivers[keep]).long(),
+            torch.from_numpy(vals[keep]))
+
+
+def plan_edge_lists(torch, graph, layers) -> list:
+    """One edge list per layer of a plan, keeping a duplicated self-loop
+    as that layer's intra-tier kernel stores it (self-loops are all on the
+    intra tier)."""
+    blocks = ("block_diag", "block_diag_fused")
+    return [edge_list(torch, graph, both_copies=layer[0] not in blocks)
+            for layer in layers]
 
 
 def edge_list_forward(torch, feats, edges, params):
-    """GCN forward over ``edge_list`` output with ``index_add_``."""
-    snd, rcv, vals = edges
+    """GCN forward with ``index_add_`` over one edge list per layer."""
     h = feats
-    for i, layer in enumerate(params):
+    for i, (layer, (snd, rcv, vals)) in enumerate(zip(params, edges)):
         hw = h @ layer["w"]
         y = torch.zeros((feats.shape[0], hw.shape[1])).index_add_(
             0, rcv, hw[snd] * vals[:, None])
@@ -381,16 +465,20 @@ def edge_list_gcn(torch, graph, params) -> "torch.Tensor":
     """Independent CPU reference: the GCN forward on the original edge
     list (self-loops, symmetric norm, index_add_), in original node order."""
     return edge_list_forward(
-        torch, torch.from_numpy(graph.features), edge_list(torch, graph),
+        torch, torch.from_numpy(graph.features),
+        [edge_list(torch, graph)] * len(params),
         [{k: v.cpu() for k, v in p.items()} for p in params])
 
 
-def edge_list_train(torch, graph, params, steps: int, lr: float) -> list:
+def edge_list_train(torch, graph, params, steps: int, lr: float,
+                    edges=None) -> list:
     """Independent CPU reference for training: the edge-list GCN, the mean
     negative log-likelihood over every node, torch autograd, and Adam as
     the reference writes it (repro/core/gnn.py _adam_update) transcribed
-    here.  Returns the loss of each step."""
-    edges = edge_list(torch, graph)
+    here.  ``edges`` holds one edge list per layer (default: each
+    duplicated self-loop once).  Returns the loss of each step."""
+    if edges is None:
+        edges = [edge_list(torch, graph)] * len(params)
     feats = torch.from_numpy(graph.features)
     labels = torch.from_numpy(graph.labels).long()
     p = [{k: v.detach().cpu().clone() for k, v in q.items()} for q in params]
@@ -573,6 +661,90 @@ def phase_kernels_train(torch, dec, errs: dict) -> None:
         f"{errs}")
 
 
+def synthetic_tcgnn(torch, gen, B: int, dev, nbr: int = 40, C: int = 256):
+    """Random condensed tiles (about 30 % non-zero, float32) and gather
+    rows for a synthetic payload of block size B."""
+    tiles = torch.randn((nbr, B, C), generator=gen, device=dev)
+    tiles = tiles * (torch.rand((nbr, B, C), generator=gen, device=dev) < 0.3)
+    gi = torch.randint(0, nbr * B, (nbr, C), generator=gen, device=dev,
+                       dtype=torch.int32)
+    return tiles, gi
+
+
+def phase_kernels_tcgnn(torch, dec, errs: dict) -> None:
+    """The three tcgnn kernels against their plain versions on ``dec``'s
+    device, adding the largest errors to ``errs``: tcgnn_spmm at F in
+    {3, 16, 500} over the forward and the transpose payload,
+    tcgnn_spmm_fused at WIDTHS (the last is the dX pass with W^T), and
+    tcgnn_spmm_dw over the transpose payload, on pubmed's payloads and on
+    synthetic ones with B in {8, 32, 64}, float32 and bfloat16, y_in on and
+    off.  dW runs twice and must give the same bits."""
+    from repro_torch.kernels import tcgnn_tile as tc_mod
+    dev = dec.device
+    gen = torch.Generator(device=dev).manual_seed(4)
+    tc, tc_t = dec.sub("inter").formats["tcgnn_tile"]
+    cases = [(tc.tiles, tc.gather_idx), (tc_t.tiles, tc_t.gather_idx)] + [
+        synthetic_tcgnn(torch, gen, B, dev) for B in (8, 32, 64)]
+    n_cases = 0
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def check(name, got, want, dtype, label):
+        nonlocal n_cases
+        sync(torch, dev)
+        key = str(dtype).removeprefix("torch.")
+        extra = ""
+        if name == "tcgnn_spmm_dw":
+            rel = dw_rel_err(got, want, f"{name} {key} {label}")
+            errs[name][f"{key}_rel"] = max(errs[name].get(f"{key}_rel", 0.0),
+                                           rel)
+            extra = f", / max|dW| {rel:.3g}"
+        else:
+            tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+            torch.testing.assert_close(got.float(), want.float(), **tol)
+        e = max_err(got, want)
+        errs[name][key] = max(errs[name][key], e)
+        if label is not None:
+            log("kernel", f"{name} {key} {label}: max|err| {e:.3g}{extra}")
+        n_cases += 1
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, (tiles, gi) in enumerate(cases):
+            n = tiles.shape[0] * tiles.shape[1]
+            where = ("pubmed tc", "pubmed tc_t")[i] if i < 2 else None
+            for F in (3, 16, 500):
+                x = randn(n, F).to(dtype)
+                for with_y in (False, True):
+                    y_in = randn(n, F).to(dtype) if with_y else None
+                    check("tcgnn_spmm", tc_mod.tcgnn_spmm(tiles, gi, x, y_in),
+                          tc_mod.plain(tiles, gi, x, y_in), dtype,
+                          f"{where} F={F} y_in={with_y}" if where else None)
+            for Fi, Fo in WIDTHS:
+                x = randn(n, Fi).to(dtype)
+                w = (randn(Fi, Fo) / Fi ** 0.5).to(dtype)
+                for with_y in (False, True):
+                    y_in = randn(n, Fo).to(dtype) if with_y else None
+                    check("tcgnn_spmm_fused",
+                          tc_mod.tcgnn_spmm_fused(tiles, gi, x, w, y_in),
+                          tc_mod.plain_fused(tiles, gi, x, w, y_in), dtype,
+                          f"{where} {Fi}x{Fo} y_in={with_y}" if where
+                          else None)
+                if i == 0:
+                    continue                 # dW runs over the transpose
+                g = randn(n, Fo).to(dtype)
+                got = tc_mod.tcgnn_spmm_dw(tiles, gi, x, g)
+                if not torch.equal(got, tc_mod.tcgnn_spmm_dw(tiles, gi, x, g)):
+                    raise RuntimeError("tcgnn_spmm_dw gave other bits on a "
+                                       "second run")
+                check("tcgnn_spmm_dw", got, tc_mod.plain_dw(tiles, gi, x, g),
+                      dtype, f"{where} {Fi}x{Fo} (same bits twice)" if where
+                      else None)
+    log("kernel", f"{n_cases} tcgnn cases within tolerance (pubmed's tc and "
+        f"tc_t, B in 8, 32, 64); largest errors "
+        f"{ {k: errs[k] for k in KERNELS if k.startswith('tcgnn')} }")
+
+
 def phase_grads(torch, graph, cfg, dec) -> None:
     """One loss.backward per plan on ``dec``'s device against the same on
     the CPU (plain versions), from the same parameters: every parameter's
@@ -609,10 +781,10 @@ def phase_grads(torch, graph, cfg, dec) -> None:
 
 
 def phase_train(torch, graph, cfg, counts: dict) -> dict:
-    """The main path: gnn.train on the card for each plan from one
-    parameter set, with the launch counts set to 0 just before and read
-    just after.  Checks the counts against PER_STEP / PER_FORWARD and each
-    curve against the CPU's, the edge-list GCN's and the other plan's."""
+    """gnn.train on the card for each fixed plan from one parameter set,
+    with the launch counts set to 0 just before and read just after.
+    Checks the counts against PER_STEP / PER_FORWARD and each curve against
+    the CPU's, the edge-list GCN's and the unfused plan's."""
     import dataclasses
     import numpy as np
     from repro_torch.core import gnn
@@ -620,6 +792,12 @@ def phase_train(torch, graph, cfg, counts: dict) -> dict:
                             graph.features.shape[1], graph.n_classes,
                             device="cpu")
     results, used = {}, {}
+    for name, pair in PLANS.items():       # the tables agree with the rules
+        want = {k: TRAIN_STEPS * PER_STEP[name].get(k, 0)
+                + PER_FORWARD[name].get(k, 0) for k in counts}
+        if plan_launches((pair, pair), TRAIN_STEPS) != want:
+            raise RuntimeError(f"{name}: PER_STEP disagrees with "
+                               "plan_launches")
     for c in counts.values():
         c.reset()
     for name, pair in PLANS.items():
@@ -646,22 +824,220 @@ def phase_train(torch, graph, cfg, counts: dict) -> dict:
             raise RuntimeError(f"{name}: losses {r.losses}")
         if not losses[-1] < losses[0]:
             raise RuntimeError(f"{name}: the loss did not fall: {r.losses}")
+        n_cpu = CPU_STEPS[name]
         cpu = gnn.train(graph, dataclasses.replace(cfg, fixed_kernels=pair),
-                        steps=TRAIN_STEPS, device="cpu", params=params)
-        np.testing.assert_allclose(losses, cpu.losses, **CURVE_TOL)
+                        steps=n_cpu, device="cpu", params=params)
+        np.testing.assert_allclose(losses[:n_cpu], cpu.losses, **CURVE_TOL)
         np.testing.assert_allclose(losses, edge_losses, **CURVE_TOL)
         log("train", f"{name} {pair}: {TRAIN_STEPS} steps, launches "
             f"{used[name]} = {TRAIN_STEPS} x {PER_STEP[name]} + one forward; "
             f"losses {losses[0]:.6f} -> {losses[-1]:.6f}, accuracy "
             f"{r.accuracy:.4f}, step {r.step_seconds * 1e3:.3f} ms (host "
-            f"clock, loss read every step); max|card - cpu| "
-            f"{np.abs(losses - cpu.losses).max():.3g}, max|card - edge-list "
-            f"GCN| {np.abs(losses - edge_losses).max():.3g}")
-    np.testing.assert_allclose(results["fused"].losses,
-                               results["unfused"].losses, **CURVE_TOL)
-    log("train", "fused and unfused curves agree: max|diff| "
-        f"{np.abs(np.subtract(results['fused'].losses, results['unfused'].losses)).max():.3g}")
-    return dict(results=results, launches=launches, params=params)
+            f"clock, loss read every step); max|card - cpu| over {n_cpu} "
+            f"steps {np.abs(losses[:n_cpu] - cpu.losses).max():.3g}, "
+            f"max|card - edge-list GCN| "
+            f"{np.abs(losses - edge_losses).max():.3g}")
+    for name in PLANS:
+        np.testing.assert_allclose(results[name].losses,
+                                   results["unfused"].losses, **CURVE_TOL)
+    log("train", "every plan's curve agrees with the unfused one: max|diff| "
+        + ", ".join(f"{n} {np.abs(np.subtract(r.losses, results['unfused'].losses)).max():.3g}"
+                    for n, r in results.items()))
+    return dict(results=results, launches=launches, used=used,
+                params=params)
+
+
+def phase_feedback(torch, graph, cfg, dec, counts: dict, params) -> dict:
+    """The main path: gnn.train with the default GNNConfig (the feedback
+    selector), launch counts set to 0 just before and read just after.
+    Prints the probe table beside the H100 cost model's estimates, the
+    committed plan and the cost model's plan, and checks the launches and
+    the curve (against the same plan trained on the CPU and the edge-list
+    GCN)."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.core import gnn
+    from repro_torch.core import selector as sel_mod
+    from repro_torch.kernels.registry import REGISTRY
+    fb_cfg = gnn.GNNConfig()
+    if dataclasses.replace(cfg, selector="feedback") != fb_cfg:
+        raise RuntimeError(f"the default config {fb_cfg} is not this run's")
+    for c in counts.values():
+        c.reset()
+    t0 = time.perf_counter()
+    res = gnn.train(graph, fb_cfg, steps=TRAIN_STEPS, device="cuda",
+                    params=params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: c.value for k, c in counts.items()}
+    plan = res.plan
+    log("feedback", f"gnn.train(graph, GNNConfig()) {TRAIN_STEPS} steps in "
+        f"{wall:.2f} s (selection included); committed plan {plan.layers}; "
+        f"launches {launches}")
+
+    # the probe times each forward kernel at 2 widths, 1 + warmup_iters
+    # calls each; training adds what the committed plan launches
+    n_probe = 2 * (1 + fb_cfg.warmup_iters)
+    probed = ("block_diag_spmm", "bell_spmm", "block_diag_spmm_fused",
+              "bell_spmm_fused", "tcgnn_spmm", "tcgnn_spmm_fused")
+    trained = plan_launches(plan.layers, TRAIN_STEPS)
+    want = {k: trained[k] + (n_probe if k in probed else 0) for k in counts}
+    if launches != want:
+        raise RuntimeError(f"feedback run launches {launches}, expected "
+                           f"{want}: {n_probe} probe calls of each forward "
+                           f"kernel and {trained} for {TRAIN_STEPS} steps "
+                           "and one forward")
+    log("feedback", f"launches = {n_probe} probe calls of each of {probed} "
+        f"+ the committed plan's {trained}")
+
+    # the probe table, beside the cost model's estimates under H100_HW
+    hw = sel_mod.default_hw(dec.device)
+    in_dim, n_classes = graph.features.shape[1], graph.n_classes
+    pairs, eps = gnn.layer_plan_inputs(fb_cfg, in_dim, n_classes)
+    model_plan, agree, total = [], 0, 0
+    for li, ((fin, fout), ep) in enumerate(zip(pairs, eps)):
+        share = sel_mod._transform_share(dec, fout, torch.float32, hw, fin,
+                                         ep)
+        model_layer = sel_mod.select_by_cost_model(
+            dec, fout, torch.float32, hw=hw, in_dim=fin, epilogue=ep)
+        model_plan.append(model_layer)
+        for si, sub in enumerate(dec.subgraphs):
+            cands = REGISTRY.candidates_for(sub, include_fused=True)
+            probe_ms = {s.name: res.probe_times[(sub.name, s.name, fout)]
+                        * 1e3 for s in cands}
+            order = sorted(probe_ms, key=probe_ms.get)
+            for spec in cands:
+                model_ms = sel_mod.candidate_cost(
+                    sub, spec.name, fout, torch.float32, hw, fin, share) * 1e3
+                log("probe", f"layer {li + 1} ({fin}, {fout}) {sub.name:6s} "
+                    f"{spec.name:17s} {probe_ms[spec.name]:9.4f} ms "
+                    f"(rank {order.index(spec.name) + 1}); H100_HW model "
+                    f"{model_ms:8.4f} ms")
+            total += 1
+            agree += model_layer[si] == plan.layers[li][si]
+            log("probe", f"layer {li + 1} {sub.name}: probe picks "
+                f"{plan.layers[li][si]}, cost model picks {model_layer[si]} "
+                f"(probe rank {order.index(model_layer[si]) + 1} of "
+                f"{len(order)})")
+    log("feedback", f"committed plan {plan.layers}; cost model (H100_HW) "
+        f"plan {tuple(model_plan)}; the model picks the probe's winner in "
+        f"{agree} of {total} (layer, subgraph) choices")
+
+    # the curve
+    losses = np.asarray(res.losses)
+    if losses.shape != (TRAIN_STEPS,) or not np.isfinite(losses).all():
+        raise RuntimeError(f"feedback: losses {res.losses}")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"feedback: the loss did not fall: {res.losses}")
+    cpu = gnn.train(graph, dataclasses.replace(
+        cfg, selector="fixed", fixed_kernels=plan.layers),
+        steps=TRAIN_STEPS, device="cpu", params=params)
+    if cpu.kernels != res.kernels:
+        raise RuntimeError(f"cpu plan {cpu.kernels} != {res.kernels}")
+    edge_losses = edge_list_train(torch, graph, params, TRAIN_STEPS, cfg.lr,
+                                  plan_edge_lists(torch, graph, plan.layers))
+    np.testing.assert_allclose(losses, cpu.losses, **CURVE_TOL)
+    np.testing.assert_allclose(losses, edge_losses, **CURVE_TOL)
+    log("feedback", f"losses {losses[0]:.6f} -> {losses[-1]:.6f}, accuracy "
+        f"{res.accuracy:.4f}, step {res.step_seconds * 1e3:.3f} ms (host "
+        f"clock); max|card - cpu| {np.abs(losses - cpu.losses).max():.3g}, "
+        f"max|card - edge-list GCN| {np.abs(losses - edge_losses).max():.3g}")
+    return dict(result=res, launches=launches, plan=plan,
+                model_plan=tuple(model_plan), agree=(agree, total))
+
+
+def time_tcgnn_kernels(torch, dec, flush) -> dict:
+    """The three tcgnn kernels on pubmed's payloads (L2 flushed) at both
+    layers' widths, beside their plain versions, a library composite and
+    their bounds.  The bound counts the function's own work: each tile
+    and gather index read once, each source row the real slots name read
+    once, the output written once; 2 nnz F flops (plus the transform of
+    each named source row for the fused form)."""
+    from repro_torch.kernels import tcgnn_tile as tc_mod
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    tc, tc_t = dec.sub("inter").formats["tcgnn_tile"]
+    nbr, B, C = tc.tiles.shape
+    n, be = dec.n_pad, 4
+    gi, gi_t = tc.gather_idx.long(), tc_t.gather_idx.long()
+
+    def named(p) -> tuple[int, int]:
+        """(non-zero tile entries, distinct source rows of real slots)."""
+        real = (p.tiles != 0).any(dim=1)               # (nbr, C)
+        return (int((p.tiles != 0).sum()),
+                int(torch.unique(p.gather_idx[real]).numel()))
+
+    nnz, n_src = named(tc)
+    nnz_t, n_src_t = named(tc_t)
+    meta = nbr * B * C * 4 + nbr * C * 4
+    rows = {k: {} for k in ("tcgnn_spmm", "tcgnn_spmm_fused",
+                            "tcgnn_spmm_dw")}
+    shape = [[nbr, B, C], [nnz, "non-zero entries"], [n_src, "source rows"]]
+    for F in (16, 3):
+        x = torch.randn((n, F), generator=gen, device="cuda")
+        lib = lambda: torch.bmm(tc.tiles, x[gi])  # noqa: E731
+        torch.testing.assert_close(lib().view(n, F), tc_mod.plain(
+            tc.tiles, tc.gather_idx, x), **F32_TOL)
+        b_ms, b_by = bound(meta + n_src * F * be + n * F * be,
+                           2.0 * nnz * F, "float32")
+        rows["tcgnn_spmm"][F] = dict(
+            ms=graph_ms(torch, lambda: tc_mod.tcgnn_spmm(
+                tc.tiles, tc.gather_idx, x), flush),
+            plain_ms=graph_ms(torch, lambda: tc_mod.plain(
+                tc.tiles, tc.gather_idx, x), flush),
+            library_ms=graph_ms(torch, lib, flush),
+            library_call="torch.bmm(tiles, x[gather_idx])",
+            bound_ms=b_ms, bound_by=b_by, shape=shape + [[n, F]])
+    for Fi, Fo in WIDTHS[:2]:
+        key = f"{Fi}x{Fo}"
+        x = torch.randn((n, Fi), generator=gen, device="cuda")
+        w = torch.randn((Fi, Fo), generator=gen, device="cuda") / Fi ** 0.5
+        g = torch.randn((n, Fo), generator=gen, device="cuda")
+        lib = lambda: torch.bmm(tc.tiles, (x @ w)[gi])  # noqa: E731
+        torch.testing.assert_close(lib().view(n, Fo), tc_mod.plain_fused(
+            tc.tiles, tc.gather_idx, x, w), **F32_TOL)
+        io_bytes = meta + n_src * Fi * be + Fi * Fo * be + n * Fo * be
+        b_ms, b_by = bound(io_bytes, 2.0 * n_src * Fi * Fo + 2.0 * nnz * Fo,
+                           "float32")
+        # the kernel transforms every slot, padding included
+        algo_ms, algo_by = bound(io_bytes, 2.0 * nbr * C * Fi * Fo
+                                 + 2.0 * nbr * B * C * Fo, "float32")
+        rows["tcgnn_spmm_fused"][key] = dict(
+            ms=graph_ms(torch, lambda: tc_mod.tcgnn_spmm_fused(
+                tc.tiles, tc.gather_idx, x, w), flush),
+            plain_ms=graph_ms(torch, lambda: tc_mod.plain_fused(
+                tc.tiles, tc.gather_idx, x, w), flush),
+            library_ms=graph_ms(torch, lib, flush),
+            library_call="torch.bmm(tiles, (x @ w)[gather_idx])",
+            bound_ms=b_ms, bound_by=b_by,
+            algo_bound_ms=algo_ms, algo_bound_by=algo_by,
+            shape=shape + [[n, Fi], [Fi, Fo]])
+        lib = lambda: x.T @ torch.bmm(  # noqa: E731
+            tc_t.tiles, g[gi_t]).view(n, Fo)
+        dw_rel_err(lib(), tc_mod.plain_dw(tc_t.tiles, tc_t.gather_idx, x, g),
+                   "x.T @ bmm(tiles_t, g[gather_idx_t])")
+        b_ms, b_by = bound(meta + n * Fi * be + n_src_t * Fo * be
+                           + Fi * Fo * 4,
+                           2.0 * nnz_t * Fo + 2.0 * n * Fi * Fo, "float32")
+        rows["tcgnn_spmm_dw"][key] = dict(
+            ms=graph_ms(torch, lambda: tc_mod.tcgnn_spmm_dw(
+                tc_t.tiles, tc_t.gather_idx, x, g), flush),
+            plain_ms=graph_ms(torch, lambda: tc_mod.plain_dw(
+                tc_t.tiles, tc_t.gather_idx, x, g), flush),
+            library_ms=graph_ms(torch, lib, flush),
+            library_call="x.T @ torch.bmm(tiles_t, g[gather_idx_t])",
+            bound_ms=b_ms, bound_by=b_by,
+            shape=[[nbr, B, C], [nnz_t, "non-zero entries"], [n, Fi],
+                   [n, Fo]])
+    for k, by in rows.items():
+        for kk, r in by.items():
+            log("timing", f"{k} {kk}: {r['ms']:.4f} ms (L2 cold), plain "
+                f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms "
+                f"({r['library_call']}), bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']})" + (
+                    f"; with the kernel's walk of every slot "
+                    f"{r['algo_bound_ms']:.4f} ms ({r['algo_bound_by']})"
+                    if "algo_bound_ms" in r else ""))
+    return rows
 
 
 def time_train_kernels(torch, dec, flush, bsr, bsr_t) -> dict:
@@ -847,18 +1223,21 @@ def main() -> int:
     log("env", f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
-    import dataclasses
     from repro_torch.core import gnn
     from repro_torch.graphs import graph as graph_mod
     from repro_torch.kernels import bell_spmm as bell_mod
     from repro_torch.kernels import bell_spmm_fused as bellf_mod
     from repro_torch.kernels import block_diag_spmm as bd_mod
     from repro_torch.kernels import block_diag_spmm_fused as bdf_mod
+    from repro_torch.kernels import tcgnn_tile as tc_mod
     counts = {"block_diag_spmm": bd_mod.launches,
               "bell_spmm": bell_mod.launches,
               "block_diag_spmm_fused": bdf_mod.launches,
               "bell_spmm_fused": bellf_mod.launches,
-              "bell_spmm_dw": bellf_mod.dw_launches}
+              "bell_spmm_dw": bellf_mod.dw_launches,
+              "tcgnn_spmm": tc_mod.launches,
+              "tcgnn_spmm_fused": tc_mod.fused_launches,
+              "tcgnn_spmm_dw": tc_mod.dw_launches}
 
     # 1. build ---------------------------------------------------------------
     phase_build(torch)
@@ -873,17 +1252,23 @@ def main() -> int:
     torch.cuda.synchronize()
     bd = dec.intra.formats["block_diag"]
     bell, bell_t = dec.sub("inter").formats["bell"]
+    tc, tc_t = dec.sub("inter").formats["tcgnn_tile"]
     log("prepare", f"{time.perf_counter() - t0:.2f} s; {graph.name} "
         f"n={graph.n} edges={graph.n_edges} features="
         f"{graph.features.shape[1]} classes={graph.n_classes} "
         f"n_pad={dec.n_pad}; block_diag {tuple(bd.blocks.shape)}, bell "
         f"{tuple(bell.blocks.shape)} ({int(bell.n_valid.sum())} real "
         f"blocks), bell_t {tuple(bell_t.blocks.shape)} "
-        f"({int(bell_t.n_valid.sum())} real blocks)")
+        f"({int(bell_t.n_valid.sum())} real blocks), tcgnn_tile "
+        f"{tuple(tc.tiles.shape)} and {tuple(tc_t.tiles.shape)} "
+        f"({int((tc.tiles != 0).any(dim=1).sum())} and "
+        f"{int((tc_t.tiles != 0).any(dim=1).sum())} real slots); payloads: "
+        + ", ".join(f"{s.name} {sorted(s.formats)}" for s in dec.subgraphs))
 
     # 2. kernels against their plain versions --------------------------------
     errs = phase_kernels(torch, dec)
     phase_kernels_train(torch, dec, errs)
+    phase_kernels_tcgnn(torch, dec, errs)
 
     # 3. forward -------------------------------------------------------------
     plan, params, x, launches_fwd = phase_main(torch, graph, cfg, dec, counts)
@@ -894,12 +1279,18 @@ def main() -> int:
             raise RuntimeError(f"{k} launched {v} times in {n_fwd} "
                                f"forwards, expected {want}")
 
-    # 4. gradients, 5. training (the main path) ------------------------------
+    # 4. gradients, 5. training with fixed plans, 6. the main path ---------
     phase_grads(torch, graph, cfg, dec)
     trained = phase_train(torch, graph, cfg, counts)
-    launches = trained["launches"]
+    fb = phase_feedback(torch, graph, cfg, dec, counts, trained["params"])
+    by_path = {"forward": launches_fwd, "train": trained["launches"],
+               "feedback": fb["launches"]}
+    launches = {k: sum(p[k] for p in by_path.values()) for k in counts}
+    for k, v in launches.items():
+        if v == 0:
+            raise RuntimeError(f"{k} was never launched by the paths driven")
 
-    # 4. timing --------------------------------------------------------------
+    # 7. timing --------------------------------------------------------------
     fwd_ms = {acc: eager_ms(torch, lambda acc=acc: gnn.forward(
         params, cfg, dec, x, plan, acc=acc)) for acc in (False, True)}
     log("timing", f"forward median (CUDA events, host launch included): "
@@ -908,19 +1299,19 @@ def main() -> int:
     # one training step per plan, in turns (unfused, fused, fused, unfused)
     labels, mask = gnn.node_targets(graph, dec)
     p0 = [{k: v.cuda() for k, v in q.items()} for q in trained["params"]]
-    steps = {name: gnn.make_train_step(
-        dataclasses.replace(cfg, fixed_kernels=pair), dec, pair)
-        for name, pair in PLANS.items()}
+    step_plans = dict(PLANS, feedback=fb["plan"])
+    steps = {name: gnn.make_train_step(cfg, dec, pair)
+             for name, pair in step_plans.items()}
     opt0 = gnn._adam_init(p0)
-    step_runs = {name: [] for name in PLANS}
-    for name in ("unfused", "fused", "fused", "unfused"):
+    step_runs = {name: [] for name in step_plans}
+    for name in list(step_plans) + list(step_plans)[::-1]:
         step_runs[name].append(eager_ms(torch, lambda name=name: steps[name](
             p0, opt0, x, labels, mask)))
     step_ms = {name: statistics.mean(v) for name, v in step_runs.items()}
     log("timing", "training step median (CUDA events, host launch "
         "included; two runs each, in turns): " + ", ".join(
             f"{n} {step_runs[n][0]:.4f} / {step_runs[n][1]:.4f} ms"
-            for n in PLANS))
+            for n in step_plans))
 
     scratch = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
     flush = scratch.zero_
@@ -975,28 +1366,30 @@ def main() -> int:
                 f"({r['bound_by']})")
     rows.update(time_train_kernels(torch, dec, flush, bsr,
                                    bsr_of(torch, bell_t)))
+    rows.update(time_tcgnn_kernels(torch, dec, flush))
     del scratch
 
     busy = profile_busy(torch, lambda: gnn.forward(params, cfg, dec, x, plan),
                         5, fwd_ms[False], "forward")
     busy_step = {name: profile_busy(
         torch, lambda name=name: steps[name](p0, opt0, x, labels, mask), 5,
-        step_ms[name], f"{name} step") for name in PLANS}
+        step_ms[name], f"{name} step") for name in step_plans}
 
     out = []
     for name, meta in KERNELS.items():
-        key = 16 if name in FORWARD_KERNELS else "500x16"
+        key = (16 if name in FORWARD_KERNELS or name == "tcgnn_spmm"
+               else "500x16")
         r = rows[name][key]
         out.append(dict(
             name=name, route="cuda", source=meta["source"],
             replaces=meta["replaces"], launches=launches[name],
+            launches_by_path={p: c[name] for p, c in by_path.items()},
             launches_per_step={p: PER_STEP[p].get(name, 0) for p in PLANS},
-            launches_forward=launches_fwd[name],
             max_abs_err=errs[name]["float32"],
             max_abs_err_bf16=errs[name]["bfloat16"],
             **({"max_rel_err": errs[name]["float32_rel"],
                 "max_rel_err_bf16": errs[name]["bfloat16_rel"]}
-               if name == "bell_spmm_dw" else {}),
+               if name.endswith("_dw") else {}),
             ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"],
@@ -1004,8 +1397,12 @@ def main() -> int:
             by_width={str(k): v for k, v in rows[name].items()}))
     log("done", f"{time.perf_counter() - t_start:.1f} s; forward_ms "
         f"{ {str(k): v for k, v in fwd_ms.items()} }; busy {busy}; "
-        f"step_ms {step_ms}; busy per step {busy_step}; train losses "
-        + json.dumps({n: r.losses for n, r in trained["results"].items()}))
+        f"step_ms {step_ms}; busy per step {busy_step}; feedback plan "
+        f"{fb['plan'].layers}, cost-model plan {fb['model_plan']}, model "
+        f"agrees {fb['agree'][0]} of {fb['agree'][1]}; train losses "
+        + json.dumps(dict({n: r.losses for n, r in
+                           trained["results"].items()},
+                          feedback=fb["result"].losses)))
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

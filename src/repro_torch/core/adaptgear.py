@@ -16,7 +16,7 @@ import torch
 
 from repro_torch import DEFAULT_DEVICE, resolve_device
 from repro_torch.core import plan as plan_mod
-from repro_torch.core.decompose import Decomposed
+from repro_torch.core.decompose import Decomposed, Subgraph
 from repro_torch.kernels.registry import REGISTRY
 
 DEFAULT_KERNELS = ("block_diag", "bell")
@@ -33,6 +33,27 @@ def to_reordered(dec: Decomposed, x: torch.Tensor) -> torch.Tensor:
 
 def from_reordered(dec: Decomposed, xr: torch.Tensor) -> torch.Tensor:
     return xr[: dec.n].index_select(0, dec.perm)
+
+
+def aggregate_sub(sub: Subgraph, x: torch.Tensor,
+                  kernel: str) -> torch.Tensor:
+    """A_s @ x over one subgraph with an unfused registry kernel (the unit
+    the feedback probe times).  x: (n_pad, F) in reordered space."""
+    spec = REGISTRY.get(kernel)
+    if spec.fused:
+        raise ValueError(
+            f"kernel {kernel!r} is fused (needs the weight operand); "
+            "dispatch it through aggregate_sub_fused / aggregate_transform")
+    return spec.matvec(sub.formats[spec.payload_key], x)
+
+
+def aggregate_sub_fused(sub: Subgraph, x: torch.Tensor, w: torch.Tensor,
+                        kernel: str) -> torch.Tensor:
+    """A_s @ (x @ w) over one subgraph with a fused registry kernel."""
+    spec = REGISTRY.get(kernel)
+    if not spec.fused:
+        raise ValueError(f"kernel {kernel!r} is not fused")
+    return spec.fused_matvec(sub.formats[spec.payload_key], x, w)
 
 
 def aggregate(dec: Decomposed, x: torch.Tensor,

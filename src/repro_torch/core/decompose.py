@@ -150,17 +150,23 @@ def _tier_stats(kind: str, n_pad: int, block_size: int, rows: np.ndarray,
 def _materialize_subgraph(t: "TierEdges", n_pad: int, block_size: int,
                           device: torch.device) -> Subgraph:
     """Build every registered candidate payload of one tier (paper §3.3:
-    once, so any kernel can run without re-conversion) on ``device``."""
+    once, so any kernel can run without re-conversion) on ``device``.
+    ``stats["kernels"]`` names every spec, fused aliases included, whose
+    payload was built, as in the reference."""
+    all_specs = REGISTRY.candidates(t.kind, include_fused=True)
     # fused specs alias an unfused spec's payload and build nothing
-    specs = [s for s in REGISTRY.candidates(t.kind) if s.build is not None]
+    specs = [s for s in all_specs if s.build is not None]
     coo = formats.coo_from_edges(n_pad, n_pad, t.rows, t.cols, t.vals)
     coo_t = (formats.coo_from_edges(n_pad, n_pad, t.cols, t.rows, t.vals)
              if any(s.needs_transpose for s in specs) else None)
     fmts = {s.name: formats.to_device(
                 s.build(coo, coo_t, block_size, t.stats), device)
             for s in specs}
+    stats = dict(t.stats)
+    stats["kernels"] = tuple(s.name for s in all_specs
+                             if s.payload_key in fmts)
     return Subgraph(name=t.name, kind=t.kind, n_rows=n_pad,
-                    block_size=block_size, formats=fmts, stats=dict(t.stats))
+                    block_size=block_size, formats=fmts, stats=stats)
 
 
 def _bucket_inter(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,

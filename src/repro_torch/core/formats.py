@@ -6,6 +6,7 @@ them (one pass over the edges, paper §3.3) and torch tensors once
 :func:`to_device` has placed them:
 
   COO       -- edge list (edge-parallel; ``index_add_``)
+  CSR       -- row-compressed (vertex-parallel; gather + sorted reduce)
   ELL       -- per-row padded neighbor lists (regular gather)
   BlockDiag -- dense (B,B) diagonal blocks (intra-community; CUDA kernel)
   BlockELL  -- blocked-ELL: CSR over (B,B) blocks, padded to K blocks per
@@ -40,6 +41,21 @@ class COO:
     rows: Array = None   # (E,) int32, destination vertex per edge
     cols: Array = None   # (E,) int32, source vertex per edge
     vals: Array = None   # (E,) float32, edge weight (e.g. GCN normalization)
+
+
+@dataclass(frozen=True)
+class CSR:
+    """Row-compressed edge list: row i's edges are
+    ``indices[indptr[i]:indptr[i+1]]``."""
+    n_rows: int
+    n_cols: int
+    indptr: Array = None   # (n_rows+1,) int32
+    indices: Array = None  # (E,) int32 column (source) indices
+    vals: Array = None     # (E,) float32
+
+    @property
+    def nnz(self) -> int:
+        return int(self.indices.shape[0])
 
 
 @dataclass(frozen=True)
@@ -87,8 +103,11 @@ class BlockELL:
         return self.n_rows // self.block_size
 
 
+# array fields of every payload container; the kernel modules that own a
+# container (kernels/sell_cs.py, kernels/tcgnn_tile.py) add theirs
 ARRAY_FIELDS = {
     COO: ("rows", "cols", "vals"),
+    CSR: ("indptr", "indices", "vals"),
     ELL: ("indices", "vals", "mask"),
     BlockDiag: ("blocks",),
     BlockELL: ("blocks", "col_idx", "n_valid"),
@@ -124,6 +143,15 @@ def coo_from_edges(n_rows: int, n_cols: int, rows: np.ndarray,
         rows, cols = rows[order], cols[order]
         vals = np.asarray(vals, np.float32)[order]
     return COO(n_rows, n_cols, rows, cols, np.asarray(vals, np.float32))
+
+
+def coo_to_csr(coo: COO) -> CSR:
+    """Row pointer over a row-sorted COO (``coo_from_edges`` sorts)."""
+    rows = _np(coo.rows)
+    counts = np.bincount(rows, minlength=coo.n_rows)
+    indptr = np.zeros(coo.n_rows + 1, np.int32)
+    np.cumsum(counts, out=indptr[1:])
+    return CSR(coo.n_rows, coo.n_cols, indptr, coo.cols, coo.vals)
 
 
 def coo_to_ell(coo: COO) -> ELL:

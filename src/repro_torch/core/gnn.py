@@ -3,11 +3,13 @@
 Counterpart of ``repro/core/gnn.py``: ``prepare`` -> ``init_model`` ->
 ``select_plan`` -> ``forward``, and ``train`` (masked NLL, gradients
 through the kernels' backward passes, the reference's hand-written Adam).
-Ported so far: the GCN model and the ``fixed`` selector, with the paper's
-default plan ``("block_diag", "bell")`` or its fused twin
-``("block_diag_fused", "bell_fused")``.  Other models, selectors, bucket
-autotuning and mini-batch sampling raise ``NotImplementedError`` naming the
-ROADMAP slice that brings them.
+Ported so far: the GCN model with all three selectors.  ``feedback``, the
+default as in the reference, times every registry candidate of every
+subgraph at every layer width on the device that trains and commits the
+fastest (``core/selector.py``); ``cost_model`` ranks them by the analytic
+model of that device; ``fixed`` applies ``fixed_kernels``.  Other models,
+bucket autotuning and mini-batch sampling raise ``NotImplementedError``
+naming the ROADMAP slice that brings them.
 """
 from __future__ import annotations
 
@@ -20,15 +22,16 @@ import torch
 
 from repro_torch import DEFAULT_DEVICE, resolve_device
 from repro_torch.core import adaptgear, decompose as dec_mod
+from repro_torch.core import epilogue as ep_mod
+from repro_torch.core import selector as sel_mod
 from repro_torch.core.plan import KernelPlan
 from repro_torch.graphs import graph as graph_mod
 
 
 @dataclass
 class GNNConfig:
-    """The fields of the reference's GNNConfig that this slice reads.
-    ``selector`` defaults to ``fixed``, the only selector ported so far
-    (the reference defaults to ``feedback``)."""
+    """The fields of the reference's GNNConfig that the port reads, with
+    the reference's defaults (``selector`` is ``feedback``)."""
     model: str = "gcn"
     hidden: int = 16
     n_layers: int = 2
@@ -36,8 +39,9 @@ class GNNConfig:
     reorder: str = "bfs"
     inter_buckets: int = 1        # density tiers
     lr: float = 1e-2
-    selector: str = "fixed"
+    selector: str = "feedback"    # feedback | cost_model | fixed
     fixed_kernels: tuple = ("block_diag", "bell")
+    warmup_iters: int = 2         # feedback: timed calls per candidate
     seed: int = 0
     sampler: str = "full"         # only full-batch training is ported
 
@@ -108,18 +112,83 @@ def forward(params: list[dict], cfg: GNNConfig, dec: dec_mod.Decomposed,
     return h
 
 
-def select_plan(dec: dec_mod.Decomposed, cfg: GNNConfig,
-                widths: list) -> tuple[KernelPlan, dict]:
-    """Commit a KernelPlan with the configured selector; returns
-    ``(plan, probe_times)``.  Only ``fixed`` is ported: it applies
-    ``cfg.fixed_kernels`` to every layer and probes nothing."""
-    if cfg.selector != "fixed":
-        raise NotImplementedError(
-            f"selector {cfg.selector!r} is not ported yet (only 'fixed'): "
-            "ROADMAP slice A item 6")
-    plan = KernelPlan.make(dec, tuple(cfg.fixed_kernels),
-                           n_layers=len(widths))
-    return plan, {}
+def agg_width_pairs(cfg: GNNConfig, in_dim: int,
+                    n_classes: int) -> list[tuple]:
+    """Per-layer ``(in_dim, agg_dim)`` width pairs; GCN's layers are
+    transform-first, so fused candidates compete at every layer."""
+    _require_gcn(cfg)
+    dims = [in_dim] + [cfg.hidden] * (cfg.n_layers - 1) + [n_classes]
+    return list(zip(dims[:-1], dims[1:]))
+
+
+def layer_epilogues(cfg: GNNConfig, in_dim: int, n_classes: int) -> tuple:
+    """Per-layer EpilogueSpecs aligned with :func:`agg_width_pairs`."""
+    dims = [in_dim] + [cfg.hidden] * (cfg.n_layers - 1) + [n_classes]
+    return ep_mod.layer_epilogues(cfg.model, dims, cfg.hidden)
+
+
+def layer_plan_inputs(cfg: GNNConfig, in_dim: int,
+                      n_classes: int) -> tuple[list, tuple]:
+    """``(pairs, epilogues)`` for selection.  For GCN they do not depend on
+    the decomposition (the reference prices GIN's structure against it,
+    which comes with GIN)."""
+    return (agg_width_pairs(cfg, in_dim, n_classes),
+            layer_epilogues(cfg, in_dim, n_classes))
+
+
+def select_plan(dec: dec_mod.Decomposed, cfg: GNNConfig, widths: list,
+                dtype=torch.float32, epilogues: tuple | None = None
+                ) -> tuple[KernelPlan, dict]:
+    """Commit a KernelPlan with ``cfg.selector``; returns ``(plan,
+    probe_times)``.
+
+    ``widths`` holds aggregated widths (ints) or ``(in_dim, agg_dim)``
+    pairs (:func:`agg_width_pairs`): with an in_dim, fused candidates
+    compete.  ``dtype`` is the aggregation dtype the probes run in.
+    ``feedback`` times every candidate on ``dec``'s device (CUDA events
+    on CUDA) at each distinct width pair, ``warmup_iters`` calls each
+    after one untimed call, and commits the fastest per subgraph;
+    ``probe_times`` maps ``(subgraph, kernel, agg_dim)`` to the median
+    seconds.  ``cost_model`` ranks by ``selector.default_hw(dec.device)``;
+    ``fixed`` applies ``cfg.fixed_kernels`` and probes nothing."""
+    pairs = [(None, w) if isinstance(w, int) else tuple(w) for w in widths]
+    eps = tuple(epilogues) if epilogues is not None else (None,) * len(pairs)
+    probe_times: dict = {}
+    if cfg.selector == "fixed":
+        plan = KernelPlan.make(dec, tuple(cfg.fixed_kernels),
+                               n_layers=len(pairs), epilogues=eps)
+    elif cfg.selector == "cost_model":
+        hw = sel_mod.default_hw(dec.device)
+        plan = KernelPlan.make(
+            dec, [sel_mod.select_by_cost_model(dec, fout, dtype, hw=hw,
+                                               in_dim=fin, epilogue=ep)
+                  for (fin, fout), ep in zip(pairs, eps)],
+            epilogues=eps)
+    elif cfg.selector == "feedback":
+        fused_ok = any(fin is not None for fin, _ in pairs)
+        sel = sel_mod.AdaptiveSelector(dec, warmup_iters=cfg.warmup_iters,
+                                       include_fused=fused_ok)
+        ep_of = dict(zip(pairs, eps))
+        dev = dec.device
+        for fin, fout in sorted(set(pairs), key=lambda p: (p[1], p[0] or 0)):
+            probe_x = torch.ones((dec.n_pad, fout), dtype=dtype, device=dev)
+            transform = (None if fin is None else
+                         (torch.ones((dec.n_pad, fin), dtype=dtype,
+                                     device=dev),
+                          torch.ones((fin, fout), dtype=dtype, device=dev)))
+            ep = ep_of[(fin, fout)]
+            res = sel.probe(probe_x, iters=cfg.warmup_iters,
+                            transform=transform,
+                            free_transform=bool(ep and ep.free_transform))
+            probe_times.update({k + (fout,): v for k, v in res.times.items()})
+        # keyed by the full pair: layers of one output width but different
+        # input widths may commit different kernels
+        plan = KernelPlan.make(
+            dec, [sel.choice(fout if fin is None else (fin, fout))
+                  for fin, fout in pairs], epilogues=eps)
+    else:
+        raise ValueError(f"unknown selector {cfg.selector!r}")
+    return plan, probe_times
 
 
 def node_targets(graph: graph_mod.Graph, dec: dec_mod.Decomposed
@@ -216,10 +285,6 @@ def train(graph: graph_mod.Graph, cfg: GNNConfig, steps: int = 50,
         raise NotImplementedError(
             f"sampler {cfg.sampler!r} (mini-batch training) is not ported "
             "yet: ROADMAP slice C")
-    if cfg.selector != "fixed":
-        raise NotImplementedError(
-            f"selector {cfg.selector!r} is not ported yet (only 'fixed'): "
-            "ROADMAP slice A item 6")
     dev = resolve_device(device)
     t0 = time.perf_counter()
     dec = prepare(graph, cfg, dev)
@@ -237,8 +302,9 @@ def train(graph: graph_mod.Graph, cfg: GNNConfig, steps: int = 50,
                    for k, v in layer.items()} for layer in params]
     opt = _adam_init(params)
 
-    dims = [in_dim] + [cfg.hidden] * (cfg.n_layers - 1) + [n_classes]
-    plan, probe_times = select_plan(dec, cfg, list(zip(dims[:-1], dims[1:])))
+    pairs, eps = layer_plan_inputs(cfg, in_dim, n_classes)
+    plan, probe_times = select_plan(dec, cfg, pairs, dtype=x.dtype,
+                                    epilogues=eps)
     step_fn = make_train_step(cfg, dec, plan)
 
     losses = []

@@ -47,12 +47,18 @@ def normalize_layer(dec: Decomposed, choice: Sequence[str]) -> tuple[str, ...]:
 
 @dataclass(frozen=True)
 class KernelPlan:
-    """Per-layer x per-subgraph kernel assignment."""
+    """Per-layer x per-subgraph kernel assignment.  ``epilogues``
+    optionally records the per-layer ``core.epilogue.EpilogueSpec`` the
+    plan was selected under."""
     subgraph_names: tuple      # aligned with Decomposed.subgraphs
     layers: tuple              # tuple[tuple[str, ...], ...]
+    epilogues: tuple | None = None   # tuple[EpilogueSpec | None, ...]
 
     def for_layer(self, i: int) -> tuple:
         return self.layers[i]
+
+    def epilogue_for_layer(self, i: int):
+        return self.epilogues[i] if self.epilogues is not None else None
 
     @property
     def n_layers(self) -> int:
@@ -62,8 +68,8 @@ class KernelPlan:
         return iter(self.layers)
 
     @classmethod
-    def make(cls, dec: Decomposed, choices,
-             n_layers: int | None = None) -> "KernelPlan":
+    def make(cls, dec: Decomposed, choices, n_layers: int | None = None,
+             epilogues: tuple | None = None) -> "KernelPlan":
         """Build a validated plan from a KernelPlan (re-validated), one
         layer choice (broadcast to ``n_layers``), or one choice per layer."""
         sub_names = tuple(s.name for s in dec.subgraphs)
@@ -72,7 +78,8 @@ class KernelPlan:
                 raise ValueError(f"plan has {len(choices.layers)} layers, "
                                  f"model has {n_layers}")
             return cls(sub_names,
-                       tuple(normalize_layer(dec, c) for c in choices.layers))
+                       tuple(normalize_layer(dec, c) for c in choices.layers),
+                       epilogues or choices.epilogues)
         if (isinstance(choices, (tuple, list)) and choices
                 and isinstance(choices[0], str)):
             layer = normalize_layer(dec, choices)
@@ -82,4 +89,8 @@ class KernelPlan:
             if n_layers is not None and len(layers) != n_layers:
                 raise ValueError(
                     f"plan has {len(layers)} layers, model has {n_layers}")
-        return cls(sub_names, layers)
+        if epilogues is not None and len(epilogues) != len(layers):
+            raise ValueError(
+                f"plan has {len(layers)} layers but {len(epilogues)} "
+                f"epilogue specs")
+        return cls(sub_names, layers, epilogues)

@@ -24,8 +24,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("block_diag_spmm", "bell_spmm", "bell_spmm_fused", "bell_spmm_dw")
-HEADERS = ("dtype.cuh",)
+SOURCES = ("block_diag_spmm", "bell_spmm", "bell_spmm_fused", "bell_spmm_dw",
+           "tcgnn_spmm", "tcgnn_spmm_fused", "tcgnn_spmm_dw")
+HEADERS = ("dtype.cuh", "dw_reduce.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_TIMEOUT_S = 600
@@ -40,6 +41,10 @@ SIGNATURES = {
                         _I, _P),
     "bell_spmm_dw": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                      _I, _P),
+    "tcgnn_spmm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "tcgnn_spmm_fused": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "tcgnn_spmm_dw": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                      _P),
 }
 
 # element types the kernels take, as the dtype code they are passed

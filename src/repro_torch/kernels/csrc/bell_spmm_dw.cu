@@ -20,7 +20,7 @@
 //      memory), then adds X_i^T z_i to the (fi tile, fo tile) partial sum its
 //      threads keep in registers, and writes its partial to a workspace;
 //   2. one thread per output element sums the splits' partials in split
-//      order.
+//      order (dw_reduce.cuh, shared with tcgnn_spmm_dw.cu).
 // Every sum is taken in a fixed order, so the result is the same bits on
 // every run, on any card.  A row's z_i is formed once per Fi tile; the tiles
 // are as wide as the registers allow (Fi = 500, Fo = 16 takes two).
@@ -34,6 +34,7 @@
 #include <cstdint>
 
 #include "dtype.cuh"
+#include "dw_reduce.cuh"
 
 namespace {
 
@@ -164,17 +165,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// dw[e] = sum over splits of partial[split, e], in split order.
-__global__ void __launch_bounds__(kThreads)
-    dw_reduce_kernel(const float* __restrict__ partial, float* __restrict__ dw,
-                     int n_split, int n) {
-  const int e = blockIdx.x * kThreads + threadIdx.x;
-  if (e >= n) return;
-  float s = 0.f;
-  for (int t = 0; t < n_split; ++t) s += partial[static_cast<size_t>(t) * n + e];
-  dw[e] = s;
-}
-
 template <typename T>
 cudaError_t launch(const void* blocks, const int* col_idx, const int* n_valid,
                    const void* x, const void* g, float* partial, float* dw,
@@ -207,10 +197,7 @@ cudaError_t launch(const void* blocks, const int* col_idx, const int* n_valid,
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  const int n = Fi * Fo;
-  dw_reduce_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-      partial, dw, n_split, n);
-  return cudaGetLastError();
+  return repro_torch::launch_dw_reduce(partial, dw, n_split, Fi * Fo, stream);
 }
 
 }  // namespace

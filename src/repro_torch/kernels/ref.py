@@ -99,6 +99,46 @@ def bell_spmm_dw(blocks_t: torch.Tensor, col_idx_t: torch.Tensor | None,
     return x.to(acc).T @ z
 
 
+def tcgnn_spmm(tiles: torch.Tensor, gather_idx: torch.Tensor,
+               x: torch.Tensor, y_in: torch.Tensor | None = None
+               ) -> torch.Tensor:
+    """Column-condensed SpMM: Y[i*B + r] = sum_s tiles[i, r, s]
+    x[gather_idx[i, s]] (+ y_in).
+
+    tiles: (nbr, B, C); gather_idx: (nbr, C) source rows of x, 0 in padded
+    slots (whose tile values are zero); x: (n_cols, F) -> (nbr*B, F)."""
+    nbr, B, _ = tiles.shape
+    acc = _acc(x)
+    xg = x[gather_idx.long()].to(acc)                    # (nbr, C, F)
+    y = torch.bmm(tiles.to(acc), xg).reshape(nbr * B, -1)
+    if y_in is not None:
+        y = y_in.to(acc) + y
+    return y.to(x.dtype)
+
+
+def tcgnn_spmm_fused(tiles: torch.Tensor, gather_idx: torch.Tensor,
+                     x: torch.Tensor, w: torch.Tensor,
+                     y_in: torch.Tensor | None = None) -> torch.Tensor:
+    """Y = A_tc @ (x @ w) (+ y_in).  The transform runs once over x and the
+    condensed product gathers rows of H: the same function as the kernel's
+    per-slot transform, without the (nbr, C, Fi) gather."""
+    acc = _acc(x)
+    h = x.to(acc) @ w.to(acc)
+    y = tcgnn_spmm(tiles.to(acc), gather_idx, h,
+                   y_in.to(acc) if y_in is not None else None)
+    return y.to(x.dtype)
+
+
+def tcgnn_spmm_dw(tiles_t: torch.Tensor, gather_idx_t: torch.Tensor,
+                  x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """dW = x^T @ (A^T @ g) with A^T the condensed transpose payload:
+    sum_i x_i^T (tiles_t[i] @ g[gather_idx_t[i]]).  x: (nbr*B, Fi);
+    g: (n_cols, Fo).  Returns (Fi, Fo) in the accumulation dtype."""
+    acc = _acc(x)
+    z = tcgnn_spmm(tiles_t.to(acc), gather_idx_t, g.to(acc))   # (nbr*B, Fo)
+    return x.to(acc).T @ z
+
+
 def ell_spmm(indices: torch.Tensor, vals: torch.Tensor,
              x: torch.Tensor) -> torch.Tensor:
     """Row-padded gather SpMM: Y[i] = sum_k vals[i,k] * x[indices[i,k]].

@@ -13,14 +13,24 @@ registers one :class:`KernelSpec`:
   matvec_acc -- optional ``matvec_acc(payload, x, y_in) -> y_in + A @ x``
   fused_matvec(_acc) -- fused transform+aggregate
                 ``(payload, x, w[, y_in]) -> A @ (x @ w) [+ y_in]``
-  cost       -- analytic cost for the cost-model selector (not ported yet:
-                the stub raises)
+  cost       -- analytic roofline seconds for the cost-model selector:
+                ``cost(sub, feat_dim, dtype, hw)``; ``feat_dim`` is the
+                aggregated width, or the ``(in_dim, out_dim)`` pair for a
+                fused spec.  ``hw`` is a ``core.selector.HwModel``.
 
+Registration order is the reference's, and it matters: ``candidates()``
+keeps it and both selectors take the first minimum, so it breaks ties.
 Registered here: ``block_diag`` and ``bell`` (hand CUDA kernels), ``ell``
 and ``coo`` (plain PyTorch gather / ``index_add_``), and the fused
 ``block_diag_fused`` and ``bell_fused`` (hand CUDA kernels over the
-``block_diag`` and ``bell`` payloads).  csr, sell_cs and tcgnn_tile come
-with later slices (ROADMAP).
+``block_diag`` and ``bell`` payloads); then, one file each as in the
+reference, ``csr``/``csr_fused`` (kernels/csr.py), ``sell_cs``/
+``sell_fused`` (kernels/sell_cs.py) and ``tcgnn_tile``/
+``tcgnn_tile_fused`` (kernels/tcgnn_tile.py, hand CUDA kernels).
+
+The cost formulae are the reference's, term for term, so that both
+packages rank candidates alike under one ``HwModel``; they keep its TPU
+tiling terms (``_lane_pad``, the VMEM feature-tile caps) for that reason.
 """
 from __future__ import annotations
 
@@ -28,6 +38,7 @@ from dataclasses import dataclass
 from typing import Any, Callable
 
 import numpy as np
+import torch
 
 from repro_torch.core import formats
 from repro_torch.kernels import ops
@@ -90,13 +101,60 @@ class KernelRegistry:
     def names(self) -> tuple[str, ...]:
         return tuple(self._specs)
 
-    def candidates(self, kind: str) -> tuple[KernelSpec, ...]:
-        """Specs applicable to a subgraph kind, in registration order,
-        fused aliases included."""
-        return tuple(s for s in self._specs.values() if s.applies_to(kind))
+    def candidates(self, kind: str, include_fused: bool = False
+                   ) -> tuple[KernelSpec, ...]:
+        """Specs applicable to a subgraph kind, in registration order.
+        Fused specs need the weight at dispatch, so only transform-first
+        callers (GCN) ask for them."""
+        return tuple(s for s in self._specs.values()
+                     if s.applies_to(kind) and (include_fused or not s.fused))
+
+    def candidates_for(self, sub, include_fused: bool = False
+                       ) -> tuple[KernelSpec, ...]:
+        """Specs whose payload is materialized on subgraph ``sub``."""
+        return tuple(s for s in self.candidates(sub.kind, include_fused)
+                     if s.payload_key in sub.formats)
+
 
 
 REGISTRY = KernelRegistry()
+
+
+LANE = 128
+
+
+def _bytes_el(dtype) -> int:
+    """Bytes per element of a numpy or torch dtype."""
+    if isinstance(dtype, torch.dtype):
+        return dtype.itemsize
+    return np.dtype(dtype).itemsize
+
+
+def _lane_pad(F: int) -> int:
+    """The reference's 128-lane feature padding (its cost terms count it)."""
+    return ((F + LANE - 1) // LANE) * LANE
+
+
+def _f_tile(F: int, cap: int = 512) -> int:
+    """The reference's feature tile (``repro/kernels/ops.py`` ``_f_tile``):
+    the largest lane multiple <= cap dividing the lane-padded F.  Only the
+    cost terms read it."""
+    Fp = _lane_pad(F)
+    hi = min(max(cap, LANE), Fp)
+    best = LANE
+    for t in range(LANE, hi + 1, LANE):
+        if Fp % t == 0:
+            best = t
+    return best
+
+
+def _fused_f_cap(block_size: int, fin_padded: int, stripes: int = 1) -> int:
+    """The reference's fused output-tile cap (``repro/kernels/ops.py``
+    ``_fused_f_cap``, a TPU VMEM budget): only its cost terms read it."""
+    budget_floats = (4 << 20) // 4 // 2
+    cap = (budget_floats - block_size * block_size - block_size * fin_padded
+           ) // (stripes * fin_padded + 2 * block_size)
+    return int(max(LANE, min(1024, (cap // LANE) * LANE)))
 
 
 # ---------------------------------------------------------------------------
@@ -153,9 +211,86 @@ def _bell_build(coo, coo_t, block_size, stats):
             formats.coo_to_bell(coo_t, Bb, f_tile_cap=cap))
 
 
-def _cost_not_ported(sub, feat_dim, dtype, hw) -> float:
-    raise NotImplementedError(
-        "cost-model selection is not ported yet: ROADMAP slice A item 6")
+# ---------------------------------------------------------------------------
+# Cost formulae: the reference's two-term roofline estimates
+# ---------------------------------------------------------------------------
+
+def _block_diag_cost(sub, feat_dim, dtype, hw) -> float:
+    be = _bytes_el(dtype)
+    B = sub.block_size
+    nb = sub.n_rows // B
+    flops = 2.0 * nb * B * B * feat_dim
+    bytes_ = nb * B * B * be + 2.0 * sub.n_rows * feat_dim * be
+    t = max(flops / (hw.peak_flops * hw.mxu_eff(B)), bytes_ / hw.hbm_bw)
+    return t + hw.launch_overhead_s
+
+
+# The reference's blocked-ELL and tcgnn costs add a spill term for the
+# budget-capped mini-batch payloads (``_bell_spill_cost``); it comes with
+# those payloads (ROADMAP slice C).
+
+def _bell_cost(sub, feat_dim, dtype, hw) -> float:
+    be = _bytes_el(dtype)
+    bl = sub.formats["bell"][0]
+    B = bl.block_size
+    nblk = bl.n_brow * bl.max_blocks       # every slot, padding included
+    flops = 2.0 * nblk * B * B * feat_dim
+    bytes_ = nblk * (B * B * be + B * feat_dim * be) + sub.n_rows * feat_dim * be
+    t = max(flops / (hw.peak_flops * hw.mxu_eff(B)), bytes_ / hw.hbm_bw)
+    return t + hw.launch_overhead_s
+
+
+def _ell_cost(sub, feat_dim, dtype, hw) -> float:
+    be = _bytes_el(dtype)
+    n = sub.n_rows
+    K = sub.formats["ell"].max_deg
+    flops = 2.0 * n * K * feat_dim
+    bytes_ = n * K * (feat_dim * be + 4) + n * feat_dim * be
+    return max(flops / hw.peak_flops,
+               bytes_ / (hw.hbm_bw * hw.gather_eff)) + hw.launch_overhead_s
+
+
+def _coo_cost(sub, feat_dim, dtype, hw) -> float:
+    be = _bytes_el(dtype)
+    nnz = sub.stats["nnz"]
+    flops = 2.0 * nnz * feat_dim
+    bytes_ = nnz * (2 * feat_dim * be + 8) + sub.n_rows * feat_dim * be
+    return max(flops / hw.peak_flops,
+               bytes_ / (hw.hbm_bw * hw.scatter_eff)) + hw.launch_overhead_s
+
+
+def _block_diag_fused_cost(sub, feat_dims, dtype, hw) -> float:
+    fin, fout = feat_dims
+    be = _bytes_el(dtype)
+    B = sub.block_size
+    nb = sub.n_rows // B
+    ft = min(_fused_f_cap(B, _lane_pad(fin)), _lane_pad(fout))
+    njt = max(1, -(-_lane_pad(fout) // ft))
+    flops = 2.0 * nb * B * (fin * fout + B * fout)
+    bytes_ = (nb * B * B * be                     # adjacency blocks
+              + sub.n_rows * fin * be * njt      # x re-read per output tile
+              + nb * fin * fout * be             # weight stripe per block
+              + sub.n_rows * fout * be)          # output
+    t = max(flops / (hw.peak_flops * hw.mxu_eff(B)), bytes_ / hw.hbm_bw)
+    return t + hw.launch_overhead_s
+
+
+def _bell_fused_cost(sub, feat_dims, dtype, hw) -> float:
+    fin, fout = feat_dims
+    be = _bytes_el(dtype)
+    bl = sub.formats["bell"][0]
+    B = bl.block_size
+    nblk = bl.n_brow * bl.max_blocks
+    ft = min(bl.f_tile_cap, _fused_f_cap(B, _lane_pad(fin)), _lane_pad(fout))
+    njt = max(1, -(-_lane_pad(fout) // ft))
+    # the transform re-runs per stored block (recompute for the H trip)
+    flops = 2.0 * nblk * B * (fin * fout + B * fout)
+    bytes_ = (nblk * B * B * be
+              + nblk * B * fin * be * njt        # gathered x per stored block
+              + nblk * fin * fout * be           # weight stripe per step
+              + sub.n_rows * fout * be)
+    t = max(flops / (hw.peak_flops * hw.mxu_eff(B)), bytes_ / hw.hbm_bw)
+    return t + hw.launch_overhead_s
 
 
 REGISTRY.register(KernelSpec(
@@ -164,7 +299,7 @@ REGISTRY.register(KernelSpec(
     build=lambda coo, coo_t, B, stats: formats.coo_to_blockdiag(coo, B),
     matvec=lambda bd, x: ops.block_diag_matvec(bd.blocks, x),
     matvec_acc=lambda bd, x, y: ops.block_diag_matvec_acc(bd.blocks, x, y),
-    cost=_cost_not_ported,
+    cost=_block_diag_cost,
     doc="dense (B,B) diagonal blocks (paper's dense kernel); CUDA kernel",
 ))
 
@@ -174,7 +309,7 @@ REGISTRY.register(KernelSpec(
     build=_bell_build,
     matvec=lambda p, x: ops.bell_matvec(p[0], p[1], x),
     matvec_acc=lambda p, x, y: ops.bell_matvec_acc(p[0], p[1], x, y),
-    cost=_cost_not_ported,
+    cost=_bell_cost,
     needs_transpose=True,
     doc="blocked-ELL over per-bucket (B,B) tiles; CUDA kernel; transpose "
         "materialized for the backward pass",
@@ -185,7 +320,7 @@ REGISTRY.register(KernelSpec(
     kinds=frozenset({DIAG, OFFDIAG}),
     build=lambda coo, coo_t, B, stats: formats.coo_to_ell(coo),
     matvec=ops.ell_matvec,
-    cost=_cost_not_ported,
+    cost=_ell_cost,
     doc="padded-neighbor gather (vertex-parallel CSR analogue)",
 ))
 
@@ -194,7 +329,7 @@ REGISTRY.register(KernelSpec(
     kinds=frozenset({DIAG, OFFDIAG}),
     build=lambda coo, coo_t, B, stats: coo,
     matvec=ops.coo_matvec,
-    cost=_cost_not_ported,
+    cost=_coo_cost,
     doc="edge-parallel scatter-add (index_add_)",
 ))
 
@@ -207,7 +342,7 @@ REGISTRY.register(KernelSpec(
     fused_matvec=lambda bd, x, w: ops.block_diag_fused_matvec(bd.blocks, x, w),
     fused_matvec_acc=lambda bd, x, w, y:
         ops.block_diag_fused_matvec_acc(bd.blocks, x, w, y),
-    cost=_cost_not_ported,
+    cost=_block_diag_fused_cost,
     doc="fused A @ (X W) over the diagonal blocks, H formed on chip only; "
         "CUDA kernel",
 ))
@@ -221,8 +356,14 @@ REGISTRY.register(KernelSpec(
     fused_matvec=lambda p, x, w: ops.bell_fused_matvec(p[0], p[1], x, w),
     fused_matvec_acc=lambda p, x, w, y:
         ops.bell_fused_matvec_acc(p[0], p[1], x, w, y),
-    cost=_cost_not_ported,
+    cost=_bell_fused_cost,
     doc="fused blocked-ELL A @ (X W); each stored block transforms its "
         "gathered rows again (recompute traded for the H round trip); "
         "CUDA kernel",
 ))
+
+# one-file kernel registrations, in the reference's order (importing each
+# module registers its specs)
+from repro_torch.kernels import csr  # noqa: E402,F401
+from repro_torch.kernels import sell_cs  # noqa: E402,F401
+from repro_torch.kernels import tcgnn_tile  # noqa: E402,F401

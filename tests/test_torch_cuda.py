@@ -19,6 +19,7 @@ from repro_torch.kernels import bell_spmm as bell_mod
 from repro_torch.kernels import bell_spmm_fused as bellf_mod
 from repro_torch.kernels import block_diag_spmm as bd_mod
 from repro_torch.kernels import block_diag_spmm_fused as bdf_mod
+from repro_torch.kernels import tcgnn_tile as tc_mod
 from torch_parity import cuda_device  # noqa: F401  (fixture)
 
 
@@ -141,7 +142,9 @@ def test_cuda_dw_is_deterministic(cuda_device):  # noqa: F811
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("plan", [("block_diag", "bell"),
-                                  ("block_diag_fused", "bell_fused")])
+                                  ("block_diag_fused", "bell_fused"),
+                                  ("block_diag", "tcgnn_tile"),
+                                  ("block_diag_fused", "tcgnn_tile_fused")])
 def test_cuda_gradients_match_cpu(cuda_device, plan):  # noqa: F811
     """One loss.backward through the kernels' backward passes on the card
     against the same on the CPU (plain versions), from the same
@@ -151,7 +154,7 @@ def test_cuda_gradients_match_cpu(cuda_device, plan):  # noqa: F811
     g = graph_mod.synth_dataset("pubmed", 0.03, seed=0, comm_size=8,
                                 max_feat=32)
     cfg = gnn.GNNConfig(hidden=8, n_layers=2, comm_size=8,
-                        fixed_kernels=plan)
+                        selector="fixed", fixed_kernels=plan)
     params = gnn.init_model(torch.Generator().manual_seed(0), cfg,
                             g.features.shape[1], g.n_classes, device="cpu")
     grads = {}
@@ -167,3 +170,85 @@ def test_cuda_gradients_match_cpu(cuda_device, plan):  # noqa: F811
     for gc, gg in zip(grads["cpu"], grads[str(cuda_device)]):
         for k in gc:
             torch.testing.assert_close(gg[k], gc[k], **tp.F32_TOL)
+
+
+def _synthetic_tcgnn(gen, B: int, dev, nbr: int = 20, C: int = 256):
+    """Random condensed tiles (about 30 % non-zero) and gather rows."""
+    tiles = (torch.randn((nbr, B, C), generator=gen, device=dev)
+             * (torch.rand((nbr, B, C), generator=gen, device=dev) < 0.3))
+    gi = torch.randint(0, nbr * B, (nbr, C), generator=gen, device=dev,
+                       dtype=torch.int32)
+    return tiles, gi
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [8, 16, 32, 64])
+def test_cuda_tcgnn_kernels_match_plain(cuda_device, dtype, B):  # noqa: F811
+    """tcgnn_spmm at F in {3, 16, 500}, tcgnn_spmm_fused at the main
+    path's (Fi, Fo) and tcgnn_spmm_dw against their plain versions, with
+    and without y_in."""
+    tol = (tp.F32_TOL if dtype == torch.float32
+           else dict(atol=2e-1, rtol=3e-1))
+    dev = cuda_device
+    gen = torch.Generator(device=dev).manual_seed(200 + B)
+    tiles, gi = _synthetic_tcgnn(gen, B, dev)
+    n = tiles.shape[0] * B
+
+    def close(got, want):
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+
+    for F in (3, 16, 500):
+        x = torch.randn((n, F), generator=gen, device=dev).to(dtype)
+        for y_in in (None, torch.randn((n, F), generator=gen,
+                                       device=dev).to(dtype)):
+            close(tc_mod.tcgnn_spmm(tiles, gi, x, y_in),
+                  tc_mod.plain(tiles, gi, x, y_in))
+    for Fi, Fo in ((500, 16), (16, 3), (3, 16)):
+        x = torch.randn((n, Fi), generator=gen, device=dev).to(dtype)
+        w = (torch.randn((Fi, Fo), generator=gen, device=dev)
+             / Fi ** 0.5).to(dtype)
+        g = torch.randn((n, Fo), generator=gen, device=dev).to(dtype)
+        for y_in in (None, torch.randn((n, Fo), generator=gen,
+                                       device=dev).to(dtype)):
+            close(tc_mod.tcgnn_spmm_fused(tiles, gi, x, w, y_in),
+                  tc_mod.plain_fused(tiles, gi, x, w, y_in))
+        _close_dw(tc_mod.tcgnn_spmm_dw(tiles, gi, x, g),
+                  tc_mod.plain_dw(tiles, gi, x, g))
+
+
+@pytest.mark.cuda
+def test_cuda_tcgnn_dw_is_deterministic(cuda_device):  # noqa: F811
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    tiles, gi = _synthetic_tcgnn(gen, 16, cuda_device, nbr=300, C=128)
+    x = torch.randn((300 * 16, 500), generator=gen, device=cuda_device)
+    g = torch.randn((300 * 16, 16), generator=gen, device=cuda_device)
+    a = tc_mod.tcgnn_spmm_dw(tiles, gi, x, g)
+    b = tc_mod.tcgnn_spmm_dw(tiles, gi, x, g)
+    assert torch.equal(a, b)
+    _close_dw(a, tc_mod.plain_dw(tiles, gi, x, g))
+
+
+@pytest.mark.cuda
+def test_cuda_feedback_selection_probes_every_candidate(cuda_device):  # noqa: F811
+    """select_plan("feedback") on the card times every candidate, the
+    tcgnn kernels included, and commits a valid plan."""
+    from repro_torch.core import gnn
+    from repro_torch.core.plan import KernelPlan
+    from repro_torch.graphs import graph as graph_mod
+    from repro_torch.kernels.registry import REGISTRY
+    g = graph_mod.synth_dataset("pubmed", 0.03, seed=0, comm_size=8,
+                                max_feat=32)
+    cfg = gnn.GNNConfig(hidden=8, n_layers=2, comm_size=8)
+    dec = gnn.prepare(g, cfg, device=cuda_device)
+    before = (tc_mod.launches.value, tc_mod.fused_launches.value)
+    plan, probes = gnn.select_plan(dec, cfg, [(32, 8), (8, 3)])
+    torch.cuda.synchronize()
+    assert tc_mod.launches.value > before[0]
+    assert tc_mod.fused_launches.value > before[1]
+    assert KernelPlan.make(dec, plan).layers == plan.layers
+    want = {(s.name, k.name, fo) for s in dec.subgraphs
+            for k in REGISTRY.candidates_for(s, include_fused=True)
+            for fo in (8, 3)}
+    assert set(probes) == want and all(t > 0 for t in probes.values())

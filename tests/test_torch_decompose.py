@@ -1,5 +1,5 @@
-"""Port parity: core/decompose.py, core/plan.py and the fixed selector of
-core/gnn.py.  The reorder, the tier partition, the stats and every payload
+"""Port parity: core/decompose.py (every registered payload), core/plan.py
+and the fixed selector of core/gnn.py.  The reorder, the tier partition, the stats and every payload
 array are host numpy in the reference, so the port must equal them."""
 import torch_parity as tp  # noqa: I001  (first: pins torch to one thread)
 
@@ -19,9 +19,6 @@ from repro_torch.core import gnn as TGNN
 from repro_torch.core import plan as TP
 from repro_torch.graphs import graph as TG
 
-KERNELS = ("block_diag", "bell", "ell", "coo")
-
-
 def _port_graph(g):
     return TG.Graph(g.n, g.senders, g.receivers, g.features, g.labels,
                     g.n_classes, g.name)
@@ -38,7 +35,7 @@ def _pair(name="pubmed", scale=0.03, comm=8, k=1):
     """(reference, port) decompositions of one GCN-normalized graph."""
     g, vals = _gcn_inputs(name, scale, comm)
     ref = RD.decompose(g, comm_size=comm, method="bfs", edge_vals=vals,
-                       inter_buckets=k, kernels=KERNELS)
+                       inter_buckets=k)
     port = TD.decompose(_port_graph(g), comm_size=comm, method="bfs",
                         edge_vals=vals, inter_buckets=k, device="cpu")
     return ref, port
@@ -79,9 +76,10 @@ def test_materialized_payloads_identical():
     assert [s.name for s in ref.subgraphs] == [s.name for s in port.subgraphs]
     for rs, ps in zip(ref.subgraphs, port.subgraphs):
         assert set(rs.formats) == set(ps.formats)
+        assert rs.stats == ps.stats          # "kernels" names every spec
         for key, rp in rs.formats.items():
             pp = ps.formats[key]
-            if not isinstance(rp, tuple):       # bell is (bell, bell_t)
+            if not isinstance(rp, tuple):   # bell, tcgnn_tile are pairs
                 rp, pp = (rp,), (pp,)
             assert len(rp) == len(pp)
             for rf, pf in zip(rp, pp):
@@ -126,11 +124,9 @@ def test_select_plan_fixed_matches_reference():
     ref, port = _pair()
     rplan, _ = RGNN.select_plan(ref, RGNN.GNNConfig(selector="fixed"),
                                 [(32, 8), (8, 3)])
-    pplan, probes = TGNN.select_plan(port, TGNN.GNNConfig(), [(32, 8),
-                                                              (8, 3)])
+    pplan, probes = TGNN.select_plan(port, TGNN.GNNConfig(selector="fixed"),
+                                     [(32, 8), (8, 3)])
     assert pplan.layers == rplan.layers and probes == {}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TGNN.select_plan(port, TGNN.GNNConfig(selector="feedback"), [8, 3])
 
 
 @pytest.mark.parametrize("cfg", [

@@ -1,7 +1,9 @@
 """Port parity against the JAX reference where the reference compiles:
-the kernel modules (the reference's ``ops.*_matvec(_acc)`` run the Pallas
-kernels in interpret mode on the CPU) and the whole slice
-(``repro.core.gnn.forward`` from the reference's own parameters).
+the kernel modules (the reference's ``ops.*_matvec(_acc)`` and
+``tcgnn_tile.*_matvec(_acc)`` run the Pallas kernels in interpret mode on
+the CPU; ``csr``/``sell_cs`` are XLA there) and the whole slice
+(``repro.core.gnn.forward`` and ``train`` from the reference's own
+parameters).
 Float32 tolerance atol = rtol = 1e-4, the reference's own
 (tests/test_fused.py).
 
@@ -174,8 +176,134 @@ def test_training_curves_match_reference_from_its_params():
                                  g.features.shape[1], g.n_classes)
         params_np = [{k: np.asarray(a) for k, a in p.items()} for p in params]
         cfg = TGNN.GNNConfig(hidden=8, n_layers=2, comm_size=8,
-                             fixed_kernels=plan)
+                             selector="fixed", fixed_kernels=plan)
         port = TGNN.train(port_g, cfg, steps=5, device="cpu",
+                          params=from_jax_params(params_np, device="cpu"))
+        assert port.kernels == [tuple(k) for k in ref.kernels]
+        np.testing.assert_allclose(port.losses, ref.losses, atol=5e-3,
+                                   rtol=1e-2)
+
+
+BF16_TOL = dict(atol=2e-1, rtol=3e-1)       # tests/test_fused.py
+
+
+def _grads_ref(fn, args, cot):
+    """Output and input gradients of sum(fn(*args) * cot) in JAX."""
+    out = fn(*args)
+    grads = jax.grad(lambda *a: jnp.sum(fn(*a).astype(jnp.float32) * cot),
+                     argnums=tuple(range(len(args))))(*args)
+    return out, grads
+
+
+def _grads_port(fn, args, cot):
+    leaves = [a.clone().requires_grad_() for a in args]
+    out = fn(*leaves)
+    (out.float() * torch.from_numpy(cot)).sum().backward()
+    return out, [a.grad for a in leaves]
+
+
+def test_tcgnn_matvecs_match_reference_custom_vjps():
+    """tcgnn_matvec(_acc) and tcgnn_fused_matvec(_acc): outputs and the
+    gradients of every input (x, w, y_in) against jax.grad through the
+    reference's custom VJPs (Pallas interpret mode), float32 at 1e-4 and
+    bfloat16 at atol 2e-1 / rtol 3e-1."""
+    from repro.kernels import tcgnn_tile as RT
+    from repro_torch.kernels import tcgnn_tile as TT
+    n, B = 64, 8
+    r, c, v = tp.random_edges(n, 300, 21, block=B, spread=2)
+    ref_p = RT._tcgnn_build(RF.coo_from_edges(n, n, r, c, v),
+                            RF.coo_from_edges(n, n, c, r, v), B, {})
+    port_p = TF.to_device(TT._tcgnn_build(
+        TF.coo_from_edges(n, n, r, c, v), TF.coo_from_edges(n, n, c, r, v),
+        B, {}), tp.CPU)
+    rng = np.random.default_rng(22)
+    x, w, h, y_in, cot = (rng.standard_normal(s).astype(np.float32) for s in
+                          ((n, 5), (5, 3), (n, 3), (n, 3), (n, 3)))
+    cases = {
+        "mv": (lambda h: RT.tcgnn_matvec(*ref_p, h),
+               lambda h: TT.tcgnn_matvec(*port_p, h), (h,)),
+        "mv_acc": (lambda h, y: RT.tcgnn_matvec_acc(*ref_p, h, y),
+                   lambda h, y: TT.tcgnn_matvec_acc(*port_p, h, y),
+                   (h, y_in)),
+        "fmv": (lambda x, w: RT.tcgnn_fused_matvec(*ref_p, x, w),
+                lambda x, w: TT.tcgnn_fused_matvec(*port_p, x, w), (x, w)),
+        "fmv_acc": (lambda x, w, y: RT.tcgnn_fused_matvec_acc(*ref_p, x, w,
+                                                              y),
+                    lambda x, w, y: TT.tcgnn_fused_matvec_acc(*port_p, x, w,
+                                                              y),
+                    (x, w, y_in)),
+    }
+    for jdt, tdt, tol in ((jnp.float32, torch.float32, tp.F32_TOL),
+                          (jnp.bfloat16, torch.bfloat16, BF16_TOL)):
+        for name, (rfn, pfn, args) in cases.items():
+            ref_y, ref_g = _grads_ref(
+                rfn, [jnp.asarray(a).astype(jdt) for a in args], cot)
+            port_y, port_g = _grads_port(
+                pfn, [torch.from_numpy(a).to(tdt) for a in args], cot)
+            assert port_y.dtype == tdt, name
+            tp.assert_close(np.asarray(ref_y, np.float32), port_y.float(),
+                            **tol)
+            for rg, pg in zip(ref_g, port_g):
+                tp.assert_close(np.asarray(rg, np.float32), pg.float(), **tol)
+
+
+def test_csr_and_sell_match_reference():
+    """csr and sell_cs matvecs and their fused transforms: outputs and the
+    gradients of x and w against jax.grad through the reference's XLA
+    versions, float32 1e-4."""
+    from repro.kernels import csr as RCSR
+    from repro.kernels import sell_cs as RS
+    from repro_torch.kernels import csr as TCSR
+    from repro_torch.kernels import sell_cs as TS
+    n = 80
+    r, c, v = tp.random_edges(n, 420, 31)
+    rcoo, pcoo = RF.coo_from_edges(n, n, r, c, v), TF.coo_from_edges(
+        n, n, r, c, v)
+    rcsr = RF.coo_to_csr(rcoo)
+    pcsr = TF.to_device(TF.coo_to_csr(pcoo), tp.CPU)
+    rsell, psell = RS.coo_to_sell(rcoo), TF.to_device(TS.coo_to_sell(pcoo),
+                                                      tp.CPU)
+    rng = np.random.default_rng(32)
+    x, w, cot3, cot6 = (rng.standard_normal(s).astype(np.float32)
+                        for s in ((n, 6), (6, 3), (n, 3), (n, 6)))
+    cases = [
+        (lambda x: RCSR.csr_matvec(rcsr, x),
+         lambda x: TCSR.csr_matvec(pcsr, x), (x,), cot6),
+        (lambda x, w: RCSR.csr_transform_matvec(rcsr, x, w),
+         lambda x, w: TCSR.csr_transform_matvec(pcsr, x, w), (x, w), cot3),
+        (lambda x: RS.sell_matvec(rsell, x),
+         lambda x: TS.sell_matvec(psell, x), (x,), cot6),
+        (lambda x, w: RS.sell_transform_matvec(rsell, x, w),
+         lambda x, w: TS.sell_transform_matvec(psell, x, w), (x, w), cot3),
+    ]
+    for rfn, pfn, args, cot in cases:
+        ref_y, ref_g = _grads_ref(rfn, [jnp.asarray(a) for a in args], cot)
+        port_y, port_g = _grads_port(pfn, [torch.from_numpy(a)
+                                           for a in args], cot)
+        tp.assert_close(ref_y, port_y)
+        for rg, pg in zip(ref_g, port_g):
+            tp.assert_close(rg, pg)
+
+
+def test_tcgnn_plan_curves_match_reference_from_its_params():
+    """20 training steps through each tcgnn plan, the port's from the
+    reference's own initial parameters, against repro.core.gnn.train
+    (Pallas in interpret mode); curve tolerance atol 5e-3, rtol 1e-2, the
+    reference's own (tests/test_fused.py)."""
+    g = tp.ref_graph("pubmed", 0.03, comm_size=8, max_feat=32)
+    port_g = TG.Graph(g.n, g.senders, g.receivers, g.features, g.labels,
+                      g.n_classes, g.name)
+    for plan in (("block_diag", "tcgnn_tile"),
+                 ("block_diag_fused", "tcgnn_tile_fused")):
+        ref_cfg = RGNN.GNNConfig(hidden=8, n_layers=2, comm_size=8,
+                                 selector="fixed", fixed_kernels=plan)
+        ref = RGNN.train(g, ref_cfg, steps=20)
+        params = RGNN.init_model(jax.random.PRNGKey(ref_cfg.seed), ref_cfg,
+                                 g.features.shape[1], g.n_classes)
+        params_np = [{k: np.asarray(a) for k, a in p.items()} for p in params]
+        cfg = TGNN.GNNConfig(hidden=8, n_layers=2, comm_size=8,
+                             selector="fixed", fixed_kernels=plan)
+        port = TGNN.train(port_g, cfg, steps=20, device="cpu",
                           params=from_jax_params(params_np, device="cpu"))
         assert port.kernels == [tuple(k) for k in ref.kernels]
         np.testing.assert_allclose(port.losses, ref.losses, atol=5e-3,

@@ -243,8 +243,12 @@ def test_fused_aliases_build_nothing_and_leave_payloads_unchanged(
                            n_layers=2)
     assert plan.layers[0] == ("block_diag_fused", "bell_fused")
     assert [s.name for s in REGISTRY.candidates("diag")
-            if s.build is not None] == ["block_diag", "ell", "coo"]
-    assert "block_diag_fused" in [s.name for s in REGISTRY.candidates("diag")]
+            if s.build is not None] == ["block_diag", "ell", "coo", "csr",
+                                        "sell_cs"]
+    assert "block_diag_fused" in [
+        s.name for s in REGISTRY.candidates("diag", include_fused=True)]
+    assert "block_diag_fused" not in [s.name for s in
+                                      REGISTRY.candidates("diag")]
 
 
 def test_registry_rejects_alias_of_unregistered_payload():
@@ -273,7 +277,7 @@ def test_train_leaves_carried_params_untouched_and_learns():
     curves = {}
     for plan in PLANS[:2]:
         cfg = TGNN.GNNConfig(hidden=8, n_layers=2, comm_size=8,
-                             fixed_kernels=plan)
+                             selector="fixed", fixed_kernels=plan)
         res = TGNN.train(g, cfg, steps=4, device="cpu", params=params)
         assert res.kernels == [plan, plan]
         assert res.losses[-1] < res.losses[0]
@@ -287,7 +291,7 @@ def test_train_leaves_carried_params_untouched_and_learns():
 
 
 @pytest.mark.parametrize("field,value", [("sampler", "cluster"),
-                                         ("selector", "feedback")])
+                                         ("model", "sage")])
 def test_train_raises_for_unported_options(field, value):
     cfg = dataclasses.replace(TGNN.GNNConfig(hidden=8, comm_size=8),
                               **{field: value})
