@@ -9,8 +9,12 @@ twin ``("block_diag_fused", "bell_fused")`` and the column-condensed
 ``("block_diag", "tcgnn_tile")`` and ``("block_diag_fused",
 "tcgnn_tile_fused")``, and the main path: ``train`` with the default
 config, whose feedback selector times every registry candidate of every
-subgraph at both layer widths on the card and commits the fastest.  It
-goes through the eight hand-written CUDA kernels and checks every result.
+subgraph at both layer widths on the card and commits the fastest; then
+the same for GraphSAGE (``GNNConfig(model="sage")``): two fixed plans and
+its feedback main path.  It goes through the nine hand-written CUDA
+kernels and checks every result.  ``acc`` (the threaded accumulator, and
+SAGE's dual-weight kernel) takes its default, on for CUDA tensors, except
+where a phase names it.
 Run it from the root of a checkout with no arguments:
 
     python3 chip_smoke.py
@@ -60,11 +64,27 @@ Phases, each of which raises (exit code != 0) on failure:
    (whose self-loops follow the committed intra kernel: the block formats
    store a self-loop that add_self_loops duplicated once, the edge lists
    twice, as in the reference);
-7. timing: median forward and training-step times (CUDA events, host
-   launch included), each kernel's time at the main path's shapes beside
-   its plain version, one PyTorch library call (or composite) computing
-   the same function and its bound, and torch.profiler tables with the
-   device-busy share of a forward and of a training step per plan.
+7. SAGE: block_diag_spmm_dual against its plain version is in phase 2
+   (pubmed's SAGE diagonal blocks and B in {8, 32, 64}, the SAGE layers'
+   widths, float32 and bfloat16, y_in off and on, and the dual Function's
+   backward: dX at the kernel tolerance, dW and dW_self within 1e-5 of
+   max|dW|, the same bits twice).  Here: the logits of the fixed plans
+   ("block_diag_fused", "tcgnn_tile_fused") (the dual kernel at both
+   layers) and ("block_diag", "bell") (the seed path, no dual launch)
+   against an independent edge-list SAGE on the CPU (float32 1e-4); 20
+   training steps of each with launches per step asserted (2 dual
+   launches per step on the first); then gnn.train(graph,
+   GNNConfig(model="sage")) with feedback, its launches equal to the probe
+   calls plus what the committed plan implies; every curve must fall and
+   match the CPU run of the same plan and the edge-list SAGE trained with
+   autograd (atol 5e-3, rtol 1e-2);
+8. timing: median forward times (acc off and on) and training-step times
+   (CUDA events, host launch included; GCN's unfused and feedback plans
+   also with acc off, and the SAGE plans), each kernel's time at the main
+   path's shapes beside its plain version, one PyTorch library call (or
+   composite) computing the same function and its bound, and
+   torch.profiler tables with the device-busy share of a forward and of a
+   training step per plan.
 
 Float32 products run in full float32 (TF32 off for matmul and cuDNN).
 The last two lines are the kernels JSON and the device JSON.
@@ -119,6 +139,9 @@ KERNELS = {
     "tcgnn_spmm_dw": dict(
         source="src/repro_torch/kernels/csrc/tcgnn_spmm_dw.cu",
         replaces="src/repro/kernels/tcgnn_tile.py:442"),
+    "block_diag_spmm_dual": dict(
+        source="src/repro_torch/kernels/csrc/block_diag_spmm_dual.cu",
+        replaces="src/repro/kernels/block_diag_spmm_fused.py:117"),
 }
 FORWARD_KERNELS = ("block_diag_spmm", "bell_spmm")
 # the CUDA kernels each registry spec launches in a training step
@@ -158,17 +181,37 @@ PER_FORWARD = {"unfused": {"block_diag_spmm": 2, "bell_spmm": 2},
                "tcgnn_unfused": {"block_diag_spmm": 2, "tcgnn_spmm": 2},
                "tcgnn_fused": {"block_diag_spmm_fused": 2,
                                "tcgnn_spmm_fused": 2}}
+# SAGE (no self-loops, mean norm baked into the edge values) with acc on,
+# the default on the card.  The dual plan's diagonal tier is one dual
+# launch per layer forward, the transposed fused kernel for layer 2's dX and
+# the diagonal dW kernel per layer; the seed plan runs as GCN's unfused one.
+SAGE_PLANS = {"sage_dual": ("block_diag_fused", "tcgnn_tile_fused"),
+              "sage_unfused": ("block_diag", "bell")}
+SAGE_PER_STEP = {"sage_dual": {"block_diag_spmm_dual": 2,
+                               "block_diag_spmm_fused": 1, "bell_spmm_dw": 2,
+                               "tcgnn_spmm_fused": 3, "tcgnn_spmm_dw": 2},
+                 "sage_unfused": {"block_diag_spmm": 4, "bell_spmm": 4}}
+SAGE_PER_FORWARD = {"sage_dual": {"block_diag_spmm_dual": 2,
+                                  "tcgnn_spmm_fused": 2},
+                    "sage_unfused": {"block_diag_spmm": 2, "bell_spmm": 2}}
 
 
-def plan_launches(layers, steps: int) -> dict:
+def plan_launches(layers, steps: int, model: str = "gcn") -> dict:
     """CUDA-kernel launches of ``steps`` training steps and one forward of
-    a plan (one kernel-name tuple per layer), by the rules PER_STEP spells
-    out: an unfused kernel runs once forward and once backward; a fused one
-    once forward, once more for dX after the first layer, and its dW
-    kernel once."""
+    a plan (one kernel-name tuple per layer), by the rules PER_STEP and
+    SAGE_PER_STEP spell out: an unfused kernel runs once forward and once
+    backward; a fused one once forward, once more for dX after the first
+    layer, and its dW kernel once; SAGE's block_diag_fused on the diagonal
+    tier is the dual kernel forward, with the fused kernel's dX and the dW
+    kernel behind it."""
     out = {k: 0 for k in KERNELS}
     for li, layer in enumerate(layers):
-        for name in layer:
+        for si, name in enumerate(layer):
+            if model == "sage" and si == 0 and name == "block_diag_fused":
+                out["block_diag_spmm_dual"] += steps + 1
+                out["block_diag_spmm_fused"] += steps if li else 0
+                out["bell_spmm_dw"] += steps
+                continue
             kernels = SPEC_KERNELS.get(name, ())
             if not kernels:
                 continue                      # torch ops: no CUDA kernel
@@ -471,14 +514,17 @@ def edge_list_gcn(torch, graph, params) -> "torch.Tensor":
 
 
 def edge_list_train(torch, graph, params, steps: int, lr: float,
-                    edges=None) -> list:
+                    edges=None, forward=None) -> list:
     """Independent CPU reference for training: the edge-list GCN, the mean
     negative log-likelihood over every node, torch autograd, and Adam as
     the reference writes it (repro/core/gnn.py _adam_update) transcribed
     here.  ``edges`` holds one edge list per layer (default: each
-    duplicated self-loop once).  Returns the loss of each step."""
+    duplicated self-loop once); ``forward(feats, params)`` replaces the
+    GCN (the edge-list SAGE).  Returns the loss of each step."""
     if edges is None:
         edges = [edge_list(torch, graph)] * len(params)
+    if forward is None:
+        forward = lambda f, q: edge_list_forward(torch, f, edges, q)  # noqa: E731
     feats = torch.from_numpy(graph.features)
     labels = torch.from_numpy(graph.labels).long()
     p = [{k: v.detach().cpu().clone() for k, v in q.items()} for q in params]
@@ -489,8 +535,8 @@ def edge_list_train(torch, graph, params, steps: int, lr: float,
     for t in range(1, steps + 1):
         leaves = [{k: v.clone().requires_grad_() for k, v in q.items()}
                   for q in p]
-        loss = torch.nn.functional.cross_entropy(
-            edge_list_forward(torch, feats, edges, leaves), labels)
+        loss = torch.nn.functional.cross_entropy(forward(feats, leaves),
+                                                 labels)
         flat = [v for q in leaves for v in q.values()]
         grads = iter(torch.autograd.grad(loss, flat))
         losses.append(float(loss.detach()))
@@ -503,6 +549,32 @@ def edge_list_train(torch, graph, params, steps: int, lr: float,
                 vh = vq[k] / (1 - b2 ** t)
                 q[k] = q[k] - lr * mh / (torch.sqrt(vh) + eps)
     return losses
+
+
+def sage_edge_list(torch, graph):
+    """SAGE's edge list in original node order: (senders, receivers,
+    1/deg(dst)), without self-loops.  Every format stores each edge once
+    here: SAGE adds no self-loop that could be duplicated."""
+    from repro_torch.graphs import graph as graph_mod
+    vals = graph_mod.mean_norm_values(graph.n, graph.senders, graph.receivers)
+    return (torch.from_numpy(graph.senders).long(),
+            torch.from_numpy(graph.receivers).long(), torch.from_numpy(vals))
+
+
+def edge_list_sage(torch, feats, edges, params):
+    """Independent CPU reference: the GraphSAGE mean-aggregator forward,
+    X W_self + mean over in-neighbours of X W_neigh + b, with
+    ``index_add_`` over the edge list."""
+    snd, rcv, vals = edges
+    h = feats
+    for i, layer in enumerate(params):
+        hn = h @ layer["w_neigh"]
+        agg = torch.zeros((feats.shape[0], hn.shape[1])).index_add_(
+            0, rcv, hn[snd] * vals[:, None])
+        h = h @ layer["w_self"] + agg + layer["b"]
+        if i != len(params) - 1:
+            h = torch.relu(h)
+    return h
 
 
 def phase_main(torch, graph, cfg, dec, counts: dict):
@@ -1163,6 +1235,263 @@ def time_train_kernels(torch, dec, flush, bsr, bsr_t) -> dict:
     return rows
 
 
+def phase_kernels_dual(torch, sdec, errs: dict) -> None:
+    """block_diag_spmm_dual against its plain version on ``sdec``'s device
+    (pubmed's SAGE diagonal blocks and synthetic ones with B in {8, 32,
+    64}) at the SAGE layers' widths, float32 and bfloat16, y_in off and
+    on; then the dual Function's backward against autograd through the
+    plain version from unit-scale cotangents: dX at the kernel tolerance,
+    float32 dW and dW_self within DW_REL_TOL of their largest entry
+    (bfloat16 ones at the bfloat16 tolerance), the same bits on a second
+    backward.  Adds the largest errors to ``errs``."""
+    from repro_torch.kernels import block_diag_spmm_fused as bdf_mod
+    from repro_torch.kernels import ops
+    dev = sdec.device
+    gen = torch.Generator(device=dev).manual_seed(6)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    cases = [("pubmed", sdec.intra.formats["block_diag"].blocks)] + [
+        (f"B={B}", randn(40, B, B)) for B in (8, 32, 64)]
+    name, err, n_cases = "block_diag_spmm_dual", errs["block_diag_spmm_dual"], 0
+    for dtype in (torch.float32, torch.bfloat16):
+        key = str(dtype).removeprefix("torch.")
+        tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+        for where, blocks in cases:
+            blocks = blocks.to(dtype)
+            n = blocks.shape[0] * blocks.shape[1]
+            logged = where == "pubmed"
+            for Fi, Fo in WIDTHS[:2]:
+                x = randn(n, Fi).to(dtype)
+                w = (randn(Fi, Fo) / Fi ** 0.5).to(dtype)
+                ws = (randn(Fi, Fo) / Fi ** 0.5).to(dtype)
+                for with_y in (False, True):
+                    y_in = randn(n, Fo).to(dtype) if with_y else None
+                    got = bdf_mod.block_diag_spmm_dual(blocks, x, w, ws, y_in)
+                    want = bdf_mod.plain_dual(blocks, x, w, ws, y_in)
+                    sync(torch, dev)
+                    torch.testing.assert_close(got.float(), want.float(),
+                                               **tol)
+                    e = max_err(got, want)
+                    err[key] = max(err[key], e)
+                    n_cases += 1
+                    if logged:
+                        log("kernel", f"{name} {key} {where} {Fi}x{Fo} "
+                            f"y_in={with_y}: max|err| {e:.3g}")
+                cot = randn(n, Fo).to(dtype).float()
+                grads = []
+                for fn in (lambda *a: ops.block_diag_dual_matvec(blocks, *a),
+                           lambda *a: ops.block_diag_dual_matvec(blocks, *a),
+                           lambda *a: bdf_mod.plain_dual(blocks, *a)):
+                    leaves = [a.clone().requires_grad_() for a in (x, w, ws)]
+                    (fn(*leaves).float() * cot).sum().backward()
+                    grads.append([a.grad for a in leaves])
+                sync(torch, dev)
+                (dx, dw, dws), again, (wdx, wdw, wdws) = grads
+                torch.testing.assert_close(dx.float(), wdx.float(), **tol)
+                if not all(torch.equal(a, b) for a, b in zip(grads[0],
+                                                             again)):
+                    raise RuntimeError(f"{name} backward gave other bits on "
+                                       "a second run")
+                if dtype == torch.float32:
+                    rel = max(dw_rel_err(dw, wdw, f"{name} dW {where}"),
+                              dw_rel_err(dws, wdws, f"{name} dW_self {where}"))
+                else:
+                    for a, b in ((dw, wdw), (dws, wdws)):
+                        torch.testing.assert_close(a.float(), b.float(), **tol)
+                    rel = max(max_err(dw, wdw) / float(wdw.abs().max()),
+                              max_err(dws, wdws) / float(wdws.abs().max()))
+                err[f"{key}_rel"] = max(err.get(f"{key}_rel", 0.0), rel)
+                err[key] = max(err[key], max_err(dx, wdx))
+                n_cases += 1
+                if logged:
+                    log("kernel", f"{name} backward {key} {where} {Fi}x{Fo}: "
+                        f"max|dX err| {max_err(dx, wdx):.3g}, dW and dW_self "
+                        f"/ max|dW| {rel:.3g} (same bits twice)")
+    log("kernel", f"{n_cases} {name} cases within tolerance (pubmed's SAGE "
+        f"blocks and B in 8, 32, 64); largest errors {err}")
+
+
+def phase_sage_train(torch, graph, dec, counts: dict) -> dict:
+    """SAGE on ``dec`` (its decomposition on the card): logits of each
+    fixed plan against the edge-list SAGE, then gnn.train for each fixed
+    plan from one parameter set, the launch counts set to 0 just before
+    and read just after; checks the counts against SAGE_PER_STEP (2 dual
+    launches per step on the dual plan) and each curve against the CPU's
+    and the edge-list SAGE's."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.core import adaptgear, gnn
+    cfg = gnn.GNNConfig(model="sage", selector="fixed")
+    in_dim, n_classes = graph.features.shape[1], graph.n_classes
+    params = gnn.init_model(torch.Generator().manual_seed(cfg.seed), cfg,
+                            in_dim, n_classes, device="cpu")
+    for name, pair in SAGE_PLANS.items():
+        want = {k: TRAIN_STEPS * SAGE_PER_STEP[name].get(k, 0)
+                + SAGE_PER_FORWARD[name].get(k, 0) for k in counts}
+        if plan_launches((pair, pair), TRAIN_STEPS, "sage") != want:
+            raise RuntimeError(f"{name}: SAGE_PER_STEP disagrees with "
+                               "plan_launches")
+    edges = sage_edge_list(torch, graph)
+    feats = torch.from_numpy(graph.features)
+    edge_ref = edge_list_sage(torch, feats, edges, params)
+    x = adaptgear.to_reordered(dec, feats.cuda())
+    p_dev = [{k: v.cuda() for k, v in p.items()} for p in params]
+    for name, pair in SAGE_PLANS.items():
+        y = gnn.forward(p_dev, cfg, dec, x, pair)
+        if tuple(y.shape) != (dec.n_pad, n_classes) or not bool(
+                torch.isfinite(y).all()):
+            raise RuntimeError(f"{name}: logits {tuple(y.shape)}, finite "
+                               f"{bool(torch.isfinite(y).all())}")
+        y_orig = adaptgear.from_reordered(dec, y).cpu()
+        torch.testing.assert_close(y_orig, edge_ref, **F32_TOL)
+        log("sage", f"{name} {pair}: logits max|card - edge-list SAGE| "
+            f"{max_err(y_orig, edge_ref):.3g}")
+
+    results, used = {}, {}
+    for c in counts.values():
+        c.reset()
+    for name, pair in SAGE_PLANS.items():
+        before = {k: c.value for k, c in counts.items()}
+        results[name] = gnn.train(
+            graph, dataclasses.replace(cfg, fixed_kernels=pair),
+            steps=TRAIN_STEPS, device="cuda", params=params)
+        torch.cuda.synchronize()
+        used[name] = {k: c.value - before[k] for k, c in counts.items()}
+    launches = {k: c.value for k, c in counts.items()}
+    log("sage", f"launches over both runs {launches}")
+
+    edge_losses = edge_list_train(
+        torch, graph, params, TRAIN_STEPS, cfg.lr,
+        forward=lambda f, q: edge_list_sage(torch, f, edges, q))
+    for name, pair in SAGE_PLANS.items():
+        r = results[name]
+        want = {k: TRAIN_STEPS * SAGE_PER_STEP[name].get(k, 0)
+                + SAGE_PER_FORWARD[name].get(k, 0) for k in counts}
+        if used[name] != want:
+            raise RuntimeError(f"{name}: launches {used[name]}, expected "
+                               f"{want} ({TRAIN_STEPS} steps and one "
+                               "forward)")
+        losses = np.asarray(r.losses)
+        if losses.shape != (TRAIN_STEPS,) or not np.isfinite(losses).all():
+            raise RuntimeError(f"{name}: losses {r.losses}")
+        if not losses[-1] < losses[0]:
+            raise RuntimeError(f"{name}: the loss did not fall: {r.losses}")
+        cpu = gnn.train(graph, dataclasses.replace(cfg, fixed_kernels=pair),
+                        steps=TRAIN_STEPS, device="cpu", params=params)
+        np.testing.assert_allclose(losses, cpu.losses, **CURVE_TOL)
+        np.testing.assert_allclose(losses, edge_losses, **CURVE_TOL)
+        log("sage", f"{name} {pair}: {TRAIN_STEPS} steps, launches "
+            f"{ {k: v for k, v in used[name].items() if v} } = "
+            f"{TRAIN_STEPS} x {SAGE_PER_STEP[name]} + one forward; losses "
+            f"{losses[0]:.6f} -> {losses[-1]:.6f}, accuracy {r.accuracy:.4f}, "
+            f"step {r.step_seconds * 1e3:.3f} ms (host clock, loss read every "
+            f"step); max|card - cpu| {np.abs(losses - cpu.losses).max():.3g}, "
+            f"max|card - edge-list SAGE| "
+            f"{np.abs(losses - edge_losses).max():.3g}")
+    return dict(results=results, launches=launches, used=used,
+                params=params, dec=dec, x=x, edge_losses=edge_losses)
+
+
+def phase_sage_feedback(torch, graph, counts: dict, sage: dict) -> dict:
+    """The SAGE main path: gnn.train(graph, GNNConfig(model="sage")) with
+    the feedback selector, launch counts set to 0 just before and read just
+    after; they must equal the probe calls plus what the committed plan
+    implies (the dual kernel only where the plan committed
+    block_diag_fused on the diagonal tier).  The curve must fall and match
+    the same plan on the CPU and the edge-list SAGE."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.core import gnn
+    fb_cfg = gnn.GNNConfig(model="sage")
+    params = sage["params"]
+    for c in counts.values():
+        c.reset()
+    t0 = time.perf_counter()
+    res = gnn.train(graph, fb_cfg, steps=TRAIN_STEPS, device="cuda",
+                    params=params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: c.value for k, c in counts.items()}
+    plan = res.plan
+    n_probe = 2 * (1 + fb_cfg.warmup_iters)
+    probed = ("block_diag_spmm", "bell_spmm", "block_diag_spmm_fused",
+              "bell_spmm_fused", "tcgnn_spmm", "tcgnn_spmm_fused")
+    trained = plan_launches(plan.layers, TRAIN_STEPS, "sage")
+    want = {k: trained[k] + (n_probe if k in probed else 0) for k in counts}
+    if launches != want:
+        raise RuntimeError(f"SAGE feedback launches {launches}, expected "
+                           f"{want}: {n_probe} probe calls of each forward "
+                           f"kernel and {trained} for {TRAIN_STEPS} steps "
+                           "and one forward")
+    log("sage-feedback", f"gnn.train(graph, GNNConfig(model='sage')) "
+        f"{TRAIN_STEPS} steps in {wall:.2f} s (selection included); "
+        f"committed plan {plan.layers}; block_diag_spmm_dual launches "
+        f"{launches['block_diag_spmm_dual']} (the plan implies "
+        f"{trained['block_diag_spmm_dual']}); launches = {n_probe} probe "
+        f"calls of each of {probed} + the committed plan's "
+        f"{ {k: v for k, v in trained.items() if v} }")
+    losses = np.asarray(res.losses)
+    if losses.shape != (TRAIN_STEPS,) or not np.isfinite(losses).all():
+        raise RuntimeError(f"SAGE feedback: losses {res.losses}")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"SAGE feedback: the loss did not fall: "
+                           f"{res.losses}")
+    cpu = gnn.train(graph, dataclasses.replace(
+        fb_cfg, selector="fixed", fixed_kernels=plan.layers),
+        steps=TRAIN_STEPS, device="cpu", params=params)
+    if cpu.kernels != res.kernels:
+        raise RuntimeError(f"cpu plan {cpu.kernels} != {res.kernels}")
+    np.testing.assert_allclose(losses, cpu.losses, **CURVE_TOL)
+    np.testing.assert_allclose(losses, sage["edge_losses"], **CURVE_TOL)
+    log("sage-feedback", f"losses {losses[0]:.6f} -> {losses[-1]:.6f}, "
+        f"accuracy {res.accuracy:.4f}, step {res.step_seconds * 1e3:.3f} ms "
+        f"(host clock); max|card - cpu| "
+        f"{np.abs(losses - cpu.losses).max():.3g}, max|card - edge-list "
+        f"SAGE| {np.abs(losses - sage['edge_losses']).max():.3g}")
+    return dict(result=res, launches=launches, plan=plan)
+
+
+def time_dual_kernel(torch, sdec, flush) -> dict:
+    """block_diag_spmm_dual on pubmed's SAGE diagonal blocks (L2 flushed)
+    at both layers' widths, beside its plain version, the library
+    composite bmm(A, X W) + X W_self and its bound: the blocks, x, both
+    weights read once and y written once; 4 n Fi Fo + 2 nb B B Fo flops."""
+    from repro_torch.kernels import block_diag_spmm_fused as bdf_mod
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    blocks = sdec.intra.formats["block_diag"].blocks
+    nb, B = blocks.shape[0], blocks.shape[1]
+    n, be = sdec.n_pad, 4
+    rows = {}
+    for Fi, Fo in WIDTHS[:2]:
+        x = torch.randn((n, Fi), generator=gen, device="cuda")
+        w = torch.randn((Fi, Fo), generator=gen, device="cuda") / Fi ** 0.5
+        ws = torch.randn((Fi, Fo), generator=gen, device="cuda") / Fi ** 0.5
+        lib = lambda: (torch.bmm(blocks, (x @ w).view(nb, B, Fo))  # noqa: E731
+                       .view(n, Fo) + x @ ws)
+        torch.testing.assert_close(lib(), bdf_mod.plain_dual(blocks, x, w,
+                                                             ws), **F32_TOL)
+        b_ms, b_by = bound((nb * B * B + n * Fi + 2 * Fi * Fo + n * Fo) * be,
+                           4.0 * n * Fi * Fo + 2.0 * nb * B * B * Fo,
+                           "float32")
+        rows[f"{Fi}x{Fo}"] = r = dict(
+            ms=graph_ms(torch, lambda: bdf_mod.block_diag_spmm_dual(
+                blocks, x, w, ws), flush),
+            plain_ms=graph_ms(torch, lambda: bdf_mod.plain_dual(
+                blocks, x, w, ws), flush),
+            library_ms=graph_ms(torch, lib, flush),
+            library_call="torch.bmm(blocks, (x @ w).view(nb, B, Fo)) "
+                         "+ x @ w_self",
+            bound_ms=b_ms, bound_by=b_by,
+            shape=[list(blocks.shape), [n, Fi], [Fi, Fo]])
+        log("timing", f"block_diag_spmm_dual {Fi}x{Fo}: {r['ms']:.4f} ms "
+            f"(L2 cold), plain {r['plain_ms']:.4f} ms, library "
+            f"{r['library_ms']:.4f} ms ({r['library_call']}), bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return {"block_diag_spmm_dual": rows}
+
+
 def profile_busy(torch, fn, iters: int, median_ms: float, what: str):
     """Device time per call of ``fn`` from torch.profiler, its top kernels,
     and its share of ``median_ms``; None where the profiler saw no device
@@ -1237,7 +1566,8 @@ def main() -> int:
               "bell_spmm_dw": bellf_mod.dw_launches,
               "tcgnn_spmm": tc_mod.launches,
               "tcgnn_spmm_fused": tc_mod.fused_launches,
-              "tcgnn_spmm_dw": tc_mod.dw_launches}
+              "tcgnn_spmm_dw": tc_mod.dw_launches,
+              "block_diag_spmm_dual": bdf_mod.dual_launches}
 
     # 1. build ---------------------------------------------------------------
     phase_build(torch)
@@ -1264,11 +1594,20 @@ def main() -> int:
         f"({int((tc.tiles != 0).any(dim=1).sum())} and "
         f"{int((tc_t.tiles != 0).any(dim=1).sum())} real slots); payloads: "
         + ", ".join(f"{s.name} {sorted(s.formats)}" for s in dec.subgraphs))
+    sage_cfg = gnn.GNNConfig(model="sage", selector="fixed")
+    t0 = time.perf_counter()
+    sdec = gnn.prepare(graph, sage_cfg, device="cuda")
+    torch.cuda.synchronize()
+    log("prepare", f"SAGE (no self-loops, mean norm): "
+        f"{time.perf_counter() - t0:.2f} s; n_pad={sdec.n_pad}; block_diag "
+        f"{tuple(sdec.intra.formats['block_diag'].blocks.shape)}; nnz "
+        + ", ".join(f"{s.name} {s.stats['nnz']}" for s in sdec.subgraphs))
 
     # 2. kernels against their plain versions --------------------------------
     errs = phase_kernels(torch, dec)
     phase_kernels_train(torch, dec, errs)
     phase_kernels_tcgnn(torch, dec, errs)
+    phase_kernels_dual(torch, sdec, errs)
 
     # 3. forward -------------------------------------------------------------
     plan, params, x, launches_fwd = phase_main(torch, graph, cfg, dec, counts)
@@ -1283,35 +1622,49 @@ def main() -> int:
     phase_grads(torch, graph, cfg, dec)
     trained = phase_train(torch, graph, cfg, counts)
     fb = phase_feedback(torch, graph, cfg, dec, counts, trained["params"])
+    # 7. SAGE: fixed plans, then its main path -------------------------------
+    sage = phase_sage_train(torch, graph, sdec, counts)
+    sfb = phase_sage_feedback(torch, graph, counts, sage)
     by_path = {"forward": launches_fwd, "train": trained["launches"],
-               "feedback": fb["launches"]}
+               "feedback": fb["launches"], "sage_train": sage["launches"],
+               "sage_feedback": sfb["launches"]}
     launches = {k: sum(p[k] for p in by_path.values()) for k in counts}
     for k, v in launches.items():
         if v == 0:
             raise RuntimeError(f"{k} was never launched by the paths driven")
 
-    # 7. timing --------------------------------------------------------------
+    # 8. timing --------------------------------------------------------------
     fwd_ms = {acc: eager_ms(torch, lambda acc=acc: gnn.forward(
         params, cfg, dec, x, plan, acc=acc)) for acc in (False, True)}
     log("timing", f"forward median (CUDA events, host launch included): "
         f"acc=False {fwd_ms[False]:.4f} ms, acc=True {fwd_ms[True]:.4f} ms")
 
-    # one training step per plan, in turns (unfused, fused, fused, unfused)
-    labels, mask = gnn.node_targets(graph, dec)
-    p0 = [{k: v.cuda() for k, v in q.items()} for q in trained["params"]]
-    step_plans = dict(PLANS, feedback=fb["plan"])
-    steps = {name: gnn.make_train_step(cfg, dec, pair)
-             for name, pair in step_plans.items()}
-    opt0 = gnn._adam_init(p0)
-    step_runs = {name: [] for name in step_plans}
-    for name in list(step_plans) + list(step_plans)[::-1]:
-        step_runs[name].append(eager_ms(torch, lambda name=name: steps[name](
-            p0, opt0, x, labels, mask)))
+    # one training step per plan, in turns (unfused, fused, ..., fused,
+    # unfused); acc is on (the card's default) unless the name says off
+    def step_fn(model_cfg, d, pair, p, xx, acc=None):
+        labels, mask = gnn.node_targets(graph, d)
+        p = [{k: v.cuda() for k, v in q.items()} for q in p]
+        opt = gnn._adam_init(p)
+        step = gnn.make_train_step(model_cfg, d, pair, acc=acc)
+        return lambda: step(p, opt, xx, labels, mask)
+
+    steps = {name: step_fn(cfg, dec, pair, trained["params"], x)
+             for name, pair in dict(PLANS, feedback=fb["plan"]).items()}
+    steps["unfused acc off"] = step_fn(cfg, dec, PLANS["unfused"],
+                                       trained["params"], x, acc=False)
+    steps["feedback acc off"] = step_fn(cfg, dec, fb["plan"],
+                                        trained["params"], x, acc=False)
+    for name, pair in dict(SAGE_PLANS, sage_feedback=sfb["plan"]).items():
+        steps[name] = step_fn(sage_cfg, sdec, pair, sage["params"],
+                              sage["x"])
+    step_runs = {name: [] for name in steps}
+    for name in list(steps) + list(steps)[::-1]:
+        step_runs[name].append(eager_ms(torch, steps[name]))
     step_ms = {name: statistics.mean(v) for name, v in step_runs.items()}
     log("timing", "training step median (CUDA events, host launch "
         "included; two runs each, in turns): " + ", ".join(
             f"{n} {step_runs[n][0]:.4f} / {step_runs[n][1]:.4f} ms"
-            for n in step_plans))
+            for n in steps))
 
     scratch = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
     flush = scratch.zero_
@@ -1367,13 +1720,14 @@ def main() -> int:
     rows.update(time_train_kernels(torch, dec, flush, bsr,
                                    bsr_of(torch, bell_t)))
     rows.update(time_tcgnn_kernels(torch, dec, flush))
+    rows.update(time_dual_kernel(torch, sdec, flush))
     del scratch
 
     busy = profile_busy(torch, lambda: gnn.forward(params, cfg, dec, x, plan),
-                        5, fwd_ms[False], "forward")
-    busy_step = {name: profile_busy(
-        torch, lambda name=name: steps[name](p0, opt0, x, labels, mask), 5,
-        step_ms[name], f"{name} step") for name in step_plans}
+                        5, fwd_ms[True], "forward")
+    busy_step = {name: profile_busy(torch, fn, 5, step_ms[name],
+                                    f"{name} step")
+                 for name, fn in steps.items()}
 
     out = []
     for name, meta in KERNELS.items():
@@ -1384,12 +1738,13 @@ def main() -> int:
             name=name, route="cuda", source=meta["source"],
             replaces=meta["replaces"], launches=launches[name],
             launches_by_path={p: c[name] for p, c in by_path.items()},
-            launches_per_step={p: PER_STEP[p].get(name, 0) for p in PLANS},
+            launches_per_step={p: t.get(name, 0) for p, t in
+                               dict(PER_STEP, **SAGE_PER_STEP).items()},
             max_abs_err=errs[name]["float32"],
             max_abs_err_bf16=errs[name]["bfloat16"],
             **({"max_rel_err": errs[name]["float32_rel"],
                 "max_rel_err_bf16": errs[name]["bfloat16_rel"]}
-               if name.endswith("_dw") else {}),
+               if "float32_rel" in errs[name] else {}),
             ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"],
@@ -1402,7 +1757,10 @@ def main() -> int:
         f"agrees {fb['agree'][0]} of {fb['agree'][1]}; train losses "
         + json.dumps(dict({n: r.losses for n, r in
                            trained["results"].items()},
-                          feedback=fb["result"].losses)))
+                          feedback=fb["result"].losses,
+                          sage_feedback=sfb["result"].losses,
+                          **{n: r.losses for n, r in
+                             sage["results"].items()})))
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,14 +1,22 @@
-"""AdaptGear aggregation dispatch + the GCN convolution (paper §3/§4).
+"""AdaptGear aggregation dispatch + the GCN and SAGE convolutions (paper
+§3/§4).
 
-Counterpart of ``repro/core/adaptgear.py`` for GCN.
+Counterpart of ``repro/core/adaptgear.py`` for GCN and SAGE.
 ``aggregate`` computes Y = sum_s A_s @ X over the decomposition's
 subgraphs with one registry kernel per subgraph.  With ``acc=True`` one
 output buffer is threaded through the subgraph list (the kernels' ``y_in``
-variants); with ``acc=False`` each subgraph's partial is added
-explicitly.  Both give the same sums up to float32 ordering.
+variants), and SAGE's self term rides the diagonal tier's dual-weight
+kernel where the plan committed ``block_diag_fused``; with ``acc=False``
+each subgraph's partial is added explicitly and the self term is one
+dense product.  Both give the same sums up to float32 ordering.
+
+``acc=None`` resolves by device, as the reference resolves it by backend
+(on where its kernels run, the TPU; off on its CPU): on for CUDA tensors,
+where this port's kernels run, off for CPU ones.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Sequence
 
@@ -56,11 +64,17 @@ def aggregate_sub_fused(sub: Subgraph, x: torch.Tensor, w: torch.Tensor,
     return spec.fused_matvec(sub.formats[spec.payload_key], x, w)
 
 
+def _resolve_acc(acc: bool | None, x: torch.Tensor) -> bool:
+    """``acc=None`` is on for CUDA tensors and off for CPU ones."""
+    return x.device.type == "cuda" if acc is None else acc
+
+
 def aggregate(dec: Decomposed, x: torch.Tensor,
               kernels: Sequence[str] = DEFAULT_KERNELS, *,
-              acc: bool = False) -> torch.Tensor:
+              acc: bool | None = None) -> torch.Tensor:
     """Y = A @ X via per-subgraph kernels (x reordered, (n_pad, F)).
     Fused kernels need a weight: see :func:`aggregate_transform`."""
+    acc = _resolve_acc(acc, x)
     names = plan_mod.normalize_layer(dec, kernels)
     y = None
     for sub, k in zip(dec.subgraphs, names):
@@ -81,20 +95,29 @@ def aggregate(dec: Decomposed, x: torch.Tensor,
 def aggregate_transform(dec: Decomposed, x: torch.Tensor, w: torch.Tensor,
                         kernels: Sequence[str] = DEFAULT_KERNELS,
                         bias: torch.Tensor | None = None, *,
-                        acc: bool = False) -> torch.Tensor:
-    """Y = A @ (X W) (+ bias), transform first, with per-subgraph fused or
-    unfused kernels.
+                        seed: torch.Tensor | None = None,
+                        h: torch.Tensor | None = None,
+                        acc: bool | None = None) -> torch.Tensor:
+    """Y = A @ (X W) (+ bias / + seed), transform first, with per-subgraph
+    fused or unfused kernels.
 
     Fused kernels take the raw features and the weight (H = X W never
     reaches device memory).  H is one dense ``torch.matmul`` (the reference
     leaves it to XLA, outside any Pallas kernel), formed once and only if
-    some subgraph picked an unfused kernel.  The bias seeds the threaded
-    accumulator."""
+    some subgraph picked an unfused kernel, unless ``h`` supplies it.  The
+    bias, or a full (n, Fo) ``seed`` (an epilogue's self term), seeds the
+    threaded accumulator."""
+    acc = _resolve_acc(acc, x)
     names = plan_mod.normalize_layer(dec, kernels)
     specs = [REGISTRY.get(k) for k in names]
-    h = x @ w if any(not s.fused for s in specs) else None
+    if h is None:
+        h = x @ w if any(not s.fused for s in specs) else None
     y = None
-    if bias is not None:
+    if seed is not None:
+        if bias is not None:
+            raise ValueError("pass either bias or seed, not both")
+        y = seed.to(x.dtype)
+    elif bias is not None:
         y = bias.to(x.dtype).expand(x.shape[0], w.shape[-1])
     for sub, spec in zip(dec.subgraphs, specs):
         payload = sub.formats[spec.payload_key]
@@ -112,6 +135,42 @@ def aggregate_transform(dec: Decomposed, x: torch.Tensor, w: torch.Tensor,
         else:
             y = y + spec.matvec(payload, h)
     return y
+
+
+def aggregate_transform_dual(dec: Decomposed, x: torch.Tensor,
+                             w: torch.Tensor, w_self: torch.Tensor,
+                             kernels: Sequence[str] = DEFAULT_KERNELS,
+                             bias: torch.Tensor | None = None, *,
+                             acc: bool | None = None) -> torch.Tensor:
+    """Y = X W_self + A @ (X W) (+ bias): the dual-weight (SAGE) epilogue.
+
+    The mean normalization is baked into the decomposition's edge values
+    (``core.gnn.prepare``), so ``A @ (X W)`` is the normalized neighbour
+    term.  With ``acc`` on and ``block_diag_fused`` committed on the first
+    tier, its ``fused_dual_matvec`` hook computes that tier's term and the
+    self term in one kernel from one on-chip copy of X's rows, and seeds
+    the rest of the accumulation; otherwise the self term is one dense
+    product that seeds it."""
+    acc = _resolve_acc(acc, x)
+    names = plan_mod.normalize_layer(dec, kernels)
+    first = REGISTRY.get(names[0])
+    if acc and first.fused_dual_matvec is not None:
+        payload = dec.subgraphs[0].formats[first.payload_key]
+        if bias is not None and first.fused_dual_matvec_acc is not None:
+            y0 = bias.to(x.dtype).expand(x.shape[0], w.shape[-1])
+            seed = first.fused_dual_matvec_acc(payload, x, w, w_self, y0)
+        else:
+            seed = first.fused_dual_matvec(payload, x, w, w_self)
+            if bias is not None:
+                seed = seed + bias.to(x.dtype)
+        rest, rest_names = dec.subgraphs[1:], names[1:]
+    else:
+        seed = x @ w_self
+        if bias is not None:
+            seed = seed + bias.to(x.dtype)
+        rest, rest_names = dec.subgraphs, names
+    sub_dec = dataclasses.replace(dec, subgraphs=tuple(rest), stats=None)
+    return aggregate_transform(sub_dec, x, w, rest_names, seed=seed, acc=acc)
 
 
 # ---------------------------------------------------------------------------
@@ -136,8 +195,40 @@ def init_gcn_conv(generator: torch.Generator, in_dim: int, out_dim: int,
 
 
 def gcn_conv(params: dict, dec: Decomposed, x: torch.Tensor,
-             kernels: Sequence[str], *, acc: bool = False) -> torch.Tensor:
+             kernels: Sequence[str], *,
+             acc: bool | None = None) -> torch.Tensor:
     """GCN layer: Y = Â (X W) + b (Kipf & Welling; Â's norm is baked into
     the decomposition's edge values)."""
     return aggregate_transform(dec, x, params["w"], kernels,
                                bias=params["b"], acc=acc)
+
+
+def init_sage_conv(generator: torch.Generator, in_dim: int, out_dim: int,
+                   device: str | torch.device = DEFAULT_DEVICE) -> dict:
+    """SAGE layer parameters: glorot-uniform ``w_self`` then ``w_neigh``
+    (in_dim, out_dim), drawn in that order from the CPU ``generator``, and
+    zero ``b`` (out_dim,)."""
+    dev = resolve_device(device)
+    w_self = _glorot(generator, (in_dim, out_dim))
+    w_neigh = _glorot(generator, (in_dim, out_dim))
+    return dict(w_self=w_self.to(dev), w_neigh=w_neigh.to(dev),
+                b=torch.zeros((out_dim,), dtype=torch.float32, device=dev))
+
+
+def sage_conv(params: dict, dec: Decomposed, x: torch.Tensor,
+              kernels: Sequence[str],
+              inv_deg: torch.Tensor | None = None, *,
+              acc: bool | None = None) -> torch.Tensor:
+    """GraphSAGE mean aggregator: W_self x + W_neigh mean_agg(x) + b.
+
+    With ``inv_deg=None`` the decomposition's edge values carry the mean
+    normalization (``core.gnn.prepare``), W_neigh pushes through the
+    aggregation and the layer is :func:`aggregate_transform_dual`.  With
+    ``inv_deg`` (n_pad,) it is the unbaked form for unnormalized edge
+    values: aggregate x, rescale each row, transform after."""
+    if inv_deg is not None:
+        agg = aggregate(dec, x, kernels, acc=acc) * inv_deg[:, None]
+        return x @ params["w_self"] + agg @ params["w_neigh"] + params["b"]
+    return aggregate_transform_dual(dec, x, params["w_neigh"],
+                                    params["w_self"], kernels,
+                                    bias=params["b"], acc=acc)

@@ -1,15 +1,17 @@
-"""Full-batch GCN inference and training on top of AdaptGear aggregation.
+"""Full-batch GCN and GraphSAGE inference and training on top of
+AdaptGear aggregation.
 
 Counterpart of ``repro/core/gnn.py``: ``prepare`` -> ``init_model`` ->
 ``select_plan`` -> ``forward``, and ``train`` (masked NLL, gradients
 through the kernels' backward passes, the reference's hand-written Adam).
-Ported so far: the GCN model with all three selectors.  ``feedback``, the
-default as in the reference, times every registry candidate of every
-subgraph at every layer width on the device that trains and commits the
-fastest (``core/selector.py``); ``cost_model`` ranks them by the analytic
-model of that device; ``fixed`` applies ``fixed_kernels``.  Other models,
-bucket autotuning and mini-batch sampling raise ``NotImplementedError``
-naming the ROADMAP slice that brings them.
+Ported so far: the GCN and SAGE models with all three selectors.
+``feedback``, the default as in the reference, times every registry
+candidate of every subgraph at every layer width on the device that
+trains and commits the fastest (``core/selector.py``); ``cost_model``
+ranks them by the analytic model of that device; ``fixed`` applies
+``fixed_kernels``.  Other models, bucket autotuning and mini-batch
+sampling raise ``NotImplementedError`` naming the ROADMAP item that brings
+them.
 """
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ from repro_torch.graphs import graph as graph_mod
 class GNNConfig:
     """The fields of the reference's GNNConfig that the port reads, with
     the reference's defaults (``selector`` is ``feedback``)."""
-    model: str = "gcn"
+    model: str = "gcn"            # gcn | sage
     hidden: int = 16
     n_layers: int = 2
     comm_size: int = 16
@@ -46,27 +48,36 @@ class GNNConfig:
     sampler: str = "full"         # only full-batch training is ported
 
 
-def _require_gcn(cfg: GNNConfig) -> None:
-    if cfg.model != "gcn":
+MODELS = ("gcn", "sage")
+
+
+def _require_model(cfg: GNNConfig) -> None:
+    if cfg.model not in MODELS:
         raise NotImplementedError(
-            f"model {cfg.model!r} is not ported yet (only 'gcn'): "
-            "ROADMAP slice B item 9")
+            f"model {cfg.model!r} is not ported yet (only {MODELS}): "
+            "ROADMAP section 1 item 4")
 
 
 def prepare(graph: graph_mod.Graph, cfg: GNNConfig,
             device: str | torch.device = DEFAULT_DEVICE
             ) -> dec_mod.Decomposed:
-    """Preprocessing (paper §3.3/§4.2): self-loops, the symmetric GCN norm
-    baked into the edge values, reorder and decomposition, with every
-    registered candidate payload placed on ``device``."""
-    _require_gcn(cfg)
+    """Preprocessing (paper §3.3/§4.2): the per-model edge normalization
+    baked into the edge values (GCN: self-loops and the symmetric norm;
+    SAGE: no self-loops and the mean aggregator's 1/deg(dst)), reorder and
+    decomposition, with every registered candidate payload placed on
+    ``device``."""
+    _require_model(cfg)
     if cfg.inter_buckets == 0:
         raise NotImplementedError(
             "inter_buckets=0 (bucket autotuning) is not ported yet: "
-            "ROADMAP slice B item 9")
+            "ROADMAP section 1 item 4")
     dev = resolve_device(device)
-    g = graph_mod.add_self_loops(graph)
-    vals = graph_mod.gcn_norm_values(g.n, g.senders, g.receivers)
+    if cfg.model == "gcn":
+        g = graph_mod.add_self_loops(graph)
+        vals = graph_mod.gcn_norm_values(g.n, g.senders, g.receivers)
+    else:
+        g = graph
+        vals = graph_mod.mean_norm_values(g.n, g.senders, g.receivers)
     return dec_mod.decompose(g, comm_size=cfg.comm_size, method=cfg.reorder,
                              edge_vals=vals, inter_buckets=cfg.inter_buckets,
                              device=dev)
@@ -75,14 +86,17 @@ def prepare(graph: graph_mod.Graph, cfg: GNNConfig,
 def init_model(generator: torch.Generator, cfg: GNNConfig, in_dim: int,
                n_classes: int,
                device: str | torch.device = DEFAULT_DEVICE) -> list[dict]:
-    """GCN parameters, one ``dict(w, b)`` per layer, drawn from the CPU
+    """Model parameters, one dict per layer (GCN: ``w, b``; SAGE:
+    ``w_self, w_neigh, b``), drawn in layer order from the CPU
     ``generator``.  The numbers differ from the reference's
     ``jax.random`` ones; ``repro_torch.weights.from_jax_params`` carries
     the reference's parameters over instead."""
-    _require_gcn(cfg)
+    _require_model(cfg)
     dev = resolve_device(device)
     dims = [in_dim] + [cfg.hidden] * (cfg.n_layers - 1) + [n_classes]
-    return [adaptgear.init_gcn_conv(generator, dims[i], dims[i + 1], dev)
+    init = (adaptgear.init_gcn_conv if cfg.model == "gcn"
+            else adaptgear.init_sage_conv)
+    return [init(generator, dims[i], dims[i + 1], dev)
             for i in range(cfg.n_layers)]
 
 
@@ -96,17 +110,21 @@ def _as_plan(dec: dec_mod.Decomposed, kernels, n_layers: int) -> KernelPlan:
 
 
 def forward(params: list[dict], cfg: GNNConfig, dec: dec_mod.Decomposed,
-            x: torch.Tensor, kernels, *, acc: bool = False) -> torch.Tensor:
+            x: torch.Tensor, kernels, *,
+            acc: bool | None = None) -> torch.Tensor:
     """Model forward over a decomposition from :func:`prepare`.
 
     ``x`` is in reordered space, (n_pad, F) (``adaptgear.to_reordered``).
     ``acc=True`` threads one output buffer through each layer's subgraph
-    list (the kernels' ``y_in`` variants)."""
-    _require_gcn(cfg)
+    list (the kernels' ``y_in`` variants) and lets SAGE's self term ride
+    the diagonal tier's dual-weight kernel; ``None`` turns it on for CUDA
+    tensors and off for CPU ones."""
+    _require_model(cfg)
     plan = _as_plan(dec, kernels, len(params))
+    conv = adaptgear.gcn_conv if cfg.model == "gcn" else adaptgear.sage_conv
     h = x
     for i, layer in enumerate(params):
-        h = adaptgear.gcn_conv(layer, dec, h, plan.for_layer(i), acc=acc)
+        h = conv(layer, dec, h, plan.for_layer(i), acc=acc)
         if i != len(params) - 1:
             h = torch.relu(h)
     return h
@@ -114,9 +132,10 @@ def forward(params: list[dict], cfg: GNNConfig, dec: dec_mod.Decomposed,
 
 def agg_width_pairs(cfg: GNNConfig, in_dim: int,
                     n_classes: int) -> list[tuple]:
-    """Per-layer ``(in_dim, agg_dim)`` width pairs; GCN's layers are
-    transform-first, so fused candidates compete at every layer."""
-    _require_gcn(cfg)
+    """Per-layer ``(in_dim, agg_dim)`` width pairs; GCN's and SAGE's
+    layers are transform-first (SAGE through its dual epilogue), so fused
+    candidates compete at every layer."""
+    _require_model(cfg)
     dims = [in_dim] + [cfg.hidden] * (cfg.n_layers - 1) + [n_classes]
     return list(zip(dims[:-1], dims[1:]))
 
@@ -129,9 +148,9 @@ def layer_epilogues(cfg: GNNConfig, in_dim: int, n_classes: int) -> tuple:
 
 def layer_plan_inputs(cfg: GNNConfig, in_dim: int,
                       n_classes: int) -> tuple[list, tuple]:
-    """``(pairs, epilogues)`` for selection.  For GCN they do not depend on
-    the decomposition (the reference prices GIN's structure against it,
-    which comes with GIN)."""
+    """``(pairs, epilogues)`` for selection.  For GCN and SAGE they do not
+    depend on the decomposition (the reference prices GIN's structure
+    against it, which comes with GIN)."""
     return (agg_width_pairs(cfg, in_dim, n_classes),
             layer_epilogues(cfg, in_dim, n_classes))
 
@@ -204,26 +223,29 @@ def node_targets(graph: graph_mod.Graph, dec: dec_mod.Decomposed
             torch.from_numpy(node_mask).to(dec.device))
 
 
-def _loss(params, cfg, dec, x, labels, node_mask, plan) -> torch.Tensor:
+def _loss(params, cfg, dec, x, labels, node_mask, plan,
+          acc: bool | None = None) -> torch.Tensor:
     """Mean negative log-likelihood over the real (masked) nodes."""
-    logits = forward(params, cfg, dec, x, plan)
+    logits = forward(params, cfg, dec, x, plan, acc=acc)
     logp = torch.log_softmax(logits, dim=-1)
     nll = -logp.gather(1, labels[:, None])[:, 0]
     nll = torch.where(node_mask, nll, torch.zeros_like(nll))
     return nll.sum() / node_mask.sum().clamp(min=1)
 
 
-def make_train_step(cfg: GNNConfig, dec: dec_mod.Decomposed, kernels):
+def make_train_step(cfg: GNNConfig, dec: dec_mod.Decomposed, kernels, *,
+                    acc: bool | None = None):
     """Full-graph step with Adam over a fixed KernelPlan: ``step(params,
     opt, x, labels, node_mask) -> (params, opt, loss)``.  It never writes
     into the parameters or moments it is given; the loss is that of the
-    parameters passed in, as in the reference."""
+    parameters passed in, as in the reference.  ``acc`` is
+    :func:`forward`'s (``train`` leaves it to the device)."""
     plan = _as_plan(dec, kernels, cfg.n_layers)
 
     def step(params, opt, x, labels, node_mask):
         leaves = [{k: v.detach().requires_grad_() for k, v in layer.items()}
                   for layer in params]
-        loss = _loss(leaves, cfg, dec, x, labels, node_mask, plan)
+        loss = _loss(leaves, cfg, dec, x, labels, node_mask, plan, acc)
         flat = [v for layer in leaves for v in layer.values()]
         flat_g = torch.autograd.grad(loss, flat)
         it = iter(flat_g)

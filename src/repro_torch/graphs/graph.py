@@ -107,3 +107,13 @@ def gcn_norm_values(n: int, senders: np.ndarray,
     d = np.maximum(deg, 1.0) ** -0.5
     ds = np.maximum(deg_in, 1.0) ** -0.5
     return (d[receivers] * ds[senders]).astype(np.float32)
+
+
+def mean_norm_values(n: int, senders: np.ndarray,
+                     receivers: np.ndarray) -> np.ndarray:
+    """Mean-aggregation normalization 1/deg(dst) per edge (SAGE), with
+    deg clamped to at least 1.  Baked into the edge values like the GCN
+    norm, so ``A @ x`` is the in-neighbour mean."""
+    deg = np.bincount(receivers, minlength=n).astype(np.float32)
+    inv = 1.0 / np.maximum(deg, 1.0)
+    return inv[receivers].astype(np.float32)

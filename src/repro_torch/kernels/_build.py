@@ -25,7 +25,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("block_diag_spmm", "bell_spmm", "bell_spmm_fused", "bell_spmm_dw",
-           "tcgnn_spmm", "tcgnn_spmm_fused", "tcgnn_spmm_dw")
+           "tcgnn_spmm", "tcgnn_spmm_fused", "tcgnn_spmm_dw",
+           "block_diag_spmm_dual")
 HEADERS = ("dtype.cuh", "dw_reduce.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -45,6 +46,7 @@ SIGNATURES = {
     "tcgnn_spmm_fused": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "tcgnn_spmm_dw": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                       _P),
+    "block_diag_spmm_dual": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 # element types the kernels take, as the dtype code they are passed

@@ -12,9 +12,11 @@ block-diagonal kernel with its transposed-read flag, or the blocked-ELL
 kernel over the transpose payload ``bell_t`` materialized at decomposition.
 The fused forms Y = A (X W) have dX = A^T (dY W^T), the same fused kernel
 over the transpose, and dW = X^T (A^T dY), one blocked reduction
-(``bell_spmm_dw``; the diagonal tier with K = 1 and identity columns).  A
-gradient is computed only when autograd asks for it
-(``ctx.needs_input_grad``): a first layer's raw features need no dX.  The
+(``bell_spmm_dw``; the diagonal tier with K = 1 and identity columns).
+SAGE's dual form Y = A (X W) + X W_self adds dY W_self^T to dX and
+dW_self = X^T dY, two dense products.  A gradient is computed only when
+autograd asks for it (``ctx.needs_input_grad``): a first layer's raw
+features need no dX.  The
 ``_acc`` variants pass dY through to ``y_in``.  The graph is not trained:
 payloads get no gradient.
 """
@@ -27,7 +29,8 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.bell_spmm import bell_spmm
 from repro_torch.kernels.bell_spmm_fused import bell_spmm_dw, bell_spmm_fused
 from repro_torch.kernels.block_diag_spmm import block_diag_spmm
-from repro_torch.kernels.block_diag_spmm_fused import block_diag_spmm_fused
+from repro_torch.kernels.block_diag_spmm_fused import (block_diag_spmm_dual,
+                                                      block_diag_spmm_fused)
 
 
 def _bell_dx(ctx, bell_t: formats.BlockELL, dy: torch.Tensor,
@@ -92,6 +95,38 @@ class _BlockDiagFused(torch.autograd.Function):
         return None, dx, dw, dy if ctx.needs_input_grad[3] else None
 
 
+class _BlockDiagDual(torch.autograd.Function):
+    """Y = blockdiag(A) (X W) + X W_self (+ Y_in), as the reference's
+    ``_bdd_bwd_terms``: dX = A^T (dY W^T) + dY W_self^T (the fused kernel
+    over the transposed blocks plus a dense product), dW = X^T (A^T dY)
+    (the diagonal dW kernel), dW_self = X^T dY (dense, accumulated in
+    float32)."""
+
+    @staticmethod
+    def forward(ctx, blocks, x, w, w_self, y_in):
+        x, w, w_self = x.contiguous(), w.contiguous(), w_self.contiguous()
+        ctx.save_for_backward(blocks, x, w, w_self)
+        return block_diag_spmm_dual(blocks, x, w, w_self, y_in)
+
+    @staticmethod
+    def backward(ctx, dy):
+        blocks, x, w, w_self = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = dw = dws = None
+        if ctx.needs_input_grad[1]:
+            dx = (block_diag_spmm_fused(blocks, dy, w.t().contiguous(),
+                                        transpose=True)
+                  + dy @ w_self.t().to(dy.dtype)).to(x.dtype)
+        if ctx.needs_input_grad[2]:
+            dw = bell_spmm_dw(blocks.unsqueeze(1), None, x, dy,
+                              transpose=True).to(w.dtype)
+        if ctx.needs_input_grad[3]:
+            acc = torch.promote_types(x.dtype, torch.float32)
+            dws = (x.to(acc).t() @ dy.to(acc)).to(w_self.dtype)
+        return (None, dx, dw, dws,
+                dy if ctx.needs_input_grad[4] else None)
+
+
 class _BellFused(torch.autograd.Function):
     @staticmethod
     def forward(ctx, bell, bell_t, x, w, y_in):
@@ -151,6 +186,21 @@ def block_diag_fused_matvec_acc(blocks: torch.Tensor, x: torch.Tensor,
                                 y_in: torch.Tensor) -> torch.Tensor:
     """Y = blockdiag(blocks) @ (x @ w) + y_in, one fused kernel."""
     return _BlockDiagFused.apply(blocks, x, w, y_in.contiguous())
+
+
+def block_diag_dual_matvec(blocks: torch.Tensor, x: torch.Tensor,
+                           w: torch.Tensor,
+                           w_self: torch.Tensor) -> torch.Tensor:
+    """Y = blockdiag(blocks) @ (x @ w) + x @ w_self, one dual-weight kernel
+    (SAGE's epilogue on the diagonal tier)."""
+    return _BlockDiagDual.apply(blocks, x, w, w_self, None)
+
+
+def block_diag_dual_matvec_acc(blocks: torch.Tensor, x: torch.Tensor,
+                               w: torch.Tensor, w_self: torch.Tensor,
+                               y_in: torch.Tensor) -> torch.Tensor:
+    """Y = blockdiag(blocks) @ (x @ w) + x @ w_self + y_in."""
+    return _BlockDiagDual.apply(blocks, x, w, w_self, y_in.contiguous())
 
 
 def bell_fused_matvec(bell: formats.BlockELL, bell_t: formats.BlockELL,

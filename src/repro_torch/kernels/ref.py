@@ -65,6 +65,20 @@ def block_diag_spmm_fused(blocks: torch.Tensor, x: torch.Tensor,
     return y.to(x.dtype)
 
 
+def block_diag_spmm_dual(blocks: torch.Tensor, x: torch.Tensor,
+                         w: torch.Tensor, w_self: torch.Tensor,
+                         y_in: torch.Tensor | None = None) -> torch.Tensor:
+    """Y = blockdiag(blocks) @ (x @ w) + x @ w_self (+ y_in): SAGE's
+    dual-weight epilogue on the diagonal tier.  x: (nb*B, Fi); w, w_self:
+    (Fi, Fo) -> (nb*B, Fo)."""
+    acc = _acc(x)
+    xa = x.to(acc)
+    y = block_diag_spmm(blocks.to(acc), xa @ w.to(acc)) + xa @ w_self.to(acc)
+    if y_in is not None:
+        y = y_in.to(acc) + y
+    return y.to(x.dtype)
+
+
 def bell_spmm_fused(blocks: torch.Tensor, col_idx: torch.Tensor,
                     x: torch.Tensor, w: torch.Tensor,
                     y_in: torch.Tensor | None = None) -> torch.Tensor:

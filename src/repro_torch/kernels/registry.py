@@ -13,6 +13,11 @@ registers one :class:`KernelSpec`:
   matvec_acc -- optional ``matvec_acc(payload, x, y_in) -> y_in + A @ x``
   fused_matvec(_acc) -- fused transform+aggregate
                 ``(payload, x, w[, y_in]) -> A @ (x @ w) [+ y_in]``
+  fused_dual_matvec(_acc) -- optional dual-weight (SAGE) hooks
+                ``(payload, x, w, w_self[, y_in]) ->
+                x @ w_self + A @ (x @ w) [+ y_in]``; only the diagonal
+                tier's ``block_diag_fused`` has them, and they are no
+                probe candidate
   cost       -- analytic roofline seconds for the cost-model selector:
                 ``cost(sub, feat_dim, dtype, hw)``; ``feat_dim`` is the
                 aggregated width, or the ``(in_dim, out_dim)`` pair for a
@@ -58,6 +63,8 @@ class KernelSpec:
     matvec_acc: Callable[[Any, Any, Any], Any] | None = None
     fused_matvec: Callable[..., Any] | None = None
     fused_matvec_acc: Callable[..., Any] | None = None
+    fused_dual_matvec: Callable[..., Any] | None = None
+    fused_dual_matvec_acc: Callable[..., Any] | None = None
     payload_of: str | None = None   # alias another kernel's format payload
     doc: str = ""
 
@@ -342,9 +349,14 @@ REGISTRY.register(KernelSpec(
     fused_matvec=lambda bd, x, w: ops.block_diag_fused_matvec(bd.blocks, x, w),
     fused_matvec_acc=lambda bd, x, w, y:
         ops.block_diag_fused_matvec_acc(bd.blocks, x, w, y),
+    fused_dual_matvec=lambda bd, x, w, ws:
+        ops.block_diag_dual_matvec(bd.blocks, x, w, ws),
+    fused_dual_matvec_acc=lambda bd, x, w, ws, y:
+        ops.block_diag_dual_matvec_acc(bd.blocks, x, w, ws, y),
     cost=_block_diag_fused_cost,
     doc="fused A @ (X W) over the diagonal blocks, H formed on chip only; "
-        "CUDA kernel",
+        "CUDA kernel; the dual-weight hook adds SAGE's self term X W_self "
+        "from the same on-chip rows of X",
 ))
 
 REGISTRY.register(KernelSpec(

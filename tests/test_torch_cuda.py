@@ -19,6 +19,7 @@ from repro_torch.kernels import bell_spmm as bell_mod
 from repro_torch.kernels import bell_spmm_fused as bellf_mod
 from repro_torch.kernels import block_diag_spmm as bd_mod
 from repro_torch.kernels import block_diag_spmm_fused as bdf_mod
+from repro_torch.kernels import ops
 from repro_torch.kernels import tcgnn_tile as tc_mod
 from torch_parity import cuda_device  # noqa: F401  (fixture)
 
@@ -228,6 +229,87 @@ def test_cuda_tcgnn_dw_is_deterministic(cuda_device):  # noqa: F811
     b = tc_mod.tcgnn_spmm_dw(tiles, gi, x, g)
     assert torch.equal(a, b)
     _close_dw(a, tc_mod.plain_dw(tiles, gi, x, g))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [8, 16, 32, 64])
+def test_cuda_dual_kernel_matches_plain(cuda_device, dtype, B):  # noqa: F811
+    """block_diag_spmm_dual at the main path's SAGE widths, with and
+    without y_in, and the dual Function's gradients (from unit-scale
+    cotangents) against autograd through the plain version: dX at the
+    kernel tolerance, dW and dW_self within 1e-5 of their largest entry,
+    the same bits on a second backward."""
+    tol = (tp.F32_TOL if dtype == torch.float32
+           else dict(atol=2e-1, rtol=3e-1))
+    dev = cuda_device
+    gen = torch.Generator(device=dev).manual_seed(300 + B)
+    nb = 23                                  # not a multiple of 32 / B
+    blocks = torch.randn((nb, B, B), generator=gen, device=dev).to(dtype)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    for Fi, Fo in ((500, 16), (16, 3), (3, 16), (70, 130)):
+        x = randn(nb * B, Fi)
+        w, ws = randn(Fi, Fo) / Fi ** 0.5, randn(Fi, Fo) / Fi ** 0.5
+        for y_in in (None, randn(nb * B, Fo)):
+            got = bdf_mod.block_diag_spmm_dual(blocks, x, w, ws, y_in)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(
+                got.float(), bdf_mod.plain_dual(blocks, x, w, ws,
+                                                y_in).float(), **tol)
+        if dtype != torch.float32:
+            continue
+        cot = torch.randn((nb * B, Fo), generator=gen, device=dev)
+        grads = []
+        for fn in (lambda *a: ops.block_diag_dual_matvec(blocks, *a),
+                   lambda *a: ops.block_diag_dual_matvec(blocks, *a),
+                   lambda *a: bdf_mod.plain_dual(blocks, *a)):
+            leaves = [a.clone().requires_grad_() for a in (x, w, ws)]
+            (fn(*leaves) * cot).sum().backward()
+            grads.append([a.grad for a in leaves])
+        torch.cuda.synchronize()
+        torch.testing.assert_close(grads[0][0], grads[2][0], **tol)
+        for got, again, want in zip(grads[0][1:], grads[1][1:],
+                                    grads[2][1:]):
+            assert torch.equal(got, again)
+            _close_dw(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", [("block_diag_fused", "tcgnn_tile_fused"),
+                                  ("block_diag", "bell")])
+def test_cuda_sage_gradients_match_cpu(cuda_device, plan):  # noqa: F811
+    """One SAGE loss.backward on the card (acc on by default there: the
+    dual kernel on the diagonal tier where the plan has block_diag_fused)
+    against the same on the CPU (acc off: the seed path), from the same
+    parameters."""
+    from repro_torch.core import adaptgear, gnn
+    from repro_torch.graphs import graph as graph_mod
+    g = graph_mod.synth_dataset("pubmed", 0.03, seed=0, comm_size=8,
+                                max_feat=32)
+    cfg = gnn.GNNConfig(model="sage", hidden=8, n_layers=2, comm_size=8,
+                        selector="fixed", fixed_kernels=plan)
+    params = gnn.init_model(torch.Generator().manual_seed(0), cfg,
+                            g.features.shape[1], g.n_classes, device="cpu")
+    grads = {}
+    before = bdf_mod.dual_launches.value
+    for dev in ("cpu", cuda_device):
+        dec = gnn.prepare(g, cfg, device=dev)
+        x = adaptgear.to_reordered(dec, torch.from_numpy(g.features).to(dev))
+        leaves = [{k: v.detach().clone().to(dev).requires_grad_()
+                   for k, v in p.items()} for p in params]
+        y = gnn.forward(leaves, cfg, dec, x, plan)
+        (y.square().sum() * 1e-2).backward()
+        grads[str(dev)] = [{k: v.grad.cpu() for k, v in p.items()}
+                           for p in leaves]
+    torch.cuda.synchronize()
+    assert bdf_mod.dual_launches.value - before == (
+        2 if plan[0] == "block_diag_fused" else 0)
+    for gc, gg in zip(grads["cpu"], grads[str(cuda_device)]):
+        for k in gc:
+            torch.testing.assert_close(gg[k], gc[k], **tp.F32_TOL)
 
 
 @pytest.mark.cuda

@@ -308,3 +308,99 @@ def test_tcgnn_plan_curves_match_reference_from_its_params():
         assert port.kernels == [tuple(k) for k in ref.kernels]
         np.testing.assert_allclose(port.losses, ref.losses, atol=5e-3,
                                    rtol=1e-2)
+
+
+def test_dual_matvecs_match_reference_custom_vjps():
+    """block_diag_dual_matvec(_acc): outputs and the gradients of x, w,
+    w_self (and y_in) against jax.grad through the reference's custom VJPs
+    (the dual Pallas kernel in interpret mode), float32 at 1e-4 and
+    bfloat16 at atol 2e-1 / rtol 3e-1."""
+    nb, B = 4, 8
+    rng = np.random.default_rng(41)
+    blocks, x, w, ws, y_in, cot = (
+        rng.standard_normal(s).astype(np.float32) for s in
+        ((nb, B, B), (nb * B, 5), (5, 3), (5, 3), (nb * B, 3), (nb * B, 3)))
+    for jdt, tdt, tol in ((jnp.float32, torch.float32, tp.F32_TOL),
+                          (jnp.bfloat16, torch.bfloat16, BF16_TOL)):
+        rb, pb = jnp.asarray(blocks).astype(jdt), torch.from_numpy(
+            blocks).to(tdt)
+        cases = [
+            (lambda x, w, ws: ROPS.block_diag_dual_matvec(rb, x, w, ws),
+             lambda x, w, ws: ops.block_diag_dual_matvec(pb, x, w, ws),
+             (x, w, ws)),
+            (lambda x, w, ws, y: ROPS.block_diag_dual_matvec_acc(
+                rb, x, w, ws, y),
+             lambda x, w, ws, y: ops.block_diag_dual_matvec_acc(
+                pb, x, w, ws, y), (x, w, ws, y_in)),
+        ]
+        for rfn, pfn, args in cases:
+            ref_y, ref_g = _grads_ref(
+                rfn, [jnp.asarray(a).astype(jdt) for a in args], cot)
+            port_y, port_g = _grads_port(
+                pfn, [torch.from_numpy(a).to(tdt) for a in args], cot)
+            assert port_y.dtype == tdt
+            tp.assert_close(np.asarray(ref_y, np.float32), port_y.float(),
+                            **tol)
+            assert len(port_g) == len(ref_g)
+            for rg, pg in zip(ref_g, port_g):
+                assert pg.dtype == tdt
+                tp.assert_close(np.asarray(rg, np.float32), pg.float(), **tol)
+
+
+SAGE_PLANS = (("block_diag", "bell"), ("block_diag_fused", "tcgnn_tile_fused"))
+
+
+def _sage_cfgs(plan):
+    return (RGNN.GNNConfig(model="sage", hidden=8, n_layers=2, comm_size=8,
+                           selector="fixed", fixed_kernels=plan),
+            TGNN.GNNConfig(model="sage", hidden=8, n_layers=2, comm_size=8,
+                           selector="fixed", fixed_kernels=plan))
+
+
+def test_sage_forward_matches_reference_from_carried_params():
+    """SAGE logits from the reference's own parameters: the port's dual
+    hook (acc=True: the diagonal tier's dual kernel) and its seed path
+    (acc=False) against the reference's forward, which runs its seed path
+    on the CPU."""
+    g = tp.ref_graph("pubmed", 0.03, comm_size=8, max_feat=32)
+    plan = SAGE_PLANS[1]
+    ref_cfg, cfg = _sage_cfgs(plan)
+    dec = RGNN.prepare(g, ref_cfg)
+    params = RGNN.init_model(jax.random.PRNGKey(0), ref_cfg,
+                             g.features.shape[1], g.n_classes)
+    params_np = [{k: np.asarray(a) for k, a in p.items()} for p in params]
+    ref_logits = np.asarray(RGNN.forward(
+        params, ref_cfg, dec, RA.to_reordered(dec, jnp.asarray(g.features)),
+        plan))
+    port_g = TG.Graph(g.n, g.senders, g.receivers, g.features, g.labels,
+                      g.n_classes, g.name)
+    port_dec = TGNN.prepare(port_g, cfg, device="cpu")
+    x = TA.to_reordered(port_dec, torch.from_numpy(g.features))
+    port_params = from_jax_params(params_np, device="cpu")
+    for acc in (True, False):
+        logits = TGNN.forward(port_params, cfg, port_dec, x, plan, acc=acc)
+        assert tuple(logits.shape) == ref_logits.shape
+        tp.assert_close(ref_logits, logits)
+
+
+def test_sage_plan_curves_match_reference_from_its_params():
+    """20 SAGE training steps through the seed plan and the dual plan, the
+    port's from the reference's own initial parameters, against
+    repro.core.gnn.train; both run the seed path on the CPU (acc off), the
+    dual hook is held to the reference by the two tests above.  Curve
+    tolerance atol 5e-3, rtol 1e-2 (tests/test_fused.py)."""
+    g = tp.ref_graph("pubmed", 0.03, comm_size=8, max_feat=32)
+    port_g = TG.Graph(g.n, g.senders, g.receivers, g.features, g.labels,
+                      g.n_classes, g.name)
+    for plan in SAGE_PLANS:
+        ref_cfg, cfg = _sage_cfgs(plan)
+        ref = RGNN.train(g, ref_cfg, steps=20)
+        params = RGNN.init_model(jax.random.PRNGKey(ref_cfg.seed), ref_cfg,
+                                 g.features.shape[1], g.n_classes)
+        params_np = [{k: np.asarray(a) for k, a in p.items()} for p in params]
+        port = TGNN.train(port_g, cfg, steps=20, device="cpu",
+                          params=from_jax_params(params_np, device="cpu"))
+        assert port.kernels == [tuple(k) for k in ref.kernels]
+        assert ref.losses[-1] < ref.losses[0]
+        np.testing.assert_allclose(port.losses, ref.losses, atol=5e-3,
+                                   rtol=1e-2)

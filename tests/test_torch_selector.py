@@ -188,9 +188,9 @@ def test_epilogues_and_aggregate_sub():
     assert TE.epilogue_cost(TE.EpilogueSpec("linear"), 10, 5, 4,
                             hw=TSEL.CPU_HW) == 0.0
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TE.layer_epilogues("sage", [5, 4, 3], 4)
+        TE.layer_epilogues("gin", [5, 4, 3], 4)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TE.epilogue_cost(TE.EpilogueSpec("dual"), 10, 5, 4, hw=TSEL.CPU_HW)
+        TE.epilogue_cost(TE.EpilogueSpec("mlp"), 10, 5, 4, hw=TSEL.CPU_HW)
     _, port = _pair()
     x = torch.from_numpy(np.random.default_rng(3).standard_normal(
         (port.n_pad, 4)).astype(np.float32))

@@ -291,7 +291,7 @@ def test_train_leaves_carried_params_untouched_and_learns():
 
 
 @pytest.mark.parametrize("field,value", [("sampler", "cluster"),
-                                         ("model", "sage")])
+                                         ("model", "gin")])
 def test_train_raises_for_unported_options(field, value):
     cfg = dataclasses.replace(TGNN.GNNConfig(hidden=8, comm_size=8),
                               **{field: value})
