@@ -11,7 +11,9 @@ twin ``("block_diag_fused", "bell_fused")`` and the column-condensed
 config, whose feedback selector times every registry candidate of every
 subgraph at both layer widths on the card and commits the fastest; then
 the same for GraphSAGE (``GNNConfig(model="sage")``): two fixed plans and
-its feedback main path.  It goes through the nine hand-written CUDA
+its feedback main path; then the LM stack's serving path for
+InternLM2-1.8B at its full published widths (flash prefill, cache
+prefill, greedy decode).  It goes through the ten hand-written CUDA
 kernels and checks every result.  ``acc`` (the threaded accumulator, and
 SAGE's dual-weight kernel) takes its default, on for CUDA tensors, except
 where a phase names it.
@@ -78,6 +80,27 @@ Phases, each of which raises (exit code != 0) on failure:
    calls plus what the committed plan implies; every curve must fall and
    match the CPU run of the same plan and the edge-list SAGE trained with
    autograd (atol 5e-3, rtol 1e-2);
+7b. LM serving, InternLM2-1.8B (24 layers, d_model 2048, 16/8 heads of
+   128, d_ff 8192, vocab 92544): flash_attention against its plain
+   version is in phase 2 (the reference test's shapes, InternLM2's
+   (4, 16, 8, 1024, 128), d = 192 with dv = 128, Sq = 64 with Skv = 256
+   non-causal; float32 atol 2e-5 / rtol 1e-4, bfloat16 atol = rtol =
+   5e-2, tests/test_kernels_flash.py, and also atol 4e-3 / rtol 2e-2 and,
+   per output row, rms(err) <= 1e-2 rms(plain)).  Here, with launch
+   counts set to 0 just before each path and read just after: the flash
+   prefill step at 2 layers in float32 on the card against the CPU (plain
+   versions, logits within 1e-3); all 24 layers in float32: the flash
+   prefill step against the softmax core (batch 2 x 512), and prefill of
+   384 tokens plus teacher-forced decode_step to 512 against the forward
+   (1e-3, the reference's own invariant); in bfloat16: serve_lm (batch 4,
+   prompt 1024, 32 greedy tokens, every token in [0, vocab)) and the flash
+   prefill step on its prompts and parameters against the softmax core
+   (|diff| <= 0.2, RMS ratio <= 0.04, and no further from the float32
+   softmax core than 1.25 times the bfloat16 softmax core is) with the
+   argmax agreement printed.  flash_attention must launch exactly 24 times
+   per prefill-step call (2 at 2 layers) and never in the softmax core,
+   prefill or decode; then the bfloat16 prefill step (flash and softmax
+   core) and decode step are timed and profiled;
 8. timing: median forward times (acc off and on) and training-step times
    (CUDA events, host launch included; GCN's unfused and feedback plans
    also with acc off, and the SAGE plans), each kernel's time at the main
@@ -86,7 +109,8 @@ Phases, each of which raises (exit code != 0) on failure:
    torch.profiler tables with the device-busy share of a forward and of a
    training step per plan.
 
-Float32 products run in full float32 (TF32 off for matmul and cuDNN).
+Float32 products run in full float32 (TF32 off for matmul and cuDNN), and
+bfloat16 products sum in float32 (no reduced-precision reductions).
 The last two lines are the kernels JSON and the device JSON.
 """
 from __future__ import annotations
@@ -142,6 +166,9 @@ KERNELS = {
     "block_diag_spmm_dual": dict(
         source="src/repro_torch/kernels/csrc/block_diag_spmm_dual.cu",
         replaces="src/repro/kernels/block_diag_spmm_fused.py:117"),
+    "flash_attention": dict(
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:74"),
 }
 FORWARD_KERNELS = ("block_diag_spmm", "bell_spmm")
 # the CUDA kernels each registry spec launches in a training step
@@ -223,9 +250,49 @@ def plan_launches(layers, steps: int, model: str = "gcn") -> dict:
     return out
 
 
+# The LM slice: InternLM2-1.8B (src/repro_torch/configs/internlm2_1_8b.py)
+LM_ARCH = "internlm2_1_8b"
+# the reference's flash tests (tests/test_kernels_flash.py): (B, Hq, Hkv,
+# S, d) and their tolerances
+FLASH_TEST_SHAPES = ((1, 1, 1, 64, 32), (2, 4, 2, 128, 64),
+                     (1, 8, 1, 128, 128), (2, 2, 2, 256, 64))
+FLASH_TOL = {"float32": dict(atol=2e-5, rtol=1e-4),
+             "bfloat16": dict(atol=5e-2, rtol=5e-2)}
+# bfloat16 must also hold these: the reference's 5e-2 was set at S <= 256,
+# and at S = 1024 it is as large as a typical output (|o| ~ sqrt(e / S) ~
+# 0.05), so a kernel that dropped a KV tile or a rescale could pass it.
+# Elementwise, and the RMS of each output row's error over the RMS of
+# that row of the plain version (each row on its own scale).  On an H100
+# the 13 bfloat16 cases read at most 0.58 of the elementwise limit and a
+# row RMS ratio of 4.3e-3; a kernel that skips the rescale of acc, or one
+# KV tile, reads 50-600 times the elementwise limit.
+FLASH_BF16_TIGHT = dict(atol=4e-3, rtol=2e-2)
+FLASH_BF16_ROW_RMS = 1e-2
+# timed shapes (B, Hq, Hkv, S, d): InternLM2's serving prefill, and one
+# 4096-token sequence
+FLASH_TIMED = ((4, 16, 8, 1024, 128), (1, 16, 8, 4096, 128))
+# logits: float32 as the reference's prefill/decode invariant
+# (tests/test_models_smoke.py:121-123).  bfloat16, flash vs softmax core
+# (batch 4 x 1024, 24 layers): the two cores round their attention output
+# once each, and 24 layers carry a one-ulp difference on.  The limits are
+# set from readings on an H100: max|diff| 0.086 (max|logit| 4.9) and an
+# RMS ratio of 0.018, about what bfloat16 itself moves the logits (each
+# core against the softmax core in float32 on the same parameters: RMS
+# ratio 0.0165).  So: |diff| <= 0.2 everywhere, rms(diff) <= 0.04
+# rms(logits), and the flash core no further from float32 than
+# LM_BF16_SPREAD times the softmax core is.
+LM_TOL = dict(atol=1e-3, rtol=1e-3)
+LM_BF16_TOL = dict(atol=2e-1, rtol=0.0)
+LM_BF16_RMS = 4e-2
+LM_BF16_SPREAD = 1.25
+SERVE = dict(batch=4, prompt_len=1024, gen=32)
+
 # (Fi, Fo) of the main path's fused kernels: layer 1, layer 2, and layer
 # 2's dX pass over the transpose with W^T
 WIDTHS = ((500, 16), (16, 3), (3, 16))
+# the width of each kernel's row in the kernels JSON line (else 500x16)
+ROW_KEY = {"block_diag_spmm": 16, "bell_spmm": 16, "tcgnn_spmm": 16,
+           "flash_attention": "4x16x8x1024x128"}
 
 
 def log(phase: str, msg: str) -> None:
@@ -1492,6 +1559,365 @@ def time_dual_kernel(torch, sdec, flush) -> dict:
     return {"block_diag_spmm_dual": rows}
 
 
+# ---------------------------------------------------------------------------
+# the LM serving slice: InternLM2-1.8B through the flash kernel
+# ---------------------------------------------------------------------------
+
+def phase_kernels_flash(torch, errs: dict) -> None:
+    """flash_attention against its plain version on the card: the reference
+    test's shapes (B, Hq, Hkv, S, d), InternLM2's (4, 16, 8, 1024, 128),
+    d = 192 with dv = 128 (MLA's), and Sq = 64 with Skv = 256 (non-causal:
+    the kernel's causal mask is aligned top left, ref.mha's bottom right),
+    causal on and off, float32 and bfloat16, at the reference's flash
+    tolerances."""
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    cases = [((B, Hq, Hkv, S, S, d), d, causal)
+             for B, Hq, Hkv, S, d in FLASH_TEST_SHAPES
+             for causal in (True, False)]
+    cases += [((4, 16, 8, 1024, 1024, 128), 128, c) for c in (True, False)]
+    cases += [((2, 4, 2, 256, 256, 192), 128, c) for c in (True, False)]
+    cases += [((1, 2, 2, 64, 256, 32), 32, False)]
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        for (B, Hq, Hkv, Sq, Skv, d), dv, causal in cases:
+            q = torch.randn((B, Hq, Sq, d), generator=gen, device="cuda")
+            k = torch.randn((B, Hkv, Skv, d), generator=gen, device="cuda")
+            v = torch.randn((B, Hkv, Skv, dv), generator=gen, device="cuda")
+            args = [t.to(dtype) for t in (q, k, v)]
+            blk = min(Sq, Skv, 128)
+            got = fa.flash_attention(*args, causal=causal, blk_q=blk,
+                                     blk_k=blk)
+            want = fa.plain(*args, causal=causal)
+            torch.cuda.synchronize()
+            if got.shape != want.shape or got.dtype != dtype:
+                raise RuntimeError(f"flash_attention {(B, Hq, Sq, dv)}: "
+                                   f"{got.dtype} {tuple(got.shape)}")
+            e = check_flash_close(
+                torch, got, want, f"flash_attention {name} (B,Hq,Hkv,Sq,"
+                f"Skv,d,dv)={(B, Hq, Hkv, Sq, Skv, d, dv)} causal={causal}")
+            errs["flash_attention"][name] = max(
+                errs["flash_attention"][name], e)
+            n += 1
+    log("kernel", f"flash_attention: {n} cases within tolerance "
+        f"({FLASH_TOL}; bfloat16 also {FLASH_BF16_TIGHT} and row RMS "
+        f"{FLASH_BF16_ROW_RMS}); largest errors {errs['flash_attention']}")
+
+
+def check_flash_close(torch, got, want, what: str) -> float:
+    """Holds a flash_attention output against its plain version: at
+    FLASH_TOL; bfloat16 also at FLASH_BF16_TIGHT and, per output row,
+    rms(err) <= FLASH_BF16_ROW_RMS * rms(want).  Logs the readings of
+    every criterion, then raises if one fails; returns max|err|."""
+    name = str(got.dtype).removeprefix("torch.")
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    e = float(err.max())
+
+    def worst(tol):   # the largest |err| / (atol + rtol |want|)
+        return float((err / (tol["atol"] + tol["rtol"] * w.abs())).max())
+
+    ratio = worst(FLASH_TOL[name])
+    fails = [f"{FLASH_TOL[name]} (worst |err| / limit {ratio:.3g})"
+             ] if not ratio <= 1 else []
+    msg = f"{what}: max|err| {e:.3g}, worst |err| / limit {ratio:.3g}"
+    if got.dtype == torch.bfloat16:
+        tight = worst(FLASH_BF16_TIGHT)
+        row = (err.square().mean(-1).sqrt()
+               / w.square().mean(-1).sqrt().clamp_min(1e-30))
+        row_max = float(row.max())
+        rel = float(err.square().mean().sqrt() / w.square().mean().sqrt())
+        msg += (f"; tight {tight:.3g}, row RMS ratio max {row_max:.3g} "
+                f"(median {float(row.median()):.3g}), overall RMS ratio "
+                f"{rel:.3g}")
+        if not tight <= 1:
+            fails.append(f"{FLASH_BF16_TIGHT} (worst {tight:.3g})")
+        if not row_max <= FLASH_BF16_ROW_RMS:
+            fails.append(f"row RMS {row_max:.3g} > {FLASH_BF16_ROW_RMS}")
+    log("kernel", msg)
+    if fails:
+        raise RuntimeError(f"{what} outside " + "; ".join(fails))
+    return e
+
+
+def lm_tokens(cfg, batch: int, length: int, seed: int):
+    """Token ids made with numpy from ``seed``, as serve_lm makes prompts."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, cfg.vocab, (batch, length)).astype(np.int32)
+
+
+def rms_ratio(got, want) -> float:
+    """rms(got - want) / rms(want), over every element."""
+    w = want.float()
+    return float((got.float() - w).square().mean().sqrt()
+                 / w.square().mean().sqrt())
+
+
+def check_lm_close(torch, got, want, tol: dict, what: str,
+                   rms: float | None = None) -> float:
+    """Logits ``got`` against ``want`` at ``tol`` and, where given,
+    rms(got - want) <= rms * rms(want); logs the readings first."""
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        raise RuntimeError(f"{what}: {tuple(got.shape)} (expected "
+                           f"{tuple(want.shape)}), finite "
+                           f"{bool(torch.isfinite(got).all())}")
+    e, r = max_err(got, want), rms_ratio(got, want)
+    log("lm", f"{what}: max|diff| {e:.3g}, RMS ratio {r:.3g} (max|logit| "
+        f"{float(want.float().abs().max()):.3g}; atol {tol['atol']}, rtol "
+        f"{tol['rtol']}" + (f", RMS ratio <= {rms})" if rms else ")"))
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    if rms is not None and not r <= rms:
+        raise RuntimeError(f"{what}: RMS ratio {r:.3g} > {rms}")
+    return e
+
+
+def phase_lm_two_layer(torch, counts: dict) -> dict:
+    """The FULL InternLM2-1.8B widths at 2 layers, float32: one 256-token
+    prompt through the flash prefill step on the card and on the CPU (the
+    plain versions) from the same parameters."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.train import steps
+    cfg = dataclasses.replace(configs.get_config(LM_ARCH), n_layers=2,
+                              dtype="float32", attn_core="flash")
+    params = lm.init_params(lm.make_generator(0, "cuda"), cfg)
+    toks = torch.from_numpy(lm_tokens(cfg, 1, 256, seed=2))
+    step = steps.make_prefill_step(cfg)
+    for c in counts.values():
+        c.reset()
+    card = step(params, dict(tokens=toks.cuda()))
+    torch.cuda.synchronize()
+    launches = {k: c.value for k, c in counts.items()}
+    if launches["flash_attention"] != cfg.n_layers:
+        raise RuntimeError(f"2-layer prefill step launched flash_attention "
+                           f"{launches['flash_attention']} times")
+    cpu_params = lm._tree_map(lambda a: a.cpu(), params)
+    cpu = step(cpu_params, dict(tokens=toks))
+    err = check_lm_close(torch, card.cpu(), cpu, LM_TOL,
+                         "2 layers, float32, card (flash kernel) vs CPU "
+                         "(plain versions)")
+    return dict(launches=launches, err=err)
+
+
+def phase_lm_f32(torch, counts: dict) -> dict:
+    """All 24 layers, float32 on the card: the flash prefill step against
+    the softmax core at batch 2 x 512, then prefill of 384 tokens and
+    teacher-forced decode_step to 512 against the forward's logits (the
+    reference's own invariant, tests/test_models_smoke.py)."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.train import steps
+    cfg = dataclasses.replace(configs.get_config(LM_ARCH), dtype="float32")
+    params = lm.init_params(lm.make_generator(0, "cuda"), cfg)
+    toks = torch.from_numpy(lm_tokens(cfg, 2, 512, seed=3)).cuda()
+    P = 384
+    for c in counts.values():
+        c.reset()
+    flash = steps.make_prefill_step(dataclasses.replace(
+        cfg, attn_core="flash"))(params, dict(tokens=toks))
+    torch.cuda.synchronize()
+    step_launches = {k: c.value for k, c in counts.items()}
+    for c in counts.values():
+        c.reset()
+    soft = steps.make_prefill_step(cfg)(params, dict(tokens=toks))
+    logits_p, caches = lm.prefill(params, cfg, dict(tokens=toks[:, :P]),
+                                  s_max=toks.shape[1])
+    serve = steps.make_serve_step(cfg)
+    dec = []
+    for t in range(P, toks.shape[1]):
+        _, lg, caches = serve(params, caches, toks[:, t:t + 1], t)
+        dec.append(lg[:, 0])
+    torch.cuda.synchronize()
+    other = {k: c.value for k, c in counts.items()}
+    if step_launches["flash_attention"] != cfg.n_layers:
+        raise RuntimeError(f"24-layer prefill step launched flash_attention "
+                           f"{step_launches['flash_attention']} times")
+    if other["flash_attention"]:
+        raise RuntimeError("the softmax core, prefill or decode launched "
+                           f"flash_attention {other['flash_attention']} times")
+    errs = dict(
+        flash_vs_softmax=check_lm_close(
+            torch, flash, soft, LM_TOL, "24 layers, float32, flash prefill "
+            "step vs softmax core, batch 2 x 512"),
+        prefill_vs_forward=check_lm_close(
+            torch, logits_p, flash[:, :P], LM_TOL,
+            f"prefill of {P} tokens vs the forward"),
+        decode_vs_forward=check_lm_close(
+            torch, torch.stack(dec, dim=1), flash[:, P:], LM_TOL,
+            f"teacher-forced decode_step {P} -> {toks.shape[1]} vs the "
+            "forward"))
+    del params, caches
+    return dict(launches=step_launches, other_launches=other, errs=errs)
+
+
+def to_float32(tree):
+    """A parameter tree (dicts and lists of tensors) cast to float32."""
+    if isinstance(tree, dict):
+        return {k: to_float32(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_float32(v) for v in tree]
+    return tree.float()
+
+
+def phase_lm_serve(torch, counts: dict) -> dict:
+    """The FULL config in bfloat16, the published dtype: serve_lm (prefill,
+    then greedy decode), and the prefill step under the flash profile and
+    with the softmax core on serve_lm's prompts and parameters (both are
+    made from the seed); then the timings of the serving path."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.launch.serve_lm import serve_lm
+    from repro_torch.models import lm
+    from repro_torch.train import steps
+    cfg = configs.get_config(LM_ARCH)
+    B, P, G, seed = SERVE["batch"], SERVE["prompt_len"], SERVE["gen"], 0
+    for c in counts.values():
+        c.reset()
+    out = serve_lm(LM_ARCH, reduced=False, batch=B, prompt_len=P, gen=G,
+                   seed=seed, device="cuda", verbose=False)
+    torch.cuda.synchronize()
+    serve_launches = {k: c.value for k, c in counts.items()}
+    if serve_launches["flash_attention"]:
+        n = serve_launches["flash_attention"]
+        raise RuntimeError(f"serve_lm (prefill and decode) launched "
+                           f"flash_attention {n} times; the reference's "
+                           "prefill and decode run neither")
+    tokens = out["tokens"]
+    if tokens.shape != (B, G) or not ((tokens >= 0) & (tokens < cfg.vocab)
+                                      ).all():
+        raise RuntimeError(f"serve_lm tokens {tokens.shape}: {tokens}")
+    log("lm", f"serve_lm bf16 batch {B} prompt {P} gen {G}: "
+        f"{out['seconds']:.2f} s ({out['tokens_per_s']:.1f} tok/s, first "
+        f"calls included); tokens in [0, {cfg.vocab}); first row "
+        f"{tokens[0].tolist()}")
+
+    params = lm.init_params(lm.make_generator(seed, "cuda"), cfg)
+    batch = dict(tokens=torch.from_numpy(lm_tokens(cfg, B, P, seed)).cuda())
+    flash_step = steps.make_prefill_step(dataclasses.replace(
+        cfg, attn_core="flash"))
+    soft_step = steps.make_prefill_step(cfg)
+    for c in counts.values():
+        c.reset()
+    flash = flash_step(params, batch)
+    torch.cuda.synchronize()
+    step_launches = {k: c.value for k, c in counts.items()}
+    if step_launches["flash_attention"] != cfg.n_layers:
+        raise RuntimeError(f"bf16 prefill step launched flash_attention "
+                           f"{step_launches['flash_attention']} times")
+    soft = soft_step(params, batch)
+    # what bfloat16 itself moves: both cores against the softmax core in
+    # float32 on the same (bfloat16-valued) parameters
+    ref32 = steps.make_prefill_step(dataclasses.replace(
+        cfg, dtype="float32"))(to_float32(params), batch)
+    spread = dict(flash_vs_float32=rms_ratio(flash, ref32),
+                  softmax_vs_float32=rms_ratio(soft, ref32),
+                  flash_vs_float32_max=max_err(flash, ref32),
+                  softmax_vs_float32_max=max_err(soft, ref32))
+    del ref32
+    log("lm", "bfloat16 against the float32 softmax core: RMS ratio flash "
+        "{flash_vs_float32:.3g}, softmax {softmax_vs_float32:.3g}; max|diff| "
+        "flash {flash_vs_float32_max:.3g}, softmax "
+        "{softmax_vs_float32_max:.3g}".format(**spread))
+    if not (spread["flash_vs_float32"]
+            <= LM_BF16_SPREAD * spread["softmax_vs_float32"]):
+        raise RuntimeError(f"bfloat16 flash core is further from float32 "
+                           f"than {LM_BF16_SPREAD} x the softmax core's: "
+                           f"{spread}")
+    err = check_lm_close(torch, flash, soft, LM_BF16_TOL,
+                         f"24 layers, bfloat16, flash prefill step vs softmax"
+                         f" core, batch {B} x {P}", rms=LM_BF16_RMS)
+    top_f = flash[:, -1, :cfg.vocab].argmax(-1).cpu()
+    top_s = soft[:, -1, :cfg.vocab].argmax(-1).cpu()
+    first = torch.from_numpy(tokens[:, 0]).long()
+    agree = dict(last_argmax_flash_vs_softmax=int((top_f == top_s).sum()),
+                 serve_first_token_vs_flash=int((first == top_f).sum()),
+                 serve_first_token_vs_softmax=int((first == top_s).sum()),
+                 of=B)
+    log("lm", "last-position argmax agreement (of {of}): flash vs softmax "
+        "core {last_argmax_flash_vs_softmax}; serve_lm's first greedy token "
+        "vs the flash step's argmax {serve_first_token_vs_flash}, vs the "
+        "softmax core's {serve_first_token_vs_softmax}".format(**agree))
+    del flash, soft
+
+    # timing (CUDA events, host launch included), flash and softmax in turns
+    runs = {"flash": [], "softmax": []}
+    fns = {"flash": lambda: flash_step(params, batch),
+           "softmax": lambda: soft_step(params, batch)}
+    for name in ("flash", "softmax", "softmax", "flash"):
+        runs[name].append(eager_ms(torch, fns[name], iters=5))
+    prefill_ms = {k: statistics.mean(v) for k, v in runs.items()}
+    serve_step = steps.make_serve_step(cfg)
+    with torch.no_grad():
+        _, caches = lm.prefill(params, cfg, batch, s_max=P + G)
+    nxt = batch["tokens"][:, -1:]
+    decode_ms = eager_ms(torch, lambda: serve_step(params, caches, nxt, P),
+                         iters=20)
+    tok = B * P
+    log("timing", f"bf16 prefill step, batch {B} x {P} (CUDA events, host "
+        f"included, two runs each in turns): flash {runs['flash'][0]:.3f} / "
+        f"{runs['flash'][1]:.3f} ms ({tok / prefill_ms['flash'] * 1e3:.0f} "
+        f"tokens/s), softmax core {runs['softmax'][0]:.3f} / "
+        f"{runs['softmax'][1]:.3f} ms ({tok / prefill_ms['softmax'] * 1e3:.0f}"
+        f" tokens/s); decode step (batch {B}, cache {P + G}) "
+        f"{decode_ms:.3f} ms per token")
+    busy = dict(prefill=profile_busy(torch, fns["flash"], 2,
+                                     prefill_ms["flash"], "prefill step"),
+                decode=profile_busy(torch, lambda: serve_step(
+                    params, caches, nxt, P), 5, decode_ms, "decode step"))
+    del params, caches
+    return dict(serve_launches=serve_launches, launches=step_launches,
+                err=err, spread=spread, agree=agree, prefill_ms=prefill_ms,
+                prefill_runs=runs, decode_ms=decode_ms, busy=busy,
+                serve_seconds=out["seconds"])
+
+
+def time_flash_kernel(torch, flush) -> dict:
+    """flash_attention (L2 flushed, causal, bfloat16 and, at the first
+    shape, float32) beside its plain version, the library call
+    F.scaled_dot_product_attention(..., is_causal=True, enable_gqa=True)
+    (a yardstick, never on the port's path) and its bound: q, k, v read
+    once and o written once over the HBM rate, or flash_flops (the causal
+    half of 4 Sq Skv d per head) over the dtype's peak, the larger."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    rows = {}
+    for i, (B, Hq, Hkv, S, d) in enumerate(FLASH_TIMED):
+        for dtype in (torch.bfloat16, torch.float32)[:2 if i == 0 else 1]:
+            name = str(dtype).removeprefix("torch.")
+            q, k, v = (torch.randn((B, h, S, d), generator=gen,
+                                   device="cuda").to(dtype)
+                       for h in (Hq, Hkv, Hkv))
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, is_causal=True, enable_gqa=True)
+            torch.testing.assert_close(lib().float(), fa.plain(q, k, v)
+                                       .float(), **FLASH_TOL[name])
+            be = q.element_size()
+            n_bytes = (2 * q.numel() + k.numel() + v.numel()) * be
+            b_ms, b_by = bound(n_bytes, fa.flash_flops(B, Hq, S, S, d), name)
+            key = f"{B}x{Hq}x{Hkv}x{S}x{d}" + ("" if name == "bfloat16"
+                                                else " float32")
+            rows[key] = r = dict(
+                ms=graph_ms(torch, lambda: fa.flash_attention(q, k, v),
+                            flush, inner=5, reps=7),
+                plain_ms=graph_ms(torch, lambda: fa.plain(q, k, v), flush,
+                                  inner=2, reps=5),
+                library_ms=graph_ms(torch, lib, flush, inner=5, reps=7),
+                library_call="F.scaled_dot_product_attention(q, k, v, "
+                             "is_causal=True, enable_gqa=True)",
+                bound_ms=b_ms, bound_by=b_by, dtype=name,
+                shape=[B, Hq, Hkv, S, S, d])
+            log("timing", f"flash_attention {key} {name}: {r['ms']:.4f} ms "
+                f"(L2 cold), plain {r['plain_ms']:.4f} ms, library "
+                f"{r['library_ms']:.4f} ms ({r['library_call']}), bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return {"flash_attention": rows}
+
+
 def profile_busy(torch, fn, iters: int, median_ms: float, what: str):
     """Device time per call of ``fn`` from torch.profiler, its top kernels,
     and its share of ``median_ms``; None where the profiler saw no device
@@ -1542,6 +1968,9 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bfloat16 products sum in float32 to the end, as the reference's
+    # preferred_element_type=float32 asks
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     t_start = time.perf_counter()
 
     smi = subprocess.run(
@@ -1558,6 +1987,7 @@ def main() -> int:
     from repro_torch.kernels import bell_spmm_fused as bellf_mod
     from repro_torch.kernels import block_diag_spmm as bd_mod
     from repro_torch.kernels import block_diag_spmm_fused as bdf_mod
+    from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.kernels import tcgnn_tile as tc_mod
     counts = {"block_diag_spmm": bd_mod.launches,
               "bell_spmm": bell_mod.launches,
@@ -1567,7 +1997,8 @@ def main() -> int:
               "tcgnn_spmm": tc_mod.launches,
               "tcgnn_spmm_fused": tc_mod.fused_launches,
               "tcgnn_spmm_dw": tc_mod.dw_launches,
-              "block_diag_spmm_dual": bdf_mod.dual_launches}
+              "block_diag_spmm_dual": bdf_mod.dual_launches,
+              "flash_attention": fa_mod.launches}
 
     # 1. build ---------------------------------------------------------------
     phase_build(torch)
@@ -1608,6 +2039,7 @@ def main() -> int:
     phase_kernels_train(torch, dec, errs)
     phase_kernels_tcgnn(torch, dec, errs)
     phase_kernels_dual(torch, sdec, errs)
+    phase_kernels_flash(torch, errs)
 
     # 3. forward -------------------------------------------------------------
     plan, params, x, launches_fwd = phase_main(torch, graph, cfg, dec, counts)
@@ -1625,9 +2057,18 @@ def main() -> int:
     # 7. SAGE: fixed plans, then its main path -------------------------------
     sage = phase_sage_train(torch, graph, sdec, counts)
     sfb = phase_sage_feedback(torch, graph, counts, sage)
+    # 7b. LM serving: InternLM2-1.8B at full width ----------------------------
+    lm2 = phase_lm_two_layer(torch, counts)
+    lm32 = phase_lm_f32(torch, counts)
+    lms = phase_lm_serve(torch, counts)
     by_path = {"forward": launches_fwd, "train": trained["launches"],
                "feedback": fb["launches"], "sage_train": sage["launches"],
-               "sage_feedback": sfb["launches"]}
+               "sage_feedback": sfb["launches"],
+               "lm_prefill_step_2_layers_f32": lm2["launches"],
+               "lm_prefill_step_f32": lm32["launches"],
+               "lm_softmax_prefill_decode_f32": lm32["other_launches"],
+               "serve_lm_bf16": lms["serve_launches"],
+               "lm_prefill_step_bf16": lms["launches"]}
     launches = {k: sum(p[k] for p in by_path.values()) for k in counts}
     for k, v in launches.items():
         if v == 0:
@@ -1721,6 +2162,7 @@ def main() -> int:
                                    bsr_of(torch, bell_t)))
     rows.update(time_tcgnn_kernels(torch, dec, flush))
     rows.update(time_dual_kernel(torch, sdec, flush))
+    rows.update(time_flash_kernel(torch, flush))
     del scratch
 
     busy = profile_busy(torch, lambda: gnn.forward(params, cfg, dec, x, plan),
@@ -1729,17 +2171,22 @@ def main() -> int:
                                     f"{name} step")
                  for name, fn in steps.items()}
 
+    # the LM's counts as read in this run: one bf16 prefill-step call
+    # (asserted to be n_layers) and one serve_lm call, prefill and 32
+    # decode steps (asserted to be 0)
+    per_call = dict(PER_STEP, **SAGE_PER_STEP,
+                    lm_prefill_step=lms["launches"],
+                    serve_lm=lms["serve_launches"])
     out = []
     for name, meta in KERNELS.items():
-        key = (16 if name in FORWARD_KERNELS or name == "tcgnn_spmm"
-               else "500x16")
+        key = ROW_KEY.get(name, "500x16")
         r = rows[name][key]
         out.append(dict(
             name=name, route="cuda", source=meta["source"],
             replaces=meta["replaces"], launches=launches[name],
             launches_by_path={p: c[name] for p, c in by_path.items()},
-            launches_per_step={p: t.get(name, 0) for p, t in
-                               dict(PER_STEP, **SAGE_PER_STEP).items()},
+            launches_per_step={p: t.get(name, 0)
+                               for p, t in per_call.items()},
             max_abs_err=errs[name]["float32"],
             max_abs_err_bf16=errs[name]["bfloat16"],
             **({"max_rel_err": errs[name]["float32_rel"],
@@ -1748,7 +2195,7 @@ def main() -> int:
             ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"],
-            dtype="float32", width=key,
+            dtype=r.get("dtype", "float32"), width=key,
             by_width={str(k): v for k, v in rows[name].items()}))
     log("done", f"{time.perf_counter() - t_start:.1f} s; forward_ms "
         f"{ {str(k): v for k, v in fwd_ms.items()} }; busy {busy}; "
@@ -1760,7 +2207,12 @@ def main() -> int:
                           feedback=fb["result"].losses,
                           sage_feedback=sfb["result"].losses,
                           **{n: r.losses for n, r in
-                             sage["results"].items()})))
+                             sage["results"].items()}))
+        + f"; LM: 2-layer card vs CPU {lm2['err']:.3g}, float32 errors "
+        f"{lm32['errs']}, bf16 flash vs softmax {lms['err']:.3g}, bf16 vs "
+        f"float32 {lms['spread']}, argmax "
+        f"{lms['agree']}, prefill ms {lms['prefill_ms']}, decode "
+        f"{lms['decode_ms']:.3f} ms/token, busy {lms['busy']}")
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

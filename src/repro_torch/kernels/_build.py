@@ -26,13 +26,13 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("block_diag_spmm", "bell_spmm", "bell_spmm_fused", "bell_spmm_dw",
            "tcgnn_spmm", "tcgnn_spmm_fused", "tcgnn_spmm_dw",
-           "block_diag_spmm_dual")
+           "block_diag_spmm_dual", "flash_attention")
 HEADERS = ("dtype.cuh", "dw_reduce.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_TIMEOUT_S = 600
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argtypes of each library's launch function (pointers and the stream as
 # c_void_p so ctypes never truncates them to 32 bits)
 SIGNATURES = {
@@ -47,6 +47,8 @@ SIGNATURES = {
     "tcgnn_spmm_dw": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                       _P),
     "block_diag_spmm_dual": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                        _I, _P),
 }
 
 # element types the kernels take, as the dtype code they are passed

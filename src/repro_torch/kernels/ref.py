@@ -1,11 +1,12 @@
-"""Plain PyTorch versions of the aggregation kernels.
+"""Plain PyTorch versions of the aggregation kernels and of attention.
 
-Counterpart of the SpMM part of ``repro/kernels/ref.py``.  They are the
-correctness references the CUDA kernels are held against on the card, and
-what each wrapper runs when its tensors lie on the CPU.  Products
-accumulate in float32 (float64 for float64 inputs, so gradients can be
-checked numerically) and the result is cast back to the input dtype, as in
-the reference; the dW reduction returns its accumulation type.
+Counterpart of the SpMM and attention parts of ``repro/kernels/ref.py``.
+They are the correctness references the CUDA kernels are held against on
+the card, and what each wrapper runs when its tensors lie on the CPU.
+Products accumulate in float32 (float64 for float64 inputs, so gradients
+can be checked numerically) and the result is cast back to the input
+dtype, as in the reference; the dW reduction returns its accumulation
+type.
 """
 from __future__ import annotations
 
@@ -169,3 +170,59 @@ def coo_spmm(rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
     y = torch.zeros((n_rows, x.shape[-1]), dtype=torch.float32,
                     device=x.device)
     return y.index_add_(0, rows.long(), msgs).to(x.dtype)
+
+
+# --- attention -------------------------------------------------------------
+
+NEG_INF = -1e30     # the reference's mask value (finite, as in its kernels)
+
+
+def _softmax_core(q, k, v, mask, scale) -> torch.Tensor:
+    """softmax(q k^T * scale, -1e30 where ``mask`` is False) v in
+    float32 (float64 for float64 inputs), GQA by head groups: query head h
+    reads kv head h // (Hq // Hkv).  q: (B, Hq, S, d); k: (B, Hkv, T, d);
+    v: (B, Hkv, T, dv); mask: (S, T) bool or None -> (B, Hq, S, dv) in
+    q.dtype."""
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    g = hq // hkv
+    acc = _acc(q)
+    qf = q.to(acc).reshape(b, hkv, g, s, d)
+    logits = torch.einsum("bhgsd,bhtd->bhgst", qf, k.to(acc)) * scale
+    if mask is not None:
+        logits = logits.masked_fill(~mask, NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgst,bhtd->bhgsd", p, v.to(acc))
+    return out.reshape(b, hq, s, v.shape[-1]).to(q.dtype)
+
+
+def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+        causal: bool = True, scale: float | None = None) -> torch.Tensor:
+    """Reference multi-head attention. q: (B, Hq, S, D); k/v: (B, Hkv, T, D).
+    GQA handled by head-group broadcast.  The causal mask is
+    ``tril(k=T-S)``: aligned to the bottom right, so the last query sees
+    every key."""
+    s, t = q.shape[2], k.shape[2]
+    sc = (q.shape[-1] ** -0.5) if scale is None else scale
+    mask = None
+    if causal:
+        mask = torch.ones((s, t), dtype=torch.bool,
+                          device=q.device).tril(diagonal=t - s)
+    return _softmax_core(q, k, v, mask, sc)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    scale: float | None = None) -> torch.Tensor:
+    """The flash kernel's function: attention whose causal mask keeps
+    ``q_pos >= k_pos`` from the top left, as the reference's Pallas kernel
+    masks (``repro/kernels/flash_attention.py`` ``_kernel``).  It equals
+    ``mha`` when causal is off or Sq == Skv.  q: (B, Hq, Sq, d);
+    k: (B, Hkv, Skv, d); v: (B, Hkv, Skv, dv) -> (B, Hq, Sq, dv)."""
+    s, t = q.shape[2], k.shape[2]
+    sc = (q.shape[-1] ** -0.5) if scale is None else scale
+    mask = None
+    if causal:
+        pos = torch.arange(max(s, t), device=q.device)
+        mask = pos[:s, None] >= pos[None, :t]
+    return _softmax_core(q, k, v, mask, sc)

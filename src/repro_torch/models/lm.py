@@ -1,0 +1,424 @@
+"""LM-family model: the decoder-only dense GQA transformer.
+
+Counterpart of ``repro/models/lm.py`` for layer kind ``attn_mlp`` (GQA
+attention + gated FFN, pre-RMSNorm), the kind of InternLM2, Qwen2.5,
+CodeQwen and Mistral-Large.  The other kinds (MoE, MLA, RWKV, Jamba,
+encoder-decoder) raise ``NotImplementedError`` naming the slice that
+brings them.
+
+A model is a sequence of homogeneous layer groups.  With ``scan_layers``
+each group's parameters and decode caches are stacked on axis 0, as in the
+reference; where the reference scans over a stack, the port loops over it
+(views, no copies), and decoding writes each layer's new k/v into its
+stacked cache in place at ``pos`` instead of returning updated copies.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, fields
+from typing import Any
+
+import torch
+
+from repro_torch import DEFAULT_DEVICE, resolve_device
+from repro_torch.kernels import ref as kref
+from repro_torch.layers import nn
+from repro_torch.models import blocks as blk
+
+Params = Any
+
+DTYPES = dict(float32=torch.float32, bfloat16=torch.bfloat16,
+              float16=torch.float16)
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str = "model"
+    family: str = "decoder"          # decoder | encdec
+    n_layers: int = 2
+    d_model: int = 128
+    n_heads: int = 4
+    kv_heads: int = 4
+    head_dim: int = 32
+    d_ff: int = 256
+    vocab: int = 1000
+    vocab_pad_to: int = 128
+    qkv_bias: bool = False
+    rope_theta: float = 1e4
+    tie_embeddings: bool = True
+    dtype: str = "float32"
+    norm_eps: float = 1e-6
+
+    attn_type: str = "gqa"           # gqa | mla
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    d_ff_expert: int = 0
+    n_shared_experts: int = 0
+    first_k_dense: int = 0
+    capacity_factor: float = 1.25
+    moe_dispatch: str = "adaptive"   # AdaptGear hook
+    aux_loss_coef: float = 0.01
+
+    # hybrid / attention-free
+    layer_pattern: str = "uniform"   # uniform | jamba | rwkv
+    mamba_d_state: int = 16
+    mamba_expand: int = 2
+
+    # modality / structure
+    input_mode: str = "tokens"       # tokens | embeds (vlm & audio stubs)
+    mrope_sections: tuple | None = None
+    encoder_layers: int = 0
+    encoder_seq: int = 1500
+
+    # deepseek-v3 multi-token prediction
+    mtp: bool = False
+    mtp_weight: float = 0.3
+
+    # execution
+    attn_core: str = "softmax"       # softmax | flash | identity
+    mamba_core: str = "xla"          # xla | pallas | identity
+    wkv_core: str = "xla"            # xla | pallas | identity
+    remat: str = "dots"              # none | full | dots
+    scan_layers: bool = True
+    subquadratic: bool = False       # eligible for long_500k
+    rwkv_chunk: int = 32
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        """The model dtype (the reference's ``jdtype``)."""
+        return DTYPES[self.dtype]
+
+    @property
+    def padded_vocab(self) -> int:
+        p = self.vocab_pad_to
+        return ((self.vocab + p - 1) // p) * p
+
+    def attn_cfg(self, causal=True, use_rope=True) -> blk.AttnConfig:
+        return blk.AttnConfig(
+            d_model=self.d_model, n_heads=self.n_heads, kv_heads=self.kv_heads,
+            head_dim=self.head_dim, qkv_bias=self.qkv_bias,
+            rope_theta=self.rope_theta, mrope_sections=self.mrope_sections,
+            causal=causal, use_rope=use_rope, attn_core=self.attn_core)
+
+    def layer_groups(self) -> list[tuple[str, int]]:
+        """[(kind, n_layers_in_group), ...] in execution order."""
+        if self.family == "encdec":
+            return [("enc", self.encoder_layers), ("dec", self.n_layers)]
+        if self.layer_pattern == "rwkv":
+            return [("rwkv", self.n_layers)]
+        if self.layer_pattern == "jamba":
+            assert self.n_layers % 8 == 0
+            return [("jamba_period", self.n_layers // 8)]
+        mixer = "mla" if self.attn_type == "mla" else "attn"
+        if self.n_experts:
+            groups = []
+            if self.first_k_dense:
+                groups.append((f"{mixer}_mlp", self.first_k_dense))
+            groups.append((f"{mixer}_moe", self.n_layers - self.first_k_dense))
+            return groups
+        return [(f"{mixer}_mlp", self.n_layers)]
+
+
+# the ROADMAP slice that brings each layer kind this port lacks
+_UNPORTED_KINDS = {
+    "attn_moe": "MoE", "mla_mlp": "MLA", "mla_moe": "MLA and MoE",
+    "rwkv": "RWKV-6 (with the rwkv6_chunked kernel)",
+    "jamba_period": "Jamba (with the mamba_scan kernel)",
+    "enc": "the whisper encoder-decoder", "dec": "the whisper "
+    "encoder-decoder",
+}
+
+
+def _require_kind(kind: str) -> None:
+    if kind != "attn_mlp":
+        what = _UNPORTED_KINDS.get(kind)
+        if what is None:
+            raise ValueError(kind)
+        raise NotImplementedError(
+            f"layer kind {kind!r} ({what}) is not ported yet: ROADMAP "
+            "section 1 item 8")
+
+
+# fields that only the unported kinds read: kind attn_mlp ignores them, so
+# a value other than the default is refused rather than dropped unseen
+# (``remat`` is a training knob and inference ignores it on any kind)
+_UNPORTED_FIELDS = (
+    "q_lora_rank", "kv_lora_rank", "qk_nope_dim", "qk_rope_dim",
+    "v_head_dim", "top_k", "d_ff_expert", "n_shared_experts",
+    "first_k_dense", "capacity_factor", "moe_dispatch", "aux_loss_coef",
+    "mamba_d_state", "mamba_expand", "encoder_seq", "mtp_weight",
+    "mamba_core", "wkv_core", "rwkv_chunk")
+
+
+def _require_supported(cfg: ModelConfig) -> None:
+    for kind, _ in cfg.layer_groups():
+        _require_kind(kind)
+    defaults = {f.name: f.default for f in fields(ModelConfig)}
+    for f in _UNPORTED_FIELDS:
+        value, default = getattr(cfg, f), defaults[f]
+        if value != default:
+            raise NotImplementedError(
+                f"{f}={value!r} (default {default!r}) is read only by layer "
+                "kinds that are not ported yet: ROADMAP section 1 item 8")
+    if cfg.mtp:
+        raise NotImplementedError("multi-token prediction (DeepSeek-V3) is "
+                                  "not ported yet: ROADMAP section 1 item 8")
+    if cfg.mrope_sections is not None:
+        raise NotImplementedError("M-RoPE (qwen2-vl) is not ported yet: "
+                                  "ROADMAP section 1 item 8")
+
+
+# ---------------------------------------------------------------------------
+# per-layer init / apply
+# ---------------------------------------------------------------------------
+
+def _norm_init(d, dtype, device):
+    return dict(scale=torch.ones((d,), dtype=dtype, device=device))
+
+
+def _norm_apply(p, x, eps):
+    """RMSNorm (the whisper layers' LayerNorm comes with them)."""
+    return nn.rms_norm(x, p["scale"], eps)
+
+
+def init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str) -> Params:
+    _require_kind(kind)
+    dt, d = cfg.torch_dtype, cfg.d_model
+    return dict(norm1=_norm_init(d, dt, gen.device),
+                norm2=_norm_init(d, dt, gen.device),
+                attn=blk.init_attention(gen, cfg.attn_cfg(), dt),
+                ffn=blk.init_mlp(gen, d, cfg.d_ff, dt))
+
+
+def layer_apply(params, cfg: ModelConfig, kind: str, x, positions):
+    """Full-sequence layer. Returns (x, aux_loss)."""
+    _require_kind(kind)
+    eps = cfg.norm_eps
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = _norm_apply(params["norm1"], x, eps)
+    h = blk.attention_apply(params["attn"], cfg.attn_cfg(), h, positions)
+    x = x + h
+    h = _norm_apply(params["norm2"], x, eps)
+    h = blk.mlp_apply(params["ffn"], h)
+    return x + h, aux
+
+
+# ---------------------------------------------------------------------------
+# layer stacks
+# ---------------------------------------------------------------------------
+
+def _tree_map(fn, *trees):
+    t0 = trees[0]
+    if isinstance(t0, dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in t0}
+    if isinstance(t0, (list, tuple)):
+        return type(t0)(_tree_map(fn, *xs) for xs in zip(*trees))
+    return fn(*trees)
+
+
+def _stack(layers: list) -> Params:
+    return _tree_map(lambda *xs: torch.stack(xs), *layers)
+
+
+def _leaves(tree) -> list:
+    out = []
+    _tree_map(out.append, tree)
+    return out
+
+
+def _layers(group, cfg: ModelConfig) -> list:
+    """Per-layer views of a group: slices of its stacks (``scan_layers``)
+    or the reference's list of layers."""
+    if not cfg.scan_layers:
+        return list(group)
+    n = _leaves(group)[0].shape[0]
+    return [_tree_map(lambda a, i=i: a[i], group) for i in range(n)]
+
+
+# ---------------------------------------------------------------------------
+# whole-model init / forward
+# ---------------------------------------------------------------------------
+
+def make_generator(seed: int, device: str | torch.device = DEFAULT_DEVICE
+                   ) -> torch.Generator:
+    """The explicit generator ``init_params`` draws from, on ``device``."""
+    return torch.Generator(device=resolve_device(device)).manual_seed(seed)
+
+
+def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    """Parameters drawn from ``gen`` on its device (the reference's key):
+    embed, the untied head, then each group's layers in order."""
+    _require_supported(cfg)
+    dt, dev = cfg.torch_dtype, gen.device
+    V = cfg.padded_vocab
+    p = dict(embed=nn.trunc_normal(gen, (V, cfg.d_model)).to(dt),
+             final_norm=_norm_init(cfg.d_model, dt, dev))
+    if not cfg.tie_embeddings:
+        p["lm_head"] = nn.trunc_normal(gen, (cfg.d_model, V)).to(dt)
+    groups = []
+    for kind, n in cfg.layer_groups():
+        layers = [init_layer(gen, cfg, kind) for _ in range(n)]
+        groups.append(_stack(layers) if cfg.scan_layers else layers)
+    p["groups"] = groups
+    return p
+
+
+def _run_group(group_params, cfg: ModelConfig, kind: str, x, positions):
+    """Loop a homogeneous layer group.  ``cfg.remat`` is a training knob
+    (what the backward recomputes) and is ignored here."""
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lp in _layers(group_params, cfg):
+        x, aux = layer_apply(lp, cfg, kind, x, positions)
+        aux_total = aux_total + aux
+    return x, aux_total
+
+
+def _logits(params, cfg: ModelConfig, h):
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return blk.einsum("bsd,dv->bsv", h, head).to(cfg.torch_dtype)
+
+
+def _embed_inputs(params, cfg: ModelConfig, batch: dict):
+    dt = cfg.torch_dtype
+    if cfg.input_mode == "tokens":
+        x = nn.embed_lookup(params["embed"], batch["tokens"]).to(dt)
+    else:
+        x = batch["embeds"].to(dt)
+    B, S = x.shape[:2]
+    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    return x, positions
+
+
+def forward(params, cfg: ModelConfig, batch: dict) -> tuple[torch.Tensor,
+                                                             dict]:
+    """Training/prefill forward pass.  batch: tokens (B, S) in tokens mode,
+    embeds (B, S, d) in embeds mode.  Returns (logits (B, S, Vp), aux
+    dict)."""
+    _require_supported(cfg)
+    x, positions = _embed_inputs(params, cfg, batch)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for g, (kind, _) in zip(params["groups"], cfg.layer_groups()):
+        x, aux = _run_group(g, cfg, kind, x, positions)
+        aux_total = aux_total + aux
+    h = _norm_apply(params["final_norm"], x, cfg.norm_eps)
+    return _logits(params, cfg, h), dict(aux_loss=aux_total)
+
+
+# ---------------------------------------------------------------------------
+# decode (serving) path
+# ---------------------------------------------------------------------------
+
+def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, s_max: int,
+                     device: str | torch.device = DEFAULT_DEVICE):
+    _require_kind(kind)
+    return blk.init_attn_cache(cfg.attn_cfg(), batch, s_max,
+                               cfg.torch_dtype, resolve_device(device))
+
+
+def init_cache(cfg: ModelConfig, batch: int, s_max: int,
+               device: str | torch.device = DEFAULT_DEVICE):
+    """Zero decode caches per group: k and v (n, B, s_max, KV, dh) with
+    ``scan_layers``, else a list of per-layer dicts."""
+    _require_supported(cfg)
+    dev = resolve_device(device)
+    caches = []
+    for kind, n in cfg.layer_groups():
+        if cfg.scan_layers:
+            one = init_layer_cache(cfg, kind, batch, s_max, dev)
+            caches.append({k: a.new_zeros((n,) + a.shape)
+                           for k, a in one.items()})
+        else:
+            caches.append([init_layer_cache(cfg, kind, batch, s_max, dev)
+                           for _ in range(n)])
+    return caches
+
+
+def layer_decode(params, cfg: ModelConfig, kind: str, x, cache, pos: int):
+    _require_kind(kind)
+    eps = cfg.norm_eps
+    h = _norm_apply(params["norm1"], x, eps)
+    h, cache = blk.attention_decode(params["attn"], cfg.attn_cfg(), h, cache,
+                                    pos)
+    x = x + h
+    h = _norm_apply(params["norm2"], x, eps)
+    h = blk.mlp_apply(params["ffn"], h)
+    return x + h, cache
+
+
+def decode_step(params, cfg: ModelConfig, caches, tokens, pos: int):
+    """One decode step.  tokens: (B, 1) int (or embeds (B, 1, d) in embeds
+    mode); pos: int position of the new token.  Writes the new token's k/v
+    into ``caches`` in place.  Returns (logits (B, 1, Vp), next_token
+    (B, 1) int32, caches)."""
+    _require_supported(cfg)
+    dt = cfg.torch_dtype
+    if cfg.input_mode == "tokens":
+        x = nn.embed_lookup(params["embed"], tokens).to(dt)
+    else:
+        x = tokens.to(dt)
+    for g, cache, (kind, _) in zip(params["groups"], caches,
+                                   cfg.layer_groups()):
+        for lp, lc in zip(_layers(g, cfg), _layers(cache, cfg)):
+            x, _ = layer_decode(lp, cfg, kind, x, lc, pos)
+    h = _norm_apply(params["final_norm"], x, cfg.norm_eps)
+    logits = _logits(params, cfg, h)
+    next_tok = torch.argmax(logits[..., : cfg.vocab], dim=-1).to(torch.int32)
+    return logits, next_tok, caches
+
+
+# ---------------------------------------------------------------------------
+# cache-producing prefill (serving: prompt pass that hands off to decode)
+# ---------------------------------------------------------------------------
+
+def _pad_cache_seq(arr: torch.Tensor, s_max: int) -> torch.Tensor:
+    pad = s_max - arr.shape[1]
+    if pad <= 0:
+        return arr[:, :s_max]
+    return torch.cat([arr, arr.new_zeros((arr.shape[0], pad)
+                                         + arr.shape[2:])], dim=1)
+
+
+def layer_prefill(params, cfg: ModelConfig, kind: str, x, positions, s_max):
+    """Full-sequence layer that also emits its decode cache.  Attention is
+    plain ``ref.mha``, as in the reference (the flash kernel runs in
+    ``forward`` only)."""
+    _require_kind(kind)
+    eps = cfg.norm_eps
+    dt = cfg.torch_dtype
+    B, S, _ = x.shape
+    acfg = cfg.attn_cfg()
+    h = _norm_apply(params["norm1"], x, eps)
+    q, k, v = blk._qkv(params["attn"], acfg, h, positions)
+    o = kref.mha(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                 causal=True)
+    o = o.transpose(1, 2).reshape(B, S, -1)
+    h = blk.einsum("bsh,hd->bsd", o, params["attn"]["wo"]).to(x.dtype)
+    x = x + h
+    cache = dict(k=_pad_cache_seq(k.to(dt), s_max),
+                 v=_pad_cache_seq(v.to(dt), s_max))
+    h = _norm_apply(params["norm2"], x, eps)
+    h = blk.mlp_apply(params["ffn"], h)
+    return x + h, cache
+
+
+def prefill(params, cfg: ModelConfig, batch: dict, s_max: int):
+    """Prompt pass producing (logits, caches) for decode handoff.
+    Decoder-only families (token or embeds mode)."""
+    assert cfg.family == "decoder"
+    _require_supported(cfg)
+    x, positions = _embed_inputs(params, cfg, batch)
+    caches = []
+    for g, (kind, _) in zip(params["groups"], cfg.layer_groups()):
+        cache = []
+        for lp in _layers(g, cfg):
+            x, c = layer_prefill(lp, cfg, kind, x, positions, s_max)
+            cache.append(c)
+        caches.append(_stack(cache) if cfg.scan_layers else cache)
+    h = _norm_apply(params["final_norm"], x, cfg.norm_eps)
+    return _logits(params, cfg, h), caches

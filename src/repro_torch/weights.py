@@ -1,4 +1,5 @@
-"""Carry model parameters over from the JAX reference.
+"""Carry model parameters over from the JAX reference: the GNN layers
+(``from_jax_params``) and the LM pytree (``lm_from_jax_params``).
 
 ``jax.random`` and torch generators give different numbers from one seed,
 so a comparison of the two packages starts both from the reference's
@@ -46,4 +47,72 @@ def from_jax_params(params_np: Sequence[Mapping[str, np.ndarray]],
                              f"w_neigh {arrs['w_neigh'].shape} differ")
         out.append({k: torch.from_numpy(a.copy()).to(dev)
                     for k, a in arrs.items()})
+    return out
+
+
+def _lm_layer_shapes(cfg) -> dict:
+    """Shape of every leaf of one ``attn_mlp`` layer of ``cfg``."""
+    d, H, KV, dh = cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    attn = dict(wq=(d, H * dh), wk=(d, KV * dh), wv=(d, KV * dh),
+                wo=(H * dh, d))
+    if cfg.qkv_bias:
+        attn.update(bq=(H * dh,), bk=(KV * dh,), bv=(KV * dh,))
+    return dict(norm1=dict(scale=(d,)), norm2=dict(scale=(d,)), attn=attn,
+                ffn=dict(w_up=(d, cfg.d_ff), w_down=(cfg.d_ff, d),
+                         w_gate=(d, cfg.d_ff)))
+
+
+def _convert(tree, shapes, where: str, dtype, dev, lead=()):
+    """``tree`` (numpy leaves) as tensors of ``dtype`` on ``dev``, checked
+    leaf by leaf against ``shapes`` (with ``lead`` dims in front)."""
+    if isinstance(shapes, dict):
+        if not isinstance(tree, Mapping) or set(tree) != set(shapes):
+            got = sorted(tree) if isinstance(tree, Mapping) else type(tree)
+            raise ValueError(f"{where}: expected keys {sorted(shapes)}, "
+                             f"got {got}")
+        return {k: _convert(tree[k], shapes[k], f"{where}.{k}", dtype, dev,
+                            lead) for k in shapes}
+    a = np.asarray(tree)
+    if a.shape != lead + tuple(shapes):
+        raise ValueError(f"{where}: expected shape {lead + tuple(shapes)}, "
+                         f"got {a.shape}")
+    # float32 on the way: numpy has no bfloat16 of its own
+    return torch.from_numpy(np.asarray(a, np.float32).copy()).to(
+        device=dev, dtype=dtype)
+
+
+def lm_from_jax_params(params_np: Mapping, cfg,
+                       device: str | torch.device = DEFAULT_DEVICE) -> dict:
+    """The reference's ``repro.models.lm.init_params`` pytree for ``cfg``
+    (leaves as numpy; with ``cfg.scan_layers`` each group's layers stacked
+    on axis 0, else a list of layers) as this package's parameters: the
+    same tree of tensors in ``cfg``'s dtype on ``device``, each with
+    storage of its own.  Layer kind ``attn_mlp`` only."""
+    from repro_torch.models import lm
+    lm._require_supported(cfg)
+    dev = resolve_device(device)
+    dt = cfg.torch_dtype
+    V, d = cfg.padded_vocab, cfg.d_model
+    top = dict(embed=(V, d), final_norm=dict(scale=(d,)))
+    if not cfg.tie_embeddings:
+        top["lm_head"] = (d, V)
+    if set(params_np) != set(top) | {"groups"}:
+        raise ValueError(f"expected keys {sorted(set(top) | {'groups'})}, "
+                         f"got {sorted(params_np)}")
+    out = {k: _convert(params_np[k], s, k, dt, dev) for k, s in top.items()}
+    layer = _lm_layer_shapes(cfg)
+    groups = params_np["groups"]
+    if len(groups) != len(cfg.layer_groups()):
+        raise ValueError(f"expected {len(cfg.layer_groups())} layer groups, "
+                         f"got {len(groups)}")
+    out["groups"] = []
+    for gi, (g, (_, n)) in enumerate(zip(groups, cfg.layer_groups())):
+        where = f"groups[{gi}]"
+        if cfg.scan_layers:
+            out["groups"].append(_convert(g, layer, where, dt, dev, (n,)))
+        else:
+            if len(g) != n:
+                raise ValueError(f"{where}: expected {n} layers, got {len(g)}")
+            out["groups"].append([_convert(lp, layer, f"{where}[{i}]", dt,
+                                           dev) for i, lp in enumerate(g)])
     return out

@@ -9,7 +9,10 @@ installed:
 Tolerances are the reference's (tests/test_fused.py): float32
 atol = rtol = 1e-4, bfloat16 atol = 2e-1, rtol = 3e-1.  dW, float32 on
 both sides for either input dtype, is held to 1e-5 of its largest entry
-(from unit-scale cotangents): only the order of float32 sums differs."""
+(from unit-scale cotangents): only the order of float32 sums differs.
+flash_attention is held to the reference's own flash tolerances
+(tests/test_kernels_flash.py): float32 atol 2e-5, rtol 1e-4; bfloat16
+atol = rtol = 5e-2."""
 import torch_parity as tp  # noqa: I001  (first: pins torch to one thread)
 
 import pytest
@@ -19,6 +22,7 @@ from repro_torch.kernels import bell_spmm as bell_mod
 from repro_torch.kernels import bell_spmm_fused as bellf_mod
 from repro_torch.kernels import block_diag_spmm as bd_mod
 from repro_torch.kernels import block_diag_spmm_fused as bdf_mod
+from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels import ops
 from repro_torch.kernels import tcgnn_tile as tc_mod
 from torch_parity import cuda_device  # noqa: F401  (fixture)
@@ -334,3 +338,127 @@ def test_cuda_feedback_selection_probes_every_candidate(cuda_device):  # noqa: F
             for k in REGISTRY.candidates_for(s, include_fused=True)
             for fo in (8, 3)}
     assert set(probes) == want and all(t > 0 for t in probes.values())
+
+
+FLASH_TOL = {torch.float32: dict(atol=2e-5, rtol=1e-4),
+             torch.bfloat16: dict(atol=5e-2, rtol=5e-2)}
+# bfloat16 must also hold these (as in chip_smoke.py): at S >= 256 the
+# reference's 5e-2 is about as large as a typical output, so it alone
+# would pass a kernel that dropped a KV tile or a softmax rescale
+FLASH_BF16_TIGHT = dict(atol=4e-3, rtol=2e-2)
+FLASH_BF16_ROW_RMS = 1e-2
+
+
+def assert_flash_close(got, want):
+    """At FLASH_TOL; bfloat16 also at FLASH_BF16_TIGHT and, per output
+    row, rms(err) <= FLASH_BF16_ROW_RMS * rms(want)."""
+    got, want, dtype = got.float(), want.float(), got.dtype
+    torch.testing.assert_close(got, want, **FLASH_TOL[dtype])
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(got, want, **FLASH_BF16_TIGHT)
+        row = ((got - want).square().mean(-1).sqrt()
+               / want.square().mean(-1).sqrt())
+        assert float(row.max()) <= FLASH_BF16_ROW_RMS, float(row.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d,dv", [(32, 32), (64, 64), (128, 128),
+                                  (192, 128)])
+def test_cuda_flash_attention_matches_plain(cuda_device, dtype, causal, d,
+                                            dv):  # noqa: F811
+    """flash_attention against its plain version: GQA groups 1, 2 and 8,
+    sequence lengths that are and are not multiples of the kernel's 64-row
+    tile, and Sq != Skv (non-causal only: the two causal alignments differ
+    there, as in the reference)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(d + dv)
+    cases = [(2, 4, 4, 128, 128), (1, 8, 4, 256, 256), (2, 8, 1, 96, 96),
+             (1, 2, 2, 32, 32)]
+    if not causal:
+        cases.append((1, 4, 2, 64, 256))
+    for B, Hq, Hkv, Sq, Skv in cases:
+        q = torch.randn((B, Hq, Sq, d), generator=gen, device=cuda_device)
+        k = torch.randn((B, Hkv, Skv, d), generator=gen, device=cuda_device)
+        v = torch.randn((B, Hkv, Skv, dv), generator=gen, device=cuda_device)
+        args = [t.to(dtype) for t in (q, k, v)]
+        blk = min(Sq, Skv, 32)
+        got = fa_mod.flash_attention(*args, causal=causal, blk_q=blk,
+                                     blk_k=blk)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == (B, Hq, Sq, dv)
+        assert_flash_close(got, fa_mod.plain(*args, causal=causal))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_attention_paths_agree(cuda_device, causal):  # noqa: F811
+    """bfloat16 with d = dv = 128 takes the tensor-core path when every
+    operand is 16-byte aligned and the CUDA-core path otherwise (here:
+    views that start one element into their storage); both match the
+    plain version."""
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    shapes = ((2, 8, 192, 128), (2, 2, 192, 128), (2, 2, 192, 128))
+    aligned = [torch.randn(s, generator=gen, device=cuda_device).bfloat16()
+               for s in shapes]
+    shifted = []
+    for t in aligned:
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda_device)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 16 != 0
+        shifted.append(view)
+    want = fa_mod.plain(*aligned, causal=causal)
+    for args in (aligned, shifted):
+        got = fa_mod.flash_attention(*args, causal=causal, blk_q=64,
+                                     blk_k=64)
+        torch.cuda.synchronize()
+        assert_flash_close(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_counts_launches_and_trains(cuda_device):  # noqa: F811
+    """One launch per CUDA call, none for a CPU call; the trainable form's
+    gradients (recomputed through plain mha) equal autograd through the
+    plain version."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    q, k, v = (torch.randn((1, 4, 128, 64), generator=gen,
+                           device=cuda_device) for _ in range(3))
+    k, v = k[:, :2].contiguous(), v[:, :2].contiguous()
+    before = fa_mod.launches.value
+    fa_mod.flash_attention(q, k, v)
+    fa_mod.flash_attention(q.cpu(), k.cpu(), v.cpu())
+    assert fa_mod.launches.value - before == 1
+    cot = torch.randn((1, 4, 128, 64), generator=gen, device=cuda_device)
+    grads = []
+    for fn in (fa_mod.flash_attention_trainable, fa_mod.plain):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        (fn(*leaves, causal=True) * cot).sum().backward()
+        grads.append([t.grad for t in leaves])
+    assert fa_mod.launches.value - before == 2
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, **tp.F32_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["device", "dtype", "float16", "strided",
+                                  "head_dim"])
+def test_cuda_flash_attention_rejects_bad_operands(cuda_device, case):  # noqa: F811
+    q = torch.randn((1, 2, 64, 32), device=cuda_device)
+    k = torch.randn((1, 2, 64, 32), device=cuda_device)
+    v = torch.randn((1, 2, 64, 32), device=cuda_device)
+    if case == "device":
+        k = k.cpu()
+    elif case == "dtype":
+        v = v.bfloat16()
+    elif case == "float16":
+        q, k, v = q.half(), k.half(), v.half()
+    elif case == "strided":
+        q = torch.randn((1, 64, 2, 32), device=cuda_device).transpose(1, 2)
+    else:
+        q, k = (torch.randn((1, 2, 64, 260), device=cuda_device)
+                for _ in range(2))
+    before = fa_mod.launches.value
+    with pytest.raises(ValueError):
+        fa_mod.flash_attention(q, k, v)
+    assert fa_mod.launches.value == before

@@ -1,5 +1,7 @@
 """Port parity against the JAX reference where the reference compiles:
-the kernel modules (the reference's ``ops.*_matvec(_acc)`` and
+the kernel modules (the flash kernel's plain version against the Pallas
+kernel in interpret mode, the LM stack at InternLM2's reduced config),
+the GNN kernel modules (the reference's ``ops.*_matvec(_acc)`` and
 ``tcgnn_tile.*_matvec(_acc)`` run the Pallas kernels in interpret mode on
 the CPU; ``csr``/``sell_cs`` are XLA there) and the whole slice
 (``repro.core.gnn.forward`` and ``train`` from the reference's own
@@ -404,3 +406,208 @@ def test_sage_plan_curves_match_reference_from_its_params():
         assert ref.losses[-1] < ref.losses[0]
         np.testing.assert_allclose(port.losses, ref.losses, atol=5e-3,
                                    rtol=1e-2)
+
+
+# --- the LM serving slice: InternLM2-1.8B at its reduced config ------------
+
+LM_ARCH = "internlm2_1_8b"
+FLASH_TOL = dict(atol=2e-5, rtol=1e-4)     # tests/test_kernels_flash.py
+LM_TOL = dict(atol=1e-3, rtol=1e-3)        # tests/test_models_smoke.py
+
+
+def test_lm_serving_slice_matches_reference(monkeypatch):
+    """The LM serving slice, in one test so that this file stays short in
+    pytest-xdist's queue (see the module docstring): the flash kernel's
+    plain version and gradients, the model, and serve_lm."""
+    _check_flash_against_pallas_kernel()
+    _check_lm_layers_forward_prefill_decode()
+    _check_serve_lm_against_reference_example(monkeypatch)
+
+
+def _check_flash_against_pallas_kernel():
+    """The flash kernel's plain version against the Pallas kernel in
+    interpret mode: tests/test_kernels_flash.py's shapes with causal on
+    and off, its bfloat16 case and its Sq != Skv case (non-causal), and
+    d = 192 with dv = 128; flash_attention_trainable's gradients against
+    jax.grad through the reference's custom VJP; and the analytic bytes and
+    flops models."""
+    from repro.kernels import flash_attention as RFA
+    from repro_torch.kernels import flash_attention as TFA
+    rng = np.random.default_rng(19)
+    cases = [((B, Hq, Hkv, S, S, d, d), blk, causal, jnp.float32, FLASH_TOL)
+             for B, Hq, Hkv, S, d, blk in (
+                 (1, 1, 1, 64, 32, 16), (2, 4, 2, 128, 64, 32),
+                 (1, 8, 1, 128, 128, 64), (2, 2, 2, 256, 64, 128))
+             for causal in (True, False)]
+    cases += [((1, 2, 2, 128, 128, 64, 64), 64, True, jnp.bfloat16,
+               dict(atol=5e-2, rtol=5e-2)),
+              ((1, 2, 2, 64, 256, 32, 32), 32, False, jnp.float32, FLASH_TOL),
+              ((1, 4, 2, 128, 128, 192, 128), 64, True, jnp.float32,
+               FLASH_TOL)]
+    for (B, Hq, Hkv, Sq, Skv, d, dv), blk, causal, jdt, tol in cases:
+        q, k, v = (rng.standard_normal(s).astype(np.float32) for s in (
+            (B, Hq, Sq, d), (B, Hkv, Skv, d), (B, Hkv, Skv, dv)))
+        ref = RFA.flash_attention(
+            *(jnp.asarray(a).astype(jdt) for a in (q, k, v)), causal=causal,
+            blk_q=min(blk, Sq), blk_k=2 * blk if Skv > Sq else blk,
+            interpret=True)
+        tdt = torch.bfloat16 if jdt == jnp.bfloat16 else torch.float32
+        port = TFA.flash_attention(
+            *(torch.from_numpy(a).to(tdt) for a in (q, k, v)),
+            causal=causal, blk_q=blk, blk_k=blk)
+        assert port.dtype == tdt and tuple(port.shape) == (B, Hq, Sq, dv)
+        tp.assert_close(np.asarray(ref, np.float32), port.float(), **tol)
+
+    q, k, v, cot = (rng.standard_normal(s).astype(np.float32) for s in (
+        (2, 4, 128, 32), (2, 2, 128, 32), (2, 2, 128, 32), (2, 4, 128, 32)))
+    ref_y, ref_g = _grads_ref(
+        lambda q, k, v: RFA.flash_attention_trainable(q, k, v, causal=True),
+        [jnp.asarray(a) for a in (q, k, v)], cot)
+    port_y, port_g = _grads_port(
+        lambda q, k, v: TFA.flash_attention_trainable(q, k, v, causal=True),
+        [torch.from_numpy(a) for a in (q, k, v)], cot)
+    tp.assert_close(ref_y, port_y, **FLASH_TOL)
+    for rg, pg in zip(ref_g, port_g):
+        tp.assert_close(rg, pg)
+    for shape in ((1, 8, 8, 4096, 4096, 128), (4, 16, 8, 1024, 1024, 128)):
+        assert TFA.flash_hbm_bytes(*shape) == RFA.flash_hbm_bytes(*shape)
+        B, Hq, _, Sq, Skv, d = shape
+        for causal in (True, False):
+            assert (TFA.flash_flops(B, Hq, Sq, Skv, d, causal)
+                    == RFA.flash_flops(B, Hq, Sq, Skv, d, causal))
+
+
+def _lm_pair(reduced: bool = True):
+    """The reference's and the port's config, and the reference's
+    parameters (PRNGKey(0)) carried over to the port."""
+    from repro import configs as RC
+    from repro.models import lm as RLM
+    from repro_torch import configs as TC
+    from repro_torch.weights import lm_from_jax_params
+    rcfg = RC.get_config(LM_ARCH, reduced=reduced)
+    tcfg = TC.get_config(LM_ARCH, reduced=reduced)
+    params = RLM.init_params(jax.random.PRNGKey(0), rcfg)
+    port = lm_from_jax_params(jax.tree.map(np.asarray, params), tcfg,
+                              device="cpu")
+    return rcfg, tcfg, params, port
+
+
+def _check_lm_layers_forward_prefill_decode():
+    """InternLM2's configs equal the reference's field by field; rms_norm
+    and apply_rope; forward with the softmax and the flash core (S = 128,
+    so the reference runs its Pallas kernel in interpret mode and the port
+    its plain version); prefill, its caches, and teacher-forced
+    decode_step against the reference's, logits at 1e-3 (the reference's
+    own prefill/decode tolerance), layers at float32 1e-4."""
+    import dataclasses
+    from repro import configs as RC
+    from repro.layers import nn as RNN, rope as RROPE
+    from repro.models import lm as RLM
+    from repro_torch import configs as TC
+    from repro_torch.layers import nn as TNN, rope as TROPE
+    from repro_torch.models import lm as TLM
+    for reduced in (False, True):
+        ref_cfg = RC.get_config(LM_ARCH, reduced=reduced)
+        port_cfg = TC.get_config(LM_ARCH, reduced=reduced)
+        assert ([f.name for f in dataclasses.fields(port_cfg)]
+                == [f.name for f in dataclasses.fields(ref_cfg)])
+        for f in dataclasses.fields(ref_cfg):
+            assert getattr(port_cfg, f.name) == getattr(ref_cfg, f.name), \
+                f.name
+        assert port_cfg.padded_vocab == ref_cfg.padded_vocab
+        assert port_cfg.layer_groups() == ref_cfg.layer_groups()
+
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((2, 5, 4, 16)).astype(np.float32) * 3
+    scale = rng.standard_normal(16).astype(np.float32)
+    pos = rng.integers(0, 4096, (2, 5)).astype(np.int32)
+    tp.assert_close(RNN.rms_norm(jnp.asarray(x), jnp.asarray(scale)),
+                    TNN.rms_norm(torch.from_numpy(x), torch.from_numpy(scale)))
+    tp.assert_close(
+        RROPE.apply_rope(jnp.asarray(x), jnp.asarray(pos), 1e6),
+        TROPE.apply_rope(torch.from_numpy(x), torch.from_numpy(pos), 1e6))
+
+    rcfg, tcfg, params, port = _lm_pair()
+    toks = rng.integers(0, rcfg.vocab, (2, 128)).astype(np.int32)
+    for core in ("softmax", "flash"):
+        ref, _ = RLM.forward(params, dataclasses.replace(rcfg, attn_core=core),
+                             dict(tokens=jnp.asarray(toks)))
+        got, aux = TLM.forward(port, dataclasses.replace(tcfg, attn_core=core),
+                               dict(tokens=torch.from_numpy(toks)))
+        assert tuple(got.shape) == (2, 128, tcfg.padded_vocab)
+        tp.assert_close(ref, got, **LM_TOL)
+        assert float(aux["aux_loss"]) == 0.0
+
+    P, S = 8, 12
+    ref_lg, ref_c = RLM.prefill(params, rcfg, dict(tokens=jnp.asarray(
+        toks[:, :P])), s_max=S)
+    got_lg, got_c = TLM.prefill(port, tcfg, dict(tokens=torch.from_numpy(
+        toks[:, :P])), s_max=S)
+    tp.assert_close(ref_lg, got_lg, **LM_TOL)
+    for name in ("k", "v"):
+        tp.assert_close(ref_c[0][name], got_c[0][name])
+    decode = jax.jit(lambda p, c, t, pos: RLM.decode_step(p, rcfg, c, t, pos))
+    for t in range(P, S):
+        ref_lg, ref_tok, ref_c = decode(params, ref_c,
+                                        jnp.asarray(toks[:, t:t + 1]), t)
+        got_lg, got_tok, got_c = TLM.decode_step(
+            port, tcfg, got_c, torch.from_numpy(toks[:, t:t + 1]), t)
+        tp.assert_close(ref_lg, got_lg, **LM_TOL)
+        np.testing.assert_array_equal(np.asarray(ref_tok), got_tok.numpy())
+        for name in ("k", "v"):
+            tp.assert_close(ref_c[0][name], got_c[0][name])
+
+
+def _check_serve_lm_against_reference_example(monkeypatch):
+    """repro_torch.launch.serve_lm against examples/serve_lm.py's serve_lm
+    from the same parameters (the reference's, carried over) and prompts
+    (numpy, one seed).  The logits behind each of the reference's greedy
+    tokens (prefill, then teacher-forced decode) agree at 1e-3; the tokens
+    agree, or, at a row's first difference, the reference's logits of the
+    two tokens tie within that tolerance (bfloat16-scale ties can flip an
+    argmax; in float32 here there should be none)."""
+    import importlib.util
+    from pathlib import Path
+    from repro.models import lm as RLM
+    from repro_torch.launch import serve_lm as TSL
+    from repro_torch.models import lm as TLM
+    spec = importlib.util.spec_from_file_location(
+        "serve_lm_example",
+        Path(__file__).resolve().parents[1] / "examples" / "serve_lm.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    B, P, G = 2, 16, 8
+    rcfg, tcfg, params, port = _lm_pair()
+    ref = example.serve_lm(LM_ARCH, reduced=True, batch=B, prompt_len=P,
+                           gen=G, seed=0, verbose=False)
+    monkeypatch.setattr(TLM, "init_params", lambda gen, cfg: port)
+    got = TSL.serve_lm(LM_ARCH, reduced=True, batch=B, prompt_len=P, gen=G,
+                       seed=0, device="cpu", verbose=False)
+    assert got["tokens"].shape == ref["tokens"].shape == (B, G)
+    assert got["tokens"].dtype == np.int32 and got["seconds"] > 0
+
+    prompts = np.random.default_rng(0).integers(0, rcfg.vocab, (B, P))
+    prompts = prompts.astype(np.int32)
+    toks = np.array(ref["tokens"])
+    ref_lg, ref_c = RLM.prefill(params, rcfg, dict(tokens=jnp.asarray(
+        prompts)), s_max=P + G)
+    got_lg, got_c = TLM.prefill(port, tcfg, dict(tokens=torch.from_numpy(
+        prompts)), s_max=P + G)
+    ref_steps, got_steps = [ref_lg[:, -1]], [got_lg[:, -1]]
+    decode = jax.jit(lambda p, c, t, pos: RLM.decode_step(p, rcfg, c, t, pos))
+    for i in range(G - 1):
+        ref_lg, _, ref_c = decode(params, ref_c, jnp.asarray(toks[:, i:i + 1]),
+                                  P + i)
+        got_lg, _, got_c = TLM.decode_step(
+            port, tcfg, got_c, torch.from_numpy(toks[:, i:i + 1]), P + i)
+        ref_steps.append(ref_lg[:, 0])
+        got_steps.append(got_lg[:, 0])
+    for r, g in zip(ref_steps, got_steps):
+        tp.assert_close(r, g, **LM_TOL)
+    for b in range(B):
+        diff = np.flatnonzero(got["tokens"][b] != toks[b])
+        if diff.size:
+            t = diff[0]
+            lg = np.asarray(ref_steps[t][b], np.float32)
+            gap = lg[toks[b, t]] - lg[got["tokens"][b, t]]
+            assert 0 <= gap <= 2e-3, (b, t, gap)
