@@ -11,10 +11,11 @@ twin ``("block_diag_fused", "bell_fused")`` and the column-condensed
 config, whose feedback selector times every registry candidate of every
 subgraph at both layer widths on the card and commits the fastest; then
 the same for GraphSAGE (``GNNConfig(model="sage")``): two fixed plans and
-its feedback main path; then the LM stack's serving path for
-InternLM2-1.8B at its full published widths (flash prefill, cache
-prefill, greedy decode).  It goes through the ten hand-written CUDA
-kernels and checks every result.  ``acc`` (the threaded accumulator, and
+its feedback main path; then the LM stack's serving paths at full
+published widths: InternLM2-1.8B (flash prefill, cache prefill, greedy
+decode) and RWKV6-7B (the rwkv6_chunked kernel in the prefill step,
+sequential cache prefill, greedy decode).  It goes through the eleven
+hand-written CUDA kernels and checks every result.  ``acc`` (the threaded accumulator, and
 SAGE's dual-weight kernel) takes its default, on for CUDA tensors, except
 where a phase names it.
 Run it from the root of a checkout with no arguments:
@@ -101,6 +102,36 @@ Phases, each of which raises (exit code != 0) on failure:
    per prefill-step call (2 at 2 layers) and never in the softmax core,
    prefill or decode; then the bfloat16 prefill step (flash and softmax
    core) and decode step are timed and profiled;
+7c. LM serving, RWKV6-7B (32 layers, d_model 4096, 64 heads of 64, d_ff
+   14336, vocab 65536, rwkv_chunk 128) under the reference's serving
+   profile (wkv_core="pallas", the rwkv6_chunked kernel): rwkv6_chunked
+   against its plain version (the sequential oracle) is in phase 2 (the
+   reference test's shapes, RWKV6-7B's (4, 64, 1024, 64) at chunk 128 and
+   (1, 64, 4096, 64); decay rates random, all at the floor log w = -1.5
+   and all at w ~ 1; float32 against the plain version in float64 at atol
+   5e-4 / rtol 1e-3, bfloat16 at 5e-2 / 5e-2, tests/test_kernels_rwkv6.py,
+   and per output row rms(err) <= 1e-2 rms(plain); finite everywhere).
+   Here, with launch counts set to 0 just before each path and read just
+   after: the prefill step at 2 layers in float32 on the card against the
+   CPU (batch 2 x 256, logits within 1e-3); 4 layers in float32: the
+   kernel core against the plain chunked form at chunk 32, and prefill of
+   256 tokens plus teacher-forced decode_step to 384 against the forward
+   (1e-3); in bfloat16 at all 32 layers: serve_lm (batch 4, prompt 1024,
+   32 greedy tokens, every token in [0, vocab)) and the prefill step on its
+   prompts and parameters with the kernel core and the chunked form at
+   chunk 32: finite logits; the same step in float32 (on the same
+   bf16-valued parameters) with the kernel core against the chunked form
+   at chunk 32, RMS ratio <= 0.25; the bf16 kernel core no further from
+   that float32 chunked step than 1.25 times the bf16 chunked core is
+   (this random-init model amplifies a perturbation about 1.3x per layer,
+   so bf16 logits of two right paths differ at O(1) after 32 layers; the
+   float32 sensitivity per layer is printed); argmax agreement printed;
+   and at every layer, on that layer's bf16 activations, the kernel
+   against its plain version at phase 2's criteria.  rwkv6_chunked must
+   launch once per layer per prefill-step call and never in prefill,
+   decode or the chunked core;
+   then the bf16 prefill step (both cores), the cache-producing prefill
+   and the decode step are timed and profiled;
 8. timing: median forward times (acc off and on) and training-step times
    (CUDA events, host launch included; GCN's unfused and feedback plans
    also with acc off, and the SAGE plans), each kernel's time at the main
@@ -169,6 +200,9 @@ KERNELS = {
     "flash_attention": dict(
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:74"),
+    "rwkv6_chunked": dict(
+        source="src/repro_torch/kernels/csrc/rwkv6_chunked.cu",
+        replaces="src/repro/kernels/rwkv6_chunked.py:127"),
 }
 FORWARD_KERNELS = ("block_diag_spmm", "bell_spmm")
 # the CUDA kernels each registry spec launches in a training step
@@ -287,12 +321,53 @@ LM_BF16_RMS = 4e-2
 LM_BF16_SPREAD = 1.25
 SERVE = dict(batch=4, prompt_len=1024, gen=32)
 
+# The RWKV-6 slice: RWKV6-7B (src/repro_torch/configs/rwkv6_7b.py)
+RWKV_ARCH = "rwkv6_7b"
+# rwkv6_chunked's checked shapes (B, H, T, dh, chunk): the reference test's
+# (tests/test_kernels_rwkv6.py), RWKV6-7B's serving prefill at its published
+# chunk, and one 4096-token sequence; decays: rates N(0, 1) clipped to the
+# model's [-20, 0.405], all at the floor 0.405 (log w = -1.5, where the
+# reference's chunked forms overflow at chunk 128), and all at -20 (w
+# within 2e-9 of 1, the state's largest growth)
+RWKV_SHAPES = ((1, 2, 64, 16, 16), (2, 2, 128, 64, 32),
+               (4, 64, 1024, 64, 128), (1, 64, 4096, 64, 128))
+RWKV_DECAYS = ("rand", "floor", "one")
+# the reference's RWKV-6 tolerances (tests/test_kernels_rwkv6.py:41-42).
+# Float32 is held against the plain version run in float64: at w near 1
+# over 4096 steps |o| reaches ~3000, where atol 5e-4 asks for 1e-7 of |o|,
+# and the float32 oracle's own rounding reads 2.8x that limit against
+# float64 (a CPU model at 16 heads).  bfloat16 also per output row:
+# rms(err) <= 1e-2 rms(plain), as for flash_attention.
+RWKV_TOL = {"float32": dict(atol=5e-4, rtol=1e-3),
+            "bfloat16": dict(atol=5e-2, rtol=5e-2)}
+RWKV_BF16_ROW_RMS = 1e-2
+RWKV_TIMED = ((4, 64, 1024, 64), (1, 64, 4096, 64))
+# 32 layers (batch 4 x 1024).  The model with the reference's random init
+# amplifies a perturbation about 1.3x per layer on average (the sensitivity
+# reading of phase 7c, PERF.md section 6), so two right bf16 paths that
+# round once differently end 32 layers apart at O(1) in the logits: on an
+# H100 both cores read an RMS ratio of 0.72 against a float32 step, and 0.49
+# against each other, and no bf16 logits gate can tell a right kernel from
+# a wrong one.  The kernel's gates here are in float32, whose rounding is
+# 2^16 times finer: the kernel-core step against the plain chunked
+# core at chunk 32 (independent of the kernel), at RWKV_F32_LAYERS layers
+# within 1e-3 and at all 32 layers by RMS ratio <= RWKV_F32_DEEP_RMS; and
+# the kernel at every layer, on that layer's bf16 activations, against its
+# plain version at phase 2's criteria.  In bf16 the kernel core must only
+# be no further from the float32 chunked step than RWKV_BF16_SPREAD times
+# the bf16 chunked core is (a coarse check: both sit near 0.72).
+RWKV_BF16_SPREAD = 1.25
+RWKV_F32_DEEP_RMS = 0.25
+RWKV_XLA_CHUNK = 32     # the chunked form's largest safe chunk at the floor
+RWKV_F32_LAYERS = 4     # depth of the float32 prefill/decode check
+
 # (Fi, Fo) of the main path's fused kernels: layer 1, layer 2, and layer
 # 2's dX pass over the transpose with W^T
 WIDTHS = ((500, 16), (16, 3), (3, 16))
 # the width of each kernel's row in the kernels JSON line (else 500x16)
 ROW_KEY = {"block_diag_spmm": 16, "bell_spmm": 16, "tcgnn_spmm": 16,
-           "flash_attention": "4x16x8x1024x128"}
+           "flash_attention": "4x16x8x1024x128",
+           "rwkv6_chunked": "4x64x1024x64"}
 
 
 def log(phase: str, msg: str) -> None:
@@ -1918,6 +1993,454 @@ def time_flash_kernel(torch, flush) -> dict:
     return {"flash_attention": rows}
 
 
+# ---------------------------------------------------------------------------
+# the RWKV-6 slice: RWKV6-7B through the rwkv6_chunked kernel
+# ---------------------------------------------------------------------------
+
+def rwkv_inputs(torch, gen, B, H, T, dh, dtype, decay):
+    """r, k, v ~ N(0, 1) in ``dtype``; w float32 from the RWKV_DECAYS rate
+    ``decay``; u ~ N(0, 1) float32; all on the card."""
+    r, k, v = (torch.randn((B, H, T, dh), generator=gen, device="cuda")
+               .to(dtype) for _ in range(3))
+    if decay == "rand":
+        rate = torch.randn((B, H, T, dh), generator=gen,
+                           device="cuda").clamp(-20.0, 0.405)
+    else:
+        rate = torch.full((B, H, T, dh), 0.405 if decay == "floor" else -20.0,
+                          device="cuda")
+    u = torch.randn((H, dh), generator=gen, device="cuda")
+    return r, k, v, torch.exp(-torch.exp(rate)), u
+
+
+def check_rwkv_close(torch, got, args, what: str, quiet: bool = False
+                     ) -> dict:
+    """Holds an rwkv6_chunked output against its plain version: finite;
+    float32 against the plain version in float64, bfloat16 against it in
+    bfloat16 and per output row rms(err) <= RWKV_BF16_ROW_RMS rms(plain).
+    Logs the readings (unless ``quiet`` and within tolerance), then raises
+    if one fails; returns them: max|err|, worst |err| / limit and (bf16)
+    the largest row RMS ratio."""
+    from repro_torch.kernels import rwkv6_chunked as rk
+    name = str(got.dtype).removeprefix("torch.")
+    finite = bool(torch.isfinite(got).all())
+    ref_args = [a.double() for a in args] if name == "float32" else args
+    w = rk.plain(*ref_args).double()
+    g = got.double()
+    err = (g - w).abs()
+    e = float(err.max())
+    tol = RWKV_TOL[name]
+    ratio = float((err / (tol["atol"] + tol["rtol"] * w.abs())).max())
+    msg = (f"{what}: max|err| {e:.3g} (max|o| {float(w.abs().max()):.3g}), "
+           f"worst |err| / limit {ratio:.3g}")
+    readings = dict(err=e, ratio=ratio, row_rms=0.0)
+    fails = [] if finite else ["non-finite output"]
+    if not ratio <= 1:
+        fails.append(f"{tol} (worst {ratio:.3g})")
+    if name == "bfloat16":
+        row = (err.square().mean(-1).sqrt()
+               / w.square().mean(-1).sqrt().clamp_min(1e-30))
+        row_max = float(row.max())
+        readings["row_rms"] = row_max
+        msg += f", row RMS ratio max {row_max:.3g}"
+        if not row_max <= RWKV_BF16_ROW_RMS:
+            fails.append(f"row RMS {row_max:.3g} > {RWKV_BF16_ROW_RMS}")
+    if fails or not quiet:
+        log("kernel", msg)
+    if fails:
+        raise RuntimeError(f"{what} outside " + "; ".join(fails))
+    return readings
+
+
+def phase_kernels_rwkv(torch, errs: dict) -> None:
+    """rwkv6_chunked against its plain version (the sequential oracle) on
+    the card at RWKV_SHAPES x RWKV_DECAYS, float32 and bfloat16; also logs
+    how the plain chunked form (the "xla" core) fares at RWKV6-7B's shape
+    and chunk at the decay floor (no gate: the reference's own form)."""
+    from repro_torch.kernels import rwkv6_chunked as rk
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        for B, H, T, dh, chunk in RWKV_SHAPES:
+            for decay in RWKV_DECAYS:
+                args = rwkv_inputs(torch, gen, B, H, T, dh, dtype, decay)
+                got = rk.rwkv6_chunked_kernel(*args, chunk=chunk)
+                torch.cuda.synchronize()
+                if got.shape != args[0].shape or got.dtype != dtype:
+                    raise RuntimeError(f"rwkv6_chunked {(B, H, T, dh)}: "
+                                       f"{got.dtype} {tuple(got.shape)}")
+                e = check_rwkv_close(
+                    torch, got, args, f"rwkv6_chunked {name} (B,H,T,dh)="
+                    f"{(B, H, T, dh)} chunk {chunk} decay {decay}")["err"]
+                errs["rwkv6_chunked"][name] = max(
+                    errs["rwkv6_chunked"][name], e)
+                n += 1
+    args = rwkv_inputs(torch, gen, 4, 64, 1024, 64, torch.float32, "floor")
+    o128, _ = rk.rwkv6_chunked(*args, chunk=128)
+    o32, _ = rk.rwkv6_chunked(*args, chunk=RWKV_XLA_CHUNK)
+    log("kernel", f"plain chunked form at (4, 64, 1024, 64), decay floor: "
+        f"chunk 128 gives {int(torch.isnan(o128).sum())} NaN of "
+        f"{o128.numel()}; chunk {RWKV_XLA_CHUNK} gives "
+        f"{int((~torch.isfinite(o32)).sum())} non-finite")
+    log("kernel", f"rwkv6_chunked: {n} cases within tolerance ({RWKV_TOL}, "
+        f"float32 against the float64 plain version; bfloat16 also row RMS "
+        f"{RWKV_BF16_ROW_RMS}); largest errors {errs['rwkv6_chunked']}")
+
+
+def rwkv_cfg(**changes):
+    """RWKV6-7B's FULL config with ``changes``."""
+    import dataclasses
+    from repro_torch import configs
+    return dataclasses.replace(configs.get_config(RWKV_ARCH), **changes)
+
+
+def phase_rwkv_two_layer(torch, counts: dict) -> dict:
+    """The FULL RWKV6-7B widths at 2 layers, float32, kernel core: batch
+    2 x 256 through the prefill step on the card and on the CPU (the plain
+    versions) from the same parameters."""
+    from repro_torch.models import lm
+    from repro_torch.train import steps
+    cfg = rwkv_cfg(n_layers=2, dtype="float32", wkv_core="pallas")
+    params = lm.init_params(lm.make_generator(0, "cuda"), cfg)
+    toks = torch.from_numpy(lm_tokens(cfg, 2, 256, seed=4))
+    step = steps.make_prefill_step(cfg)
+    for c in counts.values():
+        c.reset()
+    card = step(params, dict(tokens=toks.cuda()))
+    torch.cuda.synchronize()
+    launches = {k: c.value for k, c in counts.items()}
+    if launches["rwkv6_chunked"] != cfg.n_layers:
+        raise RuntimeError(f"2-layer RWKV prefill step launched rwkv6_chunked "
+                           f"{launches['rwkv6_chunked']} times")
+    cpu_params = lm._tree_map(lambda a: a.cpu(), params)
+    del params
+    t0 = time.perf_counter()
+    cpu = step(cpu_params, dict(tokens=toks))
+    log("rwkv", f"CPU prefill step (2 layers, 2 x 256): "
+        f"{time.perf_counter() - t0:.1f} s")
+    err = check_lm_close(torch, card.cpu(), cpu, LM_TOL,
+                         "RWKV6-7B 2 layers, float32, card (rwkv6_chunked "
+                         "kernel) vs CPU (plain versions)")
+    return dict(launches=launches, err=err)
+
+
+def phase_rwkv_f32(torch, counts: dict) -> dict:
+    """RWKV_F32_LAYERS layers at full width, float32 on the card: the
+    kernel-core prefill step (batch 2 x 384) against the plain chunked
+    form at chunk 32, then prefill of 256 tokens and teacher-forced
+    decode_step to 384 against the forward's logits (the reference's own
+    invariant, tests/test_models_smoke.py)."""
+    from repro_torch.models import lm
+    from repro_torch.train import steps
+    cfg = rwkv_cfg(n_layers=RWKV_F32_LAYERS, dtype="float32",
+                   wkv_core="pallas")
+    params = lm.init_params(lm.make_generator(1, "cuda"), cfg)
+    toks = torch.from_numpy(lm_tokens(cfg, 2, 384, seed=5)).cuda()
+    P = 256
+    for c in counts.values():
+        c.reset()
+    fwd = steps.make_prefill_step(cfg)(params, dict(tokens=toks))
+    torch.cuda.synchronize()
+    step_launches = {k: c.value for k, c in counts.items()}
+    for c in counts.values():
+        c.reset()
+    xla = steps.make_prefill_step(rwkv_cfg(
+        n_layers=RWKV_F32_LAYERS, dtype="float32",
+        rwkv_chunk=RWKV_XLA_CHUNK))(params, dict(tokens=toks))
+    logits_p, caches = lm.prefill(params, cfg, dict(tokens=toks[:, :P]),
+                                  s_max=toks.shape[1])
+    serve = steps.make_serve_step(cfg)
+    dec = []
+    for t in range(P, toks.shape[1]):
+        _, lg, caches = serve(params, caches, toks[:, t:t + 1], t)
+        dec.append(lg[:, 0])
+    torch.cuda.synchronize()
+    other = {k: c.value for k, c in counts.items()}
+    if step_launches["rwkv6_chunked"] != cfg.n_layers:
+        raise RuntimeError(f"{cfg.n_layers}-layer RWKV prefill step launched "
+                           f"rwkv6_chunked {step_launches['rwkv6_chunked']} "
+                           "times")
+    if other["rwkv6_chunked"]:
+        raise RuntimeError("the chunked core, prefill or decode launched "
+                           f"rwkv6_chunked {other['rwkv6_chunked']} times")
+    errs = dict(
+        kernel_vs_chunked=check_lm_close(
+            torch, fwd, xla, LM_TOL, f"RWKV6-7B {cfg.n_layers} layers, "
+            f"float32, kernel-core prefill step vs the chunked form at chunk "
+            f"{RWKV_XLA_CHUNK}, batch 2 x 384"),
+        prefill_vs_forward=check_lm_close(
+            torch, logits_p, fwd[:, :P], LM_TOL,
+            f"RWKV prefill of {P} tokens (sequential) vs the forward"),
+        decode_vs_forward=check_lm_close(
+            torch, torch.stack(dec, dim=1), fwd[:, P:], LM_TOL,
+            f"RWKV teacher-forced decode_step {P} -> {toks.shape[1]} vs the "
+            "forward"))
+    del params, caches
+    return dict(launches=step_launches, other_launches=other, errs=errs)
+
+
+def rwkv_layers_against_plain(torch, params, cfg, batch) -> float:
+    """Along the bfloat16 kernel-core forward of all cfg.n_layers layers,
+    each layer's recurrence: the kernel on that layer's r, k, v, w and u
+    against its plain version (phase 2's bfloat16 criteria).  Logs the
+    worst readings and each layer's share of decay channels at the floor
+    (log w <= -1.49); returns the largest max|err|.  Its launches are
+    comparisons, outside every counted path."""
+    from repro_torch.kernels import rwkv6_chunked as rk
+    from repro_torch.models import blocks as blk
+    from repro_torch.models import lm
+    rc = cfg.rwkv_cfg()
+    worst, floor = dict(err=0.0, ratio=0.0, row_rms=0.0), []
+    with torch.no_grad():
+        x, positions = lm._embed_inputs(params, cfg, batch)
+        for i, lp in enumerate(lm._layers(params["groups"][0], cfg)):
+            h = lm._norm_apply(lp["norm1"], x, cfg.norm_eps)
+            r, k, v, w, _ = blk._rwkv6_rkvwg(
+                lp["tm"], rc, h, h.new_zeros((h.shape[0], 1, h.shape[2])))
+            args = [a.contiguous() for a in (r, k, v, w)] + [lp["tm"]["u"]]
+            got = rk.rwkv6_chunked_kernel(*args, chunk=rc.chunk)
+            readings = check_rwkv_close(
+                torch, got, args, f"RWKV6-7B bf16 layer {i} (B,H,T,dh)="
+                f"{tuple(r.shape)}", quiet=True)
+            worst = {k: max(v, readings[k]) for k, v in worst.items()}
+            floor.append(float((torch.log(w) <= -1.49).float().mean()))
+            x, _ = lm.layer_apply(lp, cfg, "rwkv", x, positions)
+    log("rwkv", f"every layer's rwkv6_chunked output against its plain "
+        f"version on the layer's bf16 activations ({len(floor)} layers): "
+        f"within {RWKV_TOL['bfloat16']} and row RMS {RWKV_BF16_ROW_RMS}: "
+        f"largest max|err| {worst['err']:.3g}, worst |err| / limit "
+        f"{worst['ratio']:.3g}, row RMS ratio max {worst['row_rms']:.3g}; "
+        f"decay channels at the floor per layer {min(floor):.3f}-"
+        f"{max(floor):.3f}")
+    return worst["err"]
+
+
+def rwkv_sensitivity(torch, params, cfg, batch) -> list:
+    """How a relative perturbation of 1e-6 in the embeddings grows through
+    the layers of ``cfg`` (float32 here): rms(x' - x) / rms(x) of the
+    residual stream after each layer."""
+    from repro_torch.models import lm
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    growth = []
+    with torch.no_grad():
+        xa, positions = lm._embed_inputs(params, cfg, batch)
+        xb = xa * (1 + 1e-6 * torch.randn(xa.shape, generator=gen,
+                                          device="cuda"))
+        for lp in lm._layers(params["groups"][0], cfg):
+            xa, _ = lm.layer_apply(lp, cfg, "rwkv", xa, positions)
+            xb, _ = lm.layer_apply(lp, cfg, "rwkv", xb, positions)
+            growth.append(float((xb - xa).norm() / xa.norm()))
+    log("rwkv", "float32 sensitivity, rms(x' - x) / rms(x) after each layer "
+        "for a 1e-6 relative perturbation of the embeddings: "
+        + ", ".join(f"{g:.2e}" for g in growth))
+    return growth
+
+
+def phase_rwkv_serve(torch, counts: dict) -> dict:
+    """The FULL RWKV6-7B config in bfloat16, all 32 layers: serve_lm with
+    the kernel core (the reference's serving profile), then the prefill
+    step on its prompts and parameters with the kernel core and with the
+    plain chunked form at chunk 32; the same two in float32 on the same
+    (bfloat16-valued) parameters, held against each other; both bf16
+    cores against the float32 chunked step; the kernel at every layer
+    against its plain version, and the model's float32 sensitivity; then
+    the timings of the serving path."""
+    import dataclasses
+    from repro_torch.launch.serve_lm import serve_lm
+    from repro_torch.models import lm
+    from repro_torch.train import steps
+    cfg = rwkv_cfg(wkv_core="pallas")
+    B, P, G, seed = SERVE["batch"], SERVE["prompt_len"], SERVE["gen"], 0
+    for c in counts.values():
+        c.reset()
+    out = serve_lm(RWKV_ARCH, reduced=False, batch=B, prompt_len=P, gen=G,
+                   seed=seed, device="cuda",
+                   overrides=dict(wkv_core="pallas"), verbose=False)
+    torch.cuda.synchronize()
+    serve_launches = {k: c.value for k, c in counts.items()}
+    if serve_launches["rwkv6_chunked"]:
+        raise RuntimeError(f"serve_lm (prefill and decode) launched "
+                           f"rwkv6_chunked {serve_launches['rwkv6_chunked']} "
+                           "times; the reference's prefill and decode are "
+                           "sequential under this core")
+    tokens = out["tokens"]
+    if tokens.shape != (B, G) or not ((tokens >= 0) & (tokens < cfg.vocab)
+                                      ).all():
+        raise RuntimeError(f"RWKV serve_lm tokens {tokens.shape}: {tokens}")
+    log("rwkv", f"serve_lm bf16 RWKV6-7B batch {B} prompt {P} gen {G}: "
+        f"{out['seconds']:.2f} s ({out['tokens_per_s']:.1f} tok/s, first "
+        f"calls included); tokens in [0, {cfg.vocab}); first row "
+        f"{tokens[0].tolist()}")
+
+    t0 = time.perf_counter()
+    params = lm.init_params(lm.make_generator(seed, "cuda"), cfg)
+    torch.cuda.synchronize()
+    n_params = sum(a.numel() for a in lm._leaves(params))
+    log("rwkv", f"init_params: {n_params / 1e9:.3f} B parameters, "
+        f"{sum(a.numel() * a.element_size() for a in lm._leaves(params)) / 1e9:.2f}"
+        f" GB, {time.perf_counter() - t0:.1f} s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    batch = dict(tokens=torch.from_numpy(lm_tokens(cfg, B, P, seed)).cuda())
+    kern_step = steps.make_prefill_step(cfg)
+    xla_step = steps.make_prefill_step(dataclasses.replace(
+        cfg, wkv_core="xla", rwkv_chunk=RWKV_XLA_CHUNK))
+    for c in counts.values():
+        c.reset()
+    kern = kern_step(params, batch)
+    torch.cuda.synchronize()
+    step_launches = {k: c.value for k, c in counts.items()}
+    if step_launches["rwkv6_chunked"] != cfg.n_layers:
+        raise RuntimeError(f"bf16 RWKV prefill step launched rwkv6_chunked "
+                           f"{step_launches['rwkv6_chunked']} times")
+    xla = xla_step(params, batch)
+    torch.cuda.synchronize()
+    if counts["rwkv6_chunked"].value != cfg.n_layers:
+        raise RuntimeError("the chunked core launched rwkv6_chunked")
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = to_float32(params)
+    kern32 = steps.make_prefill_step(cfg32)(params32, batch)
+    ref32 = steps.make_prefill_step(dataclasses.replace(
+        cfg32, wkv_core="xla", rwkv_chunk=RWKV_XLA_CHUNK))(params32, batch)
+    for name, t in (("kernel core", kern), ("chunked core", xla),
+                    ("float32 kernel core", kern32),
+                    ("float32 chunked core", ref32)):
+        if t.shape != (B, P, cfg.padded_vocab) or not bool(
+                torch.isfinite(t).all()):
+            raise RuntimeError(f"RWKV6-7B {name} logits {tuple(t.shape)}, "
+                               f"finite {bool(torch.isfinite(t).all())}")
+    spread = dict(f32_kernel_vs_chunked=rms_ratio(kern32, ref32),
+                  f32_kernel_vs_chunked_max=max_err(kern32, ref32),
+                  kernel_vs_float32=rms_ratio(kern, ref32),
+                  chunked_vs_float32=rms_ratio(xla, ref32),
+                  kernel_vs_chunked=rms_ratio(kern, xla),
+                  kernel_vs_float32_max=max_err(kern, ref32),
+                  chunked_vs_float32_max=max_err(xla, ref32),
+                  kernel_vs_chunked_max=max_err(kern, xla))
+    del kern32, ref32
+    log("rwkv", "float32 logits, batch {B} x {P}, 32 layers: kernel core "
+        "against the chunked core (chunk {C}) RMS ratio "
+        "{f32_kernel_vs_chunked:.3g} (limit {lim}), max|diff| "
+        "{f32_kernel_vs_chunked_max:.3g}".format(
+            B=B, P=P, C=RWKV_XLA_CHUNK, lim=RWKV_F32_DEEP_RMS, **spread))
+    log("rwkv", "bfloat16 logits, batch {B} x {P}: RMS ratio against the "
+        "float32 chunked-core step, kernel core {kernel_vs_float32:.3g}, "
+        "chunked core {chunked_vs_float32:.3g} (max|diff| "
+        "{kernel_vs_float32_max:.3g}, {chunked_vs_float32_max:.3g}); kernel "
+        "core against chunked core {kernel_vs_chunked:.3g} (max|diff| "
+        "{kernel_vs_chunked_max:.3g}; max|logit| {top:.3g})".format(
+            B=B, P=P, top=float(xla.abs().max()), **spread))
+    if not spread["f32_kernel_vs_chunked"] <= RWKV_F32_DEEP_RMS:
+        raise RuntimeError(f"float32 kernel core against the chunked core at "
+                           f"32 layers: RMS ratio outside "
+                           f"{RWKV_F32_DEEP_RMS}: {spread}")
+    if not (spread["kernel_vs_float32"]
+            <= RWKV_BF16_SPREAD * spread["chunked_vs_float32"]):
+        raise RuntimeError(f"bfloat16 kernel core is further from float32 "
+                           f"than {RWKV_BF16_SPREAD} x the chunked core's: "
+                           f"{spread}")
+    err = rwkv_layers_against_plain(torch, params, cfg, batch)
+    growth = rwkv_sensitivity(torch, params32, cfg32,
+                              dict(tokens=batch["tokens"][:1]))
+    del params32
+    top_k = kern[:, -1, :cfg.vocab].argmax(-1).cpu()
+    top_x = xla[:, -1, :cfg.vocab].argmax(-1).cpu()
+    first = torch.from_numpy(tokens[:, 0]).long()
+    agree = dict(last_argmax_kernel_vs_chunked=int((top_k == top_x).sum()),
+                 serve_first_token_vs_kernel=int((first == top_k).sum()),
+                 serve_first_token_vs_chunked=int((first == top_x).sum()),
+                 of=B)
+    log("rwkv", "last-position argmax agreement (of {of}): kernel vs chunked "
+        "core {last_argmax_kernel_vs_chunked}; serve_lm's first greedy token "
+        "vs the kernel step's argmax {serve_first_token_vs_kernel}, vs the "
+        "chunked core's {serve_first_token_vs_chunked}".format(**agree))
+    del kern, xla
+
+    # timing (CUDA events, host launch included), the two cores in turns
+    runs = {"kernel": [], "chunked": []}
+    fns = {"kernel": lambda: kern_step(params, batch),
+           "chunked": lambda: xla_step(params, batch)}
+    for name in ("kernel", "chunked", "chunked", "kernel"):
+        runs[name].append(eager_ms(torch, fns[name], iters=3))
+    prefill_ms = {k: statistics.mean(v) for k, v in runs.items()}
+    serve_step = steps.make_serve_step(cfg)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        _, caches = lm.prefill(params, cfg, batch, s_max=P + G)
+    torch.cuda.synchronize()
+    cache_prefill_s = time.perf_counter() - t0
+    nxt = batch["tokens"][:, -1:]
+    decode_ms = eager_ms(torch, lambda: serve_step(params, caches, nxt, P),
+                         iters=10)
+    tok = B * P
+    log("timing", f"bf16 RWKV6-7B prefill step, batch {B} x {P} (CUDA events,"
+        f" host included, two runs each in turns): kernel core "
+        f"{runs['kernel'][0]:.3f} / {runs['kernel'][1]:.3f} ms "
+        f"({tok / prefill_ms['kernel'] * 1e3:.0f} tokens/s), chunked core "
+        f"(chunk {RWKV_XLA_CHUNK}) {runs['chunked'][0]:.3f} / "
+        f"{runs['chunked'][1]:.3f} ms "
+        f"({tok / prefill_ms['chunked'] * 1e3:.0f} tokens/s); cache-producing "
+        f"prefill (sequential) {cache_prefill_s:.2f} s; decode step (batch "
+        f"{B}) {decode_ms:.3f} ms per token")
+    busy = dict(prefill=profile_busy(torch, fns["kernel"], 2,
+                                     prefill_ms["kernel"],
+                                     "RWKV prefill step"),
+                decode=profile_busy(torch, lambda: serve_step(
+                    params, caches, nxt, P), 5, decode_ms,
+                    "RWKV decode step"))
+    del params, caches
+    return dict(serve_launches=serve_launches, launches=step_launches,
+                err=err, spread=spread, agree=agree, growth=growth,
+                prefill_ms=prefill_ms, prefill_runs=runs,
+                decode_ms=decode_ms, busy=busy,
+                cache_prefill_s=cache_prefill_s,
+                serve_seconds=out["seconds"])
+
+
+def time_rwkv_kernel(torch, flush) -> dict:
+    """rwkv6_chunked (L2 flushed; bfloat16 and, at the first shape,
+    float32) beside its plain version (the sequential oracle, eager: one
+    launch per op per step), the plain chunked form at chunk 32 (cuBLAS
+    batched products in float32, a composite yardstick: no single PyTorch
+    call computes this function) and its bound: r, k, v read and o written
+    once in their dtype and w, u read once in float32 over the HBM rate, or
+    rwkv6_flops at the kernel's own chunk (rk.KERNEL_CHUNK steps) over the
+    dtype's peak, the larger; beside it the same flops over the float32
+    CUDA-core peak."""
+    from repro_torch.kernels import rwkv6_chunked as rk
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    rows = {}
+    for i, (B, H, T, dh) in enumerate(RWKV_TIMED):
+        for dtype in (torch.bfloat16, torch.float32)[:2 if i == 0 else 1]:
+            name = str(dtype).removeprefix("torch.")
+            args = rwkv_inputs(torch, gen, B, H, T, dh, dtype, "rand")
+            r, k, v, w, u = args
+            n_bytes = (4 * r.numel() * r.element_size() + w.numel() * 4
+                       + u.numel() * 4)
+            flops = rk.rwkv6_flops(B, H, T, dh, chunk=rk.KERNEL_CHUNK)
+            b_ms, b_by = bound(n_bytes, flops, name)
+            key = f"{B}x{H}x{T}x{dh}" + ("" if name == "bfloat16"
+                                          else " float32")
+            rows[key] = row = dict(
+                ms=graph_ms(torch, lambda: rk.rwkv6_chunked_kernel(
+                    *args, chunk=128), flush, inner=5, reps=7),
+                plain_ms=eager_ms(torch, lambda: rk.plain(*args), iters=3),
+                plain_timing="eager (host launch included)",
+                library_ms=graph_ms(torch, lambda: rk.rwkv6_chunked(
+                    *args, chunk=RWKV_XLA_CHUNK), flush, inner=2, reps=5),
+                library_call=f"rwkv6_chunked(..., chunk={RWKV_XLA_CHUNK}) "
+                             "(composite: cuBLAS batched products, float32)",
+                bound_ms=b_ms, bound_by=b_by,
+                algo_bound_ms=flops / PEAK_OPS_PER_S["float32"] * 1e3,
+                dtype=name, shape=[B, H, T, dh])
+            log("timing", f"rwkv6_chunked {key} {name}: {row['ms']:.4f} ms "
+                f"(L2 cold), plain {row['plain_ms']:.4f} ms (eager), library "
+                f"{row['library_ms']:.4f} ms ({row['library_call']}), bound "
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']}; float32 "
+                f"CUDA-core floor of rwkv6_flops at chunk {rk.KERNEL_CHUNK} "
+                f"{row['algo_bound_ms']:.4f} ms)")
+    return {"rwkv6_chunked": rows}
+
+
 def profile_busy(torch, fn, iters: int, median_ms: float, what: str):
     """Device time per call of ``fn`` from torch.profiler, its top kernels,
     and its share of ``median_ms``; None where the profiler saw no device
@@ -1988,6 +2511,7 @@ def main() -> int:
     from repro_torch.kernels import block_diag_spmm as bd_mod
     from repro_torch.kernels import block_diag_spmm_fused as bdf_mod
     from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import rwkv6_chunked as rk_mod
     from repro_torch.kernels import tcgnn_tile as tc_mod
     counts = {"block_diag_spmm": bd_mod.launches,
               "bell_spmm": bell_mod.launches,
@@ -1998,7 +2522,8 @@ def main() -> int:
               "tcgnn_spmm_fused": tc_mod.fused_launches,
               "tcgnn_spmm_dw": tc_mod.dw_launches,
               "block_diag_spmm_dual": bdf_mod.dual_launches,
-              "flash_attention": fa_mod.launches}
+              "flash_attention": fa_mod.launches,
+              "rwkv6_chunked": rk_mod.launches}
 
     # 1. build ---------------------------------------------------------------
     phase_build(torch)
@@ -2040,6 +2565,7 @@ def main() -> int:
     phase_kernels_tcgnn(torch, dec, errs)
     phase_kernels_dual(torch, sdec, errs)
     phase_kernels_flash(torch, errs)
+    phase_kernels_rwkv(torch, errs)
 
     # 3. forward -------------------------------------------------------------
     plan, params, x, launches_fwd = phase_main(torch, graph, cfg, dec, counts)
@@ -2061,6 +2587,13 @@ def main() -> int:
     lm2 = phase_lm_two_layer(torch, counts)
     lm32 = phase_lm_f32(torch, counts)
     lms = phase_lm_serve(torch, counts)
+    # 7c. LM serving: RWKV6-7B at full width ---------------------------------
+    torch.cuda.empty_cache()
+    rw2 = phase_rwkv_two_layer(torch, counts)
+    rw4 = phase_rwkv_f32(torch, counts)
+    torch.cuda.empty_cache()
+    rws = phase_rwkv_serve(torch, counts)
+    torch.cuda.empty_cache()
     by_path = {"forward": launches_fwd, "train": trained["launches"],
                "feedback": fb["launches"], "sage_train": sage["launches"],
                "sage_feedback": sfb["launches"],
@@ -2068,7 +2601,12 @@ def main() -> int:
                "lm_prefill_step_f32": lm32["launches"],
                "lm_softmax_prefill_decode_f32": lm32["other_launches"],
                "serve_lm_bf16": lms["serve_launches"],
-               "lm_prefill_step_bf16": lms["launches"]}
+               "lm_prefill_step_bf16": lms["launches"],
+               "rwkv_prefill_step_2_layers_f32": rw2["launches"],
+               "rwkv_prefill_step_f32": rw4["launches"],
+               "rwkv_chunked_prefill_decode_f32": rw4["other_launches"],
+               "serve_rwkv_bf16": rws["serve_launches"],
+               "rwkv_prefill_step_bf16": rws["launches"]}
     launches = {k: sum(p[k] for p in by_path.values()) for k in counts}
     for k, v in launches.items():
         if v == 0:
@@ -2163,6 +2701,7 @@ def main() -> int:
     rows.update(time_tcgnn_kernels(torch, dec, flush))
     rows.update(time_dual_kernel(torch, sdec, flush))
     rows.update(time_flash_kernel(torch, flush))
+    rows.update(time_rwkv_kernel(torch, flush))
     del scratch
 
     busy = profile_busy(torch, lambda: gnn.forward(params, cfg, dec, x, plan),
@@ -2171,12 +2710,14 @@ def main() -> int:
                                     f"{name} step")
                  for name, fn in steps.items()}
 
-    # the LM's counts as read in this run: one bf16 prefill-step call
+    # the LMs' counts as read in this run: one bf16 prefill-step call
     # (asserted to be n_layers) and one serve_lm call, prefill and 32
-    # decode steps (asserted to be 0)
+    # decode steps (asserted to be 0), per model
     per_call = dict(PER_STEP, **SAGE_PER_STEP,
                     lm_prefill_step=lms["launches"],
-                    serve_lm=lms["serve_launches"])
+                    serve_lm=lms["serve_launches"],
+                    rwkv_prefill_step=rws["launches"],
+                    serve_rwkv=rws["serve_launches"])
     out = []
     for name, meta in KERNELS.items():
         key = ROW_KEY.get(name, "500x16")
@@ -2188,6 +2729,8 @@ def main() -> int:
             launches_per_step={p: t.get(name, 0)
                                for p, t in per_call.items()},
             max_abs_err=errs[name]["float32"],
+            **({"algo_bound_ms": r["algo_bound_ms"]}
+               if "algo_bound_ms" in r else {}),
             max_abs_err_bf16=errs[name]["bfloat16"],
             **({"max_rel_err": errs[name]["float32_rel"],
                 "max_rel_err_bf16": errs[name]["bfloat16_rel"]}
@@ -2212,7 +2755,13 @@ def main() -> int:
         f"{lm32['errs']}, bf16 flash vs softmax {lms['err']:.3g}, bf16 vs "
         f"float32 {lms['spread']}, argmax "
         f"{lms['agree']}, prefill ms {lms['prefill_ms']}, decode "
-        f"{lms['decode_ms']:.3f} ms/token, busy {lms['busy']}")
+        f"{lms['decode_ms']:.3f} ms/token, busy {lms['busy']}; RWKV: "
+        f"2-layer card vs CPU {rw2['err']:.3g}, float32 errors "
+        f"{rw4['errs']}, bf16 per-layer kernel vs plain {rws['err']:.3g}, "
+        f"logits (f32, bf16) {rws['spread']}, argmax {rws['agree']}, "
+        f"sensitivity after 32 layers {rws['growth'][-1]:.3g}, prefill ms "
+        f"{rws['prefill_ms']}, cache prefill {rws['cache_prefill_s']:.2f} s, "
+        f"decode {rws['decode_ms']:.3f} ms/token, busy {rws['busy']}")
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

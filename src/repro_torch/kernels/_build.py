@@ -26,7 +26,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("block_diag_spmm", "bell_spmm", "bell_spmm_fused", "bell_spmm_dw",
            "tcgnn_spmm", "tcgnn_spmm_fused", "tcgnn_spmm_dw",
-           "block_diag_spmm_dual", "flash_attention")
+           "block_diag_spmm_dual", "flash_attention", "rwkv6_chunked")
 HEADERS = ("dtype.cuh", "dw_reduce.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -49,6 +49,7 @@ SIGNATURES = {
     "block_diag_spmm_dual": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                         _I, _P),
+    "rwkv6_chunked": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 # element types the kernels take, as the dtype code they are passed
@@ -157,8 +158,8 @@ def nvcc() -> str:
                        "(install the CUDA toolkit or put nvcc on PATH)")
 
 
-def _digest(name: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _digest(name: str, flags: tuple = NVCC_FLAGS) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
     for f in (f"{name}.cu", *HEADERS):
         h.update((CSRC / f).read_bytes())
     return h.hexdigest()[:16]
@@ -215,6 +216,31 @@ def build_all() -> dict[str, Built]:
                     proc.wait()
                 tmp.unlink(missing_ok=True)
         return dict(_LIBS)
+
+
+def build_variant(name: str, defines: tuple[str, ...]) -> Built:
+    """Build (alone) and load ``csrc/<name>.cu`` with extra ``-D`` defines:
+    a variant kept for measurement beside the kernel, which no wrapper
+    launches."""
+    flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so = BUILD_DIR / f"lib{name}-{_digest(name, flags)}.so"
+    if so.exists():
+        return _load(name, so, 0.0, ())
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([nvcc(), *flags, "-o", str(tmp),
+                               str(CSRC / f"{name}.cu")], capture_output=True,
+                              text=True, timeout=BUILD_TIMEOUT_S)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for csrc/{name}.cu {defines} "
+                               f"(exit {proc.returncode}):\n{proc.stdout}"
+                               f"{proc.stderr}")
+        os.replace(tmp, so)
+    finally:
+        tmp.unlink(missing_ok=True)
+    return _load(name, so, time.perf_counter() - t0, ())
 
 
 def library(name: str) -> Built:

@@ -1,6 +1,8 @@
-"""Plain PyTorch versions of the aggregation kernels and of attention.
+"""Plain PyTorch versions of the aggregation kernels, of attention and of
+the RWKV-6 recurrence.
 
-Counterpart of the SpMM and attention parts of ``repro/kernels/ref.py``.
+Counterpart of the SpMM, attention and RWKV-6 parts of
+``repro/kernels/ref.py``.
 They are the correctness references the CUDA kernels are held against on
 the card, and what each wrapper runs when its tensors lie on the CPU.
 Products accumulate in float32 (float64 for float64 inputs, so gradients
@@ -226,3 +228,45 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         pos = torch.arange(max(s, t), device=q.device)
         mask = pos[:s, None] >= pos[None, :t]
     return _softmax_core(q, k, v, mask, sc)
+
+
+# --- RWKV-6 / gated linear recurrence ---------------------------------------
+
+def rwkv6_recurrence(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     w: torch.Tensor, u: torch.Tensor,
+                     state: torch.Tensor | None = None
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The RWKV-6 recurrence step by step from ``state`` (zeros if None):
+      o_t = r_t (S_{t-1} + diag(u) k_t^T v_t);  S_t = diag(w_t) S_{t-1}
+      + k_t^T v_t
+    in float32 (float64 for float64 inputs).  r, k, v, w: (B, H, T, D);
+    u: (H, D); state: (B, H, D, D).  Returns (o (B, H, T, D), S_T), both
+    in the accumulation dtype."""
+    B, H, T, D = r.shape
+    acc = _acc(r)
+    rf, kf, vf, wf = (a.to(acc) for a in (r, k, v, w))
+    uf = u.to(acc)
+    S = (torch.zeros((B, H, D, D), dtype=acc, device=r.device)
+         if state is None else state.to(acc))
+    outs = []
+    for t in range(T):
+        rt, kt, vt = rf[:, :, t], kf[:, :, t], vf[:, :, t]
+        kv = kt[..., :, None] * vt[..., None, :]              # (B,H,D,D)
+        outs.append(torch.einsum("bhd,bhde->bhe", rt,
+                                 S + uf[:, :, None] * kv))
+        S = wf[:, :, t, :, None] * S + kv
+    o = (torch.stack(outs, dim=2) if outs
+         else rf.new_zeros((B, H, 0, D)))
+    return o, S
+
+
+def rwkv6_linear_attention(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           w: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """RWKV-6 (Finch) recurrence, sequential oracle, from a zero state.
+
+    r, k, v: (B, H, T, D); w: (B, H, T, D) per-step decay in (0, 1);
+    u: (H, D) bonus for the current token.
+      S_t = diag(w_t) S_{t-1} + k_t^T v_t
+      o_t = r_t (S_{t-1} + diag(u) k_t^T v_t)
+    Shapes follow arXiv:2404.05892 eq. (17)-(19).  Returns o in r.dtype."""
+    return rwkv6_recurrence(r, k, v, w, u)[0].to(r.dtype)

@@ -4,14 +4,23 @@ greedy-decode continuations (counterpart of ``examples/serve_lm.py``).
     PYTHONPATH=src python -m repro_torch.launch.serve_lm --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve_lm --full \\
         --prompt-len 1024 --gen 32        # InternLM2-1.8B at full size
+    PYTHONPATH=src python -m repro_torch.launch.serve_lm --arch rwkv6_7b \\
+        --full --wkv-core pallas --prompt-len 1024 --gen 32   # RWKV6-7B
 
-The prefill is the cache-producing ``lm.prefill`` (plain attention), as in
-the reference; the flash kernel runs in ``make_prefill_step`` under the
-reference's prefill profile (``attn_core="flash"``).
+The prefill is the cache-producing ``lm.prefill``, as in the reference:
+plain attention, and for RWKV-6 the sequential recurrence under the
+kernel core (``wkv_core="pallas"``, the reference's serving profile) or
+the plain chunked form under ``"xla"``.  The config's default core is
+``"xla"``; at RWKV6-7B's published chunk 128 its chunked form overflows
+float32 in both packages (ROADMAP section 3 fault 7), so serve it with
+``--wkv-core pallas``.  The hand kernels run in ``make_prefill_step``:
+flash attention under ``attn_core="flash"`` and the RWKV-6 kernel under
+``wkv_core="pallas"``.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -26,13 +35,16 @@ from repro_torch.train import steps as steps_mod
 def serve_lm(arch: str, *, reduced: bool = True, batch: int = 4,
              prompt_len: int = 16, gen: int = 16, seed: int = 0,
              device: str | torch.device = DEFAULT_DEVICE,
-             verbose: bool = True) -> dict:
+             overrides: dict | None = None, verbose: bool = True) -> dict:
     """Prompts from ``numpy.random.default_rng(seed)``, parameters from a
-    generator seeded with ``seed`` on ``device``.  Returns the generated
-    tokens (batch, gen) as numpy int32, the wall seconds (prefill and
-    decode, the kernels' first-use build included) and tokens/s."""
+    generator seeded with ``seed`` on ``device``; ``overrides`` replaces
+    config fields (``dataclasses.replace``), e.g. ``wkv_core``.  Returns
+    the generated tokens (batch, gen) as numpy int32, the wall seconds
+    (prefill and decode, the kernels' first-use build included) and
+    tokens/s."""
     dev = resolve_device(device)
-    cfg = configs.get_config(arch, reduced=reduced)
+    cfg = dataclasses.replace(configs.get_config(arch, reduced=reduced),
+                              **(overrides or {}))
     assert cfg.input_mode == "tokens" and cfg.family == "decoder", \
         "serving demo drives token-mode decoder archs"
     rng = np.random.default_rng(seed)
@@ -72,10 +84,15 @@ def main():
     ap.add_argument("--device", default=DEFAULT_DEVICE)
     ap.add_argument("--full", action="store_true",
                     help="the FULL published config (default: REDUCED)")
+    ap.add_argument("--wkv-core", choices=("xla", "pallas"),
+                    help="RWKV-6's recurrence core (default: the config's, "
+                         "xla); pallas is the reference's serving profile")
     args = ap.parse_args()
     out = serve_lm(args.arch, reduced=not args.full, batch=args.batch,
                    prompt_len=args.prompt_len, gen=args.gen,
-                   device=args.device)
+                   device=args.device,
+                   overrides=(dict(wkv_core=args.wkv_core)
+                              if args.wkv_core else None))
     print("generated token ids:\n", out["tokens"])
 
 

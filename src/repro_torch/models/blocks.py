@@ -1,11 +1,12 @@
-"""Transformer building blocks: GQA attention and the dense FFN.
+"""Transformer building blocks: GQA attention, the dense FFN, and RWKV-6's
+time-mix and channel-mix.
 
 Counterpart of ``repro/models/blocks.py`` for the blocks of the ported LM
-slice.  Every block provides ``init_X(gen, ...)`` (params as a dict of
+slices.  Every block provides ``init_X(gen, ...)`` (params as a dict of
 tensors on the generator's device), ``X_apply(params, x, ...)`` (full
 sequence) and, where relevant, ``X_decode(params, x, cache, pos)``.  MLA,
-MoE, Mamba and RWKV-6 come with the models that use them (ROADMAP section
-1 item 8).
+MoE and Mamba come with the models that use them (ROADMAP section 1 item
+8).
 
 Matmul-heavy math runs in the model dtype with float32 accumulation;
 softmax and norm statistics run in float32.
@@ -171,3 +172,158 @@ def mlp_apply(params, x):
     gate = einsum("bsd,df->bsf", x, params["w_gate"]).to(x.dtype)
     h = F.silu(gate) * up
     return einsum("bsf,fd->bsd", h, params["w_down"]).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RWKV-6 (Finch): time-mix with data-dependent decay + channel-mix
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class RWKV6Config:
+    d_model: int
+    head_dim: int = 64
+    d_ff: int = 0                 # channel-mix width (3.5x d_model default)
+    lora_rank: int = 64           # decay LoRA rank
+    chunk: int = 64               # chunked-parallel block length
+    # "xla": the plain chunked form (rwkv6_chunked); "pallas": the
+    # reference's Pallas core, here the CUDA kernel (rwkv6_chunked_kernel);
+    # "identity": roofline isolation stand-in (skip the WKV recurrence)
+    wkv_core: str = "xla"
+
+    @property
+    def n_heads(self):
+        return self.d_model // self.head_dim
+
+
+def init_rwkv6(gen: torch.Generator, cfg: RWKV6Config,
+               dtype: torch.dtype = torch.float32) -> dict:
+    """Time-mix parameters; ``w0`` and ``u`` are float32 whatever
+    ``dtype``, as in the reference."""
+    d, H, dh = cfg.d_model, cfg.n_heads, cfg.head_dim
+    dev = gen.device
+
+    def half():
+        return torch.full((d,), 0.5, dtype=dtype, device=dev)
+
+    return dict(
+        # token-shift interpolation weights (static per-channel mu, as the
+        # reference keeps them)
+        mu_r=half(), mu_k=half(), mu_v=half(), mu_w=half(), mu_g=half(),
+        wr=_dense(gen, (d, d), dtype),
+        wk=_dense(gen, (d, d), dtype),
+        wv=_dense(gen, (d, d), dtype),
+        wg=_dense(gen, (d, d), dtype),
+        # data-dependent decay: w_t = exp(-exp(w0 + lora(x)))
+        w0=torch.zeros((d,), dtype=torch.float32, device=dev),
+        w_lora_a=_dense(gen, (d, cfg.lora_rank), dtype),
+        w_lora_b=_dense(gen, (cfg.lora_rank, d), dtype),
+        u=nn.trunc_normal(gen, (H, dh)).float(),                  # bonus
+        ln_x=torch.ones((d,), dtype=dtype, device=dev),           # group-norm
+        wo=_dense(gen, (d, d), dtype),
+    )
+
+
+def _rwkv6_rkvwg(params, cfg: RWKV6Config, x, x_prev):
+    """Token-shift mixes x_t with x_{t-1}; x_prev: (B,1,d) last token of the
+    previous segment (zeros at sequence start).  Returns r, k, v (B,H,T,dh)
+    in x.dtype, w (B,H,T,dh) float32 and g (B,T,d)."""
+    B, T, d = x.shape
+    xs = torch.cat([x_prev, x[:, :-1]], dim=1)             # shifted
+
+    def mix(mu):
+        return x + (xs - x) * mu
+
+    r = einsum("btd,de->bte", mix(params["mu_r"]), params["wr"]).to(x.dtype)
+    k = einsum("btd,de->bte", mix(params["mu_k"]), params["wk"]).to(x.dtype)
+    v = einsum("btd,de->bte", mix(params["mu_v"]), params["wv"]).to(x.dtype)
+    g = einsum("btd,de->bte", mix(params["mu_g"]), params["wg"]).to(x.dtype)
+    inner = einsum("btd,dr->btr", mix(params["mu_w"]),
+                   params["w_lora_a"]).to(x.dtype)
+    # the reference keeps this product's float32 sums (no cast to x.dtype)
+    lora = einsum("btr,rd->btd", torch.tanh(inner).float(),
+                  params["w_lora_b"].float())
+    # decay rate clamped to exp(0.405) = 1.5, so log w >= -1.5 per step
+    rate = torch.clamp(params["w0"] + lora, -20.0, 0.405)
+    w = torch.exp(-torch.exp(rate))                        # (B,T,d) in (0,1)
+    H, dh = cfg.n_heads, cfg.head_dim
+
+    def resh(a):
+        return a.reshape(B, T, H, dh).transpose(1, 2)
+
+    return resh(r), resh(k), resh(v), resh(w.float()), g
+
+
+def rwkv6_time_mix(params, cfg: RWKV6Config, x, x_prev=None, state=None,
+                   use_chunked: bool = True):
+    """Full-sequence RWKV6 attention-free mixing.  Returns (out, (x_last,
+    S_last)) so segments/decode can be chained.  The WKV core follows the
+    reference's rule: ``"pallas"`` (the CUDA kernel) only from a zero
+    state with T % chunk == 0 and T > chunk, where its S_last is returned
+    as zeros, as the reference's is; the chunked form under the same
+    length rule; else the sequential recurrence."""
+    B, T, d = x.shape
+    H, dh = cfg.n_heads, cfg.head_dim
+    if x_prev is None:
+        x_prev = x.new_zeros((B, 1, d))
+    r, k, v, w, g = _rwkv6_rkvwg(params, cfg, x, x_prev)
+    chunkable = T % cfg.chunk == 0 and T > cfg.chunk
+    if cfg.wkv_core == "identity" and use_chunked:
+        # roofline isolation: everything but the recurrence
+        o = v.float()
+        S = state if state is not None else torch.zeros(
+            (B, H, dh, dh), dtype=torch.float32, device=x.device)
+    elif (cfg.wkv_core == "pallas" and use_chunked and state is None
+          and chunkable):
+        from repro_torch.kernels.rwkv6_chunked import rwkv6_chunked_kernel
+        o = rwkv6_chunked_kernel(r.contiguous(), k.contiguous(),
+                                 v.contiguous(), w.contiguous(), params["u"],
+                                 chunk=cfg.chunk).float()
+        S = torch.zeros((B, H, dh, dh), dtype=torch.float32, device=x.device)
+    elif use_chunked and chunkable:
+        from repro_torch.kernels.rwkv6_chunked import rwkv6_chunked
+        o, S = rwkv6_chunked(r, k, v, w, params["u"], chunk=cfg.chunk,
+                             state=state)
+    else:
+        o, S = _rwkv6_sequential(r, k, v, w, params["u"], state)
+    # per-head group norm
+    oh = o.transpose(1, 2).float()                          # (B,T,H,dh)
+    mu = oh.mean(-1, keepdim=True)
+    var = oh.var(-1, keepdim=True, correction=0)
+    o = ((oh - mu) * torch.rsqrt(var + 1e-5)).reshape(B, T, d)
+    o = (o * params["ln_x"]).to(x.dtype)
+    o = o * F.silu(g)
+    out = einsum("btd,de->bte", o, params["wo"]).to(x.dtype)
+    return out, (x[:, -1:], S)
+
+
+def _rwkv6_sequential(r, k, v, w, u, state):
+    """The recurrence step by step from ``state`` (zeros if None): (o
+    (B,H,T,dh) float32, S (B,H,dh,dh) float32)."""
+    return kref.rwkv6_recurrence(r, k, v, w, u, state)
+
+
+def init_rwkv6_cm(gen: torch.Generator, cfg: RWKV6Config,
+                  dtype: torch.dtype = torch.float32) -> dict:
+    d = cfg.d_model
+    ff = cfg.d_ff or int(3.5 * d)
+    dev = gen.device
+    return dict(mu_k=torch.full((d,), 0.5, dtype=dtype, device=dev),
+                mu_r=torch.full((d,), 0.5, dtype=dtype, device=dev),
+                wk=_dense(gen, (d, ff), dtype), wv=_dense(gen, (ff, d), dtype),
+                wr=_dense(gen, (d, d), dtype))
+
+
+def rwkv6_channel_mix(params, x, x_prev=None):
+    """Channel-mix (squared-ReLU FFN gated by sigmoid(r)); returns (out,
+    x_last)."""
+    B, T, d = x.shape
+    if x_prev is None:
+        x_prev = x.new_zeros((B, 1, d))
+    xs = torch.cat([x_prev, x[:, :-1]], dim=1)
+    xk = x + (xs - x) * params["mu_k"]
+    xr = x + (xs - x) * params["mu_r"]
+    kk = einsum("btd,df->btf", xk, params["wk"]).to(x.dtype)
+    kk = torch.square(torch.relu(kk))
+    vv = einsum("btf,fd->btd", kk, params["wv"]).to(x.dtype)
+    rr = torch.sigmoid(einsum("btd,de->bte", xr, params["wr"]).to(x.dtype))
+    return rr * vv, x[:, -1:]

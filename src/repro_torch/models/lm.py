@@ -1,16 +1,18 @@
-"""LM-family model: the decoder-only dense GQA transformer.
+"""LM-family model: the decoder-only dense GQA transformer and RWKV-6.
 
-Counterpart of ``repro/models/lm.py`` for layer kind ``attn_mlp`` (GQA
-attention + gated FFN, pre-RMSNorm), the kind of InternLM2, Qwen2.5,
-CodeQwen and Mistral-Large.  The other kinds (MoE, MLA, RWKV, Jamba,
-encoder-decoder) raise ``NotImplementedError`` naming the slice that
-brings them.
+Counterpart of ``repro/models/lm.py`` for layer kinds ``attn_mlp`` (GQA
+attention + gated FFN, pre-RMSNorm; InternLM2, Qwen2.5, CodeQwen,
+Mistral-Large) and ``rwkv`` (RWKV-6 time-mix + channel-mix, pre-RMSNorm;
+RWKV6-7B).  The other kinds (MoE, MLA, Jamba, encoder-decoder) raise
+``NotImplementedError`` naming the slice that brings them.
 
 A model is a sequence of homogeneous layer groups.  With ``scan_layers``
 each group's parameters and decode caches are stacked on axis 0, as in the
 reference; where the reference scans over a stack, the port loops over it
-(views, no copies), and decoding writes each layer's new k/v into its
-stacked cache in place at ``pos`` instead of returning updated copies.
+(views, no copies), and decoding writes each layer's new cache entries
+into its stacked cache in place instead of returning updated copies:
+attention's k/v at ``pos``, RWKV's state ``S`` and token-shift inputs
+``x_tm`` and ``x_cm``.
 """
 from __future__ import annotations
 
@@ -106,6 +108,11 @@ class ModelConfig:
             rope_theta=self.rope_theta, mrope_sections=self.mrope_sections,
             causal=causal, use_rope=use_rope, attn_core=self.attn_core)
 
+    def rwkv_cfg(self) -> blk.RWKV6Config:
+        return blk.RWKV6Config(d_model=self.d_model, head_dim=64,
+                               d_ff=self.d_ff, chunk=self.rwkv_chunk,
+                               wkv_core=self.wkv_core)
+
     def layer_groups(self) -> list[tuple[str, int]]:
         """[(kind, n_layers_in_group), ...] in execution order."""
         if self.family == "encdec":
@@ -128,15 +135,17 @@ class ModelConfig:
 # the ROADMAP slice that brings each layer kind this port lacks
 _UNPORTED_KINDS = {
     "attn_moe": "MoE", "mla_mlp": "MLA", "mla_moe": "MLA and MoE",
-    "rwkv": "RWKV-6 (with the rwkv6_chunked kernel)",
     "jamba_period": "Jamba (with the mamba_scan kernel)",
     "enc": "the whisper encoder-decoder", "dec": "the whisper "
     "encoder-decoder",
 }
 
 
+_PORTED_KINDS = ("attn_mlp", "rwkv")
+
+
 def _require_kind(kind: str) -> None:
-    if kind != "attn_mlp":
+    if kind not in _PORTED_KINDS:
         what = _UNPORTED_KINDS.get(kind)
         if what is None:
             raise ValueError(kind)
@@ -145,7 +154,7 @@ def _require_kind(kind: str) -> None:
             "section 1 item 8")
 
 
-# fields that only the unported kinds read: kind attn_mlp ignores them, so
+# fields that only the unported kinds read: the ported kinds ignore them, so
 # a value other than the default is refused rather than dropped unseen
 # (``remat`` is a training knob and inference ignores it on any kind)
 _UNPORTED_FIELDS = (
@@ -153,7 +162,7 @@ _UNPORTED_FIELDS = (
     "v_head_dim", "top_k", "d_ff_expert", "n_shared_experts",
     "first_k_dense", "capacity_factor", "moe_dispatch", "aux_loss_coef",
     "mamba_d_state", "mamba_expand", "encoder_seq", "mtp_weight",
-    "mamba_core", "wkv_core", "rwkv_chunk")
+    "mamba_core")
 
 
 def _require_supported(cfg: ModelConfig) -> None:
@@ -190,9 +199,13 @@ def _norm_apply(p, x, eps):
 def init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str) -> Params:
     _require_kind(kind)
     dt, d = cfg.torch_dtype, cfg.d_model
-    return dict(norm1=_norm_init(d, dt, gen.device),
-                norm2=_norm_init(d, dt, gen.device),
-                attn=blk.init_attention(gen, cfg.attn_cfg(), dt),
+    p = dict(norm1=_norm_init(d, dt, gen.device),
+             norm2=_norm_init(d, dt, gen.device))
+    if kind == "rwkv":
+        rc = cfg.rwkv_cfg()
+        return dict(p, tm=blk.init_rwkv6(gen, rc, dt),
+                    cm=blk.init_rwkv6_cm(gen, rc, dt))
+    return dict(p, attn=blk.init_attention(gen, cfg.attn_cfg(), dt),
                 ffn=blk.init_mlp(gen, d, cfg.d_ff, dt))
 
 
@@ -201,6 +214,14 @@ def layer_apply(params, cfg: ModelConfig, kind: str, x, positions):
     _require_kind(kind)
     eps = cfg.norm_eps
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if kind == "rwkv":
+        rc = cfg.rwkv_cfg()
+        h = _norm_apply(params["norm1"], x, eps)
+        h, _ = blk.rwkv6_time_mix(params["tm"], rc, h)
+        x = x + h
+        h = _norm_apply(params["norm2"], x, eps)
+        h, _ = blk.rwkv6_channel_mix(params["cm"], h)
+        return x + h, aux
     h = _norm_apply(params["norm1"], x, eps)
     h = blk.attention_apply(params["attn"], cfg.attn_cfg(), h, positions)
     x = x + h
@@ -317,14 +338,25 @@ def forward(params, cfg: ModelConfig, batch: dict) -> tuple[torch.Tensor,
 def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, s_max: int,
                      device: str | torch.device = DEFAULT_DEVICE):
     _require_kind(kind)
-    return blk.init_attn_cache(cfg.attn_cfg(), batch, s_max,
-                               cfg.torch_dtype, resolve_device(device))
+    dt, dev = cfg.torch_dtype, resolve_device(device)
+    if kind == "rwkv":
+        rc = cfg.rwkv_cfg()
+        return dict(S=torch.zeros((batch, rc.n_heads, rc.head_dim,
+                                   rc.head_dim), dtype=torch.float32,
+                                  device=dev),
+                    x_tm=torch.zeros((batch, 1, cfg.d_model), dtype=dt,
+                                     device=dev),
+                    x_cm=torch.zeros((batch, 1, cfg.d_model), dtype=dt,
+                                     device=dev))
+    return blk.init_attn_cache(cfg.attn_cfg(), batch, s_max, dt, dev)
 
 
 def init_cache(cfg: ModelConfig, batch: int, s_max: int,
                device: str | torch.device = DEFAULT_DEVICE):
-    """Zero decode caches per group: k and v (n, B, s_max, KV, dh) with
-    ``scan_layers``, else a list of per-layer dicts."""
+    """Zero decode caches per group, stacked (n, ...) with ``scan_layers``,
+    else a list of per-layer dicts: k and v (B, s_max, KV, dh) per
+    attention layer; S (B, H, dh, dh) float32, x_tm and x_cm (B, 1, d) per
+    RWKV layer."""
     _require_supported(cfg)
     dev = resolve_device(device)
     caches = []
@@ -340,8 +372,24 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int,
 
 
 def layer_decode(params, cfg: ModelConfig, kind: str, x, cache, pos: int):
+    """One token through one layer; writes the layer's cache in place."""
     _require_kind(kind)
     eps = cfg.norm_eps
+    if kind == "rwkv":
+        rc = cfg.rwkv_cfg()
+        h = _norm_apply(params["norm1"], x, eps)
+        h_out, (x_tm, S) = blk.rwkv6_time_mix(params["tm"], rc, h,
+                                              x_prev=cache["x_tm"],
+                                              state=cache["S"],
+                                              use_chunked=False)
+        x = x + h_out
+        h = _norm_apply(params["norm2"], x, eps)
+        h_out, x_cm = blk.rwkv6_channel_mix(params["cm"], h,
+                                            x_prev=cache["x_cm"])
+        cache["S"].copy_(S)
+        cache["x_tm"].copy_(x_tm)
+        cache["x_cm"].copy_(x_cm)
+        return x + h_out, cache
     h = _norm_apply(params["norm1"], x, eps)
     h, cache = blk.attention_decode(params["attn"], cfg.attn_cfg(), h, cache,
                                     pos)
@@ -353,8 +401,8 @@ def layer_decode(params, cfg: ModelConfig, kind: str, x, cache, pos: int):
 
 def decode_step(params, cfg: ModelConfig, caches, tokens, pos: int):
     """One decode step.  tokens: (B, 1) int (or embeds (B, 1, d) in embeds
-    mode); pos: int position of the new token.  Writes the new token's k/v
-    into ``caches`` in place.  Returns (logits (B, 1, Vp), next_token
+    mode); pos: int position of the new token.  Updates ``caches`` in place
+    (the new token's k/v; RWKV's S, x_tm and x_cm).  Returns (logits (B, 1, Vp), next_token
     (B, 1) int32, caches)."""
     _require_supported(cfg)
     dt = cfg.torch_dtype
@@ -387,10 +435,22 @@ def _pad_cache_seq(arr: torch.Tensor, s_max: int) -> torch.Tensor:
 def layer_prefill(params, cfg: ModelConfig, kind: str, x, positions, s_max):
     """Full-sequence layer that also emits its decode cache.  Attention is
     plain ``ref.mha``, as in the reference (the flash kernel runs in
-    ``forward`` only)."""
+    ``forward`` only); RWKV's recurrence is sequential under the kernel
+    core (``wkv_core="pallas"``, whose kernel keeps no state), as in the
+    reference, and the chunked form otherwise where the length allows."""
     _require_kind(kind)
     eps = cfg.norm_eps
     dt = cfg.torch_dtype
+    if kind == "rwkv":
+        rc = cfg.rwkv_cfg()
+        h = _norm_apply(params["norm1"], x, eps)
+        h_out, (x_tm, S_state) = blk.rwkv6_time_mix(
+            params["tm"], rc, h, use_chunked=(cfg.wkv_core != "pallas"))
+        x = x + h_out
+        h = _norm_apply(params["norm2"], x, eps)
+        h_out, x_cm = blk.rwkv6_channel_mix(params["cm"], h)
+        x = x + h_out
+        return x, dict(S=S_state, x_tm=x_tm.to(dt), x_cm=x_cm.to(dt))
     B, S, _ = x.shape
     acfg = cfg.attn_cfg()
     h = _norm_apply(params["norm1"], x, eps)

@@ -16,7 +16,9 @@ from repro_torch.models import lm
 def make_prefill_step(cfg: lm.ModelConfig):
     """Prompt-processing forward: logits for every position (the serving
     prefill compute shape).  With ``attn_core="flash"`` each layer's
-    attention is the flash kernel when S % 128 == 0."""
+    attention is the flash kernel when S % 128 == 0; with
+    ``wkv_core="pallas"`` each RWKV-6 layer's recurrence is the
+    rwkv6_chunked kernel when T % rwkv_chunk == 0 and T > rwkv_chunk."""
 
     @torch.no_grad()
     def step(params, batch):

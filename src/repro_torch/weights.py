@@ -50,9 +50,27 @@ def from_jax_params(params_np: Sequence[Mapping[str, np.ndarray]],
     return out
 
 
-def _lm_layer_shapes(cfg) -> dict:
-    """Shape of every leaf of one ``attn_mlp`` layer of ``cfg``."""
-    d, H, KV, dh = cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.head_dim
+class _Float32(tuple):
+    """A leaf's shape whose tensor stays float32 whatever the model dtype
+    (RWKV-6's ``u`` and ``w0``, as the reference keeps them)."""
+
+
+def _lm_layer_shapes(cfg, kind: str) -> dict:
+    """Shape of every leaf of one layer of ``kind`` (``attn_mlp`` or
+    ``rwkv``) of ``cfg``."""
+    d = cfg.d_model
+    if kind == "rwkv":
+        rc = cfg.rwkv_cfg()
+        H, dh, ff = rc.n_heads, rc.head_dim, rc.d_ff or int(3.5 * d)
+        tm = {f"mu_{c}": (d,) for c in "rkvwg"}
+        tm.update(wr=(d, d), wk=(d, d), wv=(d, d), wg=(d, d),
+                  w0=_Float32((d,)), w_lora_a=(d, rc.lora_rank),
+                  w_lora_b=(rc.lora_rank, d), u=_Float32((H, dh)),
+                  ln_x=(d,), wo=(d, d))
+        return dict(norm1=dict(scale=(d,)), norm2=dict(scale=(d,)), tm=tm,
+                    cm=dict(mu_k=(d,), mu_r=(d,), wk=(d, ff), wv=(ff, d),
+                            wr=(d, d)))
+    H, KV, dh = cfg.n_heads, cfg.kv_heads, cfg.head_dim
     attn = dict(wq=(d, H * dh), wk=(d, KV * dh), wv=(d, KV * dh),
                 wo=(H * dh, d))
     if cfg.qkv_bias:
@@ -63,8 +81,9 @@ def _lm_layer_shapes(cfg) -> dict:
 
 
 def _convert(tree, shapes, where: str, dtype, dev, lead=()):
-    """``tree`` (numpy leaves) as tensors of ``dtype`` on ``dev``, checked
-    leaf by leaf against ``shapes`` (with ``lead`` dims in front)."""
+    """``tree`` (numpy leaves) as tensors of ``dtype`` (float32 where the
+    shape is ``_Float32``) on ``dev``, checked leaf by leaf against
+    ``shapes`` (with ``lead`` dims in front)."""
     if isinstance(shapes, dict):
         if not isinstance(tree, Mapping) or set(tree) != set(shapes):
             got = sorted(tree) if isinstance(tree, Mapping) else type(tree)
@@ -78,7 +97,8 @@ def _convert(tree, shapes, where: str, dtype, dev, lead=()):
                          f"got {a.shape}")
     # float32 on the way: numpy has no bfloat16 of its own
     return torch.from_numpy(np.asarray(a, np.float32).copy()).to(
-        device=dev, dtype=dtype)
+        device=dev,
+        dtype=torch.float32 if isinstance(shapes, _Float32) else dtype)
 
 
 def lm_from_jax_params(params_np: Mapping, cfg,
@@ -86,8 +106,9 @@ def lm_from_jax_params(params_np: Mapping, cfg,
     """The reference's ``repro.models.lm.init_params`` pytree for ``cfg``
     (leaves as numpy; with ``cfg.scan_layers`` each group's layers stacked
     on axis 0, else a list of layers) as this package's parameters: the
-    same tree of tensors in ``cfg``'s dtype on ``device``, each with
-    storage of its own.  Layer kind ``attn_mlp`` only."""
+    same tree of tensors in ``cfg``'s dtype (RWKV-6's ``u`` and ``w0`` in
+    float32, as the reference keeps them) on ``device``, each with storage
+    of its own.  Layer kinds ``attn_mlp`` and ``rwkv``."""
     from repro_torch.models import lm
     lm._require_supported(cfg)
     dev = resolve_device(device)
@@ -100,14 +121,14 @@ def lm_from_jax_params(params_np: Mapping, cfg,
         raise ValueError(f"expected keys {sorted(set(top) | {'groups'})}, "
                          f"got {sorted(params_np)}")
     out = {k: _convert(params_np[k], s, k, dt, dev) for k, s in top.items()}
-    layer = _lm_layer_shapes(cfg)
     groups = params_np["groups"]
     if len(groups) != len(cfg.layer_groups()):
         raise ValueError(f"expected {len(cfg.layer_groups())} layer groups, "
                          f"got {len(groups)}")
     out["groups"] = []
-    for gi, (g, (_, n)) in enumerate(zip(groups, cfg.layer_groups())):
+    for gi, (g, (kind, n)) in enumerate(zip(groups, cfg.layer_groups())):
         where = f"groups[{gi}]"
+        layer = _lm_layer_shapes(cfg, kind)
         if cfg.scan_layers:
             out["groups"].append(_convert(g, layer, where, dt, dev, (n,)))
         else:

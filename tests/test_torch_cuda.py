@@ -12,7 +12,12 @@ both sides for either input dtype, is held to 1e-5 of its largest entry
 (from unit-scale cotangents): only the order of float32 sums differs.
 flash_attention is held to the reference's own flash tolerances
 (tests/test_kernels_flash.py): float32 atol 2e-5, rtol 1e-4; bfloat16
-atol = rtol = 5e-2."""
+atol = rtol = 5e-2.  rwkv6_chunked is held to the reference's RWKV-6
+tolerances (tests/test_kernels_rwkv6.py): float32 atol 5e-4 / rtol 1e-3,
+against its plain version run in float64 (at w near 1 over long sequences
+the float32 oracle's own rounding reaches the tolerance); bfloat16
+atol = rtol = 5e-2 against the plain version, and per output row
+rms(err) <= 1e-2 rms(plain)."""
 import torch_parity as tp  # noqa: I001  (first: pins torch to one thread)
 
 import pytest
@@ -24,6 +29,7 @@ from repro_torch.kernels import block_diag_spmm as bd_mod
 from repro_torch.kernels import block_diag_spmm_fused as bdf_mod
 from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels import ops
+from repro_torch.kernels import rwkv6_chunked as rk_mod
 from repro_torch.kernels import tcgnn_tile as tc_mod
 from torch_parity import cuda_device  # noqa: F401  (fixture)
 
@@ -462,3 +468,145 @@ def test_cuda_flash_attention_rejects_bad_operands(cuda_device, case):  # noqa: 
     with pytest.raises(ValueError):
         fa_mod.flash_attention(q, k, v)
     assert fa_mod.launches.value == before
+
+
+RWKV_TOL = {torch.float32: dict(atol=5e-4, rtol=1e-3),
+            torch.bfloat16: dict(atol=5e-2, rtol=5e-2)}
+RWKV_BF16_ROW_RMS = 1e-2
+
+
+def _rwkv_inputs(gen, B, H, T, dh, dtype, decay, dev):
+    """r, k, v ~ N(0, 1) in ``dtype``; w float32 from rates N(0, 1)
+    clipped to the model's [-20, 0.405] ("rand"), all at the floor 0.405
+    (log w = -1.5) or all at -20 (w within 2e-9 of 1); u float32."""
+    r, k, v = (torch.randn((B, H, T, dh), generator=gen, device=dev)
+               .to(dtype) for _ in range(3))
+    rate = {"rand": torch.randn((B, H, T, dh), generator=gen, device=dev)
+            .clamp(-20.0, 0.405),
+            "floor": torch.full((B, H, T, dh), 0.405, device=dev),
+            "one": torch.full((B, H, T, dh), -20.0, device=dev)}[decay]
+    u = torch.randn((H, dh), generator=gen, device=dev)
+    return r, k, v, torch.exp(-torch.exp(rate)), u
+
+
+def assert_rwkv_close(got, args):
+    """The kernel's output against its plain version: float32 against the
+    plain version in float64, bfloat16 against it in bfloat16 plus the
+    per-row RMS criterion; finite everywhere."""
+    assert torch.isfinite(got).all()
+    if got.dtype == torch.float32:
+        want = rk_mod.plain(*(a.double() for a in args))
+    else:
+        want = rk_mod.plain(*args)
+    got, want = got.double(), want.double()
+    torch.testing.assert_close(got, want, **RWKV_TOL[args[0].dtype])
+    if args[0].dtype == torch.bfloat16:
+        row = ((got - want).square().mean(-1).sqrt()
+               / want.square().mean(-1).sqrt().clamp_min(1e-30))
+        assert float(row.max()) <= RWKV_BF16_ROW_RMS, float(row.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("decay", ["rand", "floor", "one"])
+def test_cuda_rwkv6_matches_plain(cuda_device, dtype, decay):  # noqa: F811
+    """rwkv6_chunked_kernel against its plain version (the sequential
+    oracle): the reference test's shapes and chunks, a ragged last chunk
+    (T = 40), head dims 8 and 24 (padded to 32 inside), and RWKV6-7B's
+    head dim at chunk 128 over 512 steps."""
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    cases = [((1, 2, 64, 16), 16), ((2, 2, 128, 64), 32),
+             ((1, 3, 40, 8), 8), ((2, 2, 48, 24), 16),
+             ((1, 4, 512, 64), 128)]
+    for (B, H, T, dh), chunk in cases:
+        args = _rwkv_inputs(gen, B, H, T, dh, dtype, decay, cuda_device)
+        got = rk_mod.rwkv6_chunked_kernel(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == (B, H, T, dh)
+        assert_rwkv_close(got, args)
+
+
+@pytest.mark.cuda
+def test_cuda_rwkv6_exact_where_the_chunked_form_overflows(cuda_device):  # noqa: F811
+    """At chunk 128 with every decay at the floor the plain chunked form
+    returns NaN (as the reference's does, ROADMAP section 3 fault 7); the
+    kernel is finite and matches the oracle, and at chunk 32 the chunked
+    form agrees with both."""
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    args = _rwkv_inputs(gen, 2, 4, 256, 64, torch.float32, "floor",
+                        cuda_device)
+    o128, _ = rk_mod.rwkv6_chunked(*args, chunk=128)
+    assert torch.isnan(o128).any()
+    got = rk_mod.rwkv6_chunked_kernel(*args, chunk=128)
+    assert_rwkv_close(got, args)
+    o32, _ = rk_mod.rwkv6_chunked(*args, chunk=32)
+    torch.testing.assert_close(got, o32, **RWKV_TOL[torch.float32])
+
+
+@pytest.mark.cuda
+def test_cuda_rwkv6_counts_launches(cuda_device):  # noqa: F811
+    """One launch per CUDA call and none for a CPU call; RWKV6-7B's reduced
+    config launches it once per layer in the prefill step under the
+    kernel core (T % chunk == 0, T > chunk), never in prefill or decode,
+    and its logits match the same step on the CPU."""
+    import dataclasses
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.train import steps
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    args = _rwkv_inputs(gen, 1, 2, 64, 16, torch.float32, "rand",
+                        cuda_device)
+    before = rk_mod.launches.value
+    rk_mod.rwkv6_chunked_kernel(*args, chunk=16)
+    rk_mod.rwkv6_chunked_kernel(*(a.cpu() for a in args), chunk=16)
+    assert rk_mod.launches.value - before == 1
+    cfg = dataclasses.replace(configs.get_config("rwkv6_7b", reduced=True),
+                              wkv_core="pallas")
+    params = lm.init_params(lm.make_generator(0, "cpu"), cfg)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 32)).astype(np.int32))
+    card_params = lm._tree_map(lambda a: a.to(cuda_device), params)
+    before = rk_mod.launches.value
+    card = steps.make_prefill_step(cfg)(card_params,
+                                        dict(tokens=toks.to(cuda_device)))
+    torch.cuda.synchronize()
+    assert rk_mod.launches.value - before == cfg.n_layers
+    cpu = steps.make_prefill_step(cfg)(params, dict(tokens=toks))
+    torch.testing.assert_close(card.cpu(), cpu, atol=1e-3, rtol=1e-3)
+    before = rk_mod.launches.value
+    _, caches = lm.prefill(card_params, cfg,
+                           dict(tokens=toks.to(cuda_device)), s_max=33)
+    lm.decode_step(card_params, cfg, caches, toks[:, :1].to(cuda_device), 32)
+    torch.cuda.synchronize()
+    assert rk_mod.launches.value == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["device", "dtype", "float16", "w_bf16",
+                                  "strided", "t_chunk", "head_dim"])
+def test_cuda_rwkv6_rejects_bad_operands(cuda_device, case):  # noqa: F811
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    r, k, v, w, u = _rwkv_inputs(gen, 1, 2, 64, 32, torch.float32, "rand",
+                                 cuda_device)
+    chunk = 16
+    if case == "device":
+        k = k.cpu()
+    elif case == "dtype":
+        v = v.bfloat16()
+    elif case == "float16":
+        r, k, v = r.half(), k.half(), v.half()
+    elif case == "w_bf16":
+        w = w.bfloat16()
+    elif case == "strided":
+        r = torch.randn((1, 64, 2, 32), device=cuda_device).transpose(1, 2)
+    elif case == "t_chunk":
+        chunk = 48
+    else:
+        r, k, v, w = (torch.rand((1, 2, 64, 128), device=cuda_device)
+                      for _ in range(4))
+        u = torch.randn((2, 128), device=cuda_device)
+    before = rk_mod.launches.value
+    with pytest.raises(ValueError):
+        rk_mod.rwkv6_chunked_kernel(r, k, v, w, u, chunk=chunk)
+    assert rk_mod.launches.value == before

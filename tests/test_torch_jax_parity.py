@@ -1,6 +1,7 @@
 """Port parity against the JAX reference where the reference compiles:
-the kernel modules (the flash kernel's plain version against the Pallas
-kernel in interpret mode, the LM stack at InternLM2's reduced config),
+the kernel modules (the flash and RWKV-6 kernels' plain versions against
+the Pallas kernels in interpret mode, the LM stack at InternLM2's and
+RWKV6-7B's reduced configs),
 the GNN kernel modules (the reference's ``ops.*_matvec(_acc)`` and
 ``tcgnn_tile.*_matvec(_acc)`` run the Pallas kernels in interpret mode on
 the CPU; ``csr``/``sell_cs`` are XLA there) and the whole slice
@@ -477,15 +478,15 @@ def _check_flash_against_pallas_kernel():
                     == RFA.flash_flops(B, Hq, Sq, Skv, d, causal))
 
 
-def _lm_pair(reduced: bool = True):
+def _lm_pair(reduced: bool = True, arch: str = LM_ARCH):
     """The reference's and the port's config, and the reference's
     parameters (PRNGKey(0)) carried over to the port."""
     from repro import configs as RC
     from repro.models import lm as RLM
     from repro_torch import configs as TC
     from repro_torch.weights import lm_from_jax_params
-    rcfg = RC.get_config(LM_ARCH, reduced=reduced)
-    tcfg = TC.get_config(LM_ARCH, reduced=reduced)
+    rcfg = RC.get_config(arch, reduced=reduced)
+    tcfg = TC.get_config(arch, reduced=reduced)
     params = RLM.init_params(jax.random.PRNGKey(0), rcfg)
     port = lm_from_jax_params(jax.tree.map(np.asarray, params), tcfg,
                               device="cpu")
@@ -611,3 +612,181 @@ def _check_serve_lm_against_reference_example(monkeypatch):
             lg = np.asarray(ref_steps[t][b], np.float32)
             gap = lg[toks[b, t]] - lg[got["tokens"][b, t]]
             assert 0 <= gap <= 2e-3, (b, t, gap)
+
+
+# --- the RWKV-6 slice: RWKV6-7B at its reduced config ------------------------
+
+RWKV_ARCH = "rwkv6_7b"
+RWKV_TOL = dict(atol=5e-4, rtol=1e-3)      # tests/test_kernels_rwkv6.py
+
+
+def test_rwkv_serving_slice_matches_reference(monkeypatch):
+    """The RWKV-6 serving slice, in one test for the same reason as the
+    InternLM2 one: the kernel wrapper's plain version and the plain
+    chunked form, the model under both cores, and serve_lm."""
+    _check_rwkv_kernels_against_reference()
+    _check_rwkv_model_forward_prefill_decode()
+    _check_rwkv_serve_lm_against_reference_example(monkeypatch)
+
+
+def _rwkv_inputs(rng, B, H, T, dh, rate=None):
+    """tests/test_kernels_rwkv6.py's make_inputs, as numpy: rates clipped
+    to the model's [-20, 0.405], or all equal to ``rate``."""
+    r, k, v = (rng.standard_normal((B, H, T, dh)).astype(np.float32)
+               for _ in range(3))
+    rates = (np.clip(rng.standard_normal((B, H, T, dh)), -20, 0.405)
+             if rate is None else np.full((B, H, T, dh), rate))
+    w = np.exp(-np.exp(rates)).astype(np.float32)
+    u = rng.standard_normal((H, dh)).astype(np.float32)
+    return r, k, v, w, u
+
+
+def _check_rwkv_kernels_against_reference():
+    """rwkv6_chunked_kernel's plain version against the Pallas kernel
+    (interpret mode) at tests/test_kernels_rwkv6.py's shapes, float32 and
+    bfloat16, at its tolerances; at chunk 128 with every decay at the
+    model's floor (log w = -1.5), against the reference's sequential
+    oracle, where the Pallas kernel itself returns NaN (so the oracle is
+    the yardstick there); the plain chunked form (the "xla" core) against
+    the reference's, with and without a carried state; the cost models."""
+    from repro.kernels import ref as RREF
+    from repro.kernels import rwkv6_chunked as RK
+    from repro_torch.kernels import rwkv6_chunked as TK
+    rng = np.random.default_rng(20)
+    for (B, H, T, dh, chunk) in ((1, 2, 64, 16, 16), (2, 2, 128, 64, 32)):
+        r, k, v, w, u = _rwkv_inputs(rng, B, H, T, dh)
+        for jdt, tdt, tol in ((jnp.float32, torch.float32, RWKV_TOL),
+                              (jnp.bfloat16, torch.bfloat16,
+                               dict(atol=5e-2, rtol=5e-2))):
+            ref = RK.rwkv6_chunked_pallas(
+                *(jnp.asarray(a).astype(jdt) for a in (r, k, v)),
+                jnp.asarray(w), jnp.asarray(u), chunk=chunk, interpret=True)
+            port = TK.rwkv6_chunked_kernel(
+                *(torch.from_numpy(a).to(tdt) for a in (r, k, v)),
+                torch.from_numpy(w), torch.from_numpy(u), chunk=chunk)
+            assert port.dtype == tdt and tuple(port.shape) == (B, H, T, dh)
+            tp.assert_close(np.asarray(ref, np.float32), port.float(), **tol)
+
+    r, k, v, w, u = _rwkv_inputs(rng, 1, 2, 256, 64, rate=0.405)
+    jargs = [jnp.asarray(a) for a in (r, k, v, w, u)]
+    targs = [torch.from_numpy(a) for a in (r, k, v, w, u)]
+    pallas = np.asarray(RK.rwkv6_chunked_pallas(*jargs, chunk=128,
+                                                interpret=True))
+    # inherited (ROADMAP fault 7): the Pallas kernel and both packages'
+    # plain chunked forms overflow in the same places
+    n_nan = int(np.isnan(pallas).sum())
+    assert n_nan == 17664, n_nan
+    assert int(torch.isnan(TK.rwkv6_chunked(*targs, chunk=128)[0]).sum()) \
+        == n_nan
+    port = TK.rwkv6_chunked_kernel(*targs, chunk=128)
+    assert torch.isfinite(port).all()
+    tp.assert_close(RREF.rwkv6_linear_attention(*jargs), port, **RWKV_TOL)
+
+    for (B, H, T, dh, chunk) in ((1, 1, 32, 8, 8), (2, 2, 128, 64, 32)):
+        r, k, v, w, u = _rwkv_inputs(rng, B, H, T, dh)
+        S0 = rng.standard_normal((B, H, dh, dh)).astype(np.float32) * 0.1
+        jargs = [jnp.asarray(a) for a in (r, k, v, w, u)]
+        targs = [torch.from_numpy(a) for a in (r, k, v, w, u)]
+        for state in (None, S0):
+            ref_o, ref_S = RK.rwkv6_chunked(
+                *jargs, chunk=chunk,
+                state=None if state is None else jnp.asarray(state))
+            o, S = TK.rwkv6_chunked(
+                *targs, chunk=chunk,
+                state=None if state is None else torch.from_numpy(state))
+            tp.assert_close(ref_o, o)
+            tp.assert_close(ref_S, S)
+    for shape in ((4, 64, 1024, 64), (1, 2, 64, 16)):
+        assert TK.rwkv6_hbm_bytes(*shape) == RK.rwkv6_hbm_bytes(*shape)
+        for chunk in (16, 32, 128):
+            assert (TK.rwkv6_flops(*shape, chunk=chunk)
+                    == RK.rwkv6_flops(*shape, chunk=chunk))
+
+
+def _check_rwkv_model_forward_prefill_decode():
+    """RWKV6-7B's configs equal the reference's field by field; from the
+    reference's parameters, forward logits under both WKV cores (the
+    kernel core: the Pallas kernel in interpret mode against the port's
+    plain version; "xla": both chunked forms) at float32 1e-4, and prefill,
+    its caches and teacher-forced decode_step under both cores at 1e-3
+    (the reference's own prefill/decode tolerance)."""
+    import dataclasses
+    from repro import configs as RC
+    from repro.models import lm as RLM
+    from repro_torch import configs as TC
+    from repro_torch.models import lm as TLM
+    for reduced in (False, True):
+        ref_cfg = RC.get_config(RWKV_ARCH, reduced=reduced)
+        port_cfg = TC.get_config(RWKV_ARCH, reduced=reduced)
+        for f in dataclasses.fields(ref_cfg):
+            assert getattr(port_cfg, f.name) == getattr(ref_cfg, f.name), \
+                f.name
+        assert port_cfg.layer_groups() == ref_cfg.layer_groups()
+        rc, tc = ref_cfg.rwkv_cfg(), port_cfg.rwkv_cfg()
+        assert dataclasses.asdict(rc) == dataclasses.asdict(tc)
+
+    rcfg0, tcfg0, params, port = _lm_pair(arch=RWKV_ARCH)
+    tm = port["groups"][0]["tm"]
+    assert tm["u"].dtype == tm["w0"].dtype == torch.float32
+    rng = np.random.default_rng(8)
+    toks = rng.integers(0, rcfg0.vocab, (2, 32)).astype(np.int32)
+    P, S = 16, 24
+    for core in ("pallas", "xla"):
+        rcfg = dataclasses.replace(rcfg0, wkv_core=core)
+        tcfg = dataclasses.replace(tcfg0, wkv_core=core)
+        ref, _ = RLM.forward(params, rcfg, dict(tokens=jnp.asarray(toks)))
+        got, _ = TLM.forward(port, tcfg, dict(tokens=torch.from_numpy(toks)))
+        assert tuple(got.shape) == (2, 32, tcfg.padded_vocab)
+        tp.assert_close(ref, got)
+
+        ref_lg, ref_c = RLM.prefill(params, rcfg, dict(tokens=jnp.asarray(
+            toks[:, :P])), s_max=S)
+        got_lg, got_c = TLM.prefill(port, tcfg, dict(tokens=torch.from_numpy(
+            toks[:, :P])), s_max=S)
+        tp.assert_close(ref_lg, got_lg, **LM_TOL)
+        for name in ("S", "x_tm", "x_cm"):
+            tp.assert_close(ref_c[0][name], got_c[0][name], **LM_TOL)
+        decode = jax.jit(lambda p, c, t, pos: RLM.decode_step(
+            p, rcfg, c, t, pos))
+        for t in range(P, S):
+            ref_lg, ref_tok, ref_c = decode(params, ref_c,
+                                            jnp.asarray(toks[:, t:t + 1]), t)
+            got_lg, got_tok, got_c = TLM.decode_step(
+                port, tcfg, got_c, torch.from_numpy(toks[:, t:t + 1]), t)
+            tp.assert_close(ref_lg, got_lg, **LM_TOL)
+            np.testing.assert_array_equal(np.asarray(ref_tok),
+                                          got_tok.numpy())
+        tp.assert_close(ref_c[0]["S"], got_c[0]["S"], **LM_TOL)
+
+
+def _check_rwkv_serve_lm_against_reference_example(monkeypatch):
+    """repro_torch.launch.serve_lm against examples/serve_lm.py's serve_lm
+    for RWKV6-7B (the config's "xla" core; the example takes no overrides)
+    from the reference's parameters and the same prompts: the same greedy
+    tokens (float32, no near-ties at this seed), and the port's kernel
+    core (wkv_core="pallas", a sequential prefill) serves them too."""
+    import importlib.util
+    from pathlib import Path
+    from repro_torch.launch import serve_lm as TSL
+    from repro_torch.models import lm as TLM
+    spec = importlib.util.spec_from_file_location(
+        "serve_lm_example",
+        Path(__file__).resolve().parents[1] / "examples" / "serve_lm.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    B, P, G = 2, 16, 8
+    rcfg, tcfg, params, port = _lm_pair(arch=RWKV_ARCH)
+    ref = example.serve_lm(RWKV_ARCH, reduced=True, batch=B, prompt_len=P,
+                           gen=G, seed=0, verbose=False)
+    monkeypatch.setattr(TLM, "init_params", lambda gen, cfg: port)
+    got = {core: TSL.serve_lm(RWKV_ARCH, reduced=True, batch=B,
+                              prompt_len=P, gen=G, seed=0, device="cpu",
+                              overrides=dict(wkv_core=core), verbose=False)
+           for core in ("xla", "pallas")}
+    toks = np.asarray(ref["tokens"])
+    for out in got.values():
+        assert out["tokens"].shape == toks.shape == (B, G)
+        assert out["tokens"].dtype == np.int32
+    np.testing.assert_array_equal(got["xla"]["tokens"],
+                                  got["pallas"]["tokens"])
+    np.testing.assert_array_equal(got["xla"]["tokens"], toks)

@@ -91,12 +91,12 @@ def test_configs_registry():
 
 @pytest.mark.parametrize("change", [dict(n_experts=4, top_k=2),
                                     dict(attn_type="mla"),
-                                    dict(layer_pattern="rwkv"),
+                                    dict(layer_pattern="jamba", n_layers=8),
                                     dict(family="encdec", encoder_layers=2),
                                     dict(mtp=True),
                                     dict(mrope_sections=(2, 3, 3)),
                                     dict(mamba_core="pallas"),
-                                    dict(wkv_core="pallas"),
+                                    dict(mamba_d_state=8),
                                     dict(top_k=2),
                                     dict(kv_lora_rank=256)])
 def test_unported_model_kinds_raise(change):
