@@ -13,9 +13,12 @@ subgraph at both layer widths on the card and commits the fastest; then
 the same for GraphSAGE (``GNNConfig(model="sage")``): two fixed plans and
 its feedback main path; then the LM stack's serving paths at full
 published widths: InternLM2-1.8B (flash prefill, cache prefill, greedy
-decode) and RWKV6-7B (the rwkv6_chunked kernel in the prefill step,
-sequential cache prefill, greedy decode).  It goes through the eleven
-hand-written CUDA kernels and checks every result.  ``acc`` (the threaded accumulator, and
+decode), RWKV6-7B (the rwkv6_chunked kernel in the prefill step,
+sequential cache prefill, greedy decode) and one period of Jamba-v0.1
+(the mamba_scan kernel in the prefill step and the cache prefill, flash
+attention in the prefill step, the MoE rule's sparse path in prefills and
+its dense path in decode).  It goes through the twelve hand-written CUDA
+kernels and checks every result.  ``acc`` (the threaded accumulator, and
 SAGE's dual-weight kernel) takes its default, on for CUDA tensors, except
 where a phase names it.
 Run it from the root of a checkout with no arguments:
@@ -132,6 +135,32 @@ Phases, each of which raises (exit code != 0) on failure:
    decode or the chunked core;
    then the bf16 prefill step (both cores), the cache-producing prefill
    and the decode step are timed and profiled;
+7d. LM serving, Jamba-v0.1 (d_model 4096, 32/8 heads of 128, d_ff 14336,
+   16 experts top-2 of d_ff 14336, Mamba d_state 16, d_inner 8192, vocab
+   65536) at one 8-layer period (13.3 B parameters, 26.6 GB in bf16; the
+   32 published layers do not fit one card), under the reference's
+   serving profile (mamba_core="pallas", attn_core="flash"): mamba_scan
+   against its plain version (the sequential oracle in float64) is in
+   phase 2 (the reference test's shapes, Jamba's (4, 1024, 8192, 16) and
+   (1, 4096, 8192, 16), dt ~ |N(0, 1)| * 0.1 and * 2; float32 atol = rtol
+   = 1e-4, tests/test_kernels_mamba.py; a bfloat16 x at atol 1e-3 / rtol
+   8e-3).  Here, with launch counts set to 0 just before each path and
+   read just after: the REDUCED config (8 layers, every kind) in float32,
+   prefill step, prefill and decode on the card against the CPU within
+   1e-3; at full width in float32 one Mamba layer, kernel core against
+   the plain scan core (1e-3), its return_state h against the float64
+   oracle's final state (1e-3) and the kernel on the layer's own inputs
+   (phase 2's criterion), one MoE layer at 4096 tokens, sparse without
+   drops against dense (1e-3), and the drops at capacity factor 1.25; in
+   bfloat16 serve_lm (batch 4, prompt 1024, 32 greedy tokens, every token
+   in [0, vocab)), the prefill step with the kernel core and the plain
+   core (logits compared, not gated), and the kernel at each Mamba layer
+   on its own inputs (phase 2's criterion).  mamba_scan must launch 7
+   times and flash_attention once per prefill-step call, mamba_scan 7
+   times in serve_lm (its prefill) and nothing else there; then the bf16
+   prefill step (both cores), the cache prefill, the decode step and the
+   MoE layer's dense and sparse paths at 4096 and 4 tokens are timed and
+   the steps profiled;
 8. timing: median forward times (acc off and on) and training-step times
    (CUDA events, host launch included; GCN's unfused and feedback plans
    also with acc off, and the SAGE plans), each kernel's time at the main
@@ -203,6 +232,9 @@ KERNELS = {
     "rwkv6_chunked": dict(
         source="src/repro_torch/kernels/csrc/rwkv6_chunked.cu",
         replaces="src/repro/kernels/rwkv6_chunked.py:127"),
+    "mamba_scan": dict(
+        source="src/repro_torch/kernels/csrc/mamba_scan.cu",
+        replaces="src/repro/kernels/mamba_scan.py:59"),
 }
 FORWARD_KERNELS = ("block_diag_spmm", "bell_spmm")
 # the CUDA kernels each registry spec launches in a training step
@@ -361,13 +393,39 @@ RWKV_F32_DEEP_RMS = 0.25
 RWKV_XLA_CHUNK = 32     # the chunked form's largest safe chunk at the floor
 RWKV_F32_LAYERS = 4     # depth of the float32 prefill/decode check
 
+# The Jamba slice: Jamba-v0.1 (src/repro_torch/configs/jamba_v0_1_52b.py) at
+# its published widths, depth cut to one period (8 layers: 7 Mamba, attention
+# at layer 3, 4 dense and 4 MoE FFNs of 16 experts), the most one 80 GB card
+# holds: the FULL 32 layers are 106 GB of bf16 weights
+JAMBA_ARCH = "jamba_v0_1_52b"
+JAMBA_LAYERS = 8
+JAMBA_PARAMS = 13_295_235_072       # one period (26.59 GB in bf16)
+# the reference's serving profile (src/repro/launch/profiles.py:58-62)
+JAMBA_PROFILE = dict(mamba_core="pallas", attn_core="flash")
+# mamba_scan's checked shapes (B, T, d_inner, d_state, chunk, d_tile,
+# dt_scale): the reference test's (tests/test_kernels_mamba.py:23-26), Jamba's
+# serving prefill and one 4096-token sequence, and the prefill with dt ~
+# |N(0, 1)| * 2 (every exp(dt A) far below 1)
+MAMBA_SHAPES = ((1, 16, 8, 2, 8, 8, 0.1), (2, 64, 32, 4, 16, 16, 0.1),
+                (1, 128, 64, 8, 32, 32, 0.1), (2, 32, 16, 16, 32, 8, 0.1),
+                (4, 1024, 8192, 16, 128, 512, 0.1),
+                (1, 4096, 8192, 16, 128, 512, 0.1),
+                (4, 1024, 8192, 16, 128, 512, 2.0))
+# the reference's float32 tolerance (tests/test_kernels_mamba.py:37-38),
+# against the plain version run in float64; a bfloat16 x gives a bfloat16
+# y, one rounding (relative 2^-8) from the oracle: rtol 8e-3 is twice that
+MAMBA_TOL = dict(atol=1e-4, rtol=1e-4)
+MAMBA_BF16_TOL = dict(atol=1e-3, rtol=8e-3)
+MAMBA_TIMED = ((4, 1024, 8192, 16), (1, 4096, 8192, 16))
+
 # (Fi, Fo) of the main path's fused kernels: layer 1, layer 2, and layer
 # 2's dX pass over the transpose with W^T
 WIDTHS = ((500, 16), (16, 3), (3, 16))
 # the width of each kernel's row in the kernels JSON line (else 500x16)
 ROW_KEY = {"block_diag_spmm": 16, "bell_spmm": 16, "tcgnn_spmm": 16,
            "flash_attention": "4x16x8x1024x128",
-           "rwkv6_chunked": "4x64x1024x64"}
+           "rwkv6_chunked": "4x64x1024x64",
+           "mamba_scan": "4x1024x8192x16"}
 
 
 def log(phase: str, msg: str) -> None:
@@ -2272,14 +2330,18 @@ def phase_rwkv_serve(torch, counts: dict) -> dict:
         f"calls included); tokens in [0, {cfg.vocab}); first row "
         f"{tokens[0].tolist()}")
 
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = lm.init_params(lm.make_generator(seed, "cuda"), cfg)
     torch.cuda.synchronize()
     n_params = sum(a.numel() for a in lm._leaves(params))
+    init_peak = (torch.cuda.max_memory_allocated() - base) / 1e9
     log("rwkv", f"init_params: {n_params / 1e9:.3f} B parameters, "
         f"{sum(a.numel() * a.element_size() for a in lm._leaves(params)) / 1e9:.2f}"
-        f" GB, {time.perf_counter() - t0:.1f} s; peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+        f" GB, {time.perf_counter() - t0:.1f} s; peak device memory above "
+        f"the baseline {init_peak:.2f} GB")
     batch = dict(tokens=torch.from_numpy(lm_tokens(cfg, B, P, seed)).cuda())
     kern_step = steps.make_prefill_step(cfg)
     xla_step = steps.make_prefill_step(dataclasses.replace(
@@ -2392,7 +2454,7 @@ def phase_rwkv_serve(torch, counts: dict) -> dict:
                 err=err, spread=spread, agree=agree, growth=growth,
                 prefill_ms=prefill_ms, prefill_runs=runs,
                 decode_ms=decode_ms, busy=busy,
-                cache_prefill_s=cache_prefill_s,
+                cache_prefill_s=cache_prefill_s, init_peak_gb=init_peak,
                 serve_seconds=out["seconds"])
 
 
@@ -2439,6 +2501,449 @@ def time_rwkv_kernel(torch, flush) -> dict:
                 f"CUDA-core floor of rwkv6_flops at chunk {rk.KERNEL_CHUNK} "
                 f"{row['algo_bound_ms']:.4f} ms)")
     return {"rwkv6_chunked": rows}
+
+
+# ---------------------------------------------------------------------------
+# the Jamba slice: Jamba-v0.1, one period at full width, through mamba_scan
+# ---------------------------------------------------------------------------
+
+def mamba_inputs(torch, gen, B, T, di, ds, dt_scale):
+    """tests/test_kernels_mamba.py's inputs on the card: x ~ N(0, 1),
+    dt = |N(0, 1)| * dt_scale, Bc, Cc ~ N(0, 1), A = -(|N(0, 1)| + 0.1),
+    D ~ N(0, 1), all float32 (the model path's types)."""
+    def n(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    return (n(B, T, di), n(B, T, di).abs() * dt_scale, n(B, T, ds),
+            n(B, T, ds), -(n(di, ds).abs() + 0.1), n(di))
+
+
+def check_mamba_close(torch, got, args, what: str, quiet: bool = False,
+                      want=None) -> dict:
+    """Holds a mamba_scan output against its plain version run in float64
+    (``want`` if given): finite, at MAMBA_TOL for a float32 x and
+    MAMBA_BF16_TOL for a bfloat16 one.  Logs the readings (unless ``quiet``
+    and within tolerance), then raises if one fails; returns max|err| and
+    the worst |err| / limit."""
+    from repro_torch.kernels import mamba_scan as ms
+    name = str(got.dtype).removeprefix("torch.")
+    if want is None:
+        x, dt, Bc, Cc, A, D = (a.double() for a in args)
+        want = ms.plain(x, dt, A, Bc, Cc, D)
+    err = (got.double() - want).abs()
+    tol = MAMBA_TOL if name == "float32" else MAMBA_BF16_TOL
+    e = float(err.max())
+    ratio = float((err / (tol["atol"] + tol["rtol"] * want.abs())).max())
+    finite = bool(torch.isfinite(got).all())
+    msg = (f"{what}: max|err| {e:.3g} (max|y| {float(want.abs().max()):.3g}),"
+           f" worst |err| / limit {ratio:.3g}")
+    if not (finite and ratio <= 1) or not quiet:
+        log("kernel", msg)
+    if not finite or not ratio <= 1:
+        raise RuntimeError(f"{what} outside {tol} (finite {finite}): {msg}")
+    return dict(err=e, ratio=ratio)
+
+
+def phase_kernels_mamba(torch, errs: dict) -> None:
+    """mamba_scan against its plain version (the sequential oracle) in
+    float64 on the card at MAMBA_SHAPES, float32 x (the model path's) and
+    bfloat16 x."""
+    from repro_torch.kernels import mamba_scan as ms
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    n = 0
+    for B, T, di, ds, chunk, d_tile, dt_scale in MAMBA_SHAPES:
+        args = mamba_inputs(torch, gen, B, T, di, ds, dt_scale)
+        for x in (args[0], args[0].bfloat16()):
+            name = str(x.dtype).removeprefix("torch.")
+            got = ms.mamba_scan(x, *args[1:], chunk=chunk, d_tile=d_tile)
+            torch.cuda.synchronize()
+            if got.shape != x.shape or got.dtype != x.dtype:
+                raise RuntimeError(f"mamba_scan {(B, T, di, ds)}: "
+                                   f"{got.dtype} {tuple(got.shape)}")
+            e = check_mamba_close(
+                torch, got, (x, *args[1:]), f"mamba_scan {name} x "
+                f"(B,T,di,ds)={(B, T, di, ds)} chunk {chunk} d_tile "
+                f"{d_tile} dt scale {dt_scale}")["err"]
+            errs["mamba_scan"][name] = max(errs["mamba_scan"][name], e)
+            n += 1
+        del args
+    log("kernel", f"mamba_scan: {n} cases within tolerance (float32 "
+        f"{MAMBA_TOL} against the float64 plain version, bfloat16 x "
+        f"{MAMBA_BF16_TOL}); largest errors {errs['mamba_scan']}")
+
+
+def jamba_cfg(reduced: bool = False, **changes):
+    """Jamba-v0.1's config (FULL cut to one period, or REDUCED) under the
+    serving profile, with ``changes``."""
+    import dataclasses
+    from repro_torch import configs
+    cfg = configs.get_config(JAMBA_ARCH, reduced=reduced)
+    if not reduced:
+        cfg = dataclasses.replace(cfg, n_layers=JAMBA_LAYERS)
+    return dataclasses.replace(cfg, **JAMBA_PROFILE, **changes)
+
+
+def phase_jamba_reduced(torch, counts: dict) -> dict:
+    """Jamba's REDUCED config (one period: 7 Mamba layers, attention at
+    layer 3, 4 dense and 4 MoE FFNs) in float32 under the serving profile,
+    on the card and on the CPU (plain versions) from the same parameters:
+    the prefill step (batch 2 x 128, so both kernels run), prefill of 96
+    tokens and teacher-forced decode_step to 128, logits within 1e-3; the
+    launches of each path on the card."""
+    from repro_torch.models import lm
+    from repro_torch.train import steps
+    cfg = jamba_cfg(reduced=True)
+    params = lm.init_params(lm.make_generator(0, "cpu"), cfg)
+    card_params = lm._tree_map(lambda a: a.cuda(), params)
+    toks = torch.from_numpy(lm_tokens(cfg, 2, 128, seed=6))
+    P = 96
+
+    def run(p, dev):
+        out, launches = {}, {}
+        t = toks.to(dev)
+        for path in ("forward", "prefill", "decode"):
+            for c in counts.values():
+                c.reset()
+            if path == "forward":
+                out[path] = steps.make_prefill_step(cfg)(p, dict(tokens=t))
+            elif path == "prefill":
+                out[path], caches = lm.prefill(p, cfg, dict(tokens=t[:, :P]),
+                                               s_max=t.shape[1])
+            else:
+                serve, dec = steps.make_serve_step(cfg), []
+                for i in range(P, t.shape[1]):
+                    _, lg, caches = serve(p, caches, t[:, i:i + 1], i)
+                    dec.append(lg[:, 0])
+                out[path] = torch.stack(dec, dim=1)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            launches[path] = {k: c.value for k, c in counts.items()}
+        return out, launches
+
+    card, launches = run(card_params, "cuda")
+    want = dict(forward=dict(mamba_scan=7, flash_attention=1),
+                prefill=dict(mamba_scan=7), decode={})
+    for path, w in want.items():
+        got = {k: v for k, v in launches[path].items() if v}
+        if got != w:
+            raise RuntimeError(f"reduced Jamba {path} launched {got}, "
+                               f"expected {w}")
+    cpu, _ = run(params, "cpu")
+    errs = {path: check_lm_close(
+        torch, card[path].cpu(), cpu[path], LM_TOL, f"Jamba reduced, "
+        f"float32, {path}, card (kernels) vs CPU (plain versions)")
+        for path in card}
+    errs["prefill_vs_forward"] = check_lm_close(
+        torch, card["prefill"], card["forward"][:, :P], LM_TOL,
+        "Jamba reduced prefill vs the forward, card")
+    errs["decode_vs_forward"] = check_lm_close(
+        torch, card["decode"], card["forward"][:, P:], LM_TOL,
+        "Jamba reduced teacher-forced decode vs the forward, card")
+    return dict(launches=launches, errs=errs)
+
+
+def phase_jamba_layers(torch, counts: dict) -> dict:
+    """Full-width layers of Jamba in float32 on the card: one Mamba layer
+    (batch 4 x 1024) under the kernel core against the plain associative
+    scan core (1e-3), its return_state h (from the plain scan) against the
+    sequential oracle's final state in float64 (1e-3) and the kernel on
+    the layer's own inputs against the oracle (phase 2's criterion); one
+    MoE layer of 16 experts at 4096 tokens, the sparse path at a capacity
+    that drops nothing against the dense path (1e-3), and the drops at the
+    default capacity factor 1.25."""
+    import dataclasses
+    import math
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import ref
+    from repro_torch.models import blocks as blk
+    from repro_torch.models import lm
+    cfg = jamba_cfg(dtype="float32")
+    gen = lm.make_generator(1, "cuda")
+    mc = cfg.mamba_cfg()
+    p = blk.init_mamba(gen, mc, torch.float32)
+    x = torch.randn((4, 1024, cfg.d_model), generator=gen, device="cuda")
+    for c in counts.values():
+        c.reset()
+    with torch.no_grad():
+        kern, cache = blk.mamba_apply(p, mc, x, return_state=True)
+        torch.cuda.synchronize()
+        launches = {k: c.value for k, c in counts.items() if c.value}
+        if launches != {"mamba_scan": 1}:
+            raise RuntimeError(f"one Mamba layer launched {launches}")
+        xla = blk.mamba_apply(p, dataclasses.replace(mc, scan_core="xla"), x)
+        errs = dict(mamba_kernel_vs_xla=check_lm_close(
+            torch, kern, xla, LM_TOL, "Jamba Mamba layer, float32, 4 x 1024,"
+            " kernel core vs plain associative scan"))
+        del xla
+        xz = blk.einsum("btd,de->bte", x, p["in_proj"])
+        xs, _, dt, Bc, Cc, _ = blk._mamba_inner(p, mc, xz)
+        A = -torch.exp(p["A_log"])
+        y64, h64 = ref.mamba_recurrence(xs.double(), dt.double(), A.double(),
+                                        Bc.double(), Cc.double(),
+                                        p["D"].double())
+        errs["state_vs_oracle"] = check_lm_close(
+            torch, cache["h"], h64.float(), LM_TOL, "Jamba Mamba layer "
+            "return_state h (plain scan) vs the float64 oracle's final state")
+        args = (xs.contiguous(), dt.contiguous(), Bc.contiguous(),
+                Cc.contiguous(), A, p["D"])
+        errs["kernel_on_layer_inputs"] = check_mamba_close(
+            torch, ms.mamba_scan(*args), args, "mamba_scan on the Mamba "
+            "layer's own inputs (4, 1024, 8192, 16)", want=y64)["err"]
+        del p, xz, xs, dt, Bc, Cc, y64, h64, args, kern, cache
+
+        moe = cfg.moe_cfg()
+        pm = blk.init_moe(gen, moe, torch.float32)
+        x2 = torch.randn((4096, cfg.d_model), generator=gen, device="cuda")
+        if blk.choose_moe_path(moe, 4096) != "sparse":
+            raise RuntimeError("the MoE rule does not pick sparse at 4096")
+        wide = dataclasses.replace(moe, capacity_factor=moe.n_experts
+                                   / moe.top_k)
+        dense, aux_d = blk.moe_apply_dense(pm, moe, x2)
+        sparse, aux_s = blk.moe_apply_sparse(pm, wide, x2)
+        errs["moe_sparse_vs_dense"] = check_lm_close(
+            torch, sparse, dense, LM_TOL, "Jamba MoE layer, float32, 4096 "
+            "tokens, sparse (capacity factor 8, no drops) vs dense")
+        if abs(float(aux_d) - float(aux_s)) > 1e-6:
+            raise RuntimeError(f"MoE aux {float(aux_d)} vs {float(aux_s)}")
+        _, idx, _ = blk._moe_gates(pm, moe, x2)
+        load = torch.bincount(idx.reshape(-1), minlength=moe.n_experts)
+        C = max(math.ceil(4096 * moe.top_k / moe.n_experts
+                          * moe.capacity_factor), 1)
+        dropped = int((load - C).clamp_min(0).sum())
+        log("jamba", f"MoE at 4096 tokens, capacity factor "
+            f"{moe.capacity_factor} (C = {C}): expert loads "
+            f"{load.tolist()}, {dropped} of {4096 * moe.top_k} assignments "
+            f"dropped")
+        del pm, x2, dense, sparse
+    return dict(errs=errs, launches=launches, moe_dropped=dropped)
+
+
+def phase_jamba_serve(torch, counts: dict) -> dict:
+    """One Jamba period at full width in bfloat16 under the serving
+    profile: serve_lm (batch 4, prompt 1024, 32 greedy tokens); the prefill
+    step on its prompts and parameters with the kernel core and with the
+    plain associative-scan core (logits compared, not gated: both round
+    once differently per layer in bf16); the kernel at every Mamba layer of
+    the kernel-core step against its plain version on that layer's own
+    inputs (phase 2's criterion); then the timings of the serving path and
+    the MoE paths at a prefill's and a decode step's token counts."""
+    import dataclasses
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.launch.serve_lm import serve_lm
+    from repro_torch.models import blocks as blk
+    from repro_torch.models import lm
+    from repro_torch.train import steps
+    cfg = jamba_cfg()
+    B, P, G, seed = SERVE["batch"], SERVE["prompt_len"], SERVE["gen"], 0
+    for c in counts.values():
+        c.reset()
+    out = serve_lm(JAMBA_ARCH, reduced=False, batch=B, prompt_len=P, gen=G,
+                   seed=seed, device="cuda",
+                   overrides=dict(n_layers=JAMBA_LAYERS), verbose=False)
+    torch.cuda.synchronize()
+    serve_launches = {k: c.value for k, c in counts.items()}
+    if {k: v for k, v in serve_launches.items() if v} != {"mamba_scan": 7}:
+        raise RuntimeError(f"Jamba serve_lm launched {serve_launches}; "
+                           "expected 7 mamba_scan (its prefill) and nothing "
+                           "else")
+    tokens = out["tokens"]
+    if tokens.shape != (B, G) or not ((tokens >= 0) & (tokens < cfg.vocab)
+                                      ).all():
+        raise RuntimeError(f"Jamba serve_lm tokens {tokens.shape}: {tokens}")
+    log("jamba", f"serve_lm bf16 Jamba-v0.1 (one period) batch {B} prompt "
+        f"{P} gen {G}: {out['seconds']:.2f} s ({out['tokens_per_s']:.1f} "
+        f"tok/s, first calls included); tokens in [0, {cfg.vocab}); first "
+        f"row {tokens[0].tolist()}")
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(lm.make_generator(seed, "cuda"), cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(a.numel() for a in lm._leaves(params))
+    n_bytes = sum(a.numel() * a.element_size() for a in lm._leaves(params))
+    init_peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    log("jamba", f"init_params: {n_params} parameters, {n_bytes / 1e9:.2f} "
+        f"GB, {init_s:.1f} s; peak device memory above the baseline "
+        f"{init_peak:.2f} GB")
+    if n_params != JAMBA_PARAMS:
+        raise RuntimeError(f"one Jamba period has {n_params} parameters, "
+                           f"expected {JAMBA_PARAMS}")
+    batch = dict(tokens=torch.from_numpy(lm_tokens(cfg, B, P, seed)).cuda())
+    kern_step = steps.make_prefill_step(cfg)
+    xla_step = steps.make_prefill_step(dataclasses.replace(
+        cfg, mamba_core="xla"))
+    for c in counts.values():
+        c.reset()
+    torch.cuda.reset_peak_memory_stats()
+    kern = kern_step(params, batch)
+    torch.cuda.synchronize()
+    step_peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    step_launches = {k: c.value for k, c in counts.items()}
+    if ({k: v for k, v in step_launches.items() if v}
+            != {"mamba_scan": 7, "flash_attention": 1}):
+        raise RuntimeError(f"bf16 Jamba prefill step launched "
+                           f"{step_launches}")
+    for c in counts.values():
+        c.reset()
+    xla = xla_step(params, batch)
+    torch.cuda.synchronize()
+    xla_launches = {k: c.value for k, c in counts.items()}
+    if {k: v for k, v in xla_launches.items() if v} != {"flash_attention": 1}:
+        raise RuntimeError(f"the plain-core step launched {xla_launches}")
+    for name, t in (("kernel core", kern), ("plain core", xla)):
+        if t.shape != (B, P, cfg.padded_vocab) or not bool(
+                torch.isfinite(t).all()):
+            raise RuntimeError(f"Jamba {name} logits {tuple(t.shape)}, "
+                               f"finite {bool(torch.isfinite(t).all())}")
+    spread = dict(kernel_vs_plain_rms=rms_ratio(kern, xla),
+                  kernel_vs_plain_max=max_err(kern, xla),
+                  max_logit=float(xla.float().abs().max()))
+    top_k = kern[:, -1, :cfg.vocab].argmax(-1).cpu()
+    top_x = xla[:, -1, :cfg.vocab].argmax(-1).cpu()
+    first = torch.from_numpy(tokens[:, 0]).long()
+    agree = dict(last_argmax_kernel_vs_plain=int((top_k == top_x).sum()),
+                 serve_first_token_vs_kernel=int((first == top_k).sum()),
+                 of=B)
+    log("jamba", "bf16 logits, batch {B} x {P}: kernel core against the "
+        "plain-scan core RMS ratio {kernel_vs_plain_rms:.3g}, max|diff| "
+        "{kernel_vs_plain_max:.3g} (max|logit| {max_logit:.3g}); not gated"
+        .format(B=B, P=P, **spread))
+    log("jamba", "last-position argmax agreement (of {of}): kernel vs plain "
+        "core {last_argmax_kernel_vs_plain}; serve_lm's first greedy token "
+        "vs the kernel step's argmax {serve_first_token_vs_kernel}"
+        .format(**agree))
+    del kern, xla
+
+    # the kernel at every Mamba layer, on the inputs the model gives it
+    orig, worst = ms.mamba_scan, dict(err=0.0, ratio=0.0, layers=0)
+
+    def checked(*args, **kw):
+        y = orig(*args, **kw)
+        r = check_mamba_close(torch, y, args, f"Jamba bf16 Mamba layer "
+                              f"{worst['layers']}", quiet=True)
+        worst.update(err=max(worst["err"], r["err"]),
+                     ratio=max(worst["ratio"], r["ratio"]),
+                     layers=worst["layers"] + 1)
+        return y
+
+    ms.mamba_scan = checked
+    try:
+        kern_step(params, batch)
+    finally:
+        ms.mamba_scan = orig
+    log("jamba", f"every Mamba layer's mamba_scan output against its plain "
+        f"version in float64 on the layer's own inputs ({worst['layers']} "
+        f"layers): largest max|err| {worst['err']:.3g}, worst |err| / limit "
+        f"{worst['ratio']:.3g}")
+
+    # timing (CUDA events, host launch included), the two cores in turns
+    runs = {"kernel": [], "plain": []}
+    fns = {"kernel": lambda: kern_step(params, batch),
+           "plain": lambda: xla_step(params, batch)}
+    for name in ("kernel", "plain", "plain", "kernel"):
+        runs[name].append(eager_ms(torch, fns[name], iters=3))
+    prefill_ms = {k: statistics.mean(v) for k, v in runs.items()}
+    serve_step = steps.make_serve_step(cfg)
+    with torch.no_grad():
+        lm.prefill(params, cfg, batch, s_max=P + G)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, caches = lm.prefill(params, cfg, batch, s_max=P + G)
+        torch.cuda.synchronize()
+    cache_prefill_ms = (time.perf_counter() - t0) * 1e3
+    nxt = batch["tokens"][:, -1:]
+    decode_ms = eager_ms(torch, lambda: serve_step(params, caches, nxt, P),
+                         iters=10)
+    tok = B * P
+    log("timing", f"bf16 Jamba prefill step, batch {B} x {P} (CUDA events, "
+        f"host included, two runs each in turns): kernel core "
+        f"{runs['kernel'][0]:.3f} / {runs['kernel'][1]:.3f} ms "
+        f"({tok / prefill_ms['kernel'] * 1e3:.0f} tokens/s), plain-scan core "
+        f"{runs['plain'][0]:.3f} / {runs['plain'][1]:.3f} ms "
+        f"({tok / prefill_ms['plain'] * 1e3:.0f} tokens/s); cache-producing "
+        f"prefill {cache_prefill_ms:.3f} ms (host clock); decode step (batch "
+        f"{B}) {decode_ms:.3f} ms per token; peak memory of the step "
+        f"{step_peak:.2f} GB above the baseline")
+    # the MoE rule's two paths on layer 1's experts, at a prefill's and a
+    # decode step's token counts (the rule picks sparse and dense)
+    moe = cfg.moe_cfg()
+    ffn = lm._layers(params["groups"][0], cfg)[0]["l1"]["ffn"]
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    moe_ms = {}
+    with torch.no_grad():
+        for n in (B * P, B):
+            x2 = torch.randn((n, cfg.d_model), generator=gen,
+                             device="cuda").bfloat16()
+            moe_ms[n] = dict(
+                rule=blk.choose_moe_path(moe, n),
+                dense=eager_ms(torch, lambda: blk.moe_apply_dense(ffn, moe,
+                                                                  x2),
+                               iters=5),
+                sparse=eager_ms(torch, lambda: blk.moe_apply_sparse(
+                    ffn, moe, x2), iters=5))
+            log("timing", f"bf16 MoE layer (16 experts, top-2) at {n} "
+                f"tokens: dense {moe_ms[n]['dense']:.3f} ms, sparse "
+                f"{moe_ms[n]['sparse']:.3f} ms; the rule picks "
+                f"{moe_ms[n]['rule']}")
+    busy = dict(prefill=profile_busy(torch, fns["kernel"], 2,
+                                     prefill_ms["kernel"],
+                                     "Jamba prefill step"),
+                decode=profile_busy(torch, lambda: serve_step(
+                    params, caches, nxt, P), 5, decode_ms,
+                    "Jamba decode step"))
+    del params, caches
+    return dict(serve_launches=serve_launches, launches=step_launches,
+                xla_launches=xla_launches, layer_check=worst, spread=spread,
+                agree=agree, prefill_ms=prefill_ms, prefill_runs=runs,
+                cache_prefill_ms=cache_prefill_ms, decode_ms=decode_ms,
+                moe_ms=moe_ms, busy=busy, init_peak_gb=init_peak,
+                step_peak_gb=step_peak, serve_seconds=out["seconds"])
+
+
+def time_mamba_kernel(torch, flush) -> dict:
+    """mamba_scan (L2 flushed, float32 as on the model path) beside its
+    plain version (the sequential oracle, eager: a few launches per step),
+    the plain associative scan of the "xla" core (torch ops: the port's
+    yardstick, since no single PyTorch call computes a selective scan) and
+    its bound: x, dt and y moved once in float32, B, C, A and D read once,
+    over the HBM rate, or mamba_scan_flops over the float32 peak, the
+    larger."""
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.models import blocks as blk
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    rows = {}
+    for B, T, di, ds in MAMBA_TIMED:
+        args = mamba_inputs(torch, gen, B, T, di, ds, 0.1)
+        x, dt, Bc, Cc, A, D = args
+        n_bytes = sum(a.numel() * a.element_size() for a in args) \
+            + x.numel() * x.element_size()
+        b_ms, b_by = bound(n_bytes, ms.mamba_scan_flops(B, T, di, ds),
+                           "float32")
+
+        def scan():
+            hs = blk._mamba_states(dt, x, Bc, A)
+            return torch.einsum("btds,bts->btd", hs, Cc) + x * D
+
+        key = f"{B}x{T}x{di}x{ds}"
+        rows[key] = row = dict(
+            ms=graph_ms(torch, lambda: ms.mamba_scan(*args), flush, inner=5,
+                        reps=7),
+            plain_ms=eager_ms(torch, lambda: ms.plain(x, dt, A, Bc, Cc, D),
+                              iters=3),
+            plain_timing="eager (host launch included)",
+            library_ms=eager_ms(torch, scan, iters=3),
+            library_call="the plain associative scan (Hillis-Steele, torch "
+                         "ops, the \"xla\" core), eager",
+            bound_ms=b_ms, bound_by=b_by, dtype="float32",
+            shape=[B, T, di, ds])
+        log("timing", f"mamba_scan {key} float32: {row['ms']:.4f} ms (L2 "
+            f"cold), plain {row['plain_ms']:.4f} ms (eager), library "
+            f"{row['library_ms']:.4f} ms ({row['library_call']}), bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}, {n_bytes} bytes)")
+        del args, x, dt, Bc, Cc, A, D
+    return {"mamba_scan": rows}
 
 
 def profile_busy(torch, fn, iters: int, median_ms: float, what: str):
@@ -2511,6 +3016,7 @@ def main() -> int:
     from repro_torch.kernels import block_diag_spmm as bd_mod
     from repro_torch.kernels import block_diag_spmm_fused as bdf_mod
     from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import mamba_scan as ms_mod
     from repro_torch.kernels import rwkv6_chunked as rk_mod
     from repro_torch.kernels import tcgnn_tile as tc_mod
     counts = {"block_diag_spmm": bd_mod.launches,
@@ -2523,7 +3029,8 @@ def main() -> int:
               "tcgnn_spmm_dw": tc_mod.dw_launches,
               "block_diag_spmm_dual": bdf_mod.dual_launches,
               "flash_attention": fa_mod.launches,
-              "rwkv6_chunked": rk_mod.launches}
+              "rwkv6_chunked": rk_mod.launches,
+              "mamba_scan": ms_mod.launches}
 
     # 1. build ---------------------------------------------------------------
     phase_build(torch)
@@ -2566,6 +3073,7 @@ def main() -> int:
     phase_kernels_dual(torch, sdec, errs)
     phase_kernels_flash(torch, errs)
     phase_kernels_rwkv(torch, errs)
+    phase_kernels_mamba(torch, errs)
 
     # 3. forward -------------------------------------------------------------
     plan, params, x, launches_fwd = phase_main(torch, graph, cfg, dec, counts)
@@ -2594,6 +3102,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     rws = phase_rwkv_serve(torch, counts)
     torch.cuda.empty_cache()
+    # 7d. LM serving: Jamba-v0.1, one period at full width -----------------
+    jr = phase_jamba_reduced(torch, counts)
+    jl = phase_jamba_layers(torch, counts)
+    torch.cuda.empty_cache()
+    js = phase_jamba_serve(torch, counts)
+    torch.cuda.empty_cache()
     by_path = {"forward": launches_fwd, "train": trained["launches"],
                "feedback": fb["launches"], "sage_train": sage["launches"],
                "sage_feedback": sfb["launches"],
@@ -2606,7 +3120,14 @@ def main() -> int:
                "rwkv_prefill_step_f32": rw4["launches"],
                "rwkv_chunked_prefill_decode_f32": rw4["other_launches"],
                "serve_rwkv_bf16": rws["serve_launches"],
-               "rwkv_prefill_step_bf16": rws["launches"]}
+               "rwkv_prefill_step_bf16": rws["launches"],
+               **{f"jamba_reduced_{k}_f32": v
+                  for k, v in jr["launches"].items()},
+               "jamba_mamba_layer_f32": {k: jl["launches"].get(k, 0)
+                                         for k in counts},
+               "serve_jamba_bf16": js["serve_launches"],
+               "jamba_prefill_step_bf16": js["launches"],
+               "jamba_plain_core_prefill_step_bf16": js["xla_launches"]}
     launches = {k: sum(p[k] for p in by_path.values()) for k in counts}
     for k, v in launches.items():
         if v == 0:
@@ -2702,6 +3223,7 @@ def main() -> int:
     rows.update(time_dual_kernel(torch, sdec, flush))
     rows.update(time_flash_kernel(torch, flush))
     rows.update(time_rwkv_kernel(torch, flush))
+    rows.update(time_mamba_kernel(torch, flush))
     del scratch
 
     busy = profile_busy(torch, lambda: gnn.forward(params, cfg, dec, x, plan),
@@ -2717,7 +3239,9 @@ def main() -> int:
                     lm_prefill_step=lms["launches"],
                     serve_lm=lms["serve_launches"],
                     rwkv_prefill_step=rws["launches"],
-                    serve_rwkv=rws["serve_launches"])
+                    serve_rwkv=rws["serve_launches"],
+                    jamba_prefill_step=js["launches"],
+                    serve_jamba=js["serve_launches"])
     out = []
     for name, meta in KERNELS.items():
         key = ROW_KEY.get(name, "500x16")
@@ -2761,7 +3285,15 @@ def main() -> int:
         f"logits (f32, bf16) {rws['spread']}, argmax {rws['agree']}, "
         f"sensitivity after 32 layers {rws['growth'][-1]:.3g}, prefill ms "
         f"{rws['prefill_ms']}, cache prefill {rws['cache_prefill_s']:.2f} s, "
-        f"decode {rws['decode_ms']:.3f} ms/token, busy {rws['busy']}")
+        f"decode {rws['decode_ms']:.3f} ms/token, busy {rws['busy']}, "
+        f"init peak {rws['init_peak_gb']:.2f} GB; Jamba: reduced card vs "
+        f"CPU {jr['errs']}, full-width layers {jl['errs']}, MoE drops at "
+        f"1.25 {jl['moe_dropped']}, bf16 per-layer kernel vs plain "
+        f"{js['layer_check']}, logits kernel vs plain core {js['spread']}, "
+        f"argmax {js['agree']}, prefill ms {js['prefill_ms']}, cache prefill "
+        f"{js['cache_prefill_ms']:.1f} ms, decode {js['decode_ms']:.3f} "
+        f"ms/token, MoE ms {js['moe_ms']}, busy {js['busy']}, init peak "
+        f"{js['init_peak_gb']:.2f} GB, step peak {js['step_peak_gb']:.2f} GB")
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,7 +25,7 @@ ARCHS = [
     "whisper_large_v3",
     "rwkv6_7b",
 ]
-PORTED = ("internlm2_1_8b", "rwkv6_7b")
+PORTED = ("internlm2_1_8b", "jamba_v0_1_52b", "rwkv6_7b")
 
 # assigned input-shape set (LM-family): seq_len x global_batch
 SHAPES = {

@@ -26,7 +26,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("block_diag_spmm", "bell_spmm", "bell_spmm_fused", "bell_spmm_dw",
            "tcgnn_spmm", "tcgnn_spmm_fused", "tcgnn_spmm_dw",
-           "block_diag_spmm_dual", "flash_attention", "rwkv6_chunked")
+           "block_diag_spmm_dual", "flash_attention", "rwkv6_chunked",
+           "mamba_scan")
 HEADERS = ("dtype.cuh", "dw_reduce.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -50,6 +51,7 @@ SIGNATURES = {
     "flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                         _I, _P),
     "rwkv6_chunked": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "mamba_scan": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 # element types the kernels take, as the dtype code they are passed

@@ -1,8 +1,7 @@
-"""Plain PyTorch versions of the aggregation kernels, of attention and of
-the RWKV-6 recurrence.
+"""Plain PyTorch versions of the aggregation kernels, of attention, of the
+RWKV-6 recurrence and of the selective SSM (Mamba) scan.
 
-Counterpart of the SpMM, attention and RWKV-6 parts of
-``repro/kernels/ref.py``.
+Counterpart of ``repro/kernels/ref.py``.
 They are the correctness references the CUDA kernels are held against on
 the card, and what each wrapper runs when its tensors lie on the CPU.
 Products accumulate in float32 (float64 for float64 inputs, so gradients
@@ -270,3 +269,41 @@ def rwkv6_linear_attention(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
       o_t = r_t (S_{t-1} + diag(u) k_t^T v_t)
     Shapes follow arXiv:2404.05892 eq. (17)-(19).  Returns o in r.dtype."""
     return rwkv6_recurrence(r, k, v, w, u)[0].to(r.dtype)
+
+
+# --- selective SSM (Mamba) ---------------------------------------------------
+
+def mamba_recurrence(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                     Bc: torch.Tensor, Cc: torch.Tensor, D: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The selective SSM step by step from a zero state:
+      h_t = exp(dt_t A) h_{t-1} + dt_t B_t x_t ;  y_t = C_t . h_t + D x_t
+    in float32 (float64 for float64 inputs).  x, dt: (B, T, d_inner), dt
+    post-softplus; A: (d_inner, d_state); Bc, Cc: (B, T, d_state);
+    D: (d_inner,).  Returns (y (B, T, d_inner), the final state h_T (B,
+    d_inner, d_state)), both in the accumulation dtype."""
+    acc = _acc(x)
+    xb, dtb, Bb, Cb = (a.to(acc) for a in (x, dt, Bc, Cc))
+    Af = A.to(acc)
+    Bsz, T, di = x.shape
+    h = torch.zeros((Bsz, di, Af.shape[-1]), dtype=acc, device=x.device)
+    ys = []
+    for t in range(T):
+        dA = torch.exp(dtb[:, t, :, None] * Af)              # (B, di, ds)
+        dBx = (dtb[:, t] * xb[:, t])[..., None] * Bb[:, t, None, :]
+        h = dA * h + dBx
+        ys.append(torch.einsum("bds,bs->bd", h, Cb[:, t]))
+    y = torch.stack(ys, dim=1) if ys else xb.new_zeros((Bsz, 0, di))
+    return y + xb * D.to(acc), h
+
+
+def mamba_ssm(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+              Bc: torch.Tensor, Cc: torch.Tensor,
+              D: torch.Tensor) -> torch.Tensor:
+    """Selective state space scan, sequential oracle, from a zero state.
+
+    x: (B, T, d_inner); dt: (B, T, d_inner) (post-softplus);
+    A: (d_inner, d_state); Bc/Cc: (B, T, d_state); D: (d_inner,)
+      h_t = exp(dt_t * A) h_{t-1} + dt_t * B_t * x_t ;  y_t = C_t . h_t + D x_t
+    Returns y in x.dtype."""
+    return mamba_recurrence(x, dt, A, Bc, Cc, D)[0].to(x.dtype)

@@ -5,17 +5,23 @@ greedy-decode continuations (counterpart of ``examples/serve_lm.py``).
     PYTHONPATH=src python -m repro_torch.launch.serve_lm --full \\
         --prompt-len 1024 --gen 32        # InternLM2-1.8B at full size
     PYTHONPATH=src python -m repro_torch.launch.serve_lm --arch rwkv6_7b \\
-        --full --wkv-core pallas --prompt-len 1024 --gen 32   # RWKV6-7B
+        --full --prompt-len 1024 --gen 32                   # RWKV6-7B
+    PYTHONPATH=src python -m repro_torch.launch.serve_lm \\
+        --arch jamba_v0_1_52b --full --layers 8 --prompt-len 1024 --gen 32
 
-The prefill is the cache-producing ``lm.prefill``, as in the reference:
-plain attention, and for RWKV-6 the sequential recurrence under the
-kernel core (``wkv_core="pallas"``, the reference's serving profile) or
-the plain chunked form under ``"xla"``.  The config's default core is
-``"xla"``; at RWKV6-7B's published chunk 128 its chunked form overflows
-float32 in both packages (ROADMAP section 3 fault 7), so serve it with
-``--wkv-core pallas``.  The hand kernels run in ``make_prefill_step``:
-flash attention under ``attn_core="flash"`` and the RWKV-6 kernel under
-``wkv_core="pallas"``.
+Each family is served under the reference's serving profile
+(``repro/launch/profiles.py``, ``optimized_overrides``): its recurrent
+layers take the kernel core, ``mamba_core="pallas"`` for Jamba and
+``wkv_core="pallas"`` for RWKV-6 (whose config default, the ``"xla"``
+chunked form, overflows float32 at RWKV6-7B's published chunk 128 in
+both packages: ROADMAP section 3 fault 7); ``overrides`` replaces any of
+it.  The prefill is the cache-producing ``lm.prefill``, as in the
+reference: plain attention (the profile's ``attn_core="flash"`` would
+change nothing here), RWKV-6's sequential recurrence under its kernel
+core, and Jamba's Mamba layers through the ``mamba_scan`` kernel with the
+final state from the plain scan.  Decode runs no hand kernel.  Jamba-v0.1
+is 32 layers, 106 GB of bf16 weights: on one 80 GB card serve one period,
+``overrides=dict(n_layers=8)`` (``--layers 8``, 26.6 GB).
 """
 from __future__ import annotations
 
@@ -32,19 +38,31 @@ from repro_torch.models import lm
 from repro_torch.train import steps as steps_mod
 
 
+def serving_profile(cfg: lm.ModelConfig) -> dict:
+    """The reference's serving profile for ``cfg``'s family: the kernel
+    core of its recurrent layers."""
+    if cfg.layer_pattern == "jamba":
+        return dict(mamba_core="pallas")
+    if cfg.layer_pattern == "rwkv":
+        return dict(wkv_core="pallas")
+    return {}
+
+
 def serve_lm(arch: str, *, reduced: bool = True, batch: int = 4,
              prompt_len: int = 16, gen: int = 16, seed: int = 0,
              device: str | torch.device = DEFAULT_DEVICE,
              overrides: dict | None = None, verbose: bool = True) -> dict:
     """Prompts from ``numpy.random.default_rng(seed)``, parameters from a
-    generator seeded with ``seed`` on ``device``; ``overrides`` replaces
-    config fields (``dataclasses.replace``), e.g. ``wkv_core``.  Returns
+    generator seeded with ``seed`` on ``device``; the config takes the
+    family's ``serving_profile``, then ``overrides`` (config fields, as
+    ``dataclasses.replace`` takes them, e.g. ``n_layers``).  Returns
     the generated tokens (batch, gen) as numpy int32, the wall seconds
     (prefill and decode, the kernels' first-use build included) and
     tokens/s."""
     dev = resolve_device(device)
-    cfg = dataclasses.replace(configs.get_config(arch, reduced=reduced),
-                              **(overrides or {}))
+    cfg = configs.get_config(arch, reduced=reduced)
+    cfg = dataclasses.replace(cfg, **{**serving_profile(cfg),
+                                      **(overrides or {})})
     assert cfg.input_mode == "tokens" and cfg.family == "decoder", \
         "serving demo drives token-mode decoder archs"
     rng = np.random.default_rng(seed)
@@ -84,15 +102,14 @@ def main():
     ap.add_argument("--device", default=DEFAULT_DEVICE)
     ap.add_argument("--full", action="store_true",
                     help="the FULL published config (default: REDUCED)")
-    ap.add_argument("--wkv-core", choices=("xla", "pallas"),
-                    help="RWKV-6's recurrence core (default: the config's, "
-                         "xla); pallas is the reference's serving profile")
+    ap.add_argument("--layers", type=int,
+                    help="cut the config's depth to this many layers")
     args = ap.parse_args()
     out = serve_lm(args.arch, reduced=not args.full, batch=args.batch,
                    prompt_len=args.prompt_len, gen=args.gen,
                    device=args.device,
-                   overrides=(dict(wkv_core=args.wkv_core)
-                              if args.wkv_core else None))
+                   overrides=(dict(n_layers=args.layers)
+                              if args.layers else None))
     print("generated token ids:\n", out["tokens"])
 
 

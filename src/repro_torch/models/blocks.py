@@ -1,18 +1,20 @@
-"""Transformer building blocks: GQA attention, the dense FFN, and RWKV-6's
-time-mix and channel-mix.
+"""Transformer building blocks: GQA attention, the dense FFN, the MoE FFN
+(routed top-k, dense or capacity dispatch), Mamba (selective SSM), and
+RWKV-6's time-mix and channel-mix.
 
 Counterpart of ``repro/models/blocks.py`` for the blocks of the ported LM
 slices.  Every block provides ``init_X(gen, ...)`` (params as a dict of
 tensors on the generator's device), ``X_apply(params, x, ...)`` (full
-sequence) and, where relevant, ``X_decode(params, x, cache, pos)``.  MLA,
-MoE and Mamba come with the models that use them (ROADMAP section 1 item
-8).
+sequence) and, where relevant, ``X_decode(params, x, cache, pos)``.  MLA
+and DeepSeekMoE's shared experts come with the models that use them
+(ROADMAP section 1 item 8).
 
 Matmul-heavy math runs in the model dtype with float32 accumulation;
 softmax and norm statistics run in float32.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
@@ -172,6 +174,303 @@ def mlp_apply(params, x):
     gate = einsum("bsd,df->bsf", x, params["w_gate"]).to(x.dtype)
     h = F.silu(gate) * up
     return einsum("bsf,fd->bsd", h, params["w_down"]).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MoE (routed top-k, capacity dispatch; Jamba's FFN on odd layers)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class MoEConfig:
+    d_model: int
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    n_shared: int = 0            # shared experts (DeepSeekMoE)
+    d_ff_shared: int = 0         # total shared width (n_shared * d_ff_expert typically)
+    capacity_factor: float = 1.25
+    # AdaptGear hook: "dense" computes every expert for every token (the
+    # dense-block kernel analogue; wins when E is tiny / density high),
+    # "sparse" does capacity sort-scatter dispatch, "adaptive" picks by the
+    # analytic density rule (top_k/E), mirroring core/selector.py.
+    dispatch: str = "adaptive"
+
+
+def _no_shared(cfg: MoEConfig) -> None:
+    if cfg.n_shared:
+        raise NotImplementedError("shared experts (DeepSeekMoE) are not "
+                                  "ported yet: ROADMAP section 1 item 8")
+
+
+def init_moe(gen: torch.Generator, cfg: MoEConfig,
+             dtype: torch.dtype = torch.float32) -> dict:
+    """Router (float32 whatever ``dtype``, as the reference keeps it) and
+    the experts' gated FFNs stacked on axis 0."""
+    _no_shared(cfg)
+    E, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff_expert
+    return dict(
+        router=_dense(gen, (d, E), torch.float32),
+        w_gate=_dense(gen, (E, d, f), dtype),
+        w_up=_dense(gen, (E, d, f), dtype),
+        w_down=_dense(gen, (E, f, d), dtype),
+    )
+
+
+def moe_density(cfg: MoEConfig) -> float:
+    return cfg.top_k / cfg.n_experts
+
+
+def choose_moe_path(cfg: MoEConfig, n_tokens: int) -> str:
+    """AdaptGear cost-model rule for MoE: dense path FLOPs scale with E,
+    sparse path with top_k + dispatch overhead.  Dense wins only when the
+    token-expert 'adjacency' is dense (few experts) or the token count is
+    too small to amortize sort/scatter."""
+    if cfg.dispatch != "adaptive":
+        return cfg.dispatch
+    dense_cost = float(cfg.n_experts)
+    sparse_cost = cfg.top_k + 0.5 + 1e4 / max(n_tokens, 1)  # dispatch overhead
+    return "dense" if dense_cost <= sparse_cost else "sparse"
+
+
+def _moe_gates(params, cfg: MoEConfig, x2d):
+    """Softmax router gates, the renormalised top-k (values (N, k) float32,
+    expert ids (N, k)) and the Switch-style load-balancing loss."""
+    logits = einsum("nd,de->ne", x2d.float(), params["router"])
+    gates = torch.softmax(logits, dim=-1)
+    top_vals, top_idx = torch.topk(gates, cfg.top_k, dim=-1)      # (N, k)
+    top_vals = top_vals / torch.clamp(top_vals.sum(-1, keepdim=True),
+                                      min=1e-9)
+    me = gates.mean(0)
+    flat = top_idx.reshape(-1)
+    ce = torch.zeros((cfg.n_experts,), dtype=torch.float32,
+                     device=x2d.device).index_add_(
+        0, flat, torch.full(flat.shape, 1.0 / flat.numel(),
+                            dtype=torch.float32, device=x2d.device))
+    aux = cfg.n_experts * torch.sum(me * ce)
+    return top_vals, top_idx, aux
+
+
+def moe_apply_dense(params, cfg: MoEConfig, x2d):
+    """Dense path: every expert for every token, masked combine.  The
+    experts' outputs round to the model dtype before the float32 combine
+    (the reference keeps them float32; the same in float32 models)."""
+    top_vals, top_idx, aux = _moe_gates(params, cfg, x2d)
+    N = x2d.shape[0]
+    combine = torch.zeros((N, cfg.n_experts), dtype=torch.float32,
+                          device=x2d.device).scatter_add_(1, top_idx,
+                                                          top_vals)
+    # einsum("nd,edf->enf") as a product broadcast over the experts:
+    # torch.einsum would copy each (E, d, f) weight into a (d, E * f) one
+    gate = torch.matmul(x2d[None], params["w_gate"]).to(x2d.dtype)
+    up = torch.matmul(x2d[None], params["w_up"]).to(x2d.dtype)
+    h = F.silu(gate) * up
+    y = einsum("enf,efd->end", h, params["w_down"])
+    out = einsum("end,ne->nd", y.float(), combine).to(x2d.dtype)
+    return out, aux
+
+
+def moe_apply_sparse(params, cfg: MoEConfig, x2d):
+    """Sort-based capacity dispatch (token-choice, dropping).
+
+    N*k assignments are sorted by expert id (stably, as ``jnp.argsort``);
+    position-in-expert comes from the sorted rank minus the expert's start
+    offset; tokens beyond capacity C are dropped (standard GShard/Switch
+    semantics)."""
+    N, d = x2d.shape
+    E, k = cfg.n_experts, cfg.top_k
+    dev = x2d.device
+    top_vals, top_idx, aux = _moe_gates(params, cfg, x2d)
+    C = max(int(math.ceil(N * k / E * cfg.capacity_factor)), 1)
+
+    e_flat = top_idx.reshape(-1)                            # (N*k,)
+    t_flat = torch.arange(N, device=dev).repeat_interleave(k)
+    w_flat = top_vals.reshape(-1)
+
+    order = torch.argsort(e_flat, stable=True)
+    e_sorted = e_flat[order]
+    # start offset of each expert within the sorted list
+    starts = torch.searchsorted(e_sorted, torch.arange(E, device=dev))
+    pos = torch.arange(N * k, device=dev) - starts[e_sorted]  # rank in expert
+    keep = pos < C
+    slot = torch.where(keep, pos, 0)
+
+    # scatter tokens into the (E, C, d) dispatch buffer
+    buf = torch.zeros((E, C, d), dtype=x2d.dtype, device=dev)
+    src = x2d[t_flat[order]]
+    buf.index_put_((e_sorted, slot), torch.where(keep[:, None], src, 0),
+                   accumulate=True)
+
+    gate = einsum("ecd,edf->ecf", buf, params["w_gate"]).to(x2d.dtype)
+    up = einsum("ecd,edf->ecf", buf, params["w_up"]).to(x2d.dtype)
+    h = F.silu(gate) * up
+    y = einsum("ecf,efd->ecd", h, params["w_down"]).to(x2d.dtype)
+
+    # gather back + weighted combine
+    out_e = y[e_sorted, slot]                               # (N*k, d)
+    out_e = torch.where(keep[:, None], out_e, 0) * w_flat[order][:, None]
+    out = torch.zeros((N, d), dtype=torch.float32, device=dev).index_put_(
+        (t_flat[order],), out_e.float(), accumulate=True)
+    return out.to(x2d.dtype), aux
+
+
+def moe_apply(params, cfg: MoEConfig, x):
+    """Routed FFN over x (B, S, d) by the path ``choose_moe_path`` picks
+    for B * S tokens.  Returns (out (B, S, d), aux loss)."""
+    _no_shared(cfg)
+    B, S, d = x.shape
+    x2d = x.reshape(B * S, d)
+    if choose_moe_path(cfg, B * S) == "dense":
+        out, aux = moe_apply_dense(params, cfg, x2d)
+    else:
+        out, aux = moe_apply_sparse(params, cfg, x2d)
+    return out.reshape(B, S, d), aux
+
+
+# ---------------------------------------------------------------------------
+# Mamba (selective SSM; Jamba's recurrent layer)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class MambaConfig:
+    d_model: int
+    d_inner: int          # expansion * d_model (Jamba: 2x)
+    d_state: int = 16
+    d_conv: int = 4
+    dt_rank: int = 0      # 0 -> ceil(d_model/16)
+    # "xla": the plain associative scan (torch ops); "identity": roofline
+    # isolation stand-in (skip the recurrence); "pallas": the reference's
+    # kernel core, here the CUDA kernel (kernels/mamba_scan.py)
+    scan_core: str = "xla"
+
+    @property
+    def rank(self):
+        return self.dt_rank or -(-self.d_model // 16)
+
+
+def init_mamba(gen: torch.Generator, cfg: MambaConfig,
+               dtype: torch.dtype = torch.float32) -> dict:
+    """Mamba parameters; ``A_log`` and ``D`` are float32 whatever
+    ``dtype``, as in the reference."""
+    di, ds, r, dev = cfg.d_inner, cfg.d_state, cfg.rank, gen.device
+    A = torch.arange(1, ds + 1, dtype=torch.float32, device=dev)[None, :]
+    return dict(
+        in_proj=_dense(gen, (cfg.d_model, 2 * di), dtype),
+        conv_w=_dense(gen, (cfg.d_conv, di), dtype),
+        conv_b=torch.zeros((di,), dtype=dtype, device=dev),
+        x_proj=_dense(gen, (di, r + 2 * ds), dtype),
+        dt_proj=_dense(gen, (r, di), dtype),
+        dt_bias=torch.zeros((di,), dtype=dtype, device=dev),
+        A_log=torch.log(A.repeat(di, 1)),
+        D=torch.ones((di,), dtype=torch.float32, device=dev),
+        out_proj=_dense(gen, (di, cfg.d_model), dtype),
+    )
+
+
+def _mamba_inner(params, cfg: MambaConfig, xz, conv_state=None):
+    """Shared pre-scan compute. xz: (B, T, 2*d_inner).  Returns x, z, dt
+    (float32, post-softplus), Bc, Cc and the new conv state (the last
+    d_conv - 1 conv inputs)."""
+    x, z = torch.chunk(xz, 2, dim=-1)
+    B, T, di = x.shape
+    # causal depthwise conv1d
+    if conv_state is None:
+        conv_state = x.new_zeros((B, cfg.d_conv - 1, di))
+    xp = torch.cat([conv_state.to(x.dtype), x], dim=1)
+    new_conv_state = xp[:, -(cfg.d_conv - 1):, :]
+    x = sum(xp[:, i:i + T, :] * params["conv_w"][i] for i in range(cfg.d_conv))
+    x = F.silu(x + params["conv_b"])
+    proj = einsum("btd,dr->btr", x, params["x_proj"]).to(x.dtype)
+    dt, Bc, Cc = torch.split(proj, [cfg.rank, cfg.d_state, cfg.d_state],
+                             dim=-1)
+    # the reference keeps this product's float32 sums (no cast to x.dtype)
+    dt = F.softplus(einsum("btr,rd->btd", dt.float(),
+                           params["dt_proj"].float()) + params["dt_bias"])
+    return x, z, dt.float(), Bc, Cc, new_conv_state
+
+
+def _ssm_scan(dA: torch.Tensor, dBx: torch.Tensor) -> torch.Tensor:
+    """h_t = dA_t h_{t-1} + dBx_t along axis 1 from h_0 = 0, for every t,
+    as an associative scan of the combine (a1, b1), (a2, b2) -> (a2 a1,
+    a2 b1 + b2) (Hillis-Steele doubling: log2 T rounds of plain torch ops,
+    the counterpart of the reference's ``jax.lax.associative_scan``).
+    Overwrites and returns ``dBx``; ``dA`` is overwritten too."""
+    a, b = dA, dBx
+    T, step = a.shape[1], 1
+    while step < T:
+        tmp = a[:, step:] * b[:, :-step]
+        tmp += b[:, step:]
+        b[:, step:] = tmp
+        del tmp
+        if 2 * step < T:
+            a[:, step:] = a[:, step:] * a[:, :-step]
+        step *= 2
+    return b
+
+
+def _mamba_states(dt, xs, Bc, A):
+    """Every state h_t (B, T, d_inner, d_state) float32 of the plain
+    associative scan."""
+    dA = torch.exp(dt[..., None] * A)                      # (B,T,di,ds)
+    dBx = (dt * xs.float())[..., None] * Bc.float()[:, :, None, :]
+    return _ssm_scan(dA, dBx)
+
+
+def mamba_apply(params, cfg: MambaConfig, x, return_state: bool = False):
+    """Full-sequence selective scan by ``cfg.scan_core``: the plain
+    associative scan (``"xla"``), the CUDA kernel (``"pallas"``, through
+    ``mamba_scan``: the reference's preconditions on T hold) or the
+    identity stand-in.  With ``return_state`` also returns the decode cache
+    (final h + conv tail); under the kernel and identity cores h comes from
+    the plain scan, as in the reference."""
+    xz = einsum("btd,de->bte", x, params["in_proj"]).to(x.dtype)
+    xs, z, dt, Bc, Cc, conv_state = _mamba_inner(params, cfg, xz)
+    A = -torch.exp(params["A_log"])                        # (di, ds)
+    hs = None
+    if cfg.scan_core == "identity":
+        # roofline isolation: everything but the recurrence
+        y = xs.float() * params["D"]
+    elif cfg.scan_core == "pallas":
+        from repro_torch.kernels.mamba_scan import mamba_scan
+        y = mamba_scan(xs.float().contiguous(), dt.contiguous(),
+                       Bc.float().contiguous(), Cc.float().contiguous(), A,
+                       params["D"]).float()
+    else:
+        hs = _mamba_states(dt, xs, Bc, A)
+        y = einsum("btds,bts->btd", hs, Cc.float())
+        y = y + xs.float() * params["D"]
+    y = (y * F.silu(z.float())).to(x.dtype)
+    out = einsum("btd,de->bte", y, params["out_proj"]).to(x.dtype)
+    if not return_state:
+        return out
+    if hs is None:
+        hs = _mamba_states(dt, xs, Bc, A)
+    return out, dict(h=hs[:, -1].clone(), conv=conv_state.to(x.dtype))
+
+
+def init_mamba_cache(cfg: MambaConfig, batch: int, dtype: torch.dtype,
+                     device: torch.device) -> dict:
+    return dict(h=torch.zeros((batch, cfg.d_inner, cfg.d_state),
+                              dtype=torch.float32, device=device),
+                conv=torch.zeros((batch, cfg.d_conv - 1, cfg.d_inner),
+                                 dtype=dtype, device=device))
+
+
+def mamba_decode(params, cfg: MambaConfig, x, cache):
+    """Single-token recurrent step. x: (B, 1, d).  Returns (y, new cache);
+    the caller writes the cache."""
+    xz = einsum("btd,de->bte", x, params["in_proj"]).to(x.dtype)
+    xs, z, dt, Bc, Cc, new_conv = _mamba_inner(params, cfg, xz,
+                                               cache["conv"])
+    A = -torch.exp(params["A_log"])
+    dA = torch.exp(dt[:, 0, :, None] * A)                  # (B,di,ds)
+    dBx = (dt[:, 0] * xs[:, 0].float())[..., None] * \
+        Bc[:, 0].float()[:, None, :]
+    h = dA * cache["h"] + dBx
+    y = einsum("bds,bs->bd", h, Cc[:, 0].float())
+    y = y + xs[:, 0].float() * params["D"]
+    y = (y * F.silu(z[:, 0].float())).to(x.dtype)
+    out = einsum("bd,de->be", y, params["out_proj"]).to(x.dtype)
+    return out[:, None, :], dict(h=h, conv=new_conv.to(cache["conv"].dtype))
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,14 @@
-"""LM-family model: the decoder-only dense GQA transformer and RWKV-6.
+"""LM-family model: the decoder-only dense GQA transformer, RWKV-6 and
+Jamba.
 
 Counterpart of ``repro/models/lm.py`` for layer kinds ``attn_mlp`` (GQA
 attention + gated FFN, pre-RMSNorm; InternLM2, Qwen2.5, CodeQwen,
-Mistral-Large) and ``rwkv`` (RWKV-6 time-mix + channel-mix, pre-RMSNorm;
-RWKV6-7B).  The other kinds (MoE, MLA, Jamba, encoder-decoder) raise
-``NotImplementedError`` naming the slice that brings them.
+Mistral-Large), ``rwkv`` (RWKV-6 time-mix + channel-mix, pre-RMSNorm;
+RWKV6-7B) and ``jamba_period`` (8 pre-RMSNorm layers: Mamba mixers with
+attention at layer 3, a dense FFN on even layers and a routed MoE FFN on
+odd ones; Jamba-v0.1).  The other kinds (MoE without Mamba, MLA,
+encoder-decoder) raise ``NotImplementedError`` naming the slice that
+brings them.
 
 A model is a sequence of homogeneous layer groups.  With ``scan_layers``
 each group's parameters and decode caches are stacked on axis 0, as in the
@@ -12,7 +16,7 @@ reference; where the reference scans over a stack, the port loops over it
 (views, no copies), and decoding writes each layer's new cache entries
 into its stacked cache in place instead of returning updated copies:
 attention's k/v at ``pos``, RWKV's state ``S`` and token-shift inputs
-``x_tm`` and ``x_cm``.
+``x_tm`` and ``x_cm``, Mamba's state ``h`` and conv tail ``conv``.
 """
 from __future__ import annotations
 
@@ -108,6 +112,19 @@ class ModelConfig:
             rope_theta=self.rope_theta, mrope_sections=self.mrope_sections,
             causal=causal, use_rope=use_rope, attn_core=self.attn_core)
 
+    def moe_cfg(self) -> blk.MoEConfig:
+        return blk.MoEConfig(
+            d_model=self.d_model, n_experts=self.n_experts, top_k=self.top_k,
+            d_ff_expert=self.d_ff_expert, n_shared=self.n_shared_experts,
+            d_ff_shared=self.n_shared_experts * self.d_ff_expert,
+            capacity_factor=self.capacity_factor, dispatch=self.moe_dispatch)
+
+    def mamba_cfg(self) -> blk.MambaConfig:
+        return blk.MambaConfig(d_model=self.d_model,
+                               d_inner=self.mamba_expand * self.d_model,
+                               d_state=self.mamba_d_state,
+                               scan_core=self.mamba_core)
+
     def rwkv_cfg(self) -> blk.RWKV6Config:
         return blk.RWKV6Config(d_model=self.d_model, head_dim=64,
                                d_ff=self.d_ff, chunk=self.rwkv_chunk,
@@ -134,14 +151,13 @@ class ModelConfig:
 
 # the ROADMAP slice that brings each layer kind this port lacks
 _UNPORTED_KINDS = {
-    "attn_moe": "MoE", "mla_mlp": "MLA", "mla_moe": "MLA and MoE",
-    "jamba_period": "Jamba (with the mamba_scan kernel)",
-    "enc": "the whisper encoder-decoder", "dec": "the whisper "
-    "encoder-decoder",
+    "attn_moe": "MoE without Mamba", "mla_mlp": "MLA",
+    "mla_moe": "MLA and MoE", "enc": "the whisper encoder-decoder",
+    "dec": "the whisper encoder-decoder",
 }
 
 
-_PORTED_KINDS = ("attn_mlp", "rwkv")
+_PORTED_KINDS = ("attn_mlp", "rwkv", "jamba_period")
 
 
 def _require_kind(kind: str) -> None:
@@ -159,10 +175,8 @@ def _require_kind(kind: str) -> None:
 # (``remat`` is a training knob and inference ignores it on any kind)
 _UNPORTED_FIELDS = (
     "q_lora_rank", "kv_lora_rank", "qk_nope_dim", "qk_rope_dim",
-    "v_head_dim", "top_k", "d_ff_expert", "n_shared_experts",
-    "first_k_dense", "capacity_factor", "moe_dispatch", "aux_loss_coef",
-    "mamba_d_state", "mamba_expand", "encoder_seq", "mtp_weight",
-    "mamba_core")
+    "v_head_dim", "n_shared_experts", "first_k_dense", "aux_loss_coef",
+    "encoder_seq", "mtp_weight")
 
 
 def _require_supported(cfg: ModelConfig) -> None:
@@ -196,9 +210,35 @@ def _norm_apply(p, x, eps):
     return nn.rms_norm(x, p["scale"], eps)
 
 
+# a jamba_period's 8 sub-layers: attention at JAMBA_ATTN, Mamba elsewhere;
+# the MoE FFN on odd sub-layers, the dense FFN on even ones
+JAMBA_PERIOD = 8
+JAMBA_ATTN = 3
+
+
+def _jamba_ffn(lp, cfg: ModelConfig, i: int, x):
+    """The FFN half of a jamba_period's sub-layer ``i``: the MoE FFN on odd
+    sub-layers, the dense FFN on even ones.  Returns (x, aux loss)."""
+    h = _norm_apply(lp["norm2"], x, cfg.norm_eps)
+    if i % 2:
+        h, aux = blk.moe_apply(lp["ffn"], cfg.moe_cfg(), h)
+        return x + h, aux
+    return x + blk.mlp_apply(lp["ffn"], h), 0.0
+
+
 def init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str) -> Params:
     _require_kind(kind)
     dt, d = cfg.torch_dtype, cfg.d_model
+    if kind == "jamba_period":
+        return {f"l{i}": dict(
+            norm1=_norm_init(d, dt, gen.device),
+            norm2=_norm_init(d, dt, gen.device),
+            mixer=(blk.init_attention(gen, cfg.attn_cfg(), dt)
+                   if i == JAMBA_ATTN
+                   else blk.init_mamba(gen, cfg.mamba_cfg(), dt)),
+            ffn=(blk.init_moe(gen, cfg.moe_cfg(), dt) if i % 2
+                 else blk.init_mlp(gen, d, cfg.d_ff, dt)))
+            for i in range(JAMBA_PERIOD)}
     p = dict(norm1=_norm_init(d, dt, gen.device),
              norm2=_norm_init(d, dt, gen.device))
     if kind == "rwkv":
@@ -214,6 +254,18 @@ def layer_apply(params, cfg: ModelConfig, kind: str, x, positions):
     _require_kind(kind)
     eps = cfg.norm_eps
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if kind == "jamba_period":
+        for i in range(JAMBA_PERIOD):
+            lp = params[f"l{i}"]
+            h = _norm_apply(lp["norm1"], x, eps)
+            if i == JAMBA_ATTN:
+                h = blk.attention_apply(lp["mixer"], cfg.attn_cfg(), h,
+                                        positions)
+            else:
+                h = blk.mamba_apply(lp["mixer"], cfg.mamba_cfg(), h)
+            x, a = _jamba_ffn(lp, cfg, i, x + h)
+            aux = aux + a
+        return x, aux
     if kind == "rwkv":
         rc = cfg.rwkv_cfg()
         h = _norm_apply(params["norm1"], x, eps)
@@ -272,6 +324,24 @@ def make_generator(seed: int, device: str | torch.device = DEFAULT_DEVICE
     return torch.Generator(device=resolve_device(device)).manual_seed(seed)
 
 
+def _init_stacked(gen: torch.Generator, cfg: ModelConfig, kind: str,
+                  n: int) -> Params:
+    """A group's ``n`` layers drawn in order, as ``_stack`` of them would
+    hold them, without the list: the stacks are allocated once and filled
+    layer by layer (one layer's tensors alive beside them; a group of one
+    layer is viewed with a leading axis, no copy)."""
+    stack = None
+    for i in range(n):
+        layer = init_layer(gen, cfg, kind)
+        if n == 1:
+            return _tree_map(lambda a: a.unsqueeze(0), layer)
+        if stack is None:
+            stack = _tree_map(lambda a: a.new_empty((n,) + a.shape), layer)
+        _tree_map(lambda s, a: s[i].copy_(a), stack, layer)
+        del layer
+    return stack
+
+
 def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
     """Parameters drawn from ``gen`` on its device (the reference's key):
     embed, the untied head, then each group's layers in order."""
@@ -282,11 +352,10 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
              final_norm=_norm_init(cfg.d_model, dt, dev))
     if not cfg.tie_embeddings:
         p["lm_head"] = nn.trunc_normal(gen, (cfg.d_model, V)).to(dt)
-    groups = []
-    for kind, n in cfg.layer_groups():
-        layers = [init_layer(gen, cfg, kind) for _ in range(n)]
-        groups.append(_stack(layers) if cfg.scan_layers else layers)
-    p["groups"] = groups
+    p["groups"] = [
+        _init_stacked(gen, cfg, kind, n) if cfg.scan_layers
+        else [init_layer(gen, cfg, kind) for _ in range(n)]
+        for kind, n in cfg.layer_groups()]
     return p
 
 
@@ -339,6 +408,12 @@ def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, s_max: int,
                      device: str | torch.device = DEFAULT_DEVICE):
     _require_kind(kind)
     dt, dev = cfg.torch_dtype, resolve_device(device)
+    if kind == "jamba_period":
+        return {f"l{i}": (
+            blk.init_attn_cache(cfg.attn_cfg(), batch, s_max, dt, dev)
+            if i == JAMBA_ATTN else blk.init_mamba_cache(cfg.mamba_cfg(),
+                                                         batch, dt, dev))
+            for i in range(JAMBA_PERIOD)}
     if kind == "rwkv":
         rc = cfg.rwkv_cfg()
         return dict(S=torch.zeros((batch, rc.n_heads, rc.head_dim,
@@ -356,15 +431,17 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int,
     """Zero decode caches per group, stacked (n, ...) with ``scan_layers``,
     else a list of per-layer dicts: k and v (B, s_max, KV, dh) per
     attention layer; S (B, H, dh, dh) float32, x_tm and x_cm (B, 1, d) per
-    RWKV layer."""
+    RWKV layer; per Jamba period one dict per sub-layer ``l0``..``l7``,
+    Mamba's h (B, d_inner, d_state) float32 and conv (B, d_conv - 1,
+    d_inner), the attention layer's k and v."""
     _require_supported(cfg)
     dev = resolve_device(device)
     caches = []
     for kind, n in cfg.layer_groups():
         if cfg.scan_layers:
             one = init_layer_cache(cfg, kind, batch, s_max, dev)
-            caches.append({k: a.new_zeros((n,) + a.shape)
-                           for k, a in one.items()})
+            caches.append(_tree_map(lambda a: a.new_zeros((n,) + a.shape),
+                                    one))
         else:
             caches.append([init_layer_cache(cfg, kind, batch, s_max, dev)
                            for _ in range(n)])
@@ -375,6 +452,20 @@ def layer_decode(params, cfg: ModelConfig, kind: str, x, cache, pos: int):
     """One token through one layer; writes the layer's cache in place."""
     _require_kind(kind)
     eps = cfg.norm_eps
+    if kind == "jamba_period":
+        for i in range(JAMBA_PERIOD):
+            lp, lc = params[f"l{i}"], cache[f"l{i}"]
+            h = _norm_apply(lp["norm1"], x, eps)
+            if i == JAMBA_ATTN:
+                h, _ = blk.attention_decode(lp["mixer"], cfg.attn_cfg(), h,
+                                            lc, pos)
+            else:
+                h, new = blk.mamba_decode(lp["mixer"], cfg.mamba_cfg(), h,
+                                          lc)
+                lc["h"].copy_(new["h"])
+                lc["conv"].copy_(new["conv"])
+            x, _ = _jamba_ffn(lp, cfg, i, x + h)
+        return x, cache
     if kind == "rwkv":
         rc = cfg.rwkv_cfg()
         h = _norm_apply(params["norm1"], x, eps)
@@ -402,7 +493,8 @@ def layer_decode(params, cfg: ModelConfig, kind: str, x, cache, pos: int):
 def decode_step(params, cfg: ModelConfig, caches, tokens, pos: int):
     """One decode step.  tokens: (B, 1) int (or embeds (B, 1, d) in embeds
     mode); pos: int position of the new token.  Updates ``caches`` in place
-    (the new token's k/v; RWKV's S, x_tm and x_cm).  Returns (logits (B, 1, Vp), next_token
+    (the new token's k/v; RWKV's S, x_tm and x_cm; Mamba's h and conv).
+    Returns (logits (B, 1, Vp), next_token
     (B, 1) int32, caches)."""
     _require_supported(cfg)
     dt = cfg.torch_dtype
@@ -437,10 +529,25 @@ def layer_prefill(params, cfg: ModelConfig, kind: str, x, positions, s_max):
     plain ``ref.mha``, as in the reference (the flash kernel runs in
     ``forward`` only); RWKV's recurrence is sequential under the kernel
     core (``wkv_core="pallas"``, whose kernel keeps no state), as in the
-    reference, and the chunked form otherwise where the length allows."""
+    reference, and the chunked form otherwise where the length allows;
+    Mamba runs its core (the CUDA kernel under ``mamba_core="pallas"``)
+    and takes its final state from the plain scan, as in the reference."""
     _require_kind(kind)
     eps = cfg.norm_eps
     dt = cfg.torch_dtype
+    if kind == "jamba_period":
+        caches = {}
+        for i in range(JAMBA_PERIOD):
+            lp = params[f"l{i}"]
+            h = _norm_apply(lp["norm1"], x, eps)
+            if i == JAMBA_ATTN:
+                h, caches[f"l{i}"] = _attn_prefill(lp["mixer"], cfg, h,
+                                                   positions, s_max)
+            else:
+                h, caches[f"l{i}"] = blk.mamba_apply(
+                    lp["mixer"], cfg.mamba_cfg(), h, return_state=True)
+            x, _ = _jamba_ffn(lp, cfg, i, x + h)
+        return x, caches
     if kind == "rwkv":
         rc = cfg.rwkv_cfg()
         h = _norm_apply(params["norm1"], x, eps)
@@ -451,20 +558,27 @@ def layer_prefill(params, cfg: ModelConfig, kind: str, x, positions, s_max):
         h_out, x_cm = blk.rwkv6_channel_mix(params["cm"], h)
         x = x + h_out
         return x, dict(S=S_state, x_tm=x_tm.to(dt), x_cm=x_cm.to(dt))
-    B, S, _ = x.shape
-    acfg = cfg.attn_cfg()
     h = _norm_apply(params["norm1"], x, eps)
-    q, k, v = blk._qkv(params["attn"], acfg, h, positions)
-    o = kref.mha(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                 causal=True)
-    o = o.transpose(1, 2).reshape(B, S, -1)
-    h = blk.einsum("bsh,hd->bsd", o, params["attn"]["wo"]).to(x.dtype)
+    h, cache = _attn_prefill(params["attn"], cfg, h, positions, s_max)
     x = x + h
-    cache = dict(k=_pad_cache_seq(k.to(dt), s_max),
-                 v=_pad_cache_seq(v.to(dt), s_max))
     h = _norm_apply(params["norm2"], x, eps)
     h = blk.mlp_apply(params["ffn"], h)
     return x + h, cache
+
+
+def _attn_prefill(params, cfg: ModelConfig, h, positions, s_max):
+    """Causal self-attention of the normed input ``h`` by plain ``ref.mha``
+    (the flash kernel runs in ``forward`` only, as in the reference), and
+    its k/v cache padded to ``s_max``."""
+    B, S, _ = h.shape
+    dt = cfg.torch_dtype
+    q, k, v = blk._qkv(params, cfg.attn_cfg(), h, positions)
+    o = kref.mha(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                 causal=True)
+    o = o.transpose(1, 2).reshape(B, S, -1)
+    out = blk.einsum("bsh,hd->bsd", o, params["wo"]).to(h.dtype)
+    return out, dict(k=_pad_cache_seq(k.to(dt), s_max),
+                     v=_pad_cache_seq(v.to(dt), s_max))
 
 
 def prefill(params, cfg: ModelConfig, batch: dict, s_max: int):

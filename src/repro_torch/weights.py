@@ -52,13 +52,49 @@ def from_jax_params(params_np: Sequence[Mapping[str, np.ndarray]],
 
 class _Float32(tuple):
     """A leaf's shape whose tensor stays float32 whatever the model dtype
-    (RWKV-6's ``u`` and ``w0``, as the reference keeps them)."""
+    (RWKV-6's ``u`` and ``w0``, Mamba's ``A_log`` and ``D``, the MoE
+    router, as the reference keeps them)."""
+
+
+def _attn_shapes(cfg) -> dict:
+    d, H, KV, dh = cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    attn = dict(wq=(d, H * dh), wk=(d, KV * dh), wv=(d, KV * dh),
+                wo=(H * dh, d))
+    if cfg.qkv_bias:
+        attn.update(bq=(H * dh,), bk=(KV * dh,), bv=(KV * dh,))
+    return attn
+
+
+def _mlp_shapes(d: int, f: int) -> dict:
+    return dict(w_up=(d, f), w_down=(f, d), w_gate=(d, f))
+
+
+def _jamba_period_shapes(cfg) -> dict:
+    """The 8 sub-layers ``l0``..``l7`` of a ``jamba_period``."""
+    from repro_torch.models import lm
+    d = cfg.d_model
+    mc, moe = cfg.mamba_cfg(), cfg.moe_cfg()
+    di, ds, r = mc.d_inner, mc.d_state, mc.rank
+    mamba = dict(in_proj=(d, 2 * di), conv_w=(mc.d_conv, di), conv_b=(di,),
+                 x_proj=(di, r + 2 * ds), dt_proj=(r, di), dt_bias=(di,),
+                 A_log=_Float32((di, ds)), D=_Float32((di,)),
+                 out_proj=(di, d))
+    E, f = moe.n_experts, moe.d_ff_expert
+    experts = dict(router=_Float32((d, E)), w_gate=(E, d, f),
+                   w_up=(E, d, f), w_down=(E, f, d))
+    return {f"l{i}": dict(
+        norm1=dict(scale=(d,)), norm2=dict(scale=(d,)),
+        mixer=_attn_shapes(cfg) if i == lm.JAMBA_ATTN else mamba,
+        ffn=experts if i % 2 else _mlp_shapes(d, cfg.d_ff))
+        for i in range(lm.JAMBA_PERIOD)}
 
 
 def _lm_layer_shapes(cfg, kind: str) -> dict:
-    """Shape of every leaf of one layer of ``kind`` (``attn_mlp`` or
-    ``rwkv``) of ``cfg``."""
+    """Shape of every leaf of one layer of ``kind`` (``attn_mlp``,
+    ``rwkv`` or ``jamba_period``) of ``cfg``."""
     d = cfg.d_model
+    if kind == "jamba_period":
+        return _jamba_period_shapes(cfg)
     if kind == "rwkv":
         rc = cfg.rwkv_cfg()
         H, dh, ff = rc.n_heads, rc.head_dim, rc.d_ff or int(3.5 * d)
@@ -70,14 +106,8 @@ def _lm_layer_shapes(cfg, kind: str) -> dict:
         return dict(norm1=dict(scale=(d,)), norm2=dict(scale=(d,)), tm=tm,
                     cm=dict(mu_k=(d,), mu_r=(d,), wk=(d, ff), wv=(ff, d),
                             wr=(d, d)))
-    H, KV, dh = cfg.n_heads, cfg.kv_heads, cfg.head_dim
-    attn = dict(wq=(d, H * dh), wk=(d, KV * dh), wv=(d, KV * dh),
-                wo=(H * dh, d))
-    if cfg.qkv_bias:
-        attn.update(bq=(H * dh,), bk=(KV * dh,), bv=(KV * dh,))
-    return dict(norm1=dict(scale=(d,)), norm2=dict(scale=(d,)), attn=attn,
-                ffn=dict(w_up=(d, cfg.d_ff), w_down=(cfg.d_ff, d),
-                         w_gate=(d, cfg.d_ff)))
+    return dict(norm1=dict(scale=(d,)), norm2=dict(scale=(d,)),
+                attn=_attn_shapes(cfg), ffn=_mlp_shapes(d, cfg.d_ff))
 
 
 def _convert(tree, shapes, where: str, dtype, dev, lead=()):
@@ -106,9 +136,10 @@ def lm_from_jax_params(params_np: Mapping, cfg,
     """The reference's ``repro.models.lm.init_params`` pytree for ``cfg``
     (leaves as numpy; with ``cfg.scan_layers`` each group's layers stacked
     on axis 0, else a list of layers) as this package's parameters: the
-    same tree of tensors in ``cfg``'s dtype (RWKV-6's ``u`` and ``w0`` in
-    float32, as the reference keeps them) on ``device``, each with storage
-    of its own.  Layer kinds ``attn_mlp`` and ``rwkv``."""
+    same tree of tensors in ``cfg``'s dtype (RWKV-6's ``u`` and ``w0``,
+    Mamba's ``A_log`` and ``D`` and the MoE router in float32, as the
+    reference keeps them) on ``device``, each with storage of its own.
+    Layer kinds ``attn_mlp``, ``rwkv`` and ``jamba_period``."""
     from repro_torch.models import lm
     lm._require_supported(cfg)
     dev = resolve_device(device)

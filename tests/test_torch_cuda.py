@@ -17,7 +17,9 @@ tolerances (tests/test_kernels_rwkv6.py): float32 atol 5e-4 / rtol 1e-3,
 against its plain version run in float64 (at w near 1 over long sequences
 the float32 oracle's own rounding reaches the tolerance); bfloat16
 atol = rtol = 5e-2 against the plain version, and per output row
-rms(err) <= 1e-2 rms(plain)."""
+rms(err) <= 1e-2 rms(plain).  mamba_scan is held to the reference's
+tolerance (tests/test_kernels_mamba.py), float32 atol = rtol = 1e-4,
+against its plain version run in float64."""
 import torch_parity as tp  # noqa: I001  (first: pins torch to one thread)
 
 import pytest
@@ -28,6 +30,7 @@ from repro_torch.kernels import bell_spmm_fused as bellf_mod
 from repro_torch.kernels import block_diag_spmm as bd_mod
 from repro_torch.kernels import block_diag_spmm_fused as bdf_mod
 from repro_torch.kernels import flash_attention as fa_mod
+from repro_torch.kernels import mamba_scan as ms_mod
 from repro_torch.kernels import ops
 from repro_torch.kernels import rwkv6_chunked as rk_mod
 from repro_torch.kernels import tcgnn_tile as tc_mod
@@ -610,3 +613,111 @@ def test_cuda_rwkv6_rejects_bad_operands(cuda_device, case):  # noqa: F811
     with pytest.raises(ValueError):
         rk_mod.rwkv6_chunked_kernel(r, k, v, w, u, chunk=chunk)
     assert rk_mod.launches.value == before
+
+
+MAMBA_TOL = dict(atol=1e-4, rtol=1e-4)       # tests/test_kernels_mamba.py
+
+
+def _mamba_inputs(gen, B, T, di, ds, dev, dt_scale=0.1):
+    """tests/test_kernels_mamba.py's inputs on the card: x, dt = |N| *
+    dt_scale, Bc, Cc, A = -(|N| + 0.1), D."""
+    def n(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    return (n(B, T, di), n(B, T, di).abs() * dt_scale, n(B, T, ds),
+            n(B, T, ds), -(n(di, ds).abs() + 0.1), n(di))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt_scale", [0.1, 2.0])
+def test_cuda_mamba_scan_matches_plain(cuda_device, dt_scale):  # noqa: F811
+    """mamba_scan against its plain version (the sequential oracle) in
+    float64: the reference test's shapes, chunks and d_tiles; d_state 1
+    and 3 (padded inside), d_inner not a multiple of the CTA's 64
+    channels, T not a multiple of the 32-step chunk; Jamba's d_state 16
+    over 512 steps; and a bfloat16 x (y bfloat16, one rounding, relative
+    2^-8, from the oracle: atol 1e-3, rtol 8e-3)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(10)
+    cases = [(1, 16, 8, 2, 8, 8), (2, 64, 32, 4, 16, 16),
+             (1, 128, 64, 8, 32, 32), (2, 32, 16, 16, 32, 8),
+             (2, 40, 72, 1, 40, 72), (1, 96, 200, 3, 32, 200),
+             (2, 512, 256, 16, 128, 256)]
+    for B, T, di, ds, chunk, d_tile in cases:
+        args = _mamba_inputs(gen, B, T, di, ds, cuda_device, dt_scale)
+        got = ms_mod.mamba_scan(*args, chunk=chunk, d_tile=d_tile)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32 and got.shape == (B, T, di)
+        x, dt, Bc, Cc, A, D = (a.double() for a in args)
+        want = ms_mod.plain(x, dt, A, Bc, Cc, D)
+        torch.testing.assert_close(got.double(), want, **MAMBA_TOL)
+        xb = args[0].bfloat16()
+        got = ms_mod.mamba_scan(xb, *args[1:], chunk=chunk, d_tile=d_tile)
+        assert got.dtype == torch.bfloat16
+        want = ms_mod.plain(xb.double(), dt, A, Bc, Cc, D)
+        torch.testing.assert_close(got.double(), want, atol=1e-3, rtol=8e-3)
+
+
+@pytest.mark.cuda
+def test_cuda_mamba_scan_counts_launches(cuda_device):  # noqa: F811
+    """One launch per CUDA call and none for a CPU call; Jamba's reduced
+    config under the serving profile launches it at the 7 Mamba layers of
+    each period in the prefill step and in prefill, never in decode, and
+    its logits match the same on the CPU (1e-3)."""
+    import dataclasses
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.train import steps
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    args = _mamba_inputs(gen, 1, 64, 32, 4, cuda_device)
+    before = ms_mod.launches.value
+    ms_mod.mamba_scan(*args)
+    ms_mod.mamba_scan(*(a.cpu() for a in args))
+    assert ms_mod.launches.value - before == 1
+    cfg = dataclasses.replace(configs.get_config("jamba_v0_1_52b",
+                                                 reduced=True),
+                              mamba_core="pallas", attn_core="flash")
+    params = lm.init_params(lm.make_generator(0, "cpu"), cfg)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 128)).astype(np.int32))
+    card_params = lm._tree_map(lambda a: a.to(cuda_device), params)
+    before = ms_mod.launches.value
+    card = steps.make_prefill_step(cfg)(card_params,
+                                        dict(tokens=toks.to(cuda_device)))
+    torch.cuda.synchronize()
+    assert ms_mod.launches.value - before == 7
+    cpu = steps.make_prefill_step(cfg)(params, dict(tokens=toks))
+    torch.testing.assert_close(card.cpu(), cpu, atol=1e-3, rtol=1e-3)
+    before = ms_mod.launches.value
+    lg, caches = lm.prefill(card_params, cfg,
+                            dict(tokens=toks.to(cuda_device)), s_max=129)
+    assert ms_mod.launches.value - before == 7
+    torch.testing.assert_close(lg.cpu(), cpu, atol=1e-3, rtol=1e-3)
+    lm.decode_step(card_params, cfg, caches, toks[:, :1].to(cuda_device),
+                   128)
+    torch.cuda.synchronize()
+    assert ms_mod.launches.value - before == 7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["device", "float16", "dt_bf16", "strided",
+                                  "t_chunk", "d_state"])
+def test_cuda_mamba_scan_rejects_bad_operands(cuda_device, case):  # noqa: F811
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    x, dt, Bc, Cc, A, D = _mamba_inputs(gen, 1, 64, 32, 4, cuda_device)
+    chunk = 16
+    if case == "device":
+        Bc = Bc.cpu()
+    elif case == "float16":
+        x = x.half()
+    elif case == "dt_bf16":
+        dt = dt.bfloat16()
+    elif case == "strided":
+        x = torch.randn((1, 32, 64), device=cuda_device).transpose(1, 2)
+    elif case == "t_chunk":
+        chunk = 48
+    else:
+        x, dt, Bc, Cc, A, D = _mamba_inputs(gen, 1, 64, 32, 17, cuda_device)
+    before = ms_mod.launches.value
+    with pytest.raises(ValueError):
+        ms_mod.mamba_scan(x, dt, Bc, Cc, A, D, chunk=chunk)
+    assert ms_mod.launches.value == before

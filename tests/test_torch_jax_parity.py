@@ -790,3 +790,248 @@ def _check_rwkv_serve_lm_against_reference_example(monkeypatch):
     np.testing.assert_array_equal(got["xla"]["tokens"],
                                   got["pallas"]["tokens"])
     np.testing.assert_array_equal(got["xla"]["tokens"], toks)
+
+
+# --- the Jamba slice: Mamba, MoE and Jamba-v0.1 at its reduced config -------
+
+JAMBA_ARCH = "jamba_v0_1_52b"
+# tests/test_kernels_mamba.py's (B, T, d_inner, d_state, chunk, d_tile), and
+# its inputs with dt ten times larger
+MAMBA_CASES = ((1, 16, 8, 2, 8, 8, 0.1), (2, 64, 32, 4, 16, 16, 0.1),
+               (1, 128, 64, 8, 32, 32, 0.1), (2, 32, 16, 16, 32, 8, 0.1),
+               (2, 64, 32, 4, 16, 16, 1.0))
+
+
+def _mamba_inputs(rng, B, T, di, ds, dt_scale=0.1):
+    """tests/test_kernels_mamba.py's make_inputs, as numpy."""
+    x = rng.standard_normal((B, T, di)).astype(np.float32)
+    dt = (np.abs(rng.standard_normal((B, T, di))) * dt_scale).astype(
+        np.float32)
+    Bc = rng.standard_normal((B, T, ds)).astype(np.float32)
+    Cc = rng.standard_normal((B, T, ds)).astype(np.float32)
+    A = -(np.abs(rng.standard_normal((di, ds))) + 0.1).astype(np.float32)
+    D = rng.standard_normal((di,)).astype(np.float32)
+    return x, dt, Bc, Cc, A, D
+
+
+def _to_torch(tree):
+    """A reference parameter tree (dicts of JAX arrays) as float32 torch
+    tensors."""
+    if isinstance(tree, dict):
+        return {k: _to_torch(v) for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree, np.float32))
+
+
+def test_mamba_scan_and_layer_match_reference():
+    """mamba_scan's plain version against the Pallas kernel in interpret
+    mode at tests/test_kernels_mamba.py's shapes, chunks and d_tiles, and
+    with dt ten times larger (float32 1e-4, the reference's); the Mamba
+    layer under each of its three cores, with and without return_state,
+    and three mamba_decode steps from the returned cache, against the
+    reference's from its parameters (1e-4); the cost models."""
+    import dataclasses
+    from repro.kernels import mamba_scan as RMS
+    from repro.models import blocks as RB
+    from repro_torch.kernels import mamba_scan as TMS
+    from repro_torch.models import blocks as TB
+    rng = np.random.default_rng(22)
+    for B, T, di, ds, chunk, d_tile, dt_scale in MAMBA_CASES:
+        args = _mamba_inputs(rng, B, T, di, ds, dt_scale)
+        ref = RMS.mamba_scan(*(jnp.asarray(a) for a in args), chunk=chunk,
+                             d_tile=d_tile, interpret=True)
+        got = TMS.mamba_scan(*(torch.from_numpy(a) for a in args),
+                             chunk=chunk, d_tile=d_tile)
+        assert got.dtype == torch.float32 and tuple(got.shape) == (B, T, di)
+        tp.assert_close(ref, got)
+    for shape in ((4, 1024, 8192, 16), (1, 64, 32, 4)):
+        assert TMS.mamba_scan_hbm_bytes(*shape, d_tile=min(512, shape[2])) \
+            == RMS.mamba_scan_hbm_bytes(*shape, d_tile=min(512, shape[2]))
+        assert TMS.mamba_scan_flops(*shape) == RMS.mamba_scan_flops(*shape)
+
+    rcfg = RB.MambaConfig(d_model=32, d_inner=64, d_state=8)
+    params = RB.init_mamba(jax.random.PRNGKey(3), rcfg)
+    # non-trivial biases and skip, which the init leaves at 0 and 1
+    params = dict(params,
+                  conv_b=jnp.asarray(rng.standard_normal(64), jnp.float32),
+                  dt_bias=jnp.asarray(rng.standard_normal(64) * 0.5,
+                                      jnp.float32),
+                  D=jnp.asarray(rng.standard_normal(64), jnp.float32))
+    tparams = _to_torch(params)
+    x = rng.standard_normal((2, 32, 32)).astype(np.float32)
+    steps = rng.standard_normal((3, 2, 1, 32)).astype(np.float32)
+    for core in ("xla", "pallas", "identity"):
+        rc = dataclasses.replace(rcfg, scan_core=core)
+        tc = TB.MambaConfig(d_model=32, d_inner=64, d_state=8,
+                            scan_core=core)
+        assert dataclasses.asdict(rc) == dataclasses.asdict(tc)
+        assert tc.rank == rc.rank == 2
+        tp.assert_close(RB.mamba_apply(params, rc, jnp.asarray(x)),
+                        TB.mamba_apply(tparams, tc, torch.from_numpy(x)))
+        ref_o, ref_c = RB.mamba_apply(params, rc, jnp.asarray(x),
+                                      return_state=True)
+        got_o, got_c = TB.mamba_apply(tparams, tc, torch.from_numpy(x),
+                                      return_state=True)
+        tp.assert_close(ref_o, got_o)
+        assert got_c["h"].dtype == torch.float32
+        for name in ("h", "conv"):
+            tp.assert_close(ref_c[name], got_c[name])
+        for xt in steps:
+            ref_y, ref_c = RB.mamba_decode(params, rc, jnp.asarray(xt), ref_c)
+            got_y, got_c = TB.mamba_decode(tparams, tc, torch.from_numpy(xt),
+                                           got_c)
+            tp.assert_close(ref_y, got_y)
+            for name in ("h", "conv"):
+                tp.assert_close(ref_c[name], got_c[name])
+
+
+def test_moe_matches_reference():
+    """choose_moe_path at Jamba's FULL and REDUCED expert counts; the
+    router's gates, top_idx and aux loss, and moe_apply_dense,
+    moe_apply_sparse and moe_apply (by the rule, and pinned to each path)
+    against the reference's from its parameters: top_idx equal, outputs
+    and aux at float32 1e-4.  Sparse == dense where the capacity drops
+    nothing; at the default capacity factor 1.25 with a skewed router the
+    same assignments drop in both packages."""
+    import dataclasses
+    from repro.models import blocks as RB
+    from repro_torch.models import blocks as TB
+    for E, readings in ((16, {4: "dense", 32: "dense", 4096: "sparse"}),
+                        (4, {32: "dense", 4096: "dense", 6700: "sparse"})):
+        rc = RB.MoEConfig(d_model=8, n_experts=E, top_k=2, d_ff_expert=8)
+        tc = TB.MoEConfig(d_model=8, n_experts=E, top_k=2, d_ff_expert=8)
+        assert TB.moe_density(tc) == RB.moe_density(rc) == 2 / E
+        for n, path in readings.items():
+            assert TB.choose_moe_path(tc, n) == RB.choose_moe_path(rc, n) \
+                == path, (E, n)
+    rng = np.random.default_rng(23)
+    N, d = 64, 32
+    rcfg = RB.MoEConfig(d_model=d, n_experts=4, top_k=2, d_ff_expert=48)
+    params = RB.init_moe(jax.random.PRNGKey(4), rcfg)
+    skewed = dict(params, router=params["router"].at[:, 0].add(0.5))
+    x = rng.standard_normal((N, d)).astype(np.float32)
+    xs = x + 1.0                # with the skewed router: expert 0 for all
+    for p, xx, cap, drops in ((params, x, 4.0, False),
+                              (skewed, xs, 1.25, True)):
+        tparams = _to_torch(p)
+        rc = dataclasses.replace(rcfg, capacity_factor=cap)
+        tc = TB.MoEConfig(d_model=d, n_experts=4, top_k=2, d_ff_expert=48,
+                          capacity_factor=cap)
+        jx, tx = jnp.asarray(xx), torch.from_numpy(xx)
+        r_vals, r_idx, r_aux = RB._moe_gates(p, rc, jx)
+        t_vals, t_idx, t_aux = TB._moe_gates(tparams, tc, tx)
+        np.testing.assert_array_equal(np.asarray(r_idx), t_idx.numpy())
+        tp.assert_close(r_vals, t_vals)
+        tp.assert_close(r_aux, t_aux)
+        C = int(np.ceil(N * 2 / 4 * cap))
+        load = np.bincount(t_idx.numpy().reshape(-1), minlength=4)
+        assert (load.max() > C) == drops, (load, C)
+        outs = {}
+        for name, fn in (("dense", "moe_apply_dense"),
+                         ("sparse", "moe_apply_sparse")):
+            ref_out, ref_aux = getattr(RB, fn)(p, rc, jx)
+            outs[name], got_aux = getattr(TB, fn)(tparams, tc, tx)
+            tp.assert_close(ref_out, outs[name])
+            tp.assert_close(ref_aux, got_aux)
+        if drops:
+            assert not torch.allclose(outs["sparse"], outs["dense"],
+                                      atol=1e-3)
+        else:
+            tp.assert_close(outs["dense"], outs["sparse"])
+        for dispatch in ("adaptive", "dense", "sparse"):
+            rcd = dataclasses.replace(rc, dispatch=dispatch)
+            tcd = dataclasses.replace(tc, dispatch=dispatch)
+            ref_out, _ = RB.moe_apply(p, rcd, jx.reshape(2, N // 2, d))
+            got_out, _ = TB.moe_apply(tparams, tcd, tx.reshape(2, N // 2, d))
+            tp.assert_close(ref_out, got_out)
+
+
+def test_jamba_serving_slice_matches_reference(monkeypatch):
+    """Jamba-v0.1's configs equal the reference's field by field (with
+    their Mamba and MoE configs); from the reference's parameters, forward
+    logits under the serving profile (mamba_core "pallas", attn_core
+    "flash": the Pallas kernels in interpret mode against the port's plain
+    versions, 128 tokens), under the "xla" core and with the sparse MoE
+    path pinned; prefill, its caches and teacher-forced decode_step under
+    the profile; and serve_lm against examples/serve_lm.py.  Logits at
+    1e-3, the reference's own prefill/decode tolerance."""
+    import dataclasses
+    import importlib.util
+    from pathlib import Path
+    from repro import configs as RC
+    from repro.models import lm as RLM
+    from repro_torch import configs as TC
+    from repro_torch.launch import serve_lm as TSL
+    from repro_torch.models import lm as TLM
+    for reduced in (False, True):
+        ref_cfg = RC.get_config(JAMBA_ARCH, reduced=reduced)
+        port_cfg = TC.get_config(JAMBA_ARCH, reduced=reduced)
+        for f in dataclasses.fields(ref_cfg):
+            assert getattr(port_cfg, f.name) == getattr(ref_cfg, f.name), \
+                f.name
+        assert port_cfg.layer_groups() == ref_cfg.layer_groups()
+        for sub in ("mamba_cfg", "moe_cfg", "attn_cfg"):
+            assert (dataclasses.asdict(getattr(port_cfg, sub)())
+                    == dataclasses.asdict(getattr(ref_cfg, sub)())), sub
+
+    rcfg0, tcfg0, params, port = _lm_pair(arch=JAMBA_ARCH)
+    rng = np.random.default_rng(9)
+    toks = rng.integers(0, rcfg0.vocab, (2, 128)).astype(np.int32)
+    profile = dict(mamba_core="pallas", attn_core="flash")
+    for change, S in ((profile, 128), (dict(mamba_core="xla"), 32),
+                      (dict(mamba_core="xla", moe_dispatch="sparse"), 32)):
+        rcfg = dataclasses.replace(rcfg0, **change)
+        tcfg = dataclasses.replace(tcfg0, **change)
+        ref, ref_aux = RLM.forward(params, rcfg,
+                                   dict(tokens=jnp.asarray(toks[:, :S])))
+        got, got_aux = TLM.forward(port, tcfg,
+                                   dict(tokens=torch.from_numpy(toks[:, :S])))
+        assert tuple(got.shape) == (2, S, tcfg.padded_vocab)
+        tp.assert_close(ref, got, **LM_TOL)
+        tp.assert_close(ref_aux["aux_loss"], got_aux["aux_loss"], **LM_TOL)
+        assert float(got_aux["aux_loss"]) > 0
+
+    rcfg = dataclasses.replace(rcfg0, **profile)
+    tcfg = dataclasses.replace(tcfg0, **profile)
+    P, S = 16, 24
+    ref_lg, ref_c = RLM.prefill(params, rcfg, dict(tokens=jnp.asarray(
+        toks[:, :P])), s_max=S)
+    got_lg, got_c = TLM.prefill(port, tcfg, dict(tokens=torch.from_numpy(
+        toks[:, :P])), s_max=S)
+    tp.assert_close(ref_lg, got_lg, **LM_TOL)
+
+    def check_caches():
+        for i in range(8):
+            names = ("k", "v") if i == 3 else ("h", "conv")
+            for name in names:
+                tp.assert_close(ref_c[0][f"l{i}"][name],
+                                got_c[0][f"l{i}"][name], **LM_TOL)
+
+    check_caches()
+    decode = jax.jit(lambda p, c, t, pos: RLM.decode_step(p, rcfg, c, t, pos))
+    for t in range(P, S):
+        ref_lg, ref_tok, ref_c = decode(params, ref_c,
+                                        jnp.asarray(toks[:, t:t + 1]), t)
+        got_lg, got_tok, got_c = TLM.decode_step(
+            port, tcfg, got_c, torch.from_numpy(toks[:, t:t + 1]), t)
+        tp.assert_close(ref_lg, got_lg, **LM_TOL)
+        np.testing.assert_array_equal(np.asarray(ref_tok), got_tok.numpy())
+    check_caches()
+
+    spec = importlib.util.spec_from_file_location(
+        "serve_lm_example",
+        Path(__file__).resolve().parents[1] / "examples" / "serve_lm.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    B, P, G = 2, 16, 6
+    ref = example.serve_lm(JAMBA_ARCH, reduced=True, batch=B, prompt_len=P,
+                           gen=G, seed=0, verbose=False)
+    monkeypatch.setattr(TLM, "init_params", lambda gen, cfg: port)
+    got = {core: TSL.serve_lm(JAMBA_ARCH, reduced=True, batch=B,
+                              prompt_len=P, gen=G, seed=0, device="cpu",
+                              overrides=ov, verbose=False)
+           for core, ov in (("xla", dict(mamba_core="xla")),
+                            ("profile", None))}
+    for out in got.values():
+        assert out["tokens"].dtype == np.int32
+        np.testing.assert_array_equal(out["tokens"],
+                                      np.asarray(ref["tokens"]))

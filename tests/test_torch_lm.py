@@ -91,13 +91,13 @@ def test_configs_registry():
 
 @pytest.mark.parametrize("change", [dict(n_experts=4, top_k=2),
                                     dict(attn_type="mla"),
-                                    dict(layer_pattern="jamba", n_layers=8),
+                                    dict(n_shared_experts=2),
                                     dict(family="encdec", encoder_layers=2),
                                     dict(mtp=True),
                                     dict(mrope_sections=(2, 3, 3)),
-                                    dict(mamba_core="pallas"),
-                                    dict(mamba_d_state=8),
-                                    dict(top_k=2),
+                                    dict(q_lora_rank=64),
+                                    dict(first_k_dense=1),
+                                    dict(aux_loss_coef=0.1),
                                     dict(kv_lora_rank=256)])
 def test_unported_model_kinds_raise(change):
     cfg = dataclasses.replace(CFG, **change)
