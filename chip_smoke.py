@@ -510,6 +510,21 @@ def eager_ms(torch, fn, iters: int = 20) -> float:
     return statistics.median(times)
 
 
+def yardstick_ms(torch, fn, flush, what: str) -> tuple[float, str]:
+    """A library yardstick's time as the kernels are timed (``graph_ms``,
+    L2 flushed), and how it was taken.  Where the call cannot be captured
+    in a CUDA graph it is timed eagerly (host launch included), and the
+    reason is printed."""
+    try:
+        return graph_ms(torch, fn, flush), "CUDA graph, L2 flushed"
+    except RuntimeError as exc:
+        torch.cuda.synchronize()
+        log("timing", f"{what}: no CUDA-graph capture ({type(exc).__name__}:"
+            f" {str(exc).splitlines()[0] if str(exc) else ''}); timed "
+            f"eagerly, host launch included")
+        return eager_ms(torch, fn), "eager"
+
+
 def bound(n_bytes: float, n_ops: float, dtype: str) -> tuple[float, str]:
     """Least time in ms for moving ``n_bytes`` and doing ``n_ops``."""
     t_bytes = n_bytes / HBM_BYTES_PER_S
@@ -1364,18 +1379,19 @@ def time_train_kernels(torch, dec, flush, bsr, bsr_t) -> dict:
         algo_ms, algo_by = bound(
             io_bytes, nv * (2.0 * Bb * Fi * Fo + 2.0 * Bb * Bb * Fo),
             "float32")
-        lib_ms = None
+        lib_ms, lib_how = None, "none"
         if bsr is not None:
             torch.testing.assert_close(bsr @ (x @ w), bellf_mod.plain(
                 bell.blocks, bell.col_idx, x, w), **F32_TOL)
-            lib_ms = eager_ms(torch, lambda: bsr @ (x @ w))
+            lib_ms, lib_how = yardstick_ms(torch, lambda: bsr @ (x @ w),
+                                           flush, f"BSR @ (x @ w) {key}")
         rows["bell_spmm_fused"][key] = dict(
             ms=graph_ms(torch, lambda: bellf_mod.bell_spmm_fused(
                 bell.blocks, bell.col_idx, x, w, n_valid=bell.n_valid), flush),
             plain_ms=graph_ms(torch, lambda: bellf_mod.plain(
                 bell.blocks, bell.col_idx, x, w), flush),
             library_ms=lib_ms,
-            library_call="torch BSR(real blocks) @ (x @ w), eager",
+            library_call=f"torch BSR(real blocks) @ (x @ w), {lib_how}",
             bound_ms=b_ms, bound_by=b_by,
             algo_bound_ms=algo_ms, algo_bound_by=algo_by,
             shape=[list(bell.blocks.shape), [nv, "real blocks"],
@@ -1386,11 +1402,12 @@ def time_train_kernels(torch, dec, flush, bsr, bsr_t) -> dict:
             nv_t * (Bb * Bb * be + 4) + bell_t.n_brow * 4 + n * Fi * be
             + n * Fo * be + Fi * Fo * 4,
             nv_t * 2.0 * Bb * Bb * Fo + 2.0 * n * Fi * Fo, "float32")
-        lib_ms = None
+        lib_ms, lib_how = None, "none"
         if bsr_t is not None:
             dw_rel_err(x.T @ (bsr_t @ g), bellf_mod.plain_dw(
                 bell_t.blocks, bell_t.col_idx, x, g), "x.T @ (bsr_t @ g)")
-            lib_ms = eager_ms(torch, lambda: x.T @ (bsr_t @ g))
+            lib_ms, lib_how = yardstick_ms(torch, lambda: x.T @ (bsr_t @ g),
+                                           flush, f"x.T @ (BSR_t @ g) {key}")
         rows["bell_spmm_dw"][key] = dict(
             ms=graph_ms(torch, lambda: bellf_mod.bell_spmm_dw(
                 bell_t.blocks, bell_t.col_idx, x, g, n_valid=bell_t.n_valid),
@@ -1398,7 +1415,8 @@ def time_train_kernels(torch, dec, flush, bsr, bsr_t) -> dict:
             plain_ms=graph_ms(torch, lambda: bellf_mod.plain_dw(
                 bell_t.blocks, bell_t.col_idx, x, g), flush),
             library_ms=lib_ms,
-            library_call="x.T @ (torch BSR(bell_t real blocks) @ g), eager",
+            library_call=(f"x.T @ (torch BSR(bell_t real blocks) @ g), "
+                          f"{lib_how}"),
             bound_ms=b_ms, bound_by=b_by,
             shape=[list(bell_t.blocks.shape), [nv_t, "real blocks"], [n, Fi],
                    [n, Fo]])
@@ -3196,6 +3214,9 @@ def main() -> int:
             library_call="torch.bmm(blocks, x.view(nb, B, F))",
             bound_ms=b_ms, bound_by=b_by,
             shape=[list(bd.blocks.shape), [dec.n_pad, F]])
+        lib_ms, lib_how = ((None, "none") if bsr is None else
+                           yardstick_ms(torch, lambda: bsr @ h, flush,
+                                        f"BSR @ x F={F}"))
         Bb = bell.block_size
         n_bytes = (nv * (Bb * Bb * be + 4) + bell.n_brow * 4
                    + bell.n_cols * F * be + bell.n_rows * F * be)
@@ -3205,9 +3226,9 @@ def main() -> int:
                 bell.blocks, bell.col_idx, h, n_valid=bell.n_valid), flush),
             plain_ms=graph_ms(torch, lambda: bell_mod.plain(
                 bell.blocks, bell.col_idx, h), flush),
-            library_ms=(eager_ms(torch, lambda: bsr @ h)
-                        if bsr is not None else None),
-            library_call="torch.sparse_bsr_tensor(real blocks) @ x, eager",
+            library_ms=lib_ms,
+            library_call=f"torch.sparse_bsr_tensor(real blocks) @ x, "
+                         f"{lib_how}",
             bound_ms=b_ms, bound_by=b_by,
             shape=[list(bell.blocks.shape), [nv, "real blocks"],
                    [dec.n_pad, F]])

@@ -13,25 +13,47 @@
 // one VMEM accumulator.  On Hopper, CTAs run in no order and nothing carries
 // across them, and float atomics would make the sum's order, and so its
 // bits, change from run to run.  So the reduction has two phases:
-//   1. one CTA per (split, Fi tile, Fo tile); split s owns the fixed block
-//      rows [s * rows_per, (s + 1) * rows_per).  For each row the CTA forms
-//      z_i = sum_k At[i, k] G[col_t[i, k]] (B, fo tile) with the k loop of
-//      bell_spmm (chunks of kc blocks and their gathered G slices in shared
-//      memory), then adds X_i^T z_i to the (fi tile, fo tile) partial sum its
-//      threads keep in registers, and writes its partial to a workspace;
-//   2. one thread per output element sums the splits' partials in split
-//      order (dw_reduce.cuh, shared with tcgnn_spmm_dw.cu).
+//   1. one CTA of 256 threads per (split, 512-column Fi tile, 16-column Fo
+//      tile); split s owns the fixed block rows [s * rows_per, (s + 1) *
+//      rows_per), a constant of the wrapper, never derived from the card.
+//      The CTA is a split-K product X_run^T Z_run over those rows:
+//      a. Z_i = sum_k At[i, k] G[col_t[i, k]] for all its rows into shared
+//         memory, once per row.  Each warp streams stored blocks and their
+//         gathered G slices through its own 7-stage cp.async ring (of the
+//         blocked-ELL form the slots k = w (mod 8) of every row, of the
+//         diagonal form the rows i = w (mod 8)), the next block's column
+//         loaded one block ahead.  A lane keeps a 2-row x 4-column piece of
+//         Z_i (6 vector loads for 32 FMAs); at a row's end the warps'
+//         pieces are summed in warp order through shared memory.
+//      b. X_run^T Z_run: the run's rows of X come through a 3-stage ring
+//         (13 rows a stage at Fi = 500), whose first two stages are issued
+//         behind phase a's first blocks, so X is in flight while Z is
+//         formed.  A thread owns 2 x 4 rows of dW by 4 columns (32 float32
+//         outputs at Fi = 500, Fo = 16, where one CTA covers all of Fi) and
+//         reads X and Z as 16-byte vectors: 32 FMAs for 3 vector loads.
+//         Where the tile has fewer outputs than threads (Fi = 16, Fo = 3),
+//         the threads split the rows and sum their pieces in a fixed order.
+//      The CTA writes its partial to a workspace, 16 bytes a store;
+//   2. dw_reduce.cuh (shared with tcgnn_spmm_dw.cu) sums the splits'
+//      partials in split order.
 // Every sum is taken in a fixed order, so the result is the same bits on
-// every run, on any card.  A row's z_i is formed once per Fi tile; the tiles
-// are as wide as the registers allow (Fi = 500, Fo = 16 takes two).
+// every run, on any card.  The float32 path is float32 FMAs on the CUDA
+// cores; bfloat16 inputs are widened as they are read from shared memory.
 //
 // Bound.  Each stored block of At, the X rows and the gathered G slices are
-// read once, so at the main path's first layer (62826 stored blocks,
-// B = 16, Fi = 500, Fo = 16) the kernel is bound by bytes: about 105 MB.
+// read once and dW written once: at the main path's first layer (62826
+// stored blocks, B = 16, Fi = 500, Fo = 16) about 105 MB, bound by bytes
+// (0.0314 ms); over the diagonal (1233 blocks) 41 MB (0.0125 ms), nearly
+// all of it X.  At 10 rows a split the main path's 1233 block rows make
+// 124 CTAs, one wave over the 132 SMs, with 4 MB of partials.  Over the
+// transpose payload phase a, 62826 blocks streamed by 8 warps an SM,
+// takes most of the time.
 //
 // Limits.  B <= 64, any Fi >= 1 and Fo >= 1, K >= 1 (K = 1 when col_idx is
-// null); shared memory is B*fi_t + B*fo_t + kc*B*(B + fo_t) floats <= 48 KB.
+// null), rows_per * B * 64 B of Z in shared memory; at B = 16 and 10 rows a
+// split the CTA takes 223 KB of shared memory (float32, Fi = 500).
 #include <cstdint>
+#include <type_traits>
 
 #include "dtype.cuh"
 #include "dw_reduce.cuh"
@@ -40,129 +62,450 @@ namespace {
 
 using repro_torch::to_f32;
 
-constexpr int kThreads = 256;
-constexpr int kMaxOut = 16;                  // outputs per thread
-constexpr int kMaxFo = 64;
-constexpr int kMaxChunk = 8;                 // blocks per chunk
-constexpr int kSmemFloats = 48 * 1024 / 4;   // 48 KB of float32
+// ---------------------------------------------------------------------------
+// copies and shared-memory reads (as in bell_spmm_fused.cu)
+// ---------------------------------------------------------------------------
 
+// Copies `bytes` (0..g) bytes of one g-byte granule from global src to
+// shared dst and zero-fills the rest.  g in {16, 8, 4} is a cp.async (16
+// bypasses L1); g = 2 (bfloat16 rows of odd pitch) is a plain copy.
+__device__ __forceinline__ void copy_granule(void* dst, const void* src,
+                                             int g, int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  switch (g) {
+    case 16:
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                   "l"(src), "r"(bytes));
+      break;
+    case 8:
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
+                   "l"(src), "r"(bytes));
+      break;
+    case 4:
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+                   "l"(src), "r"(bytes));
+      break;
+    default:
+      *static_cast<uint16_t*>(dst) =
+          bytes > 0 ? *static_cast<const uint16_t*>(src) : uint16_t{0};
+  }
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Copies `rows` rows of `gpr` g-byte granules from src (row pitch sp
+// elements) to dst (row pitch dp elements), zero-filling each row past its
+// first n elements.  Thread tid of nthr moves every nthr-th granule; the
+// row of a granule is e / gpr, taken in float (exact for e < 2^21).
 template <typename T>
+__device__ __forceinline__ void copy_rows(T* dst, int dp, const T* src,
+                                          int sp, int n, int rows, int gpr,
+                                          float inv_gpr, int g, int tid,
+                                          int nthr) {
+  const int eg = g / static_cast<int>(sizeof(T));
+  for (int e = tid; e < rows * gpr; e += nthr) {
+    const int r = static_cast<int>((e + 0.5f) * inv_gpr);
+    const int col = (e - r * gpr) * eg;
+    const int bytes =
+        max(0, min(g, (n - col) * static_cast<int>(sizeof(T))));
+    copy_granule(dst + r * dp + col,
+                 src + static_cast<size_t>(r) * sp + (bytes > 0 ? col : 0), g,
+                 bytes);
+  }
+}
+
+// 4 consecutive elements from shared memory, widened to float32 (16-byte
+// aligned for float32, 8-byte for bfloat16).
+__device__ __forceinline__ void ld4(const float* p, float* v) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  v[0] = t.x;
+  v[1] = t.y;
+  v[2] = t.z;
+  v[3] = t.w;
+}
+__device__ __forceinline__ void ld4(const __nv_bfloat16* p, float* v) {
+  const uint2 t = *reinterpret_cast<const uint2*>(p);
+  const auto* h = reinterpret_cast<const __nv_bfloat162*>(&t);
+  const float2 a = __bfloat1622float2(h[0]);
+  const float2 b = __bfloat1622float2(h[1]);
+  v[0] = a.x;
+  v[1] = a.y;
+  v[2] = b.x;
+  v[3] = b.y;
+}
+
+__host__ __device__ constexpr int align16(int bytes) {
+  return (bytes + 15) & ~15;
+}
+
+// Largest copy granule (16, 8, 4 or 2 bytes) dividing both the row pitch
+// and the base address.
+inline int granule(long long pitch_bytes, const void* base) {
+  const auto a = reinterpret_cast<uintptr_t>(base);
+  for (int g = 16; g >= 4; g >>= 1)
+    if (pitch_bytes % g == 0 && a % g == 0) return g;
+  return 2;
+}
+
+inline int pow2_ceil(int v) {
+  int p = 1;
+  while (p < v) p <<= 1;
+  return p;
+}
+
+// ---------------------------------------------------------------------------
+// phase 1: one partial dW per (split, Fi tile, Fo tile)
+// ---------------------------------------------------------------------------
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kFiT = 512;      // Fi columns of a CTA
+constexpr int kFoT = 16;       // Fo columns of a CTA
+constexpr int kAStages = 7;    // per-warp ring of phase a
+constexpr int kXStages = 3;    // CTA ring of phase b
+constexpr int kABytes = 132 * 1024;  // phase-a rings, about
+constexpr int kXBytes = 34 * 1024;   // one phase-b stage, at most
+constexpr int kMaxSmem = 227 * 1024;
+
+struct Cfg {
+  int rows_per;           // block rows per split
+  int pw;                 // warps of phase a
+  int npairs, lp;         // (row pair, 4-column) pieces of Z_i; lanes per
+                          // piece
+  int ap;                 // shared pitch of a block's rows (elements)
+  int ga, gg, gx;         // granule bytes: block rows, G rows, X rows
+  int a_gpr, g_gpr, x_gpr;  // granules per staged row
+  float inv_a_gpr, inv_g_gpr, inv_x_gpr;
+  int a_bytes, stage_bytes, warp_bytes;   // one phase-a stage: block, G
+  int x_rows, xp, x_stage;  // X rows per stage, pitch (elements), bytes
+  int agu, cgu, rs;       // phase-b layout: 4-row and 4-column groups of
+                          // dW, row splits
+  int vec_out;            // rows of the partial allow 16-byte stores
+  int z_off, kn_off, a_off, red_off, x_off;
+};
+
+template <typename T, int PL>
 __global__ void __launch_bounds__(kThreads)
     dw_partial_kernel(const T* __restrict__ blocks,
                       const int* __restrict__ col_idx,
                       const int* __restrict__ n_valid,
                       const T* __restrict__ x, const T* __restrict__ g,
                       float* __restrict__ partial, int nbr, int K, int B,
-                      int Fi, int Fo, int fi_t, int fo_t, int kc,
-                      int rows_per, int transpose) {
-  extern __shared__ float smem[];
-  float* x_s = smem;                 // (B, fi_t)
-  float* z_s = x_s + B * fi_t;       // (B, fo_t)
-  float* a_s = z_s + B * fo_t;       // (kc, B, B)
-  float* g_s = a_s + kc * B * B;     // (kc, B, fo_t)
-
+                      int Fi, int Fo, int transpose, const Cfg c) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int split = blockIdx.x;
-  const int fi0 = blockIdx.y * fi_t;
-  const int fo0 = blockIdx.z * fo_t;
-  const int fiw = min(fi_t, Fi - fi0);
-  const int fow = min(fo_t, Fo - fo0);
-  const int n_part = fiw * fow;
-  const int n_z = B * fow;
-  const int BB = B * B;
+  const int fi0 = blockIdx.y * kFiT, fo0 = blockIdx.z * kFoT;
+  const int fiw = min(kFiT, Fi - fi0), fow = min(kFoT, Fo - fo0);
+  const int bp = (B + 3) & ~3;
+  const bool diag = col_idx == nullptr;
+  const int row0 = split * c.rows_per;
+  const int row_end = min(nbr, row0 + c.rows_per);
+  const int n_rows = (row_end - row0) * B;   // rows of X in this split
+  float* z_s = reinterpret_cast<float*>(smem + c.z_off);   // (n_rows, 16)
+  float* red = reinterpret_cast<float*>(smem + c.red_off);
+  int* kn_s = reinterpret_cast<int*>(smem + c.kn_off);   // the rows' K_i
+  unsigned char* x_ring = smem + c.x_off;
 
-  float part[kMaxOut];
-#pragma unroll
-  for (int p = 0; p < kMaxOut; ++p) part[p] = 0.f;
+  // b's X stream: stage s holds rows [s x_rows, (s + 1) x_rows); in flight
+  // while Z is formed
+  const int n_xsteps = (n_rows + c.x_rows - 1) / c.x_rows;
+  auto issue_x = [&](int s) {
+    if (s < n_xsteps)
+      copy_rows(reinterpret_cast<T*>(x_ring + (s % kXStages) * c.x_stage),
+                c.xp,
+                x + (static_cast<size_t>(row0) * B + s * c.x_rows) * Fi + fi0,
+                Fi, fiw, min(c.x_rows, n_rows - s * c.x_rows), c.x_gpr,
+                c.inv_x_gpr, c.gx, t, kThreads);
+    cp_commit();
+  };
 
-  const int i_end = min(nbr, (split + 1) * rows_per);
-  for (int i = split * rows_per; i < i_end; ++i) {
-    const int kn = n_valid != nullptr ? min(n_valid[i], K) : K;
-    if (kn == 0) continue;           // uniform across the CTA
-    const T* a_row = blocks + static_cast<size_t>(i) * K * BB;
-    const int* c_row =
-        col_idx != nullptr ? col_idx + static_cast<size_t>(i) * K : nullptr;
-
-    float z[kMaxOut];
-#pragma unroll
-    for (int q = 0; q < kMaxOut; ++q) z[q] = 0.f;
-    for (int k0 = 0; k0 < kn; k0 += kc) {
-      const int kw = min(kc, kn - k0);
-      // kw stored blocks are one contiguous run of kw * B * B elements
-      const T* a = a_row + static_cast<size_t>(k0) * BB;
-      for (int e = threadIdx.x; e < kw * BB; e += kThreads) {
-        const int kk = e / BB;
-        const int q = e - kk * BB;
-        a_s[e] = to_f32(a[kk * BB + (transpose ? (q % B) * B + q / B : q)]);
+  // a. Z_i = A_i^T G of every row i, rows without a block left at 0.  Warp
+  // w < pw streams blocks through its own ring: of the blocked-ELL form the
+  // slots k = w (mod pw) of every row, summed over the warps in warp order
+  // at the row's end; of the diagonal form the rows i = w (mod pw).
+  for (int e = t; e < n_rows * kFoT; e += kThreads) z_s[e] = 0.f;
+  for (int r = t; r < row_end - row0; r += kThreads)
+    kn_s[r] = diag ? 1
+              : n_valid != nullptr ? min(n_valid[row0 + r], K)
+                                   : K;
+  const bool streams = warp < c.pw;
+  unsigned char* mine = smem + c.a_off + warp * c.warp_bytes;
+  if (streams) {   // rows B..bp of every stage's block and G stay zero
+    for (int st = 0; st < kAStages; ++st) {
+      T* sa = reinterpret_cast<T*>(mine + st * c.stage_bytes);
+      T* sg = reinterpret_cast<T*>(mine + st * c.stage_bytes + c.a_bytes);
+      for (int e = lane; e < (bp - B) * c.ap; e += 32)
+        sa[B * c.ap + e] = repro_torch::from_f32<T>(0.f);
+      for (int e = lane; e < (bp - B) * kFoT; e += 32)
+        sg[B * kFoT + e] = repro_torch::from_f32<T>(0.f);
+    }
+  }
+  __syncthreads();
+  auto kn_of = [&](int r) { return kn_s[r - row0]; };
+  // this warp's blocks of row r: its slots k = w (mod pw) (diagonal form:
+  // the row's one block if the row is its own)
+  auto mine_in = [&](int r) {
+    return !streams ? 0
+           : diag   ? ((r - row0) % c.pw == warp ? 1 : 0)
+                    : max(0, (kn_of(r) - warp + c.pw - 1) / c.pw);
+  };
+  // issue cursor: row, index of this warp's block there, and that block's
+  // column, loaded one block ahead so its latency is not on the copy's path
+  int ir = row0, it = 0, next_src = 0;
+  auto fetch = [&]() {
+    while (ir < row_end && mine_in(ir) == 0) ++ir;
+    if (ir < row_end)
+      next_src = diag ? ir
+                      : col_idx[static_cast<size_t>(ir) * K + warp +
+                                it * c.pw];
+  };
+  auto issue_a = [&](int s) {
+    if (ir < row_end) {
+      unsigned char* st = mine + (s % kAStages) * c.stage_bytes;
+      const int k = diag ? 0 : warp + it * c.pw;
+      const int src = next_src;
+      copy_rows(reinterpret_cast<T*>(st), c.ap,
+                blocks + (static_cast<size_t>(ir) * K + k) * B * B, B, B, B,
+                c.a_gpr, c.inv_a_gpr, c.ga, lane, 32);
+      copy_rows(reinterpret_cast<T*>(st + c.a_bytes), kFoT,
+                g + static_cast<size_t>(src) * B * Fo + fo0, Fo, fow, B,
+                c.g_gpr, c.inv_g_gpr, c.gg, lane, 32);
+      if (++it >= mine_in(ir)) {
+        it = 0;
+        ++ir;
       }
-      const int slice = B * fow;
-      for (int e = threadIdx.x; e < kw * slice; e += kThreads) {
-        const int kk = e / slice;
-        const int rem = e - kk * slice;
-        const int j = rem / fow;
-        const int c = rem - j * fow;
-        const size_t col = c_row != nullptr ? c_row[k0 + kk] : i;
-        g_s[(kk * B + j) * fo_t + c] = to_f32(g[(col * B + j) * Fo + fo0 + c]);
-      }
-      __syncthreads();
+      fetch();
+    }
+    cp_commit();
+  };
+
+  // phase a's first blocks are committed before b's first X stages, so the
+  // first waits below need not wait for X
+  fetch();
+  for (int s = 0; s < kAStages - 1; ++s) issue_a(s);
+  for (int s = 0; s < kXStages - 1; ++s) issue_x(s);
+
+  // lane pieces (rows 2 rp and 2 rp + 1, columns 4 c4..) of Z_i, and the
+  // lane's share of j
+  const int ncg = (min(kFoT, Fo) + 3) / 4;
+  const int part = c.lp > 1 ? lane / c.npairs : 0;
+  int pr[PL], pc[PL];
 #pragma unroll
-      for (int q = 0; q < kMaxOut; ++q) {
-        const int o = threadIdx.x + q * kThreads;
-        if (o < n_z) {
-          const int r = o / fow;
-          const int c = o - r * fow;
-          float s = z[q];
-          for (int kk = 0; kk < kw; ++kk) {
-            const float* ar = a_s + kk * BB + r * B;
-            const float* gc = g_s + kk * B * fo_t + c;
-#pragma unroll 8
-            for (int j = 0; j < B; ++j) s = fmaf(ar[j], gc[j * fo_t], s);
+  for (int u = 0; u < PL; ++u) {
+    const int pi = c.lp > 1 ? (u == 0 ? lane % c.npairs : c.npairs)
+                            : lane + 32 * u;
+    pr[u] = pi < c.npairs ? pi / ncg : B;   // B: no piece
+    pc[u] = pi < c.npairs ? pi - pr[u] * ncg : 0;
+  }
+  float z4[PL][2][4];
+#pragma unroll
+  for (int u = 0; u < PL; ++u)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int n = 0; n < 4; ++n) z4[u][h][n] = 0.f;
+
+  int consumed = 0;
+  auto consume = [&]() {   // adds this warp's next staged block to z4
+    if (consumed < kAStages - 1)   // X's first stages are younger
+      cp_wait<kAStages - 2 + kXStages - 1>();
+    else
+      cp_wait<kAStages - 2>();
+    __syncwarp();
+    issue_a(consumed + kAStages - 1);
+    const unsigned char* st = mine + (consumed % kAStages) * c.stage_bytes;
+    const T* sa = reinterpret_cast<const T*>(st);
+    const T* sg = reinterpret_cast<const T*>(st + c.a_bytes);
+#pragma unroll
+    for (int u = 0; u < PL; ++u) {
+      if (pr[u] >= B) continue;
+      const int r = 2 * pr[u];   // rows r, r + 1 (< bp: pad rows are 0)
+      for (int j = 4 * part; j < bp; j += 4 * c.lp) {
+        float a4[2][4];
+        if (transpose) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            a4[0][q] = to_f32(sa[(j + q) * c.ap + r]);
+            a4[1][q] = to_f32(sa[(j + q) * c.ap + r + 1]);
           }
-          z[q] = s;
+        } else {
+          ld4(sa + r * c.ap + j, a4[0]);
+          ld4(sa + (r + 1) * c.ap + j, a4[1]);
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          float g4[4];
+          ld4(sg + (j + q) * kFoT + 4 * pc[u], g4);
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int n = 0; n < 4; ++n)
+              z4[u][h][n] = fmaf(a4[h][q], g4[n], z4[u][h][n]);
         }
       }
+    }
+    __syncwarp();
+    ++consumed;
+  };
+  auto fold = [&]() {   // the lanes sharing a piece add their shares
+    if (c.lp > 1)
+      for (int o = c.npairs; o < 32; o <<= 1)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int n = 0; n < 4; ++n)
+            z4[0][h][n] += __shfl_xor_sync(0xffffffffu, z4[0][h][n], o);
+  };
+  // the piece's rows of Z_i (local row i) into dst (rows of 16 floats)
+  auto put = [&](float* dst) {
+#pragma unroll
+    for (int u = 0; u < PL; ++u) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = 2 * pr[u] + h;
+        if (pr[u] < B && r < B && part == 0)
+          *reinterpret_cast<float4*>(dst + r * kFoT + 4 * pc[u]) =
+              make_float4(z4[u][h][0], z4[u][h][1], z4[u][h][2],
+                          z4[u][h][3]);
+#pragma unroll
+        for (int n = 0; n < 4; ++n) z4[u][h][n] = 0.f;
+      }
+    }
+  };
+
+  if (diag) {
+    for (int r = row0 + warp; streams && r < row_end; r += c.pw) {
+      consume();
+      fold();
+      put(z_s + (r - row0) * B * kFoT);
+    }
+  } else {
+    for (int r = row0; r < row_end; ++r) {
+      const int kn = kn_of(r);
+      if (kn == 0) continue;   // uniform
+      for (int m = mine_in(r); m > 0; --m) consume();
+      fold();
+      if (streams) put(red + warp * B * kFoT);
+      __syncthreads();
+      for (int o = t; o < B * 4 * ncg; o += kThreads) {
+        const int rr = o / (4 * ncg), col = o - rr * 4 * ncg;
+        float acc = 0.f;
+        for (int w2 = 0; w2 < c.pw; ++w2)
+          acc += red[(w2 * B + rr) * kFoT + col];
+        z_s[((r - row0) * B + rr) * kFoT + col] = acc;
+      }
       __syncthreads();
     }
-
-#pragma unroll
-    for (int q = 0; q < kMaxOut; ++q) {
-      const int o = threadIdx.x + q * kThreads;
-      if (o < n_z) {
-        const int r = o / fow;
-        z_s[r * fo_t + (o - r * fow)] = z[q];
-      }
-    }
-    const size_t xrow0 = static_cast<size_t>(i) * B;
-    for (int e = threadIdx.x; e < B * fiw; e += kThreads) {
-      const int r = e / fiw;
-      const int a = e - r * fiw;
-      x_s[r * fi_t + a] = to_f32(x[(xrow0 + r) * Fi + fi0 + a]);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int p = 0; p < kMaxOut; ++p) {
-      const int o = threadIdx.x + p * kThreads;
-      if (o < n_part) {
-        const int a = o / fow;
-        const int b = o - a * fow;
-        float s = part[p];
-#pragma unroll 8
-        for (int r = 0; r < B; ++r)
-          s = fmaf(x_s[r * fi_t + a], z_s[r * fo_t + b], s);
-        part[p] = s;
-      }
-    }
-    __syncthreads();
   }
+  cp_wait<0>();
+  __syncthreads();
+
+  // b. partial = X_run^T Z_run; thread t owns rows 4 (ag + v agu) + q of
+  // the tile (v < 2, q < 4) by columns 4 cgb + n, over rows u = rs (mod RS)
+  const int tb = c.cgu * c.agu;
+  const int cgb = t % c.cgu, ag = (t / c.cgu) % c.agu, rs = t / tb;
+  float acc[2][4][4];
+#pragma unroll
+  for (int v = 0; v < 2; ++v)
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int n = 0; n < 4; ++n) acc[v][q][n] = 0.f;
+  for (int s = 0; s < n_xsteps; ++s) {
+    cp_wait<kXStages - 2>();
+    __syncthreads();
+    issue_x(s + kXStages - 1);
+    const T* xs =
+        reinterpret_cast<const T*>(x_ring + (s % kXStages) * c.x_stage);
+    const float* zs = z_s + s * c.x_rows * kFoT + 4 * cgb;
+    const int rows = min(c.x_rows, n_rows - s * c.x_rows);
+#pragma unroll 2
+    for (int u = rs; u < rows; u += c.rs) {
+      const float4 zv = *reinterpret_cast<const float4*>(zs + u * kFoT);
+      const float zn[4] = {zv.x, zv.y, zv.z, zv.w};
+#pragma unroll
+      for (int v = 0; v < 2; ++v) {
+        float xv[4];
+        ld4(xs + u * c.xp + 4 * (ag + v * c.agu), xv);
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int n = 0; n < 4; ++n)
+            acc[v][q][n] = fmaf(xv[q], zn[n], acc[v][q][n]);
+      }
+    }
+  }
+  cp_wait<0>();
 
   float* out = partial + static_cast<size_t>(split) * Fi * Fo;
+  auto store = [&](int tile_b, int vi, float val) {
+    const int cgo = tile_b % c.cgu, ago = tile_b / c.cgu;
+    const int a = 4 * (ago + (vi >> 4) * c.agu) + ((vi >> 2) & 3);
+    const int col = 4 * cgo + (vi & 3);
+    if (a < fiw && col < fow)
+      out[static_cast<size_t>(fi0 + a) * Fo + fo0 + col] = val;
+  };
+  if (c.rs == 1) {
+    // 4 columns a store where the row of dW allows 16-byte stores
+    const bool vec = c.vec_out && 4 * cgb + 4 <= fow;
 #pragma unroll
-  for (int p = 0; p < kMaxOut; ++p) {
-    const int o = threadIdx.x + p * kThreads;
-    if (o < n_part) {
-      const int a = o / fow;
-      out[static_cast<size_t>(fi0 + a) * Fo + fo0 + (o - a * fow)] = part[p];
-    }
+    for (int v = 0; v < 2; ++v)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int a = 4 * (ag + v * c.agu) + q;
+        if (vec && a < fiw) {
+          *reinterpret_cast<float4*>(
+              out + static_cast<size_t>(fi0 + a) * Fo + fo0 + 4 * cgb) =
+              make_float4(acc[v][q][0], acc[v][q][1], acc[v][q][2],
+                          acc[v][q][3]);
+          continue;
+        }
+#pragma unroll
+        for (int n = 0; n < 4; ++n) store(t, v * 16 + q * 4 + n, acc[v][q][n]);
+      }
+    return;
   }
+  // row splits: sum their pieces in split order through shared memory
+  __syncthreads();
+  float* buf = reinterpret_cast<float*>(smem + c.a_off);   // 32 KB
+#pragma unroll
+  for (int v = 0; v < 2; ++v)
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      *reinterpret_cast<float4*>(buf + t * 32 + v * 16 + q * 4) =
+          make_float4(acc[v][q][0], acc[v][q][1], acc[v][q][2], acc[v][q][3]);
+  __syncthreads();
+  for (int o = t; o < tb * 32; o += kThreads) {
+    float val = 0.f;
+    for (int k2 = 0; k2 < c.rs; ++k2) val += buf[k2 * tb * 32 + o];
+    store(o >> 5, o & 31, val);
+  }
+}
+
+template <typename T, int PL>
+cudaError_t launch_pl(const void* blocks, const int* col_idx,
+                      const int* n_valid, const void* x, const void* g,
+                      float* partial, int nbr, int K, int B, int Fi, int Fo,
+                      int transpose, const Cfg& c, int n_split, int smem,
+                      cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      dw_partial_kernel<T, PL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(n_split, (Fi + kFiT - 1) / kFiT, (Fo + kFoT - 1) / kFoT);
+  dw_partial_kernel<T, PL><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(blocks), col_idx, n_valid,
+      static_cast<const T*>(x), static_cast<const T*>(g), partial, nbr, K, B,
+      Fi, Fo, transpose, c);
+  return cudaGetLastError();
 }
 
 template <typename T>
@@ -170,31 +513,63 @@ cudaError_t launch(const void* blocks, const int* col_idx, const int* n_valid,
                    const void* x, const void* g, float* partial, float* dw,
                    int nbr, int K, int B, int Fi, int Fo, int rows_per,
                    int transpose, cudaStream_t stream) {
-  int fo_t = Fo < kMaxFo ? Fo : kMaxFo;
-  int fi_t = kMaxOut * kThreads / fo_t;
-  if (fi_t > Fi) fi_t = Fi;
-  // shrink the tiles until one chunk of one block fits in shared memory
-  while (B * fi_t + B * fo_t + B * (B + fo_t) > kSmemFloats) {
-    if (fi_t > fo_t) {
-      fi_t = (fi_t + 1) / 2;
-    } else {
-      fo_t = (fo_t + 1) / 2;
-    }
-  }
-  int kc = (kSmemFloats - B * fi_t - B * fo_t) / (B * (B + fo_t));
-  if (kc > kMaxChunk) kc = kMaxChunk;
-  if (kc > K) kc = K;
+  constexpr int sz = sizeof(T);
   const int n_split = (nbr + rows_per - 1) / rows_per;
   if (n_split > 0) {
-    const dim3 grid(n_split, (Fi + fi_t - 1) / fi_t, (Fo + fo_t - 1) / fo_t);
-    const size_t smem = static_cast<size_t>(B * fi_t + B * fo_t +
-                                            kc * B * (B + fo_t)) *
-                        sizeof(float);
-    dw_partial_kernel<T><<<grid, kThreads, smem, stream>>>(
-        static_cast<const T*>(blocks), col_idx, n_valid,
-        static_cast<const T*>(x), static_cast<const T*>(g), partial, nbr, K,
-        B, Fi, Fo, fi_t, fo_t, kc, rows_per, transpose);
-    const cudaError_t err = cudaGetLastError();
+    Cfg c;
+    c.rows_per = rows_per;
+    const int bp = (B + 3) & ~3;
+    const int fow = min(kFoT, Fo), fiw = min(kFiT, Fi);
+    c.ga = granule(static_cast<long long>(B) * sz, blocks);
+    c.gg = granule(static_cast<long long>(Fo) * sz, g);
+    c.gx = granule(static_cast<long long>(Fi) * sz, x);
+    const int a_cols = (bp * sz + c.ga - 1) / c.ga * c.ga / sz;
+    c.ap = a_cols + 16 / sz;
+    c.a_gpr = a_cols * sz / c.ga;
+    c.g_gpr = (fow * sz + c.gg - 1) / c.gg;
+    c.inv_a_gpr = 1.f / static_cast<float>(c.a_gpr);
+    c.inv_g_gpr = 1.f / static_cast<float>(c.g_gpr);
+    c.x_gpr = (fiw * sz + c.gx - 1) / c.gx;
+    c.inv_x_gpr = 1.f / static_cast<float>(c.x_gpr);
+    c.a_bytes = align16(bp * c.ap * sz);
+    c.stage_bytes = c.a_bytes + align16(bp * kFoT * sz);
+    c.warp_bytes = kAStages * c.stage_bytes;
+    c.pw = max(1, min(kWarps, kABytes / c.warp_bytes));
+    c.npairs = (B + 1) / 2 * ((fow + 3) / 4);
+    const bool pow2 = (c.npairs & (c.npairs - 1)) == 0;
+    c.lp = c.npairs < 32 && pow2 ? 32 / c.npairs : 1;
+    const int per = c.lp > 1 ? 1 : (c.npairs + 31) / 32;
+    c.agu = pow2_ceil((fiw + 7) / 8);
+    c.cgu = pow2_ceil((fow + 3) / 4);
+    c.rs = kThreads / (c.agu * c.cgu);
+    c.xp = 8 * c.agu + 16 / sz;
+    c.vec_out = Fo % 4 == 0 && reinterpret_cast<uintptr_t>(partial) % 16 == 0;
+    // Z and the rows' K_i; the phase-a rings and the row sums of Z, which
+    // (once phase b is done) hold the row splits' 32-float pieces; the X
+    // ring
+    c.z_off = 0;
+    c.kn_off = align16(rows_per * B * kFoT * 4);
+    c.a_off = c.kn_off + align16(rows_per * 4);
+    const int red_bytes = c.pw * B * kFoT * 4;
+    const int a_ring =
+        max(c.pw * c.warp_bytes, kThreads * 32 * 4 - red_bytes);
+    c.red_off = c.a_off + a_ring;
+    c.x_off = c.red_off + align16(red_bytes);
+    const int x_room = min(kXBytes, (kMaxSmem - c.x_off) / kXStages);
+    c.x_rows = min(rows_per * B, max(1, x_room / (c.xp * sz)));
+    c.x_stage = align16(c.x_rows * c.xp * sz);
+    const int smem = c.x_off + kXStages * c.x_stage;
+    if (smem > kMaxSmem) return cudaErrorInvalidValue;
+    auto go = [&](auto kernel_pl) {
+      return launch_pl<T, decltype(kernel_pl)::value>(
+          blocks, col_idx, n_valid, x, g, partial, nbr, K, B, Fi, Fo,
+          transpose, c, n_split, smem, stream);
+    };
+    const cudaError_t err =
+        per <= 1   ? go(std::integral_constant<int, 1>{})
+        : per <= 2 ? go(std::integral_constant<int, 2>{})
+        : per <= 4 ? go(std::integral_constant<int, 4>{})
+                   : go(std::integral_constant<int, 8>{});
     if (err != cudaSuccess) return err;
   }
   return repro_torch::launch_dw_reduce(partial, dw, n_split, Fi * Fo, stream);

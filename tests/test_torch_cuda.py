@@ -142,16 +142,103 @@ def test_cuda_fused_and_dw_kernels_match_plain(cuda_device, dtype, B):  # noqa: 
 @pytest.mark.cuda
 def test_cuda_dw_is_deterministic(cuda_device):  # noqa: F811
     """bell_spmm_dw sums its block rows in a fixed order (no atomics), so
-    two runs give the same bits."""
+    two runs give the same bits, over the transpose payload and over the
+    diagonal, at a row count that is not a multiple of the split size."""
+    nbr = 307
+    assert nbr % bellf_mod.DW_ROWS_PER_SPLIT
     gen = torch.Generator(device=cuda_device).manual_seed(5)
     blocks, col_idx, n_valid = _synthetic_bell(gen, 16, cuda_device,
-                                               nbr=300, K=6)
-    x = torch.randn((300 * 16, 500), generator=gen, device=cuda_device)
-    g = torch.randn((300 * 16, 16), generator=gen, device=cuda_device)
+                                               nbr=nbr, K=6)
+    x = torch.randn((nbr * 16, 500), generator=gen, device=cuda_device)
+    g = torch.randn((nbr * 16, 16), generator=gen, device=cuda_device)
     a = bellf_mod.bell_spmm_dw(blocks, col_idx, x, g, n_valid=n_valid)
     b = bellf_mod.bell_spmm_dw(blocks, col_idx, x, g, n_valid=n_valid)
     assert torch.equal(a, b)
     _close_dw(a, bellf_mod.plain_dw(blocks, col_idx, x, g))
+    diag = blocks[:, :1].contiguous()
+    a = bellf_mod.bell_spmm_dw(diag, None, x, g, transpose=True)
+    b = bellf_mod.bell_spmm_dw(diag, None, x, g, transpose=True)
+    assert torch.equal(a, b)
+    _close_dw(a, bellf_mod.plain_dw(diag, None, x, g, transpose=True))
+
+
+def _ragged_bell(gen, B: int, dev, nbr: int = 24, K: int = 83,
+                 n_col_blocks: int = 40):
+    """A blocked-ELL payload with one row of K real blocks, two empty rows
+    and the rest at 1-4 blocks, naming n_col_blocks > nbr block columns;
+    padding slots are zero blocks that point at block column 0.  Block
+    entries are N(0, 1 / B), the scale of a degree-normalised adjacency:
+    at unit scale the long row sums K * B unit terms (5312 at B = 64),
+    whose float32 rounding alone (the plain version against float64, 0.48
+    of the tolerance on the CPU) leaves no room for a second summation
+    order under atol 1e-4."""
+    n_valid = torch.randint(1, 5, (nbr,), generator=gen, device=dev,
+                            dtype=torch.int32)
+    n_valid[0] = K
+    n_valid[1:3] = 0
+    valid = torch.arange(K, device=dev)[None, :] < n_valid[:, None]
+    blocks = (torch.randn((nbr, K, B, B), generator=gen, device=dev)
+              * valid[:, :, None, None] / B ** 0.5)
+    col_idx = (torch.randint(0, n_col_blocks, (nbr, K), generator=gen,
+                             device=dev, dtype=torch.int32)
+               * valid).to(torch.int32)
+    return blocks, col_idx, n_valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Fi", [3, 17, 500, 1100])
+@pytest.mark.parametrize("Fo", [1, 3, 16, 64, 65])
+def test_cuda_fused_kernels_ragged_payloads(cuda_device, dtype, Fi, Fo):  # noqa: F811
+    """bell_spmm_fused, block_diag_spmm_fused (both reads) and bell_spmm_dw
+    (transpose payload and diagonal) against their plain versions on a
+    payload with empty rows and one row of 83 blocks beside rows of at
+    most 4, x with more block columns than block rows, at widths that
+    give 16-, 8-, 4- and 2-byte copies and ragged tiles, for B in {5, 16,
+    64} (both of bell_spmm_fused's kernels); Fi = 1100 streams W through
+    the wide kernel (float32) and takes three Fi tiles of dW.  The forward
+    and dW give the same bits twice."""
+    tol = (tp.F32_TOL if dtype == torch.float32
+           else dict(atol=2e-1, rtol=3e-1))
+    dev = cuda_device
+    gen = torch.Generator(device=dev).manual_seed(1000 + 7 * Fi + Fo)
+    nbr, n_cols = 24, 40
+
+    def close(got, want):
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+
+    for B in (5, 16, 64):
+        blocks, col_idx, n_valid = _ragged_bell(gen, B, dev, nbr=nbr,
+                                                n_col_blocks=n_cols)
+        blocks = blocks.to(dtype)
+        x = torch.randn((n_cols * B, Fi), generator=gen, device=dev).to(dtype)
+        w = (torch.randn((Fi, Fo), generator=gen, device=dev)
+             / Fi ** 0.5).to(dtype)
+        y_in = torch.randn((nbr * B, Fo), generator=gen, device=dev).to(dtype)
+        for yi in (None, y_in):
+            got = bellf_mod.bell_spmm_fused(blocks, col_idx, x, w, yi,
+                                            n_valid=n_valid)
+            close(got, bellf_mod.plain(blocks, col_idx, x, w, yi))
+            assert torch.equal(got, bellf_mod.bell_spmm_fused(
+                blocks, col_idx, x, w, yi, n_valid=n_valid))
+            diag = blocks[:, 0].contiguous()
+            for transpose in (False, True):
+                close(bdf_mod.block_diag_spmm_fused(
+                    diag, x[:nbr * B], w, yi, transpose=transpose),
+                    bdf_mod.plain(diag, x[:nbr * B], w, yi,
+                                  transpose=transpose))
+        xr = torch.randn((nbr * B, Fi), generator=gen, device=dev).to(dtype)
+        g = torch.randn((n_cols * B, Fo), generator=gen, device=dev).to(dtype)
+        got = bellf_mod.bell_spmm_dw(blocks, col_idx, xr, g, n_valid=n_valid)
+        _close_dw(got, bellf_mod.plain_dw(blocks, col_idx, xr, g))
+        assert torch.equal(got, bellf_mod.bell_spmm_dw(
+            blocks, col_idx, xr, g, n_valid=n_valid))
+        d1 = blocks[:, :1].contiguous()
+        _close_dw(bellf_mod.bell_spmm_dw(d1, None, xr, g[:nbr * B],
+                                         transpose=True),
+                  bellf_mod.plain_dw(d1, None, xr, g[:nbr * B],
+                                     transpose=True))
 
 
 @pytest.mark.cuda
