@@ -28,7 +28,7 @@ SOURCES = ("block_diag_spmm", "bell_spmm", "bell_spmm_fused", "bell_spmm_dw",
            "tcgnn_spmm", "tcgnn_spmm_fused", "tcgnn_spmm_dw",
            "block_diag_spmm_dual", "flash_attention", "rwkv6_chunked",
            "mamba_scan")
-HEADERS = ("dtype.cuh", "dw_reduce.cuh")
+HEADERS = ("cp_async.cuh", "dtype.cuh", "dw_reduce.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_TIMEOUT_S = 600
@@ -178,10 +178,11 @@ def _load(name: str, path: Path, seconds: float, ptxas: tuple) -> Built:
     return Built(name, seconds, ptxas, lib)
 
 
-def build_all() -> dict[str, Built]:
-    """Build (in parallel) and load every kernel library not yet loaded."""
+def build_all(names: tuple[str, ...] = SOURCES) -> dict[str, Built]:
+    """Build (in parallel) and load every kernel library of ``names`` (all
+    by default) not yet loaded."""
     with _LOCK:
-        todo = [n for n in SOURCES if n not in _LIBS]
+        todo = [n for n in names if n not in _LIBS]
         if not todo:
             return dict(_LIBS)
         BUILD_DIR.mkdir(parents=True, exist_ok=True)

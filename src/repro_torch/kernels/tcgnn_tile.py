@@ -140,6 +140,16 @@ def _tcgnn_build(coo, coo_t, block_size, stats):
             coo_to_tcgnn(coo_t, block_size, f_tile_cap=cap))
 
 
+def real_slots(tiles: torch.Tensor) -> torch.Tensor:
+    """Per block row, one past the last slot whose tile column holds a
+    non-zero in any of the B rows: the slots the CUDA kernel
+    ``tcgnn_spmm_fused`` gathers and transforms (the rest add nothing).
+    tiles: (nbr, B, C) -> (nbr,) int64."""
+    nz = (tiles != 0).any(dim=1)
+    pos = torch.arange(1, tiles.shape[-1] + 1, device=tiles.device)
+    return (nz * pos).amax(dim=1) if tiles.shape[0] else pos[:0]
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------

@@ -319,6 +319,57 @@ def test_cuda_tcgnn_kernels_match_plain(cuda_device, dtype, B):  # noqa: F811
                   tc_mod.plain_dw(tiles, gi, x, g))
 
 
+def _real_slot_tcgnn(gen, B: int, dev, nbr: int = 12, C: int = 256):
+    """A payload whose block rows differ in real slots (those up to the
+    last tile column with a non-zero; the rest zero and pointing at row
+    0): row 0 has none, row 1 uses all C, row 2 holds one non-zero, in its
+    last slot, and the other rows random counts with about 30 % non-zero
+    inside them.  Returns tiles, gather_idx and the counts."""
+    counts = torch.randint(1, C, (nbr,), generator=gen, device=dev)
+    counts[0], counts[1], counts[2] = 0, C, C
+    live = torch.arange(C, device=dev)[None, :] < counts[:, None]
+    tiles = (torch.randn((nbr, B, C), generator=gen, device=dev)
+             * (torch.rand((nbr, B, C), generator=gen, device=dev) < 0.3)
+             * live[:, None, :])
+    tiles[2] = 0.0
+    rows = torch.arange(1, nbr, device=dev)
+    tiles[rows, rows % B, counts[1:] - 1] = 1.5   # each last real slot
+    gi = (torch.randint(0, nbr * B, (nbr, C), generator=gen, device=dev,
+                        dtype=torch.int32) * live).to(torch.int32)
+    return tiles, gi, counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [8, 16, 32, 64])
+def test_cuda_tcgnn_fused_skips_padded_slots(cuda_device, dtype, B):  # noqa: F811
+    """tcgnn_spmm_fused walks only a row's real slots: on payloads whose
+    rows have none, all C, one non-zero in the last slot, or a random
+    count, it matches its plain version at Fi = 500 (the wide kernel;
+    bfloat16 rows of 1000 bytes take 8-byte copies) and at the narrow
+    widths, with and without y_in, and gives the same bits twice."""
+    tol = (tp.F32_TOL if dtype == torch.float32
+           else dict(atol=2e-1, rtol=3e-1))
+    dev = cuda_device
+    gen = torch.Generator(device=dev).manual_seed(300 + B)
+    tiles, gi, counts = _real_slot_tcgnn(gen, B, dev)
+    assert torch.equal(tc_mod.real_slots(tiles), counts)
+    n = tiles.shape[0] * B
+    for Fi, Fo in ((500, 16), (16, 3), (3, 16)):
+        x = torch.randn((n, Fi), generator=gen, device=dev).to(dtype)
+        w = (torch.randn((Fi, Fo), generator=gen, device=dev)
+             / Fi ** 0.5).to(dtype)
+        for y_in in (None, torch.randn((n, Fo), generator=gen,
+                                       device=dev).to(dtype)):
+            got = tc_mod.tcgnn_spmm_fused(tiles, gi, x, w, y_in)
+            again = tc_mod.tcgnn_spmm_fused(tiles, gi, x, w, y_in)
+            torch.cuda.synchronize()
+            assert torch.equal(got, again)
+            torch.testing.assert_close(
+                got.float(), tc_mod.plain_fused(tiles, gi, x, w,
+                                                y_in).float(), **tol)
+
+
 @pytest.mark.cuda
 def test_cuda_tcgnn_dw_is_deterministic(cuda_device):  # noqa: F811
     gen = torch.Generator(device=cuda_device).manual_seed(6)
@@ -484,6 +535,31 @@ def test_cuda_flash_attention_matches_plain(cuda_device, dtype, causal, d,
         torch.cuda.synchronize()
         assert got.dtype == dtype and got.shape == (B, Hq, Sq, dv)
         assert_flash_close(got, fa_mod.plain(*args, causal=causal))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("group", [1, 2, 4])
+def test_cuda_flash_attention_bf16_ragged_and_grouped(cuda_device, d,
+                                                      group):  # noqa: F811
+    """The bfloat16 tensor-core path (d = dv) where its 128-row query and
+    128-key tiles are ragged: Sq not a multiple of 128 (causal and not),
+    Sq != Skv with both ragged (non-causal), one query and one key, at
+    GQA groups Hq / Hkv of 1, 2 and 4."""
+    gen = torch.Generator(device=cuda_device).manual_seed(40 + d + group)
+    cases = [(2, 2, 200, 200, True), (1, 2, 200, 200, False),
+             (1, 2, 96, 333, False), (2, 1, 333, 96, False),
+             (1, 1, 1, 1, True)]
+    for B, Hkv, Sq, Skv, causal in cases:
+        Hq = Hkv * group
+        q, k, v = (torch.randn((B, h, s, d), generator=gen,
+                               device=cuda_device).bfloat16()
+                   for h, s in ((Hq, Sq), (Hkv, Skv), (Hkv, Skv)))
+        got = fa_mod.flash_attention(q, k, v, causal=causal, blk_q=Sq,
+                                     blk_k=Skv)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.bfloat16 and got.shape == (B, Hq, Sq, d)
+        assert_flash_close(got, fa_mod.plain(q, k, v, causal=causal))
 
 
 @pytest.mark.cuda

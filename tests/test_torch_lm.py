@@ -59,6 +59,7 @@ def _imports(path: Path) -> set[str]:
 def test_port_imports_neither_jax_nor_the_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    files += sorted((ROOT / "tools").glob("*.py"))
     assert len(files) > 30
     for path in files:
         for name in _imports(path):

@@ -10,6 +10,8 @@ import torch_parity as tp  # noqa: I001  (first: pins torch to one thread)
 
 import dataclasses
 import functools
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -280,3 +282,46 @@ def test_tcgnn_dx_pass_runs_only_when_autograd_asks(monkeypatch, fused):
         else:
             assert calls == [name]               # dH, needed for dW
         assert (x.grad is not None) == needs and w.grad is not None
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module (it imports only the standard library)."""
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("block_size", [8, 16])
+def test_tcgnn_padding_is_a_suffix_of_each_block_row(block_size):
+    """What tcgnn_spmm_fused's skip of padded slots relies on, on the
+    main path's payloads (``prepare`` of a pubmed-shaped graph, forward
+    and transpose): in every block row the slots before ``real_slots``
+    each hold a non-zero and the slots past it are all-zero tile columns
+    with gather_idx 0; and ``real_slots`` sums to what chip_smoke.py's
+    ``real_slot_count`` counts."""
+    cs = _chip_smoke()
+    g = TG.synth_dataset("pubmed", scale=0.05, seed=0)
+    cfg = TGNN.GNNConfig(hidden=16, n_layers=2, comm_size=block_size,
+                         reorder="bfs", inter_buckets=1, selector="fixed",
+                         fixed_kernels=("block_diag", "tcgnn_tile"), seed=0)
+    dec = TGNN.prepare(g, cfg, device="cpu")
+    for p in dec.sub("inter").formats["tcgnn_tile"]:
+        k = TT.real_slots(p.tiles)
+        assert k.shape == (p.n_brow,) and int(k.max()) <= p.n_cond
+        live = torch.arange(p.n_cond)[None, :] < k[:, None]
+        assert torch.equal((p.tiles != 0).any(dim=1), live)
+        assert not p.gather_idx[~live].any()
+        assert int(k.sum()) == cs.real_slot_count(p.tiles) > 0
+
+
+def test_tcgnn_real_slots_counts_to_the_last_non_zero_column():
+    """real_slots is one past a row's last non-zero tile column, whatever
+    lies before it (zero columns inside, a NaN) and 0 for an empty row."""
+    tiles = torch.zeros((4, 2, 6))
+    tiles[1, 0, 0] = 1.0
+    tiles[2, 1, 4] = -2.0                     # zero columns 0..3 before it
+    tiles[3, 0, 2] = float("nan")
+    assert TT.real_slots(tiles).tolist() == [0, 1, 5, 3]
+    assert TT.real_slots(torch.zeros((0, 2, 6))).shape == (0,)
