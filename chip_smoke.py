@@ -165,7 +165,8 @@ Phases, each of which raises (exit code != 0) on failure:
    (CUDA events, host launch included; GCN's unfused and feedback plans
    also with acc off, and the SAGE plans), each kernel's time at the main
    path's shapes beside its plain version, one PyTorch library call (or
-   composite) computing the same function and its bound, and
+   composite) computing the same function and its bound (bell_spmm also
+   over the transpose payload, the backward's dX passes), and
    torch.profiler tables with the device-busy share of a forward and of a
    training step per plan.
 
@@ -456,6 +457,30 @@ def tcgnn_fused_bound(torch, p, n: int, Fi: int, Fo: int) -> tuple:
                  2.0 * n_src * Fi * Fo + 2.0 * nnz * Fo, "float32")
 
 
+def tcgnn_dw_bound(torch, p, n: int, Fi: int, Fo: int) -> tuple:
+    """Bound of tcgnn_spmm_dw over transpose payload ``p`` at float32
+    widths (Fi, Fo): each tile and gather index read once, the (n, Fi) x,
+    each row of g that a real slot names and the (Fi, Fo) dW moved once;
+    2 nnz Fo + 2 n Fi Fo flops."""
+    nbr, B, C = p.tiles.shape
+    real = (p.tiles != 0).any(dim=1)
+    nnz = int((p.tiles != 0).sum())
+    n_src = int(torch.unique(p.gather_idx[real]).numel())
+    return bound(nbr * B * C * 4 + nbr * C * 4 + n * Fi * 4 + n_src * Fo * 4
+                 + Fi * Fo * 4, 2.0 * nnz * Fo + 2.0 * n * Fi * Fo,
+                 "float32")
+
+
+def bell_spmm_bound(bell, F: int) -> tuple:
+    """Bound of bell_spmm over payload ``bell`` at float32 width F: each
+    real block, its column index and the row counts read once, x read and
+    the (n_rows, F) output written once; 2 B^2 F flops a real block."""
+    nv, B = int(bell.n_valid.sum()), bell.block_size
+    return bound(nv * (B * B * 4 + 4) + bell.n_brow * 4
+                 + bell.n_cols * F * 4 + bell.n_rows * F * 4,
+                 2.0 * nv * B * B * F, "float32")
+
+
 def dw_rel_err(got, want, what: str) -> float:
     """max|got - want| / max|want| of a dW; raises above DW_REL_TOL."""
     if got.shape != want.shape or got.dtype != want.dtype:
@@ -599,15 +624,17 @@ def phase_kernels(torch, dec) -> dict:
     dev = dec.device
     gen = torch.Generator(device=dev).manual_seed(0)
     bd = dec.intra.formats["block_diag"]
-    bell = dec.sub("inter").formats["bell"][0]
+    bell, bell_t = dec.sub("inter").formats["bell"]
     errs = {k: {"float32": 0.0, "bfloat16": 0.0} for k in KERNELS}
 
-    # the main path's payloads first, then synthetic ones of other sizes
+    # the main path's payloads first (for bell_spmm the forward's and the
+    # backward dX pass's transpose), then synthetic ones of other sizes
     bd_cases = [(bd.block_size, bd.blocks)] + [
         (B, torch.randn((40, B, B), generator=gen, device=dev))
         for B in (8, 16, 32, 64) if B != bd.block_size]
-    bell_cases = [(bell.block_size, (bell.blocks, bell.col_idx,
-                                     bell.n_valid, bell.n_cols))] + [
+    bell_main = ("bell", "bell_t")
+    bell_cases = [(p.block_size, (p.blocks, p.col_idx, p.n_valid, p.n_cols))
+                  for p in (bell, bell_t)] + [
         (B, synthetic_bell(torch, gen, B, dev))
         for B in (8, 16, 32, 64) if B != bell.block_size]
     n_cases = 0
@@ -648,11 +675,17 @@ def phase_kernels(torch, dec) -> dict:
                     sync(torch, dev)
                     torch.testing.assert_close(got.float(), want.float(),
                                                **tol)
+                    if i < len(bell_main) and not torch.equal(
+                            got, bell_mod.bell_spmm(blocks.to(dtype), col_idx,
+                                                    x, y_in, n_valid=n_valid)):
+                        raise RuntimeError(f"bell_spmm over {bell_main[i]} "
+                                           "gave other bits on a second call")
                     e = max_err(got, want)
                     errs["bell_spmm"][name] = max(errs["bell_spmm"][name], e)
-                    if i == 0:
-                        log("kernel", f"bell_spmm {name} F={F} "
-                            f"y_in={with_y}: max|err| {e:.3g}")
+                    if i < len(bell_main):
+                        log("kernel", f"bell_spmm {bell_main[i]} {name} F={F} "
+                            f"y_in={with_y}: max|err| {e:.3g} (same bits "
+                            "twice)")
                     n_cases += 1
     # every slot, without the count of real blocks (the TPU kernel's loop)
     x = torch.randn((bell.n_cols, 16), generator=gen, device=dev)
@@ -663,7 +696,8 @@ def phase_kernels(torch, dec) -> dict:
     errs["bell_spmm"]["float32"] = max(errs["bell_spmm"]["float32"],
                                        max_err(got, want))
     log("kernel", f"{n_cases + 1} cases within tolerance (main-path "
-        f"payloads and B in 8, 16, 32, 64); largest errors {errs}")
+        f"payloads, bell_spmm's bell and bell_t, and B in 8, 16, 32, 64); "
+        f"largest errors {errs}")
     return errs
 
 
@@ -1276,7 +1310,7 @@ def time_tcgnn_kernels(torch, dec, flush) -> dict:
                 int(torch.unique(p.gather_idx[real]).numel()))
 
     nnz, n_src = named(tc)
-    nnz_t, n_src_t = named(tc_t)
+    nnz_t = named(tc_t)[0]
     walked = int(tc_mod.real_slots(tc.tiles).sum())
     meta = nbr * B * C * 4 + nbr * C * 4
     rows = {k: {} for k in ("tcgnn_spmm", "tcgnn_spmm_fused",
@@ -1325,9 +1359,7 @@ def time_tcgnn_kernels(torch, dec, flush) -> dict:
             tc_t.tiles, g[gi_t]).view(n, Fo)
         dw_rel_err(lib(), tc_mod.plain_dw(tc_t.tiles, tc_t.gather_idx, x, g),
                    "x.T @ bmm(tiles_t, g[gather_idx_t])")
-        b_ms, b_by = bound(meta + n * Fi * be + n_src_t * Fo * be
-                           + Fi * Fo * 4,
-                           2.0 * nnz_t * Fo + 2.0 * n * Fi * Fo, "float32")
+        b_ms, b_by = tcgnn_dw_bound(torch, tc_t, n, Fi, Fo)
         rows["tcgnn_spmm_dw"][key] = dict(
             ms=graph_ms(torch, lambda: tc_mod.tcgnn_spmm_dw(
                 tc_t.tiles, tc_t.gather_idx, x, g), flush),
@@ -3212,8 +3244,8 @@ def main() -> int:
     flush = scratch.zero_
     gen = torch.Generator(device="cuda").manual_seed(1)
     nb, B = bd.blocks.shape[0], bd.block_size
-    nv = int(bell.n_valid.sum())
-    bsr = bsr_of(torch, bell)
+    nv, nv_t = int(bell.n_valid.sum()), int(bell_t.n_valid.sum())
+    bsr, bsr_t = bsr_of(torch, bell), bsr_of(torch, bell_t)
     rows = {"block_diag_spmm": {}, "bell_spmm": {}}
     for F in (16, 3):
         h = torch.randn((dec.n_pad, F), generator=gen, device="cuda")
@@ -3241,10 +3273,7 @@ def main() -> int:
         lib_ms, lib_how = ((None, "none") if bsr is None else
                            yardstick_ms(torch, lambda: bsr @ h, flush,
                                         f"BSR @ x F={F}"))
-        Bb = bell.block_size
-        n_bytes = (nv * (Bb * Bb * be + 4) + bell.n_brow * 4
-                   + bell.n_cols * F * be + bell.n_rows * F * be)
-        b_ms, b_by = bound(n_bytes, 2.0 * nv * Bb * Bb * F, "float32")
+        b_ms, b_by = bell_spmm_bound(bell, F)
         rows["bell_spmm"][F] = dict(
             ms=graph_ms(torch, lambda: bell_mod.bell_spmm(
                 bell.blocks, bell.col_idx, h, n_valid=bell.n_valid), flush),
@@ -3256,14 +3285,41 @@ def main() -> int:
             bound_ms=b_ms, bound_by=b_by,
             shape=[list(bell.blocks.shape), [nv, "real blocks"],
                    [dec.n_pad, F]])
+        # the backward's dX pass: the same kernel over the transpose payload,
+        # held against its plain version (same bits twice) before it is timed
+        ht = torch.randn((bell_t.n_cols, F), generator=gen, device="cuda")
+        want_t = bell_mod.plain(bell_t.blocks, bell_t.col_idx, ht)
+        got_t = bell_mod.bell_spmm(bell_t.blocks, bell_t.col_idx, ht,
+                                   n_valid=bell_t.n_valid)
+        torch.testing.assert_close(got_t, want_t, **F32_TOL)
+        if not torch.equal(got_t, bell_mod.bell_spmm(
+                bell_t.blocks, bell_t.col_idx, ht, n_valid=bell_t.n_valid)):
+            raise RuntimeError(f"bell_spmm over bell_t F={F} gave other bits "
+                               "on a second call")
+        if bsr_t is not None:
+            torch.testing.assert_close(bsr_t @ ht, want_t, **F32_TOL)
+        lib_t = ((None, "none") if bsr_t is None else
+                 yardstick_ms(torch, lambda: bsr_t @ ht, flush,
+                              f"BSR_t @ x F={F}"))[0]
+        b_ms, b_by = bell_spmm_bound(bell_t, F)
+        rows["bell_spmm"][F].update(
+            ms_bell_t=graph_ms(torch, lambda: bell_mod.bell_spmm(
+                bell_t.blocks, bell_t.col_idx, ht, n_valid=bell_t.n_valid),
+                flush),
+            library_ms_bell_t=lib_t, bound_ms_bell_t=b_ms,
+            shape_bell_t=[list(bell_t.blocks.shape), [nv_t, "real blocks"],
+                          [bell_t.n_cols, F]])
         for k in rows:
             r = rows[k][F]
             log("timing", f"{k} F={F}: {r['ms']:.4f} ms (L2 cold), plain "
                 f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms "
                 f"({r['library_call']}), bound {r['bound_ms']:.4f} ms "
-                f"({r['bound_by']})")
-    rows.update(time_train_kernels(torch, dec, flush, bsr,
-                                   bsr_of(torch, bell_t)))
+                f"({r['bound_by']})" + (
+                    f"; over bell_t {r['ms_bell_t']:.4f} ms, library "
+                    f"{r['library_ms_bell_t']} ms, bound "
+                    f"{r['bound_ms_bell_t']:.4f} ms" if "ms_bell_t" in r
+                    else ""))
+    rows.update(time_train_kernels(torch, dec, flush, bsr, bsr_t))
     rows.update(time_tcgnn_kernels(torch, dec, flush))
     rows.update(time_dual_kernel(torch, sdec, flush))
     rows.update(time_flash_kernel(torch, flush))

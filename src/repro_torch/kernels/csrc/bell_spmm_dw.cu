@@ -62,37 +62,12 @@
 namespace {
 
 using repro_torch::align16;
-using repro_torch::copy_granule;
+using repro_torch::copy_rows;
 using repro_torch::cp_commit;
 using repro_torch::cp_wait;
 using repro_torch::granule;
 using repro_torch::ld4;
 using repro_torch::to_f32;
-
-// ---------------------------------------------------------------------------
-// copies
-// ---------------------------------------------------------------------------
-
-// Copies `rows` rows of `gpr` g-byte granules from src (row pitch sp
-// elements) to dst (row pitch dp elements), zero-filling each row past its
-// first n elements.  Thread tid of nthr moves every nthr-th granule; the
-// row of a granule is e / gpr, taken in float (exact for e < 2^21).
-template <typename T>
-__device__ __forceinline__ void copy_rows(T* dst, int dp, const T* src,
-                                          int sp, int n, int rows, int gpr,
-                                          float inv_gpr, int g, int tid,
-                                          int nthr) {
-  const int eg = g / static_cast<int>(sizeof(T));
-  for (int e = tid; e < rows * gpr; e += nthr) {
-    const int r = static_cast<int>((e + 0.5f) * inv_gpr);
-    const int col = (e - r * gpr) * eg;
-    const int bytes =
-        max(0, min(g, (n - col) * static_cast<int>(sizeof(T))));
-    copy_granule(dst + r * dp + col,
-                 src + static_cast<size_t>(r) * sp + (bytes > 0 ? col : 0), g,
-                 bytes);
-  }
-}
 
 inline int pow2_ceil(int v) {
   int p = 1;

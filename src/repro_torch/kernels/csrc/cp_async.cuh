@@ -1,6 +1,6 @@
 // Asynchronous copies into shared memory and shared-memory reads shared by
-// the port's gather kernels (bell_spmm_fused.cu, bell_spmm_dw.cu,
-// tcgnn_spmm_fused.cu).
+// the port's gather kernels (bell_spmm.cu, bell_spmm_fused.cu,
+// bell_spmm_dw.cu, tcgnn_spmm_fused.cu, tcgnn_spmm_dw.cu).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -32,6 +32,27 @@ __device__ __forceinline__ void copy_granule(void* dst, const void* src,
     default:
       *static_cast<uint16_t*>(dst) =
           bytes > 0 ? *static_cast<const uint16_t*>(src) : uint16_t{0};
+  }
+}
+
+// Copies `rows` rows of `gpr` g-byte granules from src (row pitch sp
+// elements) to dst (row pitch dp elements), zero-filling each row past its
+// first n elements.  Thread tid of nthr moves every nthr-th granule; the
+// row of a granule is e / gpr, taken in float (exact for e < 2^21).
+template <typename T>
+__device__ __forceinline__ void copy_rows(T* dst, int dp, const T* src,
+                                          int sp, int n, int rows, int gpr,
+                                          float inv_gpr, int g, int tid,
+                                          int nthr) {
+  const int eg = g / static_cast<int>(sizeof(T));
+  for (int e = tid; e < rows * gpr; e += nthr) {
+    const int r = static_cast<int>((e + 0.5f) * inv_gpr);
+    const int col = (e - r * gpr) * eg;
+    const int bytes =
+        max(0, min(g, (n - col) * static_cast<int>(sizeof(T))));
+    copy_granule(dst + r * dp + col,
+                 src + static_cast<size_t>(r) * sp + (bytes > 0 ? col : 0), g,
+                 bytes);
   }
 }
 

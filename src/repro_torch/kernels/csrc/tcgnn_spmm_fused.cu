@@ -13,9 +13,9 @@
 // Real slots.  A block row's slots past the last one whose tile column
 // holds a non-zero in any of its B rows add nothing, so neither kernel
 // gathers or transforms them: each CTA first reads its (B, C) tile and
-// takes that count itself (the payload carries none; coo_to_tcgnn ranks
-// a row's columns densest first, so its padding is a suffix, but any
-// all-zero suffix is skipped).  At pubmed's inter tier that is 79463 of
+// takes that count itself (tcgnn_real.cuh; the payload carries none;
+// coo_to_tcgnn ranks a row's columns densest first, so its padding is a
+// suffix, but any all-zero suffix is skipped).  At pubmed's inter tier that is 79463 of
 // the 157824 slots.  Skipping an all-zero column changes the result only
 // where its gathered row of X holds an infinity or a NaN (0 * inf is NaN
 // in the plain version, nothing here).
@@ -72,6 +72,7 @@
 
 #include "cp_async.cuh"
 #include "dtype.cuh"
+#include "tcgnn_real.cuh"
 
 namespace {
 
@@ -82,6 +83,7 @@ using repro_torch::cp_wait;
 using repro_torch::from_f32;
 using repro_torch::granule;
 using repro_torch::ld4;
+using repro_torch::real_slots;
 using repro_torch::to_f32;
 
 constexpr int kThreads = 256;
@@ -89,43 +91,6 @@ constexpr int kThreads = 256;
 // ---------------------------------------------------------------------------
 // shared pieces
 // ---------------------------------------------------------------------------
-
-// The number of real slots of a block row: one past the last slot whose
-// column of the (B, C) tile at t_row holds a non-zero (a NaN counts).  Every
-// thread of the CTA calls it; s_n is a shared int.  vec: C % 4 == 0 and
-// t_row is 16-byte aligned, so the tile is read as float4.
-__device__ __forceinline__ int real_slots(const float* __restrict__ t_row,
-                                          int B, int C, bool vec, int* s_n) {
-  if (threadIdx.x == 0) *s_n = 0;
-  __syncthreads();
-  int last = 0;
-  if (vec) {
-    const int c4 = C / 4;
-#pragma unroll 4
-    for (int e = threadIdx.x; e < B * c4; e += blockDim.x) {
-      const float4 v = __ldg(reinterpret_cast<const float4*>(t_row) + e);
-      const int s = (e - e / c4 * c4) * 4;
-      const int k = v.w != 0.f   ? 4
-                    : v.z != 0.f ? 3
-                    : v.y != 0.f ? 2
-                    : v.x != 0.f ? 1
-                                 : 0;
-      if (k) last = max(last, s + k);
-    }
-  } else {
-    for (int s = threadIdx.x; s < C; s += blockDim.x) {
-      bool nz = false;
-#pragma unroll 8
-      for (int r = 0; r < B; ++r)
-        nz |= t_row[static_cast<size_t>(r) * C + s] != 0.f;
-      if (nz) last = s + 1;
-    }
-  }
-  last = __reduce_max_sync(0xffffffffu, last);
-  if ((threadIdx.x & 31) == 0 && last > 0) atomicMax(s_n, last);
-  __syncthreads();
-  return *s_n;
-}
 
 template <typename T>
 struct Args {

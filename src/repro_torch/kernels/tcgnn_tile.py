@@ -49,8 +49,12 @@ fused_launches = _build.LaunchCount()
 dw_launches = _build.LaunchCount()
 
 # block rows per partial sum of tcgnn_spmm_dw: fixed, so the order of the
-# reduction (and the result's bits) does not depend on the card
-DW_ROWS_PER_SPLIT = 8
+# reduction (and the result's bits) does not depend on the card.  Tuned to
+# pubmed: at 10, its 1233 transpose block rows make 124 CTAs, one wave over
+# an H100's 132 SMs (4, 8 and 16 were slower).  Phase a of
+# csrc/tcgnn_spmm_dw.cu gives each of a split's rows its own warp only up to
+# 16 rows; another value must be measured again
+DW_ROWS_PER_SPLIT = 10
 
 
 @dataclass(frozen=True)
@@ -233,6 +237,13 @@ def tcgnn_spmm_fused(tiles: torch.Tensor, gather_idx: torch.Tensor,
     return y
 
 
+def dw_splits(nbr: int) -> int:
+    """Partial sums of tcgnn_spmm_dw over ``nbr`` block rows: split s owns
+    rows [s * DW_ROWS_PER_SPLIT, (s + 1) * DW_ROWS_PER_SPLIT), the last one
+    the rest."""
+    return -(-nbr // DW_ROWS_PER_SPLIT)
+
+
 def tcgnn_spmm_dw(tiles_t: torch.Tensor, gather_idx_t: torch.Tensor,
                   x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """dW = x^T @ (A^T @ g), A^T given as the condensed transpose payload.
@@ -249,8 +260,7 @@ def tcgnn_spmm_dw(tiles_t: torch.Tensor, gather_idx_t: torch.Tensor,
         return plain_dw(tiles_t, gather_idx_t, x, g)
     code = _cuda_code(tiles_t, gather_idx_t, x, g)
     Fi, Fo = x.shape[1], g.shape[1]
-    n_split = -(-nbr // DW_ROWS_PER_SPLIT)
-    partial = torch.empty((n_split, Fi, Fo), dtype=torch.float32,
+    partial = torch.empty((dw_splits(nbr), Fi, Fo), dtype=torch.float32,
                           device=x.device)
     dw = torch.empty((Fi, Fo), dtype=torch.float32, device=x.device)
     lib = _build.library("tcgnn_spmm_dw")

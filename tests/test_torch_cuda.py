@@ -384,6 +384,60 @@ def test_cuda_tcgnn_dw_is_deterministic(cuda_device):  # noqa: F811
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [5, 8, 16, 32, 64])
+def test_cuda_bell_spmm_ragged_payloads(cuda_device, dtype, B):  # noqa: F811
+    """bell_spmm against its plain version on a payload with empty rows and
+    one row of 83 blocks beside rows of at most 4, naming more block
+    columns than it has block rows, at widths that take the whole of F in
+    one tile (1, 3, 16, 17, 64) and several tiles (65, 500): with and
+    without y_in, with n_valid and with every slot walked; the same bits on
+    a second call."""
+    tol = (tp.F32_TOL if dtype == torch.float32
+           else dict(atol=2e-1, rtol=3e-1))
+    gen = torch.Generator(device=cuda_device).manual_seed(30 + B)
+    nbr, n_cols = 24, 40
+    blocks, col_idx, n_valid = _ragged_bell(gen, B, cuda_device, nbr=nbr,
+                                            n_col_blocks=n_cols)
+    blocks = blocks.to(dtype)
+    for F in (1, 3, 16, 17, 64, 65, 500):
+        x = torch.randn((n_cols * B, F), generator=gen,
+                        device=cuda_device).to(dtype)
+        y_in = torch.randn((nbr * B, F), generator=gen,
+                           device=cuda_device).to(dtype)
+        for yi, nv in ((None, n_valid), (y_in, n_valid), (y_in, None)):
+            got = bell_mod.bell_spmm(blocks, col_idx, x, yi, n_valid=nv)
+            again = bell_mod.bell_spmm(blocks, col_idx, x, yi, n_valid=nv)
+            torch.cuda.synchronize()
+            assert torch.equal(got, again), (F, yi is None, nv is None)
+            torch.testing.assert_close(
+                got.float(), bell_mod.plain(blocks, col_idx, x, yi).float(),
+                **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [8, 16, 32, 64])
+def test_cuda_tcgnn_dw_skips_padded_slots(cuda_device, dtype, B):  # noqa: F811
+    """tcgnn_spmm_dw walks only a row's real slots: on payloads whose rows
+    have none, all C, one non-zero in the last slot, or a random count, dW
+    is within 1e-5 of max|dW| of its plain version at (500, 16), (16, 3),
+    (3, 16) and (1100, 65), and the same bits on a second call."""
+    gen = torch.Generator(device=cuda_device).manual_seed(40 + B)
+    tiles, gi, counts = _real_slot_tcgnn(gen, B, cuda_device)
+    assert torch.equal(tc_mod.real_slots(tiles), counts)
+    n = tiles.shape[0] * B
+    for Fi, Fo in ((500, 16), (16, 3), (3, 16), (1100, 65)):
+        x = torch.randn((n, Fi), generator=gen, device=cuda_device).to(dtype)
+        g = torch.randn((n, Fo), generator=gen, device=cuda_device).to(dtype)
+        got = tc_mod.tcgnn_spmm_dw(tiles, gi, x, g)
+        again = tc_mod.tcgnn_spmm_dw(tiles, gi, x, g)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), (Fi, Fo)
+        _close_dw(got, tc_mod.plain_dw(tiles, gi, x, g))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B", [8, 16, 32, 64])
 def test_cuda_dual_kernel_matches_plain(cuda_device, dtype, B):  # noqa: F811
     """block_diag_spmm_dual at the main path's SAGE widths, with and

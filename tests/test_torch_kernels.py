@@ -136,3 +136,20 @@ def test_build_targets_hopper_and_names_libraries_by_content():
             assert (t is ctypes.c_void_p) == ("*" in p), (name, p)
     digests = {_build._digest(n) for n in _build.SOURCES}
     assert len(digests) == len(_build.SOURCES)
+
+
+def test_every_included_header_is_in_the_build_digest():
+    """Each ``#include "..."`` of a kernel source or header names a file in
+    ``_build.HEADERS`` (so an edit to it changes every library's content
+    digest and no stale library loads), and each listed header exists."""
+    for h in _build.HEADERS:
+        assert (_build.CSRC / h).is_file(), h
+    files = sorted(_build.CSRC.glob("*.cu")) + sorted(_build.CSRC.glob("*.cuh"))
+    assert {f.stem for f in files if f.suffix == ".cu"} == set(_build.SOURCES)
+    included = set()
+    for f in files:
+        for name in re.findall(r'^\s*#\s*include\s+"([^"]+)"', f.read_text(),
+                               re.M):
+            assert name in _build.HEADERS, (f.name, name)
+            included.add(name)
+    assert included == set(_build.HEADERS)

@@ -325,3 +325,47 @@ def test_tcgnn_real_slots_counts_to_the_last_non_zero_column():
     tiles[3, 0, 2] = float("nan")
     assert TT.real_slots(tiles).tolist() == [0, 1, 5, 3]
     assert TT.real_slots(torch.zeros((0, 2, 6))).shape == (0,)
+
+
+@pytest.mark.parametrize("block_size", [8, 16])
+def test_tcgnn_dw_over_real_slots_matches_all_slots(block_size):
+    """What tcgnn_spmm_dw's skip of padded slots relies on, on the main
+    path's transpose payload (``prepare`` of a pubmed-shaped graph): dW
+    summed over each block row's slots cut at ``real_slots`` equals dW over
+    all C slots (float32, 1e-4), whichever rows of g the cut slots name."""
+    g = TG.synth_dataset("pubmed", scale=0.05, seed=0)
+    cfg = TGNN.GNNConfig(hidden=16, n_layers=2, comm_size=block_size,
+                         reorder="bfs", inter_buckets=1, selector="fixed",
+                         fixed_kernels=("block_diag", "tcgnn_tile"), seed=0)
+    dec = TGNN.prepare(g, cfg, device="cpu")
+    tc_t = dec.sub("inter").formats["tcgnn_tile"][1]
+    tiles, gi = tc_t.tiles, tc_t.gather_idx
+    k = TT.real_slots(tiles)
+    assert 0 < int(k.max()) < tc_t.n_cond
+    rng = np.random.default_rng(block_size)
+    n = tc_t.n_rows
+    for fi, fo in ((500, 16), (16, 3)):
+        x = torch.from_numpy(rng.standard_normal((n, fi)).astype(np.float32))
+        gg = torch.from_numpy(rng.standard_normal((n, fo)).astype(np.float32))
+        want = TT.plain_dw(tiles, gi, x, gg)
+        kmax = int(k.max())
+        tp.assert_close(want, TT.plain_dw(tiles[:, :, :kmax].contiguous(),
+                                          gi[:, :kmax].contiguous(), x, gg))
+        cut = torch.arange(tc_t.n_cond)[None, :] >= k[:, None]
+        other = torch.from_numpy(rng.integers(0, n, gi.shape, np.int32))
+        tp.assert_close(want, TT.plain_dw(tiles, torch.where(cut, other, gi),
+                                          x, gg))
+
+
+def test_tcgnn_dw_splits_are_fixed_and_cover_every_block_row():
+    """tcgnn_spmm_dw's partial sums: a fixed number of block rows each (not
+    taken from the card), every row in exactly one split, and at pubmed's
+    1233 transpose block rows one wave of CTAs over an H100's 132 SMs.  At
+    most 16 rows a split, so phase a of the kernel gives each row a warp."""
+    r = TT.DW_ROWS_PER_SPLIT
+    assert isinstance(r, int) and 1 <= r <= 16
+    assert TT.dw_splits(1233) == 124 <= 132
+    for nbr in (1, 9, 10, 11, 1233):
+        s = TT.dw_splits(nbr)
+        assert (s - 1) * r < nbr <= s * r
+    assert TT.dw_splits(0) == 0
