@@ -2519,7 +2519,8 @@ def phase_rwkv_serve(torch, counts: dict) -> dict:
         f"{B}) {decode_ms:.3f} ms per token")
     busy = dict(prefill=profile_busy(torch, fns["kernel"], 2,
                                      prefill_ms["kernel"],
-                                     "RWKV prefill step"),
+                                     "RWKV prefill step",
+                                     expect={"rwkv6_kernel": cfg.n_layers}),
                 decode=profile_busy(torch, lambda: serve_step(
                     params, caches, nxt, P), 5, decode_ms,
                     "RWKV decode step"))
@@ -2963,7 +2964,8 @@ def phase_jamba_serve(torch, counts: dict) -> dict:
                 f"{moe_ms[n]['rule']}")
     busy = dict(prefill=profile_busy(torch, fns["kernel"], 2,
                                      prefill_ms["kernel"],
-                                     "Jamba prefill step"),
+                                     "Jamba prefill step",
+                                     expect={"mamba_scan_kernel": 7}),
                 decode=profile_busy(torch, lambda: serve_step(
                     params, caches, nxt, P), 5, decode_ms,
                     "Jamba decode step"))
@@ -3020,10 +3022,10 @@ def time_mamba_kernel(torch, flush) -> dict:
     return {"mamba_scan": rows}
 
 
-def profile_busy(torch, fn, iters: int, median_ms: float, what: str):
-    """Device time per call of ``fn`` from torch.profiler, its top kernels,
-    and its share of ``median_ms``; None where the profiler saw no device
-    time."""
+def profile_once(torch, fn, iters: int):
+    """One torch.profiler window over ``iters`` calls of ``fn``: its device
+    rows (us per call, events per call, name), largest first, the wall us
+    per call, and each kernel name's device events over the window."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -3033,14 +3035,39 @@ def profile_busy(torch, fn, iters: int, median_ms: float, what: str):
             fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6 / iters
-    dev_rows = []
+    dev_rows, events = [], {}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0.0)
         if us > 0 and str(getattr(e, "device_type", "")).endswith("CUDA"):
             dev_rows.append((us / iters, e.count // iters, e.key))
+            events[e.key] = events.get(e.key, 0) + e.count
     dev_rows.sort(reverse=True)
+    return dev_rows, wall_us, events
+
+
+def profile_busy(torch, fn, iters: int, median_ms: float, what: str,
+                 expect: dict | None = None):
+    """Device time per call of ``fn`` from torch.profiler, its top kernels,
+    and its share of ``median_ms``; None where the profiler saw no device
+    time.  ``expect`` maps a kernel name (a part of its device events' key)
+    to its launches per call: a window whose events of that kernel are not
+    that many per call (the profiler can carry one window's events into the
+    next) is profiled once more, and if it still differs the counts are
+    logged and the reading is not measured (None)."""
+    for attempt in range(2):
+        dev_rows, wall_us, events = profile_once(torch, fn, iters)
+        got = {name: sum(c for key, c in events.items() if name in key)
+               for name in (expect or {})}
+        want = {name: n * iters for name, n in (expect or {}).items()}
+        if got == want:
+            break
+        log("profile", f"{what}: device events {got} over {iters} calls, "
+            f"expected {want}" + ("; profiling again" if attempt == 0 else
+                                  "; device-busy share not measured"))
+    else:
+        return None
     for us, cnt, key in dev_rows[:10]:
         log("profile", f"{us:9.1f} us/{what}  x{cnt}  {key[:90]}")
     busy_us = sum(r[0] for r in dev_rows)
@@ -3050,6 +3077,8 @@ def profile_busy(torch, fn, iters: int, median_ms: float, what: str):
         return None
     busy = dict(busy_us=busy_us, share_of_profiled_wall=busy_us / wall_us,
                 share_of_median=busy_us / (median_ms * 1e3))
+    if expect:
+        busy["kernel_events"] = got
     log("profile", f"device busy {busy_us:.1f} us per {what}: "
         f"{100 * busy['share_of_median']:.1f} % of the median {what} "
         f"({median_ms * 1e3:.1f} us), {100 * busy['share_of_profiled_wall']:.1f}"

@@ -221,31 +221,6 @@ def build_all(names: tuple[str, ...] = SOURCES) -> dict[str, Built]:
         return dict(_LIBS)
 
 
-def build_variant(name: str, defines: tuple[str, ...]) -> Built:
-    """Build (alone) and load ``csrc/<name>.cu`` with extra ``-D`` defines:
-    a variant kept for measurement beside the kernel, which no wrapper
-    launches."""
-    flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    so = BUILD_DIR / f"lib{name}-{_digest(name, flags)}.so"
-    if so.exists():
-        return _load(name, so, 0.0, ())
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    try:
-        proc = subprocess.run([nvcc(), *flags, "-o", str(tmp),
-                               str(CSRC / f"{name}.cu")], capture_output=True,
-                              text=True, timeout=BUILD_TIMEOUT_S)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for csrc/{name}.cu {defines} "
-                               f"(exit {proc.returncode}):\n{proc.stdout}"
-                               f"{proc.stderr}")
-        os.replace(tmp, so)
-    finally:
-        tmp.unlink(missing_ok=True)
-    return _load(name, so, time.perf_counter() - t0, ())
-
-
 def library(name: str) -> Built:
     """The loaded library of kernel ``name``, building all sources first
     if it is not loaded yet."""

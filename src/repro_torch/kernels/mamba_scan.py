@@ -7,9 +7,10 @@ from a zero state, x and dt (B, T, d_inner) with dt post-softplus, B and C
 
 ``mamba_scan`` is the counterpart of the Pallas kernel: on CUDA tensors it
 launches the hand kernel in ``csrc/mamba_scan.cu`` (design and bound in
-its header), which walks T in order, one thread per (batch row, channel)
-with its d_state values in registers; on CPU tensors it runs the plain
-version ``ref.mamba_ssm`` (the sequential oracle).  There is no fallback
+its header), which walks T in order with each channel's d_state values in
+the registers of 2 or 4 adjacent lanes and its inputs streamed through a
+ring of copies in shared memory; on CPU tensors it runs the plain version
+``ref.mamba_ssm`` (the sequential oracle).  There is no fallback
 between the two: a CUDA input launches the kernel or raises.  The
 reference's differentiable wrapper (``mamba_scan_trainable``, a Pallas
 forward with the oracle's VJP) comes with the LM train step (ROADMAP

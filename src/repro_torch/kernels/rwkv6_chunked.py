@@ -18,8 +18,10 @@ Two implementations, as in the reference:
   * ``rwkv6_chunked_kernel`` -- the counterpart of the Pallas kernel
     ``rwkv6_chunked_pallas``: forward only, from a zero state.  On CUDA
     tensors it launches the hand kernel in ``csrc/rwkv6_chunked.cu``
-    (design and bound in its header), which forms every decay as a product
-    of w's, so no factor exceeds 1 at any chunk length; on CPU tensors it
+    (design and bound in its header), which runs 16-step chunks with a
+    float64 state on the tensor cores and forms the intra-chunk decays at
+    the chunk start only where no factor can overflow (else from log2 sums,
+    each factor <= 1), so it is exact at any chunk length; on CPU tensors it
     runs the plain version ``ref.rwkv6_linear_attention``.  There is no
     fallback between the two: a CUDA input launches the kernel or raises.
 """

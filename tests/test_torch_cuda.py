@@ -747,6 +747,48 @@ def test_cuda_rwkv6_matches_plain(cuda_device, dtype, decay):  # noqa: F811
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_rwkv6_ragged_and_repeatable(cuda_device, dtype):  # noqa: F811
+    """The kernel's 16-step chunks and 3-slot copy ring against T that
+    neither divides (1030, 1025, 77, 70, 50, 33 steps; 1040 is 65 chunks),
+    at each compiled head width (dh 8 and 16 run the 16-wide build, 24 and
+    32 the 32-wide one, 40 and 64 the 64-wide one), batch 1 over more than
+    1024 steps (a head a CTA, the launch for grids of at most one CTA an
+    SM) and 144 heads of 64 (two CTAs an SM); two calls give the same
+    bits."""
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    cases = [((1, 2, 1040, 64), 8), ((1, 3, 1030, 32), 2),
+             ((1, 2, 1025, 8), 5), ((2, 2, 77, 16), 7),
+             ((3, 48, 70, 64), 10), ((3, 2, 50, 40), 10),
+             ((1, 1, 33, 24), 3)]
+    for (B, H, T, dh), chunk in cases:
+        for decay in ("rand", "one"):
+            args = _rwkv_inputs(gen, B, H, T, dh, dtype, decay, cuda_device)
+            got = rk_mod.rwkv6_chunked_kernel(*args, chunk=chunk)
+            again = rk_mod.rwkv6_chunked_kernel(*args, chunk=chunk)
+            torch.cuda.synchronize()
+            assert torch.equal(got, again), ((B, H, T, dh), decay)
+            assert_rwkv_close(got, args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_rwkv6_exact_far_below_the_decay_floor(cuda_device, dtype):  # noqa: F811
+    """w far below the model's floor (log w = -e^3, about -20) in every
+    other head over steps 48-159: there a chunk's decay falls under 2^-100
+    and the kernel forms its pair terms from the log2 sums, elsewhere from
+    the product factored at the chunk start; both match the oracle."""
+    gen = torch.Generator(device=cuda_device).manual_seed(13)
+    for B, H, T, dh in ((2, 4, 256, 64), (1, 3, 200, 24)):
+        r, k, v, w, u = _rwkv_inputs(gen, B, H, T, dh, dtype, "rand",
+                                     cuda_device)
+        w[:, ::2, 48:160] = float(torch.exp(-torch.exp(torch.tensor(3.0))))
+        got = rk_mod.rwkv6_chunked_kernel(r, k, v, w, u, chunk=8)
+        torch.cuda.synchronize()
+        assert_rwkv_close(got, (r, k, v, w, u))
+
+
+@pytest.mark.cuda
 def test_cuda_rwkv6_exact_where_the_chunked_form_overflows(cuda_device):  # noqa: F811
     """At chunk 128 with every decay at the floor the plain chunked form
     returns NaN (as the reference's does, ROADMAP section 3 fault 7); the
@@ -871,6 +913,35 @@ def test_cuda_mamba_scan_matches_plain(cuda_device, dt_scale):  # noqa: F811
         assert got.dtype == torch.bfloat16
         want = ms_mod.plain(xb.double(), dt, A, Bc, Cc, D)
         torch.testing.assert_close(got.double(), want, atol=1e-3, rtol=8e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_cuda_mamba_scan_ragged_and_repeatable(cuda_device, x_dtype):  # noqa: F811
+    """The kernel's launch shapes at d_state 16 (64 channels a CTA, 2
+    lanes a channel where the grid fills the card, 4 where batch 1 leaves
+    it at one CTA an SM; bulk copies where whole 256-byte rows of x line
+    up, cp.async otherwise) and its padded d_state 1, 3, 5 and 11, against
+    d_inner not a multiple of a CTA's channels (96, 8200, 72, 200, 40), T
+    not a multiple of its 16-step chunk (4100, 70, 50, 45, 37), batch 1
+    over 4096 steps; two calls give the same bits."""
+    gen = torch.Generator(device=cuda_device).manual_seed(14)
+    cases = [(1, 4096, 96, 16), (1, 4100, 128, 16), (3, 70, 8256, 16),
+             (2, 70, 8200, 16), (3, 50, 72, 1), (2, 45, 200, 3),
+             (2, 37, 40, 5), (1, 64, 136, 11)]
+    tol = (MAMBA_TOL if x_dtype == torch.float32
+           else dict(atol=1e-3, rtol=8e-3))
+    for B, T, di, ds in cases:
+        args = _mamba_inputs(gen, B, T, di, ds, cuda_device)
+        x = args[0].to(x_dtype)
+        got = ms_mod.mamba_scan(x, *args[1:], chunk=T, d_tile=di)
+        again = ms_mod.mamba_scan(x, *args[1:], chunk=T, d_tile=di)
+        torch.cuda.synchronize()
+        assert got.dtype == x_dtype and got.shape == (B, T, di)
+        assert torch.equal(got, again), (B, T, di, ds)
+        dt, Bc, Cc, A, D = (a.double() for a in args[1:])
+        want = ms_mod.plain(x.double(), dt, A, Bc, Cc, D)
+        torch.testing.assert_close(got.double(), want, **tol)
 
 
 @pytest.mark.cuda

@@ -337,10 +337,12 @@ def test_rwkv_config_and_cost_models():
     assert rk.rwkv6_hbm_bytes(4, 64, 1024, 64) == 5 * 4 * 64 * 1024 * 64 * 4
     assert rk.rwkv6_flops(4, 64, 1024, 64, chunk=128) == \
         4 * 64 * 8 * (2.0 * 128 * 128 * 64 + 4.0 * 128 * 64 * 64)
-    # the bound counts operations at the CUDA kernel's own chunk; its
-    # float32-state variant builds under a digest of its own
+    # the bound counts operations at the CUDA kernel's own chunk; its state
+    # is float64 on the tensor cores (no float32-state variant is built),
+    # and a library built with other flags never takes the kernel's digest
     src = (_build.CSRC / "rwkv6_chunked.cu").read_text()
     assert f"constexpr int kL = {rk.KERNEL_CHUNK};" in src
-    assert "#define RWKV6_STATE_T double" in src
+    assert "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64" in src
+    assert "RWKV6_STATE_T" not in src
     assert _build._digest("rwkv6_chunked") != _build._digest(
-        "rwkv6_chunked", (*_build.NVCC_FLAGS, "-DRWKV6_STATE_T=float"))
+        "rwkv6_chunked", (*_build.NVCC_FLAGS, "-lineinfo"))

@@ -1,12 +1,14 @@
-"""The redesigned gather kernels and the bf16 flash_attention path alone on
-the card.
+"""The redesigned gather kernels, the bf16 flash_attention path and the
+two scans alone on the card.
 
-Builds only the sources named by ``--kernels`` (by default all four:
+Builds only the sources named by ``--kernels`` (by default all six:
 ``csrc/bell_spmm.cu``, ``csrc/tcgnn_spmm_dw.cu``,
-``csrc/tcgnn_spmm_fused.cu`` and ``csrc/flash_attention.cu``), prepares the
-pubmed graph as ``chip_smoke.py`` does, and holds each kernel against its
-plain version, float32 and bfloat16, then times it (CUDA graphs, L2
-flushed) beside its library yardstick and bound, and probes what bounds it:
+``csrc/tcgnn_spmm_fused.cu``, ``csrc/flash_attention.cu``,
+``csrc/rwkv6_chunked.cu`` and ``csrc/mamba_scan.cu``), prepares the pubmed
+graph as ``chip_smoke.py`` does where a gather kernel is named, and holds
+each kernel against its plain version, float32 and bfloat16, then times it
+(CUDA graphs, L2 flushed) beside its library yardstick and bound, and
+probes what bounds it:
 
 - bell_spmm on pubmed's forward and transpose payloads (``bell``,
   ``bell_t``: the backward's dX pass) at F in {3, 16, 64, 500}, y_in on and
@@ -22,7 +24,14 @@ flushed) beside its library yardstick and bound, and probes what bounds it:
   and the dX pass 3x16 beside ``bmm(tiles, (x@w)[gather_idx])``; probe at
   500x16: L2 warm, Fi = 32 and 128;
 - flash_attention at ``chip_smoke.phase_kernels_flash``'s cases and gates;
-  timed bf16 causal at ``chip_smoke.FLASH_TIMED`` beside SDPA.
+  timed bf16 causal at ``chip_smoke.FLASH_TIMED`` beside SDPA;
+- rwkv6_chunked at ``chip_smoke.phase_kernels_rwkv``'s cases and gates;
+  timed at ``chip_smoke.RWKV_TIMED`` (bf16, and float32 at batch 4) beside
+  its bound, the same bits twice; probe: L2 warm (the second shape is
+  batch 1);
+- mamba_scan at ``chip_smoke.phase_kernels_mamba``'s cases and gates;
+  timed float32 at ``chip_smoke.MAMBA_TIMED`` beside its bound, the same
+  bits twice; probes: L2 warm, a bfloat16 x (the second shape is batch 1).
 
 With ``--baseline DIR`` (a checkout of another commit) it also builds that
 commit's sources of the chosen kernels and times them in turns with these
@@ -49,7 +58,8 @@ sys.path.insert(0, str(ROOT / "src"))
 import chip_smoke as cs  # noqa: E402
 
 SOURCES = ("bell_spmm", "tcgnn_spmm_dw", "tcgnn_spmm_fused",
-           "flash_attention")
+           "flash_attention", "rwkv6_chunked", "mamba_scan")
+GATHER = SOURCES[:3]     # the kernels timed on pubmed's payloads
 # (payload, Fi, Fo) of the timed tcgnn_spmm_fused calls: layer 1, layer 2,
 # and layer 2's dX pass over the transpose payload with W^T
 TCGNN_TIMED = {"500x16": (0, 500, 16), "16x3": (0, 16, 3),
@@ -214,6 +224,92 @@ def time_flash(torch, flush, base) -> dict:
         key = f"{B}x{Hq}x{Hkv}x{S}x{d}"
         rows[key] = r
         cs.log("timing", f"flash_attention {key} bf16: {json.dumps(r)}")
+    return rows
+
+
+def same_bits(torch, fn, what: str):
+    """``fn()``, after checking that a second call gives the same bits."""
+    got = fn()
+    if not torch.equal(got, fn()):
+        raise RuntimeError(f"{what} gave other bits on a second call")
+    return got
+
+
+def time_rwkv(torch, flush, base) -> dict:
+    """rwkv6_chunked at RWKV_TIMED (bf16, and float32 at the first shape)
+    beside its bound (as chip_smoke.time_rwkv_kernel), in turns with the
+    baseline; probe: L2 warm."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import rwkv6_chunked as rk
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    rows = {}
+    for i, (B, H, T, dh) in enumerate(cs.RWKV_TIMED):
+        for dtype in (torch.bfloat16, torch.float32)[:2 if i == 0 else 1]:
+            name = str(dtype).removeprefix("torch.")
+            args = cs.rwkv_inputs(torch, gen, B, H, T, dh, dtype, "rand")
+            r, k, v, w, u = args
+            new = lambda: rk.rwkv6_chunked_kernel(*args, chunk=128)  # noqa: E731
+            got = same_bits(torch, new, f"rwkv6_chunked {name}")
+            old, diff = None, None
+            if base is not None:
+                o = torch.empty_like(r)
+                code = _build.cuda_dtype_code((r, k, v))
+
+                def old():
+                    base.launch(r.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                w.data_ptr(), u.data_ptr(), o.data_ptr(), B,
+                                H, T, dh, code, _build.stream(r))
+                    return o
+                diff = cs.max_err(got, old())
+            n_bytes = (4 * r.numel() * r.element_size() + w.numel() * 4
+                       + u.numel() * 4)
+            b_ms, b_by = cs.bound(n_bytes, rk.rwkv6_flops(
+                B, H, T, dh, chunk=rk.KERNEL_CHUNK), name)
+            row = in_turns(torch, new, old, flush)
+            row.update(warm_l2_ms=cs.graph_ms(torch, new), bound_ms=b_ms,
+                       bound_by=b_by, max_diff_vs_baseline=diff)
+            key = f"{B}x{H}x{T}x{dh} {name}"
+            rows[key] = row
+            cs.log("timing", f"rwkv6_chunked {key}: {json.dumps(row)}")
+    return rows
+
+
+def time_mamba(torch, flush, base) -> dict:
+    """mamba_scan float32 at MAMBA_TIMED beside its bound (as
+    chip_smoke.time_mamba_kernel), in turns with the baseline; probes: L2
+    warm, a bfloat16 x."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import mamba_scan as ms
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    rows = {}
+    for B, T, di, ds in cs.MAMBA_TIMED:
+        args = cs.mamba_inputs(torch, gen, B, T, di, ds, 0.1)
+        x, dt, Bc, Cc, A, D = args
+        xb = x.bfloat16()
+        new = lambda: ms.mamba_scan(*args)  # noqa: E731
+        got = same_bits(torch, new, "mamba_scan")
+        old, diff = None, None
+        if base is not None:
+            y = torch.empty_like(x)
+
+            def old():
+                base.launch(x.data_ptr(), dt.data_ptr(), Bc.data_ptr(),
+                            Cc.data_ptr(), A.data_ptr(), D.data_ptr(),
+                            y.data_ptr(), B, T, di, ds, 0, _build.stream(x))
+                return y
+            diff = cs.max_err(got, old())
+        n_bytes = sum(a.numel() * a.element_size() for a in args) \
+            + x.numel() * x.element_size()
+        b_ms, b_by = cs.bound(n_bytes, ms.mamba_scan_flops(B, T, di, ds),
+                              "float32")
+        row = in_turns(torch, new, old, flush)
+        row.update(warm_l2_ms=cs.graph_ms(torch, new),
+                   bf16_x_ms=cs.graph_ms(torch, lambda: ms.mamba_scan(
+                       xb, *args[1:]), flush),
+                   bound_ms=b_ms, bound_by=b_by, max_diff_vs_baseline=diff)
+        key = f"{B}x{T}x{di}x{ds}"
+        rows[key] = row
+        cs.log("timing", f"mamba_scan {key} float32: {json.dumps(row)}")
     return rows
 
 
@@ -461,11 +557,14 @@ def main() -> int:
         for line in b.ptxas:
             cs.log("build", f"{name}: {line}")
     base = build_baseline(args.baseline, names) if args.baseline else {}
-    graph = graph_mod.synth_dataset("pubmed", scale=1.0, seed=0)
-    cfg = gnn.GNNConfig(model="gcn", hidden=16, n_layers=2, comm_size=16,
-                        reorder="bfs", inter_buckets=1, selector="fixed",
-                        fixed_kernels=("block_diag", "bell"), seed=0)
-    dec = gnn.prepare(graph, cfg, device="cuda")
+    dec = None
+    if any(n in GATHER for n in names):
+        graph = graph_mod.synth_dataset("pubmed", scale=1.0, seed=0)
+        cfg = gnn.GNNConfig(model="gcn", hidden=16, n_layers=2,
+                            comm_size=16, reorder="bfs", inter_buckets=1,
+                            selector="fixed",
+                            fixed_kernels=("block_diag", "bell"), seed=0)
+        dec = gnn.prepare(graph, cfg, device="cuda")
     scratch = torch.empty(cs.L2_FLUSH_BYTES // 4, device="cuda")
     flush = scratch.zero_
     for _ in range(500):   # clocks up before the first timing
@@ -490,6 +589,14 @@ def main() -> int:
         out["errors"]["flash_attention"] = errs["flash_attention"]
         out["flash_attention"] = time_flash(torch, flush,
                                             base.get("flash_attention"))
+    for name, check, timer in (
+            ("rwkv6_chunked", cs.phase_kernels_rwkv, time_rwkv),
+            ("mamba_scan", cs.phase_kernels_mamba, time_mamba)):
+        if name in names:
+            errs = {name: {"float32": 0.0, "bfloat16": 0.0}}
+            check(torch, errs)
+            out["errors"][name] = errs[name]
+            out[name] = timer(torch, flush, base.get(name))
     out["seconds"] = time.perf_counter() - t0
     print(json.dumps(out), flush=True)
     return 0
