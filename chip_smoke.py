@@ -226,7 +226,7 @@ KERNELS = {
         replaces="src/repro/kernels/tcgnn_tile.py:442"),
     "block_diag_spmm_dual": dict(
         source="src/repro_torch/kernels/csrc/block_diag_spmm_dual.cu",
-        replaces="src/repro/kernels/block_diag_spmm_fused.py:117"),
+        replaces="src/repro/kernels/block_diag_spmm_fused.py:118"),
     "flash_attention": dict(
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:74"),
@@ -247,6 +247,33 @@ SPEC_KERNELS = {
     "tcgnn_tile": ("tcgnn_spmm",),
     "tcgnn_tile_fused": ("tcgnn_spmm_fused", "tcgnn_spmm_dw"),
 }
+
+# a part of the device-function names each GNN kernel launches, as the
+# profiler's events name them (kernels that share a source share its
+# functions, and both dW kernels end in the reduction of dw_reduce.cuh)
+DEVICE_FNS = {
+    "block_diag_spmm": ("block_diag_kernel",),
+    "bell_spmm": ("bell_kernel",),
+    "block_diag_spmm_fused": ("bell_fused_",),
+    "bell_spmm_fused": ("bell_fused_",),
+    "bell_spmm_dw": ("bell_dw_partial_kernel", "dw_reduce_kernel"),
+    "tcgnn_spmm": ("tcgnn_spmm_",),
+    "tcgnn_spmm_fused": ("tcgnn_fused_",),
+    "tcgnn_spmm_dw": ("tcgnn_dw_partial_kernel", "dw_reduce_kernel"),
+    "block_diag_spmm_dual": ("block_diag_dual_",),
+}
+
+
+def device_events(per_call: dict) -> dict:
+    """The device events per call that ``per_call`` (kernel -> launches,
+    as PER_STEP spells them) implies, keyed by DEVICE_FNS's names: each
+    launch is one event of each of its kernel's device functions."""
+    out = {}
+    for kernel, n in per_call.items():
+        for fn in DEVICE_FNS[kernel] if n else ():
+            out[fn] = out.get(fn, 0) + n
+    return out
+
 
 TRAIN_STEPS = 20
 CURVE_TOL = dict(atol=5e-3, rtol=1e-2)    # tests/test_fused.py:136
@@ -441,6 +468,18 @@ def real_slot_count(tiles) -> int:
     """Real slots of a tcgnn_tile payload: the (block row, slot) pairs whose
     (B,) tile column holds a non-zero."""
     return int((tiles != 0).any(dim=1).sum())
+
+
+def tcgnn_spmm_bound(torch, p, n: int, F: int) -> tuple:
+    """Bound of tcgnn_spmm over payload ``p`` at float32 width F: each tile
+    and gather index read once, each source row that a real slot names read
+    once and the (n, F) output written once; 2 nnz F flops."""
+    nbr, B, C = p.tiles.shape
+    real = (p.tiles != 0).any(dim=1)
+    nnz = int((p.tiles != 0).sum())
+    n_src = int(torch.unique(p.gather_idx[real]).numel())
+    return bound(nbr * B * C * 4 + nbr * C * 4 + n_src * F * 4 + n * F * 4,
+                 2.0 * nnz * F, "float32")
 
 
 def tcgnn_fused_bound(torch, p, n: int, Fi: int, Fo: int) -> tuple:
@@ -1321,11 +1360,17 @@ def time_tcgnn_kernels(torch, dec, flush) -> dict:
         lib = lambda: torch.bmm(tc.tiles, x[gi])  # noqa: E731
         torch.testing.assert_close(lib().view(n, F), tc_mod.plain(
             tc.tiles, tc.gather_idx, x), **F32_TOL)
-        b_ms, b_by = bound(meta + n_src * F * be + n * F * be,
-                           2.0 * nnz * F, "float32")
+        b_ms, b_by = tcgnn_spmm_bound(torch, tc, n, F)
+        # the backward's dX pass runs the same kernel over the transpose
+        xt = torch.randn((n, F), generator=gen, device="cuda")
+        torch.testing.assert_close(tc_mod.tcgnn_spmm(
+            tc_t.tiles, tc_t.gather_idx, xt), tc_mod.plain(
+            tc_t.tiles, tc_t.gather_idx, xt), **F32_TOL)
         rows["tcgnn_spmm"][F] = dict(
             ms=graph_ms(torch, lambda: tc_mod.tcgnn_spmm(
                 tc.tiles, tc.gather_idx, x), flush),
+            ms_tc_t=graph_ms(torch, lambda: tc_mod.tcgnn_spmm(
+                tc_t.tiles, tc_t.gather_idx, xt), flush),
             plain_ms=graph_ms(torch, lambda: tc_mod.plain(
                 tc.tiles, tc.gather_idx, x), flush),
             library_ms=graph_ms(torch, lib, flush),
@@ -1375,7 +1420,9 @@ def time_tcgnn_kernels(torch, dec, flush) -> dict:
             log("timing", f"{k} {kk}: {r['ms']:.4f} ms (L2 cold), plain "
                 f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms "
                 f"({r['library_call']}), bound {r['bound_ms']:.4f} ms "
-                f"({r['bound_by']})" + (
+                f"({r['bound_by']})"
+                + (f"; over tc_t {r['ms_tc_t']:.4f} ms" if "ms_tc_t" in r
+                   else "") + (
                     f"; with the kernel's transform of each of the "
                     f"{walked} real slots "
                     f"{r['algo_bound_ms']:.4f} ms ({r['algo_bound_by']})"
@@ -1763,6 +1810,12 @@ def time_dual_kernel(torch, sdec, flush) -> dict:
             f"(L2 cold), plain {r['plain_ms']:.4f} ms, library "
             f"{r['library_ms']:.4f} ms ({r['library_call']}), bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    # what one launch costs, timed the same way: a PyTorch fill of one
+    # float (the 16x3 call's bound is below it)
+    one = torch.zeros(1, device="cuda")
+    rows["16x3"]["launch_floor_ms"] = graph_ms(torch, one.zero_, flush)
+    log("timing", f"one launch (fill of one float, L2 flushed): "
+        f"{rows['16x3']['launch_floor_ms']:.4f} ms")
     return {"block_diag_spmm_dual": rows}
 
 
@@ -3025,18 +3078,29 @@ def time_mamba_kernel(torch, flush) -> dict:
 def profile_once(torch, fn, iters: int):
     """One torch.profiler window over ``iters`` calls of ``fn``: its device
     rows (us per call, events per call, name), largest first, the wall us
-    per call, and each kernel name's device events over the window."""
+    per call, and each kernel name's device events over the window.  One
+    call before the window runs under the profiler's warm-up step, whose
+    events are dropped: a window's first kernels can go unrecorded while
+    the device tracing starts."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    sched = torch.profiler.schedule(wait=0, warmup=1, active=iters, repeat=1)
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
+    with torch.profiler.profile(activities=acts, schedule=sched) as prof:
+        fn()
         torch.cuda.synchronize()
+        prof.step()
+        t0 = time.perf_counter()
+        for i in range(iters):
+            fn()
+            if i == iters - 1:
+                torch.cuda.synchronize()
+            prof.step()
         wall_us = (time.perf_counter() - t0) * 1e6 / iters
     dev_rows, events = [], {}
     for e in prof.key_averages():
+        if e.key.startswith("ProfilerStep"):
+            continue   # the schedule's step markers span, not run, kernels
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0.0)
@@ -3356,10 +3420,22 @@ def main() -> int:
     rows.update(time_mamba_kernel(torch, flush))
     del scratch
 
+    # each profile's kernel events are checked against the launches its
+    # plan implies (the feedback plans' by plan_launches)
     busy = profile_busy(torch, lambda: gnn.forward(params, cfg, dec, x, plan),
-                        5, fwd_ms[True], "forward")
+                        5, fwd_ms[True], "forward",
+                        expect=device_events(PER_FORWARD["unfused"]))
+    per_step = dict(PER_STEP, **SAGE_PER_STEP)
+    per_step["unfused acc off"] = PER_STEP["unfused"]
+    for name, plan_of, model in (("feedback", fb, "gcn"),
+                                 ("feedback acc off", fb, "gcn"),
+                                 ("sage_feedback", sfb, "sage")):
+        one, none = (plan_launches(plan_of["plan"].layers, n, model)
+                     for n in (1, 0))
+        per_step[name] = {k: one[k] - none[k] for k in one}
     busy_step = {name: profile_busy(torch, fn, 5, step_ms[name],
-                                    f"{name} step")
+                                    f"{name} step",
+                                    expect=device_events(per_step[name]))
                  for name, fn in steps.items()}
 
     # the LMs' counts as read in this run: one bf16 prefill-step call

@@ -28,7 +28,8 @@ SOURCES = ("block_diag_spmm", "bell_spmm", "bell_spmm_fused", "bell_spmm_dw",
            "tcgnn_spmm", "tcgnn_spmm_fused", "tcgnn_spmm_dw",
            "block_diag_spmm_dual", "flash_attention", "rwkv6_chunked",
            "mamba_scan")
-HEADERS = ("cp_async.cuh", "dtype.cuh", "dw_reduce.cuh", "tcgnn_real.cuh")
+HEADERS = ("cp_async.cuh", "dtype.cuh", "dw_reduce.cuh", "mma_tf32.cuh",
+           "tcgnn_real.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_TIMEOUT_S = 600

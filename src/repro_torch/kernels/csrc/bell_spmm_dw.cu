@@ -108,7 +108,7 @@ struct Cfg {
 
 template <typename T, int PL>
 __global__ void __launch_bounds__(kThreads)
-    dw_partial_kernel(const T* __restrict__ blocks,
+    bell_dw_partial_kernel(const T* __restrict__ blocks,
                       const int* __restrict__ col_idx,
                       const int* __restrict__ n_valid,
                       const T* __restrict__ x, const T* __restrict__ g,
@@ -412,11 +412,11 @@ cudaError_t launch_pl(const void* blocks, const int* col_idx,
                       int transpose, const Cfg& c, int n_split, int smem,
                       cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      dw_partial_kernel<T, PL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      bell_dw_partial_kernel<T, PL>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(n_split, (Fi + kFiT - 1) / kFiT, (Fo + kFoT - 1) / kFoT);
-  dw_partial_kernel<T, PL><<<grid, kThreads, smem, stream>>>(
+  bell_dw_partial_kernel<T, PL><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(blocks), col_idx, n_valid,
       static_cast<const T*>(x), static_cast<const T*>(g), partial, nbr, K, B,
       Fi, Fo, transpose, c);

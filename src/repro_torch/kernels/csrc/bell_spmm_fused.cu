@@ -166,7 +166,7 @@ struct WideCfg {
 
 template <typename T>
 __global__ void __launch_bounds__(kWThreads, 2)
-    wide_kernel(const Args<T> p, const WideCfg c) {
+    bell_fused_wide_kernel(const Args<T> p, const WideCfg c) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int kSz = sizeof(T);
   const int t = threadIdx.x;
@@ -413,11 +413,11 @@ cudaError_t launch_wide(const Args<T>& p, cudaStream_t stream) {
       c.x_bytes + c.a_bytes + (c.w_once ? 0 : align16(c.kt * kFT * sz));
   const int smem =
       kWStages * c.stage_bytes + (c.w_once ? align16(w_rows * kFT * sz) : 0);
-  const cudaError_t err = set_smem(wide_kernel<T>, smem);
+  const cudaError_t err = set_smem(bell_fused_wide_kernel<T>, smem);
   if (err != cudaSuccess) return err;
   const int n_items = p.col_idx == nullptr ? (p.nbr + c.mb - 1) / c.mb : p.nbr;
   const dim3 grid(n_items, (p.Fo + kFT - 1) / kFT);
-  wide_kernel<T><<<grid, kWThreads, smem, stream>>>(p, c);
+  bell_fused_wide_kernel<T><<<grid, kWThreads, smem, stream>>>(p, c);
   return cudaGetLastError();
 }
 
@@ -444,7 +444,7 @@ struct NarrowCfg {
 
 template <typename T, int PL>
 __global__ void __launch_bounds__(kNThreads)
-    narrow_kernel(const Args<T> p, const NarrowCfg c) {
+    bell_fused_narrow_kernel(const Args<T> p, const NarrowCfg c) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int B = p.B, Fi = p.Fi, Fo = p.Fo;
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
@@ -638,10 +638,10 @@ __global__ void __launch_bounds__(kNThreads)
 template <typename T, int PL>
 cudaError_t launch_narrow_pl(const Args<T>& p, const NarrowCfg& c, int smem,
                              cudaStream_t stream) {
-  const cudaError_t err = set_smem(narrow_kernel<T, PL>, smem);
+  const cudaError_t err = set_smem(bell_fused_narrow_kernel<T, PL>, smem);
   if (err != cudaSuccess) return err;
-  narrow_kernel<T, PL><<<(p.nbr + c.rpc - 1) / c.rpc, kNThreads, smem,
-                         stream>>>(p, c);
+  bell_fused_narrow_kernel<T, PL>
+      <<<(p.nbr + c.rpc - 1) / c.rpc, kNThreads, smem, stream>>>(p, c);
   return cudaGetLastError();
 }
 

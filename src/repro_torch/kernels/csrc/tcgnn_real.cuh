@@ -1,6 +1,6 @@
 // The real slots of a column-condensed block row, shared by the kernels that
-// walk them (tcgnn_spmm_fused.cu: one row a CTA; tcgnn_spmm_dw.cu: a run
-// of rows a CTA).
+// walk them (tcgnn_spmm.cu: one row a warp; tcgnn_spmm_fused.cu: one row a
+// CTA; tcgnn_spmm_dw.cu: a run of rows a CTA).
 //
 // A block row's slots past the last one whose tile column holds a non-zero
 // in any of its B rows add nothing, so those kernels gather and multiply
@@ -51,6 +51,23 @@ __device__ __forceinline__ int real_slots_part(const float* __restrict__ t_row,
       if (column_nonzero(t_row + s, B, C)) last = s + 1;
   }
   return last;
+}
+
+// The block row's count of real slots, taken by one warp from its tile
+// staged in shared memory (B rows of pitch floats, 16-byte aligned, zeros
+// past the tile's C columns; cols4 = ceil(C / 4) <= 32): lane j reads float4
+// column group j of every row.  Every lane calls it and gets the count.
+__device__ __forceinline__ int staged_real_slots(const float* t_s, int B,
+                                                 int pitch, int cols4,
+                                                 int lane) {
+  int k = 0;
+  if (lane < cols4) {
+#pragma unroll 4
+    for (int r = 0; r < B; ++r)
+      k = max(k, last_nonzero4(*reinterpret_cast<const float4*>(
+                     t_s + r * pitch + 4 * lane)));
+  }
+  return __reduce_max_sync(0xffffffffu, k ? 4 * lane + k : 0);
 }
 
 // The block row's count of real slots, taken by the whole CTA.  Every

@@ -119,7 +119,7 @@ struct Cfg {
 
 template <typename T, int PL>
 __global__ void __launch_bounds__(kThreads)
-    dw_partial_kernel(const float* __restrict__ tiles,
+    tcgnn_dw_partial_kernel(const float* __restrict__ tiles,
                       const int* __restrict__ gather_idx,
                       const T* __restrict__ x, const T* __restrict__ g,
                       float* __restrict__ partial, int nbr, int B, int C,
@@ -442,11 +442,11 @@ cudaError_t launch(const float* tiles, const int* gather_idx, const void* x,
     auto go = [&](auto pl) -> cudaError_t {
       constexpr int kPL = decltype(pl)::value;
       cudaError_t err = cudaFuncSetAttribute(
-          dw_partial_kernel<T, kPL>,
+          tcgnn_dw_partial_kernel<T, kPL>,
           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
       if (err != cudaSuccess) return err;
       const dim3 grid(n_split, (Fi + kFiT - 1) / kFiT, (Fo + kFoT - 1) / kFoT);
-      dw_partial_kernel<T, kPL><<<grid, kThreads, smem, stream>>>(
+      tcgnn_dw_partial_kernel<T, kPL><<<grid, kThreads, smem, stream>>>(
           tiles, gather_idx, static_cast<const T*>(x),
           static_cast<const T*>(g), partial, nbr, B, C, Fi, Fo, c);
       return cudaGetLastError();

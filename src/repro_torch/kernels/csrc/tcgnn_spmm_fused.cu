@@ -136,7 +136,7 @@ struct WideCfg {
 // G: the X copy granule in bytes (16, 8 or 4)
 template <typename T, int G>
 __global__ void __launch_bounds__(kThreads, 2)
-    wide_kernel(const Args<T> p, const WideCfg c) {
+    tcgnn_fused_wide_kernel(const Args<T> p, const WideCfg c) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_n;
   constexpr int kSz = sizeof(T);
@@ -352,14 +352,15 @@ cudaError_t launch_wide(const Args<T>& p, cudaStream_t stream) {
                    align16(c.w_rows * kFT * static_cast<int>(sizeof(T))) +
                    4 * kCS * kFT * 4;
   cudaError_t err = cudaFuncSetAttribute(
-      wide_kernel<T, G>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      tcgnn_fused_wide_kernel<T, G>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(wide_kernel<T, G>,
+    err = cudaFuncSetAttribute(tcgnn_fused_wide_kernel<T, G>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
   const dim3 grid(p.nbr, (p.Fo + kFT - 1) / kFT);
-  wide_kernel<T, G><<<grid, kThreads, smem, stream>>>(p, c);
+  tcgnn_fused_wide_kernel<T, G><<<grid, kThreads, smem, stream>>>(p, c);
   return cudaGetLastError();
 }
 
@@ -375,7 +376,7 @@ constexpr int kSmemFloats = 48 * 1024 / 4;    // 48 KB of float32
 // (B, ft) output tile, as a power of two.
 template <typename T, int kOut>
 __global__ void __launch_bounds__(kThreads)
-    narrow_kernel(const Args<T> p, int ft, int cs, int kc) {
+    tcgnn_fused_narrow_kernel(const Args<T> p, int ft, int cs, int kc) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_n;
   const int B = p.B, C = p.C, Fi = p.Fi, Fo = p.Fo;
@@ -511,11 +512,11 @@ cudaError_t launch_narrow(const Args<T>& p, cudaStream_t stream) {
       sizeof(float);
   const int n_max = (p.B > cs ? p.B : cs) * ft;
   const int per = (n_max + kThreads - 1) / kThreads;
-  auto kernel = per <= 1   ? narrow_kernel<T, 1>
-                : per <= 2 ? narrow_kernel<T, 2>
-                : per <= 4 ? narrow_kernel<T, 4>
-                : per <= 8 ? narrow_kernel<T, 8>
-                           : narrow_kernel<T, 16>;
+  auto kernel = per <= 1   ? tcgnn_fused_narrow_kernel<T, 1>
+                : per <= 2 ? tcgnn_fused_narrow_kernel<T, 2>
+                : per <= 4 ? tcgnn_fused_narrow_kernel<T, 4>
+                : per <= 8 ? tcgnn_fused_narrow_kernel<T, 8>
+                           : tcgnn_fused_narrow_kernel<T, 16>;
   kernel<<<grid, kThreads, smem, stream>>>(p, ft, cs, kc);
   return cudaGetLastError();
 }

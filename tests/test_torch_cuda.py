@@ -370,6 +370,85 @@ def test_cuda_tcgnn_fused_skips_padded_slots(cuda_device, dtype, B):  # noqa: F8
                                                 y_in).float(), **tol)
 
 
+def _unaligned(x):
+    """A contiguous copy of x whose data starts one element past an
+    allocation's start (4 bytes for float32, 2 for bfloat16)."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [8, 16, 32, 64])
+@pytest.mark.parametrize("C", [128, 256])
+def test_cuda_tcgnn_spmm_skips_padded_slots(cuda_device, dtype, B, C):  # noqa: F811
+    """tcgnn_spmm walks only a row's real slots: on payloads whose rows
+    have none, all C, one non-zero in the last slot, or a random count
+    (C = 128 is one staged chunk at B <= 16; C = 256 and B = 64 are counted
+    from device memory and walked in chunks), it matches its plain version
+    at F in {3, 16, 500} (one column tile, and 16), over x and over an
+    unaligned copy of it, with and without y_in, and gives the same bits
+    twice."""
+    tol = (tp.F32_TOL if dtype == torch.float32
+           else dict(atol=2e-1, rtol=3e-1))
+    dev = cuda_device
+    gen = torch.Generator(device=dev).manual_seed(500 + B + C)
+    tiles, gi, counts = _real_slot_tcgnn(gen, B, dev, C=C)
+    assert torch.equal(tc_mod.real_slots(tiles), counts)
+    n = tiles.shape[0] * B
+    for F in (3, 16, 500):
+        x = torch.randn((n, F), generator=gen, device=dev).to(dtype)
+        for xx in (x, _unaligned(x)):
+            for y_in in (None, torch.randn((n, F), generator=gen,
+                                           device=dev).to(dtype)):
+                got = tc_mod.tcgnn_spmm(tiles, gi, xx, y_in)
+                again = tc_mod.tcgnn_spmm(tiles, gi, xx, y_in)
+                torch.cuda.synchronize()
+                assert torch.equal(got, again), (F, y_in is None)
+                torch.testing.assert_close(
+                    got.float(), tc_mod.plain(tiles, gi, x, y_in).float(),
+                    **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [8, 32, 64])
+def test_cuda_dual_kernel_ragged_shapes(cuda_device, dtype, B):  # noqa: F811
+    """block_diag_spmm_dual against its plain version where its launch
+    shapes have edges: 23 blocks (a part-full last row tile) and 600 (the
+    persistent CTAs walk several tiles each); Fi % 4 != 0 on both kernels
+    (17, 501), Fo > 64 (130), weight stripes too wide to stage once (1500);
+    x as given and as an unaligned copy; with and without y_in; the same
+    bits on a second call."""
+    tol = (tp.F32_TOL if dtype == torch.float32
+           else dict(atol=2e-1, rtol=3e-1))
+    dev = cuda_device
+    gen = torch.Generator(device=dev).manual_seed(600 + B)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    cases = [(23, Fi, Fo) for Fi, Fo in ((500, 16), (16, 3), (3, 16),
+                                          (17, 5), (501, 16), (70, 130),
+                                          (1500, 16))]
+    cases += [(600, 500, 16), (600, 16, 3)]
+    for nb, Fi, Fo in cases:
+        blocks = randn(nb, B, B)
+        x = randn(nb * B, Fi)
+        w, ws = randn(Fi, Fo) / Fi ** 0.5, randn(Fi, Fo) / Fi ** 0.5
+        for xx in (x, _unaligned(x)):
+            for y_in in (None, randn(nb * B, Fo)):
+                got = bdf_mod.block_diag_spmm_dual(blocks, xx, w, ws, y_in)
+                again = bdf_mod.block_diag_spmm_dual(blocks, xx, w, ws, y_in)
+                torch.cuda.synchronize()
+                assert torch.equal(got, again), (nb, Fi, Fo)
+                torch.testing.assert_close(
+                    got.float(), bdf_mod.plain_dual(blocks, x, w, ws,
+                                                    y_in).float(), **tol)
+
+
 @pytest.mark.cuda
 def test_cuda_tcgnn_dw_is_deterministic(cuda_device):  # noqa: F811
     gen = torch.Generator(device=cuda_device).manual_seed(6)

@@ -369,3 +369,69 @@ def test_tcgnn_dw_splits_are_fixed_and_cover_every_block_row():
         s = TT.dw_splits(nbr)
         assert (s - 1) * r < nbr <= s * r
     assert TT.dw_splits(0) == 0
+
+
+def _global_functions() -> dict:
+    """The __global__ functions of each kernel source under csrc/, with
+    those of the headers it includes: {source stem: {name, ...}}."""
+    import re
+    csrc = Path(TT.__file__).resolve().parent / "csrc"
+    pat = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?"
+                     r"(\w+)\s*\(")
+    own = {p.name: set(pat.findall(p.read_text()))
+           for p in csrc.glob("*.cu*")}
+    out = {}
+    for p in csrc.glob("*.cu"):
+        names = set(own[p.name])
+        for h in re.findall(r'#include "(\w+\.cuh)"', p.read_text()):
+            names |= own[h]
+        out[p.stem] = names
+    return out
+
+
+@pytest.mark.parametrize("kernel", ["block_diag_spmm", "bell_spmm",
+                                    "block_diag_spmm_fused",
+                                    "bell_spmm_fused", "bell_spmm_dw",
+                                    "tcgnn_spmm", "tcgnn_spmm_fused",
+                                    "tcgnn_spmm_dw", "block_diag_spmm_dual"])
+def test_chip_smoke_device_functions_name_one_kernel_each(kernel):
+    """chip_smoke.py checks the GNN profiles' kernel events by DEVICE_FNS:
+    each of a kernel's names is a part of a __global__ function of its own
+    source and of no source whose kernels do not list that name, so the
+    events it counts are those kernels' launches and no others."""
+    cs = _chip_smoke()
+    fns = _global_functions()
+    src = Path(cs.KERNELS[kernel]["source"]).stem
+    for name in cs.DEVICE_FNS[kernel]:
+        assert any(name in f for f in fns[src]), (kernel, name)
+        sharing = {Path(cs.KERNELS[k]["source"]).stem
+                   for k, names in cs.DEVICE_FNS.items() if name in names}
+        for other, names in fns.items():
+            if other not in sharing:
+                assert not any(name in f for f in names), (name, other)
+
+
+def test_chip_smoke_device_events_of_the_fixed_plans():
+    """device_events turns launches per step into device events per
+    step: one event of each device function a launch runs (both dW kernels
+    end in the shared reduction), summed over the kernels that share it."""
+    cs = _chip_smoke()
+    assert cs.device_events(cs.PER_STEP["tcgnn_unfused"]) == {
+        "block_diag_kernel": 4, "tcgnn_spmm_": 4}
+    assert cs.device_events(cs.PER_STEP["tcgnn_fused"]) == {
+        "bell_fused_": 3, "tcgnn_fused_": 3, "tcgnn_dw_partial_kernel": 2,
+        "bell_dw_partial_kernel": 2, "dw_reduce_kernel": 4}
+    assert cs.device_events(cs.SAGE_PER_STEP["sage_dual"]) == {
+        "block_diag_dual_": 2, "bell_fused_": 1, "bell_dw_partial_kernel": 2,
+        "dw_reduce_kernel": 4, "tcgnn_fused_": 3,
+        "tcgnn_dw_partial_kernel": 2}
+    assert cs.device_events(cs.PER_FORWARD["unfused"]) == {
+        "block_diag_kernel": 2, "bell_kernel": 2}
+    # a feedback plan's launches per step, as chip_smoke.py takes them
+    layers = (("block_diag_fused", "tcgnn_tile"),
+              ("block_diag_fused", "tcgnn_tile_fused"))
+    one, none = (cs.plan_launches(layers, n) for n in (1, 0))
+    assert cs.device_events({k: one[k] - none[k] for k in one}) == {
+        "bell_fused_": 3, "bell_dw_partial_kernel": 2, "dw_reduce_kernel": 3,
+        "tcgnn_spmm_": 2, "tcgnn_fused_": 2,
+        "tcgnn_dw_partial_kernel": 1}

@@ -1,14 +1,15 @@
 """The redesigned gather kernels, the bf16 flash_attention path and the
 two scans alone on the card.
 
-Builds only the sources named by ``--kernels`` (by default all six:
+Builds only the sources named by ``--kernels`` (by default all eight:
 ``csrc/bell_spmm.cu``, ``csrc/tcgnn_spmm_dw.cu``,
-``csrc/tcgnn_spmm_fused.cu``, ``csrc/flash_attention.cu``,
+``csrc/tcgnn_spmm_fused.cu``, ``csrc/tcgnn_spmm.cu``,
+``csrc/block_diag_spmm_dual.cu``, ``csrc/flash_attention.cu``,
 ``csrc/rwkv6_chunked.cu`` and ``csrc/mamba_scan.cu``), prepares the pubmed
-graph as ``chip_smoke.py`` does where a gather kernel is named, and holds
-each kernel against its plain version, float32 and bfloat16, then times it
-(CUDA graphs, L2 flushed) beside its library yardstick and bound, and
-probes what bounds it:
+graph as ``chip_smoke.py`` does where a gather kernel is named (and its
+SAGE decomposition for the dual kernel), and holds each kernel against its
+plain version, float32 and bfloat16, then times it (CUDA graphs, L2
+flushed) beside its library yardstick and bound, and probes what bounds it:
 
 - bell_spmm on pubmed's forward and transpose payloads (``bell``,
   ``bell_t``: the backward's dX pass) at F in {3, 16, 64, 500}, y_in on and
@@ -23,6 +24,16 @@ probes what bounds it:
   64), at the main path's widths, y_in on and off; timed at 500x16 and 16x3
   and the dX pass 3x16 beside ``bmm(tiles, (x@w)[gather_idx])``; probe at
   500x16: L2 warm, Fi = 32 and 128;
+- tcgnn_spmm on pubmed's forward and transpose payloads (``tc``, ``tc_t``:
+  the backward's dX pass) and synthetic ones (B in 8, 32, 64, C = 256) at F
+  in {3, 16, 64, 500}, y_in on and off, the same bits twice; timed at F =
+  16 and 3 on both payloads beside ``bmm(tiles, x[gather_idx])``; probes:
+  L2 warm, F = 64 (two column tiles);
+- block_diag_spmm_dual at ``chip_smoke.phase_kernels_dual``'s cases and
+  gates (pubmed's SAGE blocks, B in 8, 32, 64, both layers' widths, the
+  backward), then the same bits twice; timed at 500x16 and 16x3 beside
+  ``bmm(A, x@w) + x@w_self``; probes: L2 warm, and what one launch costs
+  (a PyTorch fill of one float, timed the same way);
 - flash_attention at ``chip_smoke.phase_kernels_flash``'s cases and gates;
   timed bf16 causal at ``chip_smoke.FLASH_TIMED`` beside SDPA;
 - rwkv6_chunked at ``chip_smoke.phase_kernels_rwkv``'s cases and gates;
@@ -57,9 +68,10 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import chip_smoke as cs  # noqa: E402
 
-SOURCES = ("bell_spmm", "tcgnn_spmm_dw", "tcgnn_spmm_fused",
-           "flash_attention", "rwkv6_chunked", "mamba_scan")
-GATHER = SOURCES[:3]     # the kernels timed on pubmed's payloads
+SOURCES = ("bell_spmm", "tcgnn_spmm_dw", "tcgnn_spmm_fused", "tcgnn_spmm",
+           "block_diag_spmm_dual", "flash_attention", "rwkv6_chunked",
+           "mamba_scan")
+GATHER = SOURCES[:5]     # the kernels timed on pubmed's payloads
 # (payload, Fi, Fo) of the timed tcgnn_spmm_fused calls: layer 1, layer 2,
 # and layer 2's dX pass over the transpose payload with W^T
 TCGNN_TIMED = {"500x16": (0, 500, 16), "16x3": (0, 16, 3),
@@ -187,6 +199,156 @@ def time_tcgnn(torch, dec, flush, base) -> dict:
         cs.log("probe", f"tcgnn_spmm_fused 500x16 {name}: "
                f"{probe[name]:.4f} ms")
     return {"rows": rows, "probe": probe}
+
+
+# (payload, F) of the timed tcgnn_spmm calls: layers 1 and 2 forward over
+# tc, and their dX passes over tc_t
+TCGNN_SPMM_TIMED = {"tc F=16": (0, 16), "tc F=3": (0, 3),
+                    "tc_t F=16": (1, 16), "tc_t F=3": (1, 3)}
+
+
+def check_tcgnn_spmm(torch, dec) -> dict:
+    """tcgnn_spmm against its plain version, the same bits twice; the
+    largest errors."""
+    from repro_torch.kernels import tcgnn_tile as tc_mod
+    dev = dec.device
+    gen = torch.Generator(device=dev).manual_seed(11)
+    tc, tc_t = dec.sub("inter").formats["tcgnn_tile"]
+    cases = [(tc.tiles, tc.gather_idx), (tc_t.tiles, tc_t.gather_idx)] + [
+        cs.synthetic_tcgnn(torch, gen, B, dev) for B in (8, 32, 64)]
+    errs = {"float32": 0.0, "bfloat16": 0.0}
+    n_cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        key = str(dtype).removeprefix("torch.")
+        tol = cs.F32_TOL if dtype == torch.float32 else cs.BF16_TOL
+        for tiles, gi in cases:
+            n = tiles.shape[0] * tiles.shape[1]
+            for F in (3, 16, 64, 500):
+                x = torch.randn((n, F), generator=gen, device=dev).to(dtype)
+                for with_y in (False, True):
+                    y_in = (torch.randn((n, F), generator=gen, device=dev)
+                            .to(dtype) if with_y else None)
+                    got = same_bits(torch, lambda: tc_mod.tcgnn_spmm(
+                        tiles, gi, x, y_in), "tcgnn_spmm")
+                    want = tc_mod.plain(tiles, gi, x, y_in)
+                    torch.testing.assert_close(got.float(), want.float(),
+                                               **tol)
+                    errs[key] = max(errs[key], cs.max_err(got, want))
+                    n_cases += 1
+    cs.log("kernel", f"tcgnn_spmm: {n_cases} cases within tolerance, same "
+           f"bits twice; largest errors {errs}")
+    return errs
+
+
+def time_tcgnn_spmm(torch, dec, flush, base) -> dict:
+    """tcgnn_spmm at TCGNN_SPMM_TIMED beside bmm(tiles, x[gi]) and its
+    bound (as chip_smoke.time_tcgnn_kernels), in turns with the baseline;
+    then the probe: L2 warm, and F = 64."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import tcgnn_tile as tc_mod
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    payloads = dec.sub("inter").formats["tcgnn_tile"]
+    n = dec.n_pad
+    rows = {}
+
+    def kernel_of(p, x):
+        return lambda: tc_mod.tcgnn_spmm(p.tiles, p.gather_idx, x)
+
+    def baseline_of(p, x):
+        y = torch.empty((n, x.shape[1]), device="cuda")
+        nbr, B, C = p.tiles.shape
+
+        def run():
+            base.launch(p.tiles.data_ptr(), p.gather_idx.data_ptr(),
+                        x.data_ptr(), None, y.data_ptr(), nbr, B, C,
+                        x.shape[1], 0, _build.stream(x))
+            return y
+        return run
+
+    for key, (which, F) in TCGNN_SPMM_TIMED.items():
+        p = payloads[which]
+        gi = p.gather_idx.long()
+        x = torch.randn((n, F), generator=gen, device="cuda")
+        lib = lambda: torch.bmm(p.tiles, x[gi])  # noqa: E731
+        want = tc_mod.plain(p.tiles, p.gather_idx, x)
+        torch.testing.assert_close(lib().view(n, F), want, **cs.F32_TOL)
+        torch.testing.assert_close(kernel_of(p, x)(), want, **cs.F32_TOL)
+        old = None
+        if base is not None:
+            old = baseline_of(p, x)
+            torch.testing.assert_close(old(), want, **cs.F32_TOL)
+        b_ms, b_by = cs.tcgnn_spmm_bound(torch, p, n, F)
+        r = in_turns(torch, kernel_of(p, x), old, flush)
+        r.update(library_ms=cs.graph_ms(torch, lib, flush),
+                 library_call="torch.bmm(tiles, x[gather_idx])",
+                 bound_ms=b_ms, bound_by=b_by,
+                 real_slots=int(tc_mod.real_slots(p.tiles).sum()))
+        rows[key] = r
+        cs.log("timing", f"tcgnn_spmm {key}: {json.dumps(r)}")
+
+    p = payloads[0]
+    probe = {}
+    for name, F, fl in (("flushed", 16, flush), ("warm_l2", 16, None),
+                        ("f_64", 64, flush), ("f_64_warm_l2", 64, None)):
+        x = torch.randn((n, F), generator=gen, device="cuda")
+        torch.testing.assert_close(kernel_of(p, x)(), tc_mod.plain(
+            p.tiles, p.gather_idx, x), **cs.F32_TOL)
+        probe[name] = cs.graph_ms(torch, kernel_of(p, x), fl)
+        cs.log("probe", f"tcgnn_spmm tc {name}: {probe[name]:.4f} ms")
+    probe["f_64_bound_ms"] = cs.tcgnn_spmm_bound(torch, p, n, 64)[0]
+    return {"rows": rows, "probe": probe}
+
+
+def time_dual(torch, sdec, flush, base) -> dict:
+    """block_diag_spmm_dual on pubmed's SAGE diagonal blocks at both
+    layers' widths beside bmm(A, x@w) + x@w_self and its bound (as
+    chip_smoke.time_dual_kernel), in turns with the baseline, the same bits
+    twice; probes: L2 warm, and one launch's cost."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import block_diag_spmm_fused as bdf_mod
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    blocks = sdec.intra.formats["block_diag"].blocks
+    nb, B = blocks.shape[0], blocks.shape[1]
+    n = sdec.n_pad
+    rows = {}
+    for Fi, Fo in cs.WIDTHS[:2]:
+        x = torch.randn((n, Fi), generator=gen, device="cuda")
+        w = torch.randn((Fi, Fo), generator=gen, device="cuda") / Fi ** 0.5
+        ws = torch.randn((Fi, Fo), generator=gen, device="cuda") / Fi ** 0.5
+        lib = lambda: (torch.bmm(blocks, (x @ w).view(nb, B, Fo))  # noqa: E731
+                       .view(n, Fo) + x @ ws)
+        new = lambda: bdf_mod.block_diag_spmm_dual(  # noqa: E731
+            blocks, x, w, ws)
+        want = bdf_mod.plain_dual(blocks, x, w, ws)
+        torch.testing.assert_close(lib(), want, **cs.F32_TOL)
+        torch.testing.assert_close(same_bits(torch, new, "dual"), want,
+                                   **cs.F32_TOL)
+        old = None
+        if base is not None:
+            y = torch.empty((n, Fo), device="cuda")
+
+            def old():
+                base.launch(blocks.data_ptr(), x.data_ptr(), w.data_ptr(),
+                            ws.data_ptr(), None, y.data_ptr(), nb, B, Fi, Fo,
+                            0, _build.stream(x))
+                return y
+            torch.testing.assert_close(old(), want, **cs.F32_TOL)
+        b_ms, b_by = cs.bound((nb * B * B + n * Fi + 2 * Fi * Fo + n * Fo)
+                              * 4, 4.0 * n * Fi * Fo + 2.0 * nb * B * B * Fo,
+                              "float32")
+        r = in_turns(torch, new, old, flush)
+        r.update(warm_l2_ms=cs.graph_ms(torch, new),
+                 library_ms=cs.graph_ms(torch, lib, flush),
+                 library_call="torch.bmm(blocks, (x @ w).view(nb, B, Fo)) "
+                              "+ x @ w_self",
+                 bound_ms=b_ms, bound_by=b_by)
+        key = f"{Fi}x{Fo}"
+        rows[key] = r
+        cs.log("timing", f"block_diag_spmm_dual {key}: {json.dumps(r)}")
+    one = torch.zeros(1, device="cuda")
+    floor = {"fill_one_float_ms": cs.graph_ms(torch, one.zero_, flush)}
+    cs.log("probe", f"one launch (L2 flushed): {json.dumps(floor)}")
+    return {"rows": rows, "probe": floor}
 
 
 def time_flash(torch, flush, base) -> dict:
@@ -557,7 +719,7 @@ def main() -> int:
         for line in b.ptxas:
             cs.log("build", f"{name}: {line}")
     base = build_baseline(args.baseline, names) if args.baseline else {}
-    dec = None
+    dec = sdec = None
     if any(n in GATHER for n in names):
         graph = graph_mod.synth_dataset("pubmed", scale=1.0, seed=0)
         cfg = gnn.GNNConfig(model="gcn", hidden=16, n_layers=2,
@@ -565,6 +727,10 @@ def main() -> int:
                             selector="fixed",
                             fixed_kernels=("block_diag", "bell"), seed=0)
         dec = gnn.prepare(graph, cfg, device="cuda")
+        if "block_diag_spmm_dual" in names:
+            sdec = gnn.prepare(graph, gnn.GNNConfig(model="sage",
+                                                    selector="fixed"),
+                               device="cuda")
     scratch = torch.empty(cs.L2_FLUSH_BYTES // 4, device="cuda")
     flush = scratch.zero_
     for _ in range(500):   # clocks up before the first timing
@@ -583,6 +749,16 @@ def main() -> int:
         out["errors"]["tcgnn_spmm_fused"] = check_tcgnn(torch, dec)
         out["tcgnn_spmm_fused"] = time_tcgnn(torch, dec, flush,
                                              base.get("tcgnn_spmm_fused"))
+    if "tcgnn_spmm" in names:
+        out["errors"]["tcgnn_spmm"] = check_tcgnn_spmm(torch, dec)
+        out["tcgnn_spmm"] = time_tcgnn_spmm(torch, dec, flush,
+                                            base.get("tcgnn_spmm"))
+    if "block_diag_spmm_dual" in names:
+        errs = {"block_diag_spmm_dual": {"float32": 0.0, "bfloat16": 0.0}}
+        cs.phase_kernels_dual(torch, sdec, errs)
+        out["errors"]["block_diag_spmm_dual"] = errs["block_diag_spmm_dual"]
+        out["block_diag_spmm_dual"] = time_dual(
+            torch, sdec, flush, base.get("block_diag_spmm_dual"))
     if "flash_attention" in names:
         errs = {"flash_attention": {"float32": 0.0, "bfloat16": 0.0}}
         cs.phase_kernels_flash(torch, errs)
