@@ -32,7 +32,8 @@ Phases, each of which raises (exit code != 0) on failure:
 2. kernels: each kernel against its plain PyTorch version on the card,
    float32 and bfloat16, with and without y_in, on the main path's
    payloads (B = 16) and on synthetic ones with B in {8, 32, 64}:
-   block_diag_spmm, bell_spmm and tcgnn_spmm at F in {3, 16, 500}; the
+   block_diag_spmm (y_in also as one bias row repeated, strides (0, 1)),
+   bell_spmm and tcgnn_spmm at F in {3, 16, 500}; the
    transposed read of block_diag_spmm, block_diag_spmm_fused (both reads),
    bell_spmm_fused, tcgnn_spmm_fused, bell_spmm_dw (over the transpose
    payload, and over the diagonal blocks with K = 1) and tcgnn_spmm_dw
@@ -166,7 +167,8 @@ Phases, each of which raises (exit code != 0) on failure:
    also with acc off, and the SAGE plans), each kernel's time at the main
    path's shapes beside its plain version, one PyTorch library call (or
    composite) computing the same function and its bound (bell_spmm also
-   over the transpose payload, the backward's dX passes), and
+   over the transpose payload, the backward's dX passes; block_diag_spmm
+   also with the transposed read and seeded by a bias row), and
    torch.profiler tables with the device-busy share of a forward and of a
    training step per plan.
 
@@ -634,6 +636,16 @@ def phase_build(torch) -> None:
             log("build", f"{name}: {line}")
 
 
+def block_diag_bound(nb: int, B: int, F: int,
+                     y_in: str = "none") -> tuple[float, str]:
+    """Bound of one float32 block_diag_spmm call: the blocks, X and Y once
+    each, and y_in ("none", "row": F values, "full": nb B F) once."""
+    n = nb * B
+    extra = {"none": 0, "row": F, "full": n * F}[y_in]
+    return bound((nb * B * B + 2 * n * F + extra) * 4, 2.0 * nb * B * B * F,
+                 "float32")
+
+
 def sync(torch, dev) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize()
@@ -685,21 +697,30 @@ def phase_kernels(torch, dec) -> dict:
                 for i, (B, blocks) in enumerate(bd_cases):
                     n = blocks.shape[0] * B
                     x = torch.randn((n, F), generator=gen, device=dev)
-                    y_in = (torch.randn((n, F), generator=gen, device=dev)
-                            .to(dtype) if with_y else None)
-                    args = (blocks.to(dtype), x.to(dtype), y_in)
-                    got = bd_mod.block_diag_spmm(*args)
-                    want = bd_mod.plain(*args)
-                    sync(torch, dev)
-                    torch.testing.assert_close(got.float(), want.float(),
-                                               **tol)
-                    e = max_err(got, want)
-                    errs["block_diag_spmm"][name] = max(
-                        errs["block_diag_spmm"][name], e)
-                    if i == 0:
-                        log("kernel", f"block_diag_spmm {name} F={F} "
-                            f"y_in={with_y}: max|err| {e:.3g}")
-                    n_cases += 1
+                    # y_in in full, and as the GCN bias seeds it: one row
+                    # repeated (strides (0, 1)), read without a copy
+                    y_ins = {False: None}
+                    if with_y:
+                        y_ins = {"full": torch.randn(
+                                     (n, F), generator=gen,
+                                     device=dev).to(dtype),
+                                 "bias row": torch.randn(
+                                     (F,), generator=gen,
+                                     device=dev).to(dtype).expand(n, F)}
+                    for label, y_in in y_ins.items():
+                        args = (blocks.to(dtype), x.to(dtype), y_in)
+                        got = bd_mod.block_diag_spmm(*args)
+                        want = bd_mod.plain(*args)
+                        sync(torch, dev)
+                        torch.testing.assert_close(got.float(),
+                                                   want.float(), **tol)
+                        e = max_err(got, want)
+                        errs["block_diag_spmm"][name] = max(
+                            errs["block_diag_spmm"][name], e)
+                        if i == 0:
+                            log("kernel", f"block_diag_spmm {name} F={F} "
+                                f"y_in={label}: max|err| {e:.3g}")
+                        n_cases += 1
                 for i, (B, (blocks, col_idx, n_valid, n_cols)) in enumerate(
                         bell_cases):
                     x = torch.randn((n_cols, F), generator=gen,
@@ -3075,13 +3096,24 @@ def time_mamba_kernel(torch, flush) -> dict:
     return {"mamba_scan": rows}
 
 
+# the spin kernel that opens each profiler window (torch.cuda._sleep), about
+# 1 ms on an H100, and the part of its device events' key
+SPIN_CYCLES = 2_000_000
+SPIN_KERNEL = "spin_kernel"
+
+
 def profile_once(torch, fn, iters: int):
     """One torch.profiler window over ``iters`` calls of ``fn``: its device
     rows (us per call, events per call, name), largest first, the wall us
     per call, and each kernel name's device events over the window.  One
     call before the window runs under the profiler's warm-up step, whose
     events are dropped: a window's first kernels can go unrecorded while
-    the device tracing starts."""
+    the device tracing starts.  For the same reason the window opens with a
+    spin kernel (``torch.cuda._sleep``, about 1 ms) before the first call,
+    whose events are dropped too: late in a long run the profiler dropped
+    the first kernels of a window's first call (one x @ W and one
+    block_diag_spmm of a pubmed forward), as if their timestamps fell
+    before the window's start."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     sched = torch.profiler.schedule(wait=0, warmup=1, active=iters, repeat=1)
@@ -3090,6 +3122,8 @@ def profile_once(torch, fn, iters: int):
         fn()
         torch.cuda.synchronize()
         prof.step()
+        torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         for i in range(iters):
             fn()
@@ -3099,7 +3133,7 @@ def profile_once(torch, fn, iters: int):
         wall_us = (time.perf_counter() - t0) * 1e6 / iters
     dev_rows, events = [], {}
     for e in prof.key_averages():
-        if e.key.startswith("ProfilerStep"):
+        if e.key.startswith("ProfilerStep") or SPIN_KERNEL in e.key:
             continue   # the schedule's step markers span, not run, kernels
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -3348,9 +3382,7 @@ def main() -> int:
                 bell.blocks, bell.col_idx, h), **F32_TOL)
         torch.testing.assert_close(torch.bmm(bd.blocks, xb).view(-1, F),
                                    bd_mod.plain(bd.blocks, h), **F32_TOL)
-        be = 4
-        n_bytes = (nb * B * B + 2 * dec.n_pad * F) * be
-        b_ms, b_by = bound(n_bytes, 2.0 * nb * B * B * F, "float32")
+        b_ms, b_by = block_diag_bound(nb, B, F)
         rows["block_diag_spmm"][F] = dict(
             ms=graph_ms(torch, lambda: bd_mod.block_diag_spmm(bd.blocks, h),
                         flush),
@@ -3363,6 +3395,35 @@ def main() -> int:
             library_call="torch.bmm(blocks, x.view(nb, B, F))",
             bound_ms=b_ms, bound_by=b_by,
             shape=[list(bd.blocks.shape), [dec.n_pad, F]])
+        # the backward's dX pass (the transposed read) and the forward
+        # seeded by the GCN bias as the main path passes it (one row
+        # repeated), each held against its plain version (same bits twice)
+        # before it is timed
+        bias = torch.randn((F,), generator=gen, device="cuda")
+        bias_row = bias.expand(dec.n_pad, F)
+        at = bd.blocks.transpose(1, 2)
+        for tag, y_in, transpose, lib, lib_call, seed in (
+                ("t", None, True, lambda: torch.bmm(at, xb),
+                 "torch.bmm(blocks.transpose(1, 2), x.view(nb, B, F))",
+                 "none"),
+                ("bias", bias_row, False,
+                 lambda: torch.baddbmm(bias, bd.blocks, xb),
+                 "torch.baddbmm(bias, blocks, x.view(nb, B, F))", "row")):
+            def run(y_in=y_in, transpose=transpose):
+                return bd_mod.block_diag_spmm(bd.blocks, h, y_in,
+                                              transpose=transpose)
+            want = bd_mod.plain(bd.blocks, h, y_in, transpose=transpose)
+            torch.testing.assert_close(run(), want, **F32_TOL)
+            torch.testing.assert_close(lib().view(-1, F), want, **F32_TOL)
+            if not torch.equal(run(), run()):
+                raise RuntimeError(f"block_diag_spmm {tag} F={F} gave other "
+                                   "bits on a second call")
+            b_ms, _ = block_diag_bound(nb, B, F, seed)
+            rows["block_diag_spmm"][F].update({
+                f"ms_{tag}": graph_ms(torch, run, flush),
+                f"library_ms_{tag}": graph_ms(torch, lib, flush),
+                f"library_call_{tag}": lib_call,
+                f"bound_ms_{tag}": b_ms})
         lib_ms, lib_how = ((None, "none") if bsr is None else
                            yardstick_ms(torch, lambda: bsr @ h, flush,
                                         f"BSR @ x F={F}"))
@@ -3407,11 +3468,14 @@ def main() -> int:
             log("timing", f"{k} F={F}: {r['ms']:.4f} ms (L2 cold), plain "
                 f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms "
                 f"({r['library_call']}), bound {r['bound_ms']:.4f} ms "
-                f"({r['bound_by']})" + (
-                    f"; over bell_t {r['ms_bell_t']:.4f} ms, library "
-                    f"{r['library_ms_bell_t']} ms, bound "
-                    f"{r['bound_ms_bell_t']:.4f} ms" if "ms_bell_t" in r
-                    else ""))
+                f"({r['bound_by']})" + "".join(
+                    f"; {what} {r[f'ms_{tag}']:.4f} ms, library "
+                    f"{r[f'library_ms_{tag}']} ms, bound "
+                    f"{r[f'bound_ms_{tag}']:.4f} ms"
+                    for tag, what in (("bell_t", "over bell_t"),
+                                      ("t", "transposed read"),
+                                      ("bias", "bias row as y_in"))
+                    if f"ms_{tag}" in r))
     rows.update(time_train_kernels(torch, dec, flush, bsr, bsr_t))
     rows.update(time_tcgnn_kernels(torch, dec, flush))
     rows.update(time_dual_kernel(torch, sdec, flush))

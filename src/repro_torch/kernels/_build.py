@@ -38,7 +38,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argtypes of each library's launch function (pointers and the stream as
 # c_void_p so ctypes never truncates them to 32 bits)
 SIGNATURES = {
-    "block_diag_spmm": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "block_diag_spmm": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "bell_spmm": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "bell_spmm_fused": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         _I, _P),

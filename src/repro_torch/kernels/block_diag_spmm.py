@@ -30,6 +30,20 @@ def _check(blocks: torch.Tensor, x: torch.Tensor,
         raise ValueError(f"y_in must be {tuple(x.shape)}, "
                          f"got {tuple(y_in.shape)}")
     _build.check_operands((x, blocks, y_in))
+    if y_in is not None:
+        y_in_ld(y_in)
+
+
+def y_in_ld(y_in: torch.Tensor) -> int:
+    """The row stride the kernel reads ``y_in`` at: F for a contiguous
+    (n, F) array, 0 for one row of F values repeated (strides (0, 1), as
+    ``bias.expand(n, F)`` gives).  Raises on any other layout."""
+    if y_in.is_contiguous():
+        return y_in.shape[1]
+    if y_in.stride(0) == 0 and (y_in.stride(1) == 1 or y_in.shape[1] == 1):
+        return 0
+    raise ValueError("y_in must be contiguous or one row repeated (strides "
+                     f"(0, 1)), got strides {y_in.stride()}")
 
 
 def block_diag_spmm(blocks: torch.Tensor, x: torch.Tensor,
@@ -38,18 +52,21 @@ def block_diag_spmm(blocks: torch.Tensor, x: torch.Tensor,
     """Y = blockdiag(blocks) @ x (+ y_in), float32 accumulation; with
     ``transpose`` each block is read transposed (no copy is made).
 
-    blocks: (nb, B, B); x: (nb*B, F); y_in: optional (nb*B, F).  CUDA
-    tensors must be contiguous float32 or bfloat16 with B <= 64."""
+    blocks: (nb, B, B); x: (nb*B, F); y_in: optional (nb*B, F), contiguous
+    or one row repeated (strides (0, 1), as ``bias.expand(nb*B, F)``
+    gives; no copy is made).  CUDA tensors must be float32 or bfloat16,
+    blocks and x contiguous, with B <= 64."""
     _check(blocks, x, y_in)
     if x.device.type == "cpu":
         return plain(blocks, x, y_in, transpose=transpose)
     nb, B, _ = blocks.shape
-    code = _build.cuda_dtype_code((x, blocks, y_in), block_size=B)
+    code = _build.cuda_dtype_code((x, blocks), block_size=B)
+    ld = y_in_ld(y_in) if y_in is not None else x.shape[1]
     y = torch.empty_like(x)
     lib = _build.library("block_diag_spmm")
     with torch.cuda.device(x.device):
         lib.launch(blocks.data_ptr(), x.data_ptr(), _build.ptr(y_in),
-                   y.data_ptr(), nb, B, x.shape[1], int(transpose), code,
+                   y.data_ptr(), nb, B, x.shape[1], ld, int(transpose), code,
                    _build.stream(x))
     launches.add()
     return y

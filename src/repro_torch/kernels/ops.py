@@ -158,8 +158,10 @@ def block_diag_matvec(blocks: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 def block_diag_matvec_acc(blocks: torch.Tensor, x: torch.Tensor,
                           y_in: torch.Tensor) -> torch.Tensor:
-    """Y = blockdiag(blocks) @ x + y_in (accumulating dispatch mode)."""
-    return _BlockDiag.apply(blocks, x, y_in.contiguous())
+    """Y = blockdiag(blocks) @ x + y_in (accumulating dispatch mode).
+    ``y_in`` may be one row repeated (strides (0, 1), as ``bias.expand``
+    gives): the kernel reads that row, and no (n, F) copy is made."""
+    return _BlockDiag.apply(blocks, x, y_in)
 
 
 def bell_matvec(bell: formats.BlockELL, bell_t: formats.BlockELL,

@@ -67,6 +67,45 @@ def test_cuda_kernels_match_plain(cuda_device, dtype, B):  # noqa: F811
                                         args[2]).float(), **tol)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [8, 16, 32, 64])
+def test_cuda_block_diag_spmm_widths_seeds_and_alignment(cuda_device, dtype,
+                                                        B):  # noqa: F811
+    """block_diag_spmm against its plain version at F on both sides of its
+    kernels' limits (64 columns, 16-byte vectors), y_in none, full and one
+    bias row repeated (strides (0, 1)), both reads, nb = 1 and nb not a
+    multiple of the blocks a CTA takes, x on and off 16-byte boundaries;
+    two calls give the same bits."""
+    tol = (tp.F32_TOL if dtype == torch.float32
+           else dict(atol=2e-1, rtol=3e-1))
+    dev = cuda_device
+    gen = torch.Generator(device=dev).manual_seed(200 + B)
+    for nb in (1, 7, 20):
+        n = nb * B
+        blocks = torch.randn((nb, B, B), generator=gen, device=dev).to(dtype)
+        for F in (1, 3, 5, 16, 17, 64, 65, 500):
+            buf = torch.randn((n * F + 1,), generator=gen,
+                              device=dev).to(dtype)
+            y_ins = (None,
+                     torch.randn((n, F), generator=gen, device=dev).to(dtype),
+                     torch.randn((F,), generator=gen, device=dev).to(dtype)
+                     .expand(n, F))
+            for x in (buf[:-1].view(n, F), buf[1:].view(n, F)):
+                for y_in in y_ins:
+                    for transpose in (False, True):
+                        got = bd_mod.block_diag_spmm(blocks, x, y_in,
+                                                     transpose=transpose)
+                        again = bd_mod.block_diag_spmm(blocks, x, y_in,
+                                                       transpose=transpose)
+                        want = bd_mod.plain(blocks, x, y_in,
+                                            transpose=transpose)
+                        torch.cuda.synchronize()
+                        assert torch.equal(got, again)
+                        torch.testing.assert_close(got.float(), want.float(),
+                                                   **tol)
+
+
 DW_REL_TOL = 1e-5
 
 

@@ -121,6 +121,71 @@ def test_wrappers_reject_bad_operands(case):
                                    torch.zeros((40, 2)))
 
 
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("F", [1, 3, 16])
+def test_block_diag_reads_an_expanded_bias_row_as_its_copy(F, transpose):
+    """A y_in of one row repeated (strides (0, 1), as bias.expand gives)
+    gives the bits of the same seed copied to (n, F)."""
+    blocks, x, _ = map(torch.from_numpy, _block_diag_inputs(8, F, seed=F))
+    bias = torch.from_numpy(np.random.default_rng(F + 1).standard_normal(
+        F).astype(np.float32))
+    row = bias.expand(x.shape[0], F)
+    assert row.stride() == (0, 1) and bd_mod.y_in_ld(row) == 0
+    assert bd_mod.y_in_ld(row.contiguous()) == F
+    got = bd_mod.block_diag_spmm(blocks, x, row, transpose=transpose)
+    assert torch.equal(got, bd_mod.block_diag_spmm(
+        blocks, x, row.contiguous(), transpose=transpose))
+    tp.assert_close(got, bd_mod.plain(blocks, x, transpose=transpose) + bias)
+
+
+@pytest.mark.parametrize("layout", ["transposed", "column_slice",
+                                    "row_step", "column_repeat"])
+def test_block_diag_rejects_other_strided_y_in(layout):
+    blocks, x, y_in = map(torch.from_numpy, _block_diag_inputs(8, 6, seed=9))
+    n = x.shape[0]
+    y_in = {"transposed": y_in.t().contiguous().t(),
+            "column_slice": torch.zeros((n, 12))[:, ::2],
+            "row_step": torch.zeros((2 * n, 6))[::2],
+            "column_repeat": torch.zeros((n, 1)).expand(n, 6)}[layout]
+    assert y_in.shape == x.shape and not y_in.is_contiguous()
+    with pytest.raises(ValueError, match="strides"):
+        bd_mod.block_diag_spmm(blocks, x, y_in)
+
+
+def test_block_diag_acc_takes_the_bias_row_and_sums_its_gradient():
+    """ops.block_diag_matvec_acc passes an expanded bias through uncopied;
+    the bias gradient (autograd's expand summing dY) and dX equal the
+    contiguous seed's."""
+    from repro_torch.kernels import ops
+    blocks, x, _ = map(torch.from_numpy, _block_diag_inputs(8, 5, seed=12))
+    g = torch.from_numpy(np.random.default_rng(13).standard_normal(
+        x.shape).astype(np.float32))
+    seen = []
+    real = ops.block_diag_spmm
+
+    def spy(blocks_, x_, y_in=None, **kw):
+        seen.append(None if y_in is None else y_in.stride())
+        return real(blocks_, x_, y_in, **kw)
+
+    grads = []
+    for copy in (False, True):
+        bias = torch.linspace(-1.0, 1.0, 5, requires_grad=True)
+        xx = x.clone().requires_grad_(True)
+        seed = bias.expand(x.shape[0], 5)
+        ops.block_diag_spmm = spy
+        try:
+            y = ops.block_diag_matvec_acc(
+                blocks, xx, seed.contiguous() if copy else seed)
+        finally:
+            ops.block_diag_spmm = real
+        (y * g).sum().backward()
+        grads.append((y.detach(), bias.grad, xx.grad))
+    assert seen == [(0, 1), (5, 1)]
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+    tp.assert_close(grads[0][1], g.sum(0))
+
+
 def test_build_targets_hopper_and_names_libraries_by_content():
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags

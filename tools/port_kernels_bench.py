@@ -1,11 +1,12 @@
 """The redesigned gather kernels, the bf16 flash_attention path and the
 two scans alone on the card.
 
-Builds only the sources named by ``--kernels`` (by default all eight:
+Builds only the sources named by ``--kernels`` (by default all nine:
 ``csrc/bell_spmm.cu``, ``csrc/tcgnn_spmm_dw.cu``,
 ``csrc/tcgnn_spmm_fused.cu``, ``csrc/tcgnn_spmm.cu``,
-``csrc/block_diag_spmm_dual.cu``, ``csrc/flash_attention.cu``,
-``csrc/rwkv6_chunked.cu`` and ``csrc/mamba_scan.cu``), prepares the pubmed
+``csrc/block_diag_spmm_dual.cu``, ``csrc/block_diag_spmm.cu``,
+``csrc/flash_attention.cu``, ``csrc/rwkv6_chunked.cu`` and
+``csrc/mamba_scan.cu``), prepares the pubmed
 graph as ``chip_smoke.py`` does where a gather kernel is named (and its
 SAGE decomposition for the dual kernel), and holds each kernel against its
 plain version, float32 and bfloat16, then times it (CUDA graphs, L2
@@ -34,6 +35,14 @@ flushed) beside its library yardstick and bound, and probes what bounds it:
   backward), then the same bits twice; timed at 500x16 and 16x3 beside
   ``bmm(A, x@w) + x@w_self``; probes: L2 warm, and what one launch costs
   (a PyTorch fill of one float, timed the same way);
+- block_diag_spmm on pubmed's diagonal blocks and synthetic ones (B in 8,
+  32, 64) at F in {1, 3, 16, 17, 64, 65, 500}, y_in none, full and a bias
+  row (strides (0, 1)), both reads, x on and off 16-byte boundaries, the
+  same bits twice; timed at F = 16 and 3 (the forward, the transposed
+  read, the bias row and a full y_in) beside ``torch.bmm`` /
+  ``torch.baddbmm``; probes: L2 warm, what one launch costs, and what
+  one elementwise pass over the same bytes costs (``torch.add`` of the
+  blocks, as rows of 16, and X at F = 16);
 - flash_attention at ``chip_smoke.phase_kernels_flash``'s cases and gates;
   timed bf16 causal at ``chip_smoke.FLASH_TIMED`` beside SDPA;
 - rwkv6_chunked at ``chip_smoke.phase_kernels_rwkv``'s cases and gates;
@@ -55,8 +64,10 @@ CUDA card and nvcc; exits 1 without them.  From the root of a checkout:
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -69,9 +80,9 @@ sys.path.insert(0, str(ROOT / "src"))
 import chip_smoke as cs  # noqa: E402
 
 SOURCES = ("bell_spmm", "tcgnn_spmm_dw", "tcgnn_spmm_fused", "tcgnn_spmm",
-           "block_diag_spmm_dual", "flash_attention", "rwkv6_chunked",
-           "mamba_scan")
-GATHER = SOURCES[:5]     # the kernels timed on pubmed's payloads
+           "block_diag_spmm_dual", "block_diag_spmm", "flash_attention",
+           "rwkv6_chunked", "mamba_scan")
+GATHER = SOURCES[:6]     # the kernels timed on pubmed's payloads
 # (payload, Fi, Fo) of the timed tcgnn_spmm_fused calls: layer 1, layer 2,
 # and layer 2's dX pass over the transpose payload with W^T
 TCGNN_TIMED = {"500x16": (0, 500, 16), "16x3": (0, 16, 3),
@@ -87,16 +98,30 @@ def build_baseline(root: Path, names) -> dict:
     for name in names:
         src = root / "src" / "repro_torch" / "kernels" / "csrc" / f"{name}.cu"
         so = _build.BUILD_DIR / f"lib{name}-baseline.so"
-        procs[name] = (so, subprocess.Popen(
+        procs[name] = (src, so, subprocess.Popen(
             [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     out = {}
-    for name, (so, proc) in procs.items():
+    for name, (src, so, proc) in procs.items():
         o, e = proc.communicate(timeout=_build.BUILD_TIMEOUT_S)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for the baseline {name}:\n{o}{e}")
         out[name] = _build._load(name, so, 0.0, ())
+        getattr(out[name].lib, f"{name}_launch").argtypes = launch_argtypes(
+            src.read_text(), name)
     return out
+
+
+def launch_argtypes(source: str, name: str) -> list:
+    """ctypes argtypes of ``<name>_launch`` as ``source`` declares it (a
+    baseline's interface may differ from this tree's ``_build.SIGNATURES``)."""
+    decl = re.search(rf'extern "C" int {name}_launch\(([^)]*)\)', source)
+    types = []
+    for param in decl.group(1).split(","):
+        words = param.replace("*", " * ").split()
+        types.append(ctypes.c_void_p if "*" in words else
+                     ctypes.c_float if "float" in words else ctypes.c_int)
+    return types
 
 
 def in_turns(torch, new, base, flush) -> dict:
@@ -349,6 +374,127 @@ def time_dual(torch, sdec, flush, base) -> dict:
     floor = {"fill_one_float_ms": cs.graph_ms(torch, one.zero_, flush)}
     cs.log("probe", f"one launch (L2 flushed): {json.dumps(floor)}")
     return {"rows": rows, "probe": floor}
+
+
+def check_block_diag(torch, dec) -> dict:
+    """block_diag_spmm against its plain version over pubmed's blocks and
+    synthetic ones (B in 8, 32, 64) at F in {1, 3, 16, 17, 64, 65, 500},
+    y_in none, full and one bias row repeated, both reads, x on and off
+    16-byte boundaries; the same bits twice; the largest errors."""
+    from repro_torch.kernels import block_diag_spmm as bd_mod
+    dev = dec.device
+    gen = torch.Generator(device=dev).manual_seed(31)
+    cases = [dec.intra.formats["block_diag"].blocks] + [
+        torch.randn((37, B, B), generator=gen, device=dev)
+        for B in (8, 32, 64)]
+    errs = {"float32": 0.0, "bfloat16": 0.0}
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        key = str(dtype).removeprefix("torch.")
+        tol = cs.F32_TOL if dtype == torch.float32 else cs.BF16_TOL
+        for blocks in cases:
+            blocks = blocks.to(dtype)
+            rows = blocks.shape[0] * blocks.shape[1]
+            for F in (1, 3, 16, 17, 64, 65, 500):
+                buf = torch.randn((rows * F + 1,), generator=gen,
+                                  device=dev).to(dtype)
+                y_ins = (None, torch.randn((rows, F), generator=gen,
+                                           device=dev).to(dtype),
+                         torch.randn((F,), generator=gen, device=dev)
+                         .to(dtype).expand(rows, F))
+                # rows on 16-byte boundaries where F allows, and one
+                # element off them
+                for x in (buf[:-1].view(rows, F), buf[1:].view(rows, F)):
+                    for y_in in y_ins:
+                        for transpose in (False, True):
+                            got = same_bits(torch, lambda: (
+                                bd_mod.block_diag_spmm(
+                                    blocks, x, y_in, transpose=transpose)),
+                                "block_diag_spmm")
+                            want = bd_mod.plain(blocks, x, y_in,
+                                                transpose=transpose)
+                            torch.testing.assert_close(
+                                got.float(), want.float(), **tol)
+                            errs[key] = max(errs[key], cs.max_err(got, want))
+                            n += 1
+    cs.log("kernel", f"block_diag_spmm: {n} cases within tolerance, same "
+           f"bits twice; largest errors {errs}")
+    return errs
+
+
+def time_block_diag(torch, dec, flush, base) -> dict:
+    """block_diag_spmm on pubmed's diagonal blocks at F = 16 and 3: the
+    forward, the transposed read, the bias row as y_in and a full y_in,
+    beside torch.bmm / torch.baddbmm and the bound (as chip_smoke.py's row
+    1), in turns with the baseline (whose bias-row call includes the (n,
+    F) copy its path made); probes: L2 warm, one launch's cost, and one
+    elementwise pass over the same bytes at F = 16 (torch.add of the blocks,
+    as n rows of 16, and X)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import block_diag_spmm as bd_mod
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    blocks = dec.intra.formats["block_diag"].blocks
+    nb, B = blocks.shape[0], blocks.shape[1]
+    n = nb * B
+    rows = {}
+    for F in (16, 3):
+        x = torch.randn((n, F), generator=gen, device="cuda")
+        xb = x.view(nb, B, F)
+        bias = torch.randn((F,), generator=gen, device="cuda")
+        full = torch.randn((n, F), generator=gen, device="cuda")
+        y = torch.empty((n, F), device="cuda")
+        timed = {
+            "fwd": (None, False, lambda: torch.bmm(blocks, xb),
+                    "torch.bmm(blocks, x.view(nb, B, F))"),
+            "t": (None, True, lambda: torch.bmm(blocks.transpose(1, 2), xb),
+                  "torch.bmm(blocks.transpose(1, 2), x.view(nb, B, F))"),
+            "bias": (bias.expand(n, F), False,
+                     lambda: torch.baddbmm(bias, blocks, xb),
+                     "torch.baddbmm(bias, blocks, x.view(nb, B, F))"),
+            "full": (full, False,
+                     lambda: torch.baddbmm(full.view(nb, B, F), blocks, xb),
+                     "torch.baddbmm(y_in.view(nb, B, F), blocks, "
+                     "x.view(nb, B, F))")}
+        for what, (y_in, transpose, lib, lib_call) in timed.items():
+            def new(y_in=y_in, transpose=transpose):
+                return bd_mod.block_diag_spmm(blocks, x, y_in,
+                                              transpose=transpose)
+            want = bd_mod.plain(blocks, x, y_in, transpose=transpose)
+            torch.testing.assert_close(lib().view(n, F), want, **cs.F32_TOL)
+            torch.testing.assert_close(same_bits(torch, new,
+                                                 f"block_diag_spmm {what}"),
+                                       want, **cs.F32_TOL)
+            old = None
+            if base is not None:
+                def old(y_in=y_in, transpose=transpose):
+                    yi = None if y_in is None else y_in.contiguous()
+                    base.launch(blocks.data_ptr(), x.data_ptr(),
+                                _build.ptr(yi), y.data_ptr(), nb, B, F,
+                                int(transpose), 0, _build.stream(x))
+                    return y
+                torch.testing.assert_close(old(), want, **cs.F32_TOL)
+            b_ms, b_by = cs.block_diag_bound(nb, B, F, {
+                "bias": "row", "full": "full"}.get(what, "none"))
+            r = in_turns(torch, new, old, flush)
+            r.update(library_ms=cs.graph_ms(torch, lib, flush),
+                     library_call=lib_call, bound_ms=b_ms, bound_by=b_by)
+            key = f"{what} F={F}"
+            rows[key] = r
+            cs.log("timing", f"block_diag_spmm {key}: {json.dumps(r)}")
+    x = torch.randn((n, 16), generator=gen, device="cuda")
+    one = torch.zeros(1, device="cuda")
+    probe = {"warm_l2_ms": cs.graph_ms(
+                 torch, lambda: bd_mod.block_diag_spmm(blocks, x)),
+             "fill_one_float_ms": cs.graph_ms(torch, one.zero_, flush)}
+    if B == 16:
+        # one elementwise pass over the forward's bytes at F = 16: it reads
+        # the blocks (as n rows of 16) and X and writes Y, as the kernel does
+        y = torch.empty((n, 16), device="cuda")
+        a_rows = blocks.view(n, 16)
+        probe["same_bytes_add_ms"] = cs.graph_ms(
+            torch, lambda: torch.add(a_rows, x, out=y), flush)
+    cs.log("probe", f"block_diag_spmm F=16: {json.dumps(probe)}")
+    return {"rows": rows, "probe": probe}
 
 
 def time_flash(torch, flush, base) -> dict:
@@ -759,6 +905,10 @@ def main() -> int:
         out["errors"]["block_diag_spmm_dual"] = errs["block_diag_spmm_dual"]
         out["block_diag_spmm_dual"] = time_dual(
             torch, sdec, flush, base.get("block_diag_spmm_dual"))
+    if "block_diag_spmm" in names:
+        out["errors"]["block_diag_spmm"] = check_block_diag(torch, dec)
+        out["block_diag_spmm"] = time_block_diag(
+            torch, dec, flush, base.get("block_diag_spmm"))
     if "flash_attention" in names:
         errs = {"flash_attention": {"float32": 0.0, "bfloat16": 0.0}}
         cs.phase_kernels_flash(torch, errs)
