@@ -11,7 +11,11 @@ twin ``("block_diag_fused", "bell_fused")`` and the column-condensed
 config, whose feedback selector times every registry candidate of every
 subgraph at both layer widths on the card and commits the fastest; then
 the same for GraphSAGE (``GNNConfig(model="sage")``): two fixed plans and
-its feedback main path; then the LM stack's serving paths at full
+its feedback main path; then GIN as the paper's Fig. 8 trains it
+(``GNNConfig(model="gin", reorder="louvain")``, the port's own Louvain):
+two fixed plans and its feedback main path, GIN's two layer structures on
+proteins_full's 29 features, and the O1 baseline of Fig. 11; then the LM
+stack's serving paths at full
 published widths: InternLM2-1.8B (flash prefill, cache prefill, greedy
 decode), RWKV6-7B (the rwkv6_chunked kernel in the prefill step,
 sequential cache prefill, greedy decode) and one period of Jamba-v0.1
@@ -85,6 +89,32 @@ Phases, each of which raises (exit code != 0) on failure:
    calls plus what the committed plan implies; every curve must fall and
    match the CPU run of the same plan and the edge-list SAGE trained with
    autograd (atol 5e-3, rtol 1e-2);
+7a. GIN (no self-loops, unit values) on pubmed reordered by Louvain, 2
+   layers, hidden 16 (Fig. 8's configuration): the Louvain reorder alone
+   and ``prepare`` are timed, the permutation must be prepare's, and
+   decomposition_quality (Louvain against bfs) is printed, Louvain keeping
+   more edges on the diagonal.  Each of GIN_PLANS: logits on the card
+   against the CPU and against an independent edge-list GIN (index_add_,
+   unit values) within float32 atol 1e-4 / rtol 1e-5, then TRAIN_STEPS
+   steps with the launch counts set to 0 just before and read just after,
+   equal to plan_launches(model="gin"), the curve falling and matching the
+   CPU's and the edge-list GIN's trained with autograd; then the main
+   path, gnn.train(graph, GNNConfig(model="gin", reorder="louvain")) with
+   the feedback selector, its launches the probe calls plus what the
+   committed plan implies, its curve against the same plan on the CPU and
+   the edge-list GIN.  [gin_structure]: proteins_full at scale 1.0 (29
+   features, rows off 16-byte boundaries), GIN hidden 64, bfs; layer 1
+   forced to each structure through the plan's epilogues and under the
+   structure layer_plan_inputs prices on the card, for four plans: each
+   forward's launches equal plan_launches(steps=0), its logits agree with
+   the edge-list GIN and the two structures' with each other (atol 1e-4,
+   rtol 1e-5); aggregate-first sends block_diag_spmm, bell_spmm and
+   tcgnn_spmm through F = 29, the fused kernels run 29 -> 64.  [o1]: on
+   the Louvain decomposition at F = 32, aggregate_full_static with each
+   kernel that applies to every tier against the CPU and an edge-list
+   index_add_ (float32 1e-4), and the O1 / O2 ("ell", "coo") / O3 (probed)
+   times, CUDA events after a sync, as Fig. 11 times them (printed lines,
+   not a benchmark);
 7b. LM serving, InternLM2-1.8B (24 layers, d_model 2048, 16/8 heads of
    128, d_ff 8192, vocab 92544): flash_attention against its plain
    version is in phase 2 (the reference test's shapes, InternLM2's
@@ -164,11 +194,12 @@ Phases, each of which raises (exit code != 0) on failure:
    the steps profiled;
 8. timing: median forward times (acc off and on) and training-step times
    (CUDA events, host launch included; GCN's unfused and feedback plans
-   also with acc off, and the SAGE plans), each kernel's time at the main
-   path's shapes beside its plain version, one PyTorch library call (or
-   composite) computing the same function and its bound (bell_spmm also
-   over the transpose payload, the backward's dX passes; block_diag_spmm
-   also with the transposed read and seeded by a bias row), and
+   also with acc off, and the SAGE and GIN plans), each kernel's time at
+   the main path's shapes beside its plain version, one PyTorch library
+   call (or composite) computing the same function and its bound
+   (bell_spmm also over the transpose payload, the backward's dX passes;
+   block_diag_spmm also with the transposed read and seeded by a bias
+   row), and
    torch.profiler tables with the device-busy share of a forward and of a
    training step per plan.
 
@@ -319,16 +350,43 @@ SAGE_PER_FORWARD = {"sage_dual": {"block_diag_spmm_dual": 2,
                     "sage_unfused": {"block_diag_spmm": 2, "bell_spmm": 2}}
 
 
-def plan_launches(layers, steps: int, model: str = "gcn") -> dict:
+# GIN (no self-loops, unit values, the Louvain reorder), 2 layers of hidden
+# 16 as the paper's Fig. 8 trains it: pubmed's 500 features exceed the
+# hidden width, so both layers are transform-first and aggregate at width
+# 16, seeded by the full (n, 16) self term; a plan launches per step what
+# the same plan does for GCN.
+GIN_PLANS = {"gin_unfused": ("block_diag", "bell"),
+             "gin_tcgnn_fused": ("block_diag_fused", "tcgnn_tile_fused")}
+GIN_CPU_STEPS = {"gin_unfused": 20, "gin_tcgnn_fused": 5}
+# [gin_structure]: proteins_full's 29 features (116-byte rows, off 16-byte
+# boundaries) under GIN of hidden 64, layer 1 in each structure
+GIN_STRUCT_HIDDEN = 64
+GIN_STRUCT_PLANS = (("block_diag", "bell"), ("block_diag", "tcgnn_tile"),
+                    ("block_diag_fused", "tcgnn_tile_fused"),
+                    ("block_diag_fused", "bell_fused"))
+GIN_TOL = dict(atol=1e-4, rtol=1e-5)
+# [o1]: the paper's Fig. 11 feature width (benchmarks/ablation_o123.py)
+O1_WIDTH = 32
+
+
+def plan_launches(layers, steps: int, model: str = "gcn",
+                  structures=None) -> dict:
     """CUDA-kernel launches of ``steps`` training steps and one forward of
     a plan (one kernel-name tuple per layer), by the rules PER_STEP and
     SAGE_PER_STEP spell out: an unfused kernel runs once forward and once
     backward; a fused one once forward, once more for dX after the first
     layer, and its dW kernel once; SAGE's block_diag_fused on the diagonal
     tier is the dual kernel forward, with the fused kernel's dX and the dW
-    kernel behind it."""
+    kernel behind it.  A GIN layer runs as GCN's unless ``structures``
+    makes it aggregate-first and no fused kernel overrides that: then its
+    unfused kernels aggregate the layer's input, whose gradient the first
+    layer (the raw features) does not need, so there they run forward
+    only."""
     out = {k: 0 for k in KERNELS}
     for li, layer in enumerate(layers):
+        agg_first = (model == "gin" and structures is not None
+                     and structures[li] == "aggregate_first"
+                     and not any(n.endswith("_fused") for n in layer))
         for si, name in enumerate(layer):
             if model == "sage" and si == 0 and name == "block_diag_fused":
                 out["block_diag_spmm_dual"] += steps + 1
@@ -339,7 +397,8 @@ def plan_launches(layers, steps: int, model: str = "gcn") -> dict:
             if not kernels:
                 continue                      # torch ops: no CUDA kernel
             if len(kernels) == 1:
-                out[kernels[0]] += 2 * steps + 1
+                out[kernels[0]] += ((2 if li or not agg_first else 1) * steps
+                                    + 1)
             else:
                 out[kernels[0]] += (2 if li else 1) * steps + 1
                 out[kernels[1]] += steps
@@ -1793,6 +1852,354 @@ def phase_sage_feedback(torch, graph, counts: dict, sage: dict) -> dict:
         f"{np.abs(losses - cpu.losses).max():.3g}, max|card - edge-list "
         f"SAGE| {np.abs(losses - sage['edge_losses']).max():.3g}")
     return dict(result=res, launches=launches, plan=plan)
+
+
+def gin_edge_list(torch, graph):
+    """GIN's edge list in original node order: (senders, receivers), unit
+    values, no self-loops added.  The synthetic graphs hold no duplicate
+    edge, so every format stores each edge once."""
+    return (torch.from_numpy(graph.senders).long(),
+            torch.from_numpy(graph.receivers).long())
+
+
+def edge_list_gin(torch, feats, edges, params):
+    """Independent CPU reference: the GIN forward, MLP((1+eps) h + sum over
+    in-neighbours of h) per layer with ``index_add_`` over the edge list,
+    ReLU between layers (aggregate-first, as Xu et al. write it)."""
+    snd, rcv = edges
+    h = feats
+    for i, layer in enumerate(params):
+        agg = torch.zeros_like(h).index_add_(0, rcv, h[snd])
+        z = (1 + layer["eps"]) * h + agg
+        h = torch.relu(z @ layer["w1"] + layer["b1"]) @ layer["w2"] \
+            + layer["b2"]
+        if i != len(params) - 1:
+            h = torch.relu(h)
+    return h
+
+
+def train_on(torch, graph, cfg, dec, plan, params, steps: int) -> dict:
+    """``gnn.train``'s loop on a decomposition already prepared (its
+    reorder is not run again): ``steps`` steps of make_train_step from
+    ``params`` and one forward, on ``dec``'s device.  Returns the losses
+    and the accuracy."""
+    from repro_torch.core import adaptgear, gnn
+    dev = dec.device
+    x = adaptgear.to_reordered(dec, torch.from_numpy(graph.features).to(dev))
+    labels, mask = gnn.node_targets(graph, dec)
+    p = [{k: v.detach().to(dev).clone() for k, v in q.items()}
+         for q in params]
+    opt = gnn._adam_init(p)
+    step = gnn.make_train_step(cfg, dec, plan)
+    losses = []
+    for _ in range(steps):
+        p, opt, loss = step(p, opt, x, labels, mask)
+        losses.append(float(loss))
+    with torch.no_grad():
+        pred = gnn.forward(p, cfg, dec, x, plan).argmax(-1)
+    acc = float(((pred == labels) & mask).sum() / mask.sum())
+    return dict(losses=losses, accuracy=acc)
+
+
+def phase_gin(torch, graph, counts: dict) -> dict:
+    """GIN on pubmed (Fig. 8's GIN: 2 layers, hidden 16) on the Louvain
+    reordering: the Louvain reorder alone, then ``prepare`` (both timed),
+    and decomposition_quality against bfs; each fixed plan's logits
+    against the CPU and the edge-list GIN, and TRAIN_STEPS steps of each
+    with the launch counts set to 0 just before and read just after,
+    checked against plan_launches(model="gin"), the curve against the CPU
+    and the edge-list GIN trained with autograd; then the main path,
+    gnn.train(graph, GNNConfig(model="gin", reorder="louvain")) with the
+    feedback selector, its launches the probe calls plus what the
+    committed plan implies, its curve against the same plan on the CPU and
+    the edge-list GIN."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.core import adaptgear, gnn
+    from repro_torch.core import decompose as dec_mod
+    fb_cfg = gnn.GNNConfig(model="gin", reorder="louvain")
+    cfg = dataclasses.replace(fb_cfg, selector="fixed")
+    t0 = time.perf_counter()
+    perm = dec_mod.louvain_reorder(graph.n, graph.senders, graph.receivers,
+                                   cfg.comm_size)
+    t_louvain = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dec = gnn.prepare(graph, cfg, device="cuda")
+    torch.cuda.synchronize()
+    t_prepare = time.perf_counter() - t0
+    if not np.array_equal(dec.perm.cpu().numpy(), perm):
+        raise RuntimeError("prepare's Louvain permutation differs from "
+                           "louvain_reorder's")
+    if dec.stats["effective_method"] != "louvain":
+        raise RuntimeError(f"effective method {dec.stats['effective_method']}")
+    bfs = dec_mod.decompose_skeleton(graph, cfg.comm_size, "bfs")
+    quality = {"louvain": dec_mod.decomposition_quality(dec),
+               "bfs": dec_mod.decomposition_quality(bfs)}
+    log("gin", f"Louvain reorder alone {t_louvain:.2f} s (the port's copy of "
+        f"networkx's method, {len(np.unique(perm))} nodes); prepare "
+        f"{t_prepare:.2f} s with it (reorder, partition, payloads on the "
+        f"card); nnz " + ", ".join(f"{s.name} {s.stats['nnz']}"
+                                   for s in dec.subgraphs)
+        + "; decomposition_quality " + ", ".join(
+            f"{m}: " + ", ".join(f"{k} {v:.6g}" for k, v in q.items())
+            for m, q in quality.items()))
+    if not quality["louvain"]["intra_frac"] > quality["bfs"]["intra_frac"]:
+        raise RuntimeError(f"Louvain keeps fewer edges on the diagonal than "
+                           f"bfs: {quality}")
+
+    in_dim, n_classes = graph.features.shape[1], graph.n_classes
+    pairs, eps = gnn.layer_plan_inputs(cfg, in_dim, n_classes, dec=dec)
+    structures = [e.structure for e in eps]
+    params = gnn.init_model(torch.Generator().manual_seed(cfg.seed), cfg,
+                            in_dim, n_classes, device="cpu")
+    dec_cpu = dec.to("cpu")
+    edges = gin_edge_list(torch, graph)
+    feats = torch.from_numpy(graph.features)
+    edge_ref = edge_list_gin(torch, feats, edges, params)
+    x = adaptgear.to_reordered(dec, feats.cuda())
+    x_cpu = adaptgear.to_reordered(dec_cpu, feats)
+    p_dev = [{k: v.cuda() for k, v in p.items()} for p in params]
+    plans = {}
+    for name, pair in GIN_PLANS.items():
+        plan, _ = gnn.select_plan(dec, dataclasses.replace(
+            cfg, fixed_kernels=pair), pairs, epilogues=eps)
+        plans[name] = plan
+        with torch.no_grad():
+            y = gnn.forward(p_dev, cfg, dec, x, plan)
+            y_cpu = gnn.forward(params, cfg, dec_cpu, x_cpu, plan)
+        if tuple(y.shape) != (dec.n_pad, n_classes) or not bool(
+                torch.isfinite(y).all()):
+            raise RuntimeError(f"{name}: logits {tuple(y.shape)}")
+        torch.testing.assert_close(y.cpu(), y_cpu, **GIN_TOL)
+        y_orig = adaptgear.from_reordered(dec_cpu, y.cpu())
+        torch.testing.assert_close(y_orig, edge_ref, **GIN_TOL)
+        log("gin", f"{name} {pair} (structures {structures}): logits "
+            f"max|card - cpu| {max_err(y.cpu(), y_cpu):.3g}, max|card - "
+            f"edge-list GIN| {max_err(y_orig, edge_ref):.3g}, largest "
+            f"|logit| {float(edge_ref.abs().max()):.3g}")
+
+    edge_losses = edge_list_train(
+        torch, graph, params, TRAIN_STEPS, cfg.lr,
+        forward=lambda f, q: edge_list_gin(torch, f, edges, q))
+    results, used = {}, {}
+    for c in counts.values():
+        c.reset()
+    for name, plan in plans.items():
+        before = {k: c.value for k, c in counts.items()}
+        results[name] = train_on(torch, graph, cfg, dec, plan, params,
+                                 TRAIN_STEPS)
+        torch.cuda.synchronize()
+        used[name] = {k: c.value - before[k] for k, c in counts.items()}
+    launches = {k: c.value for k, c in counts.items()}
+    for name, plan in plans.items():
+        want = plan_launches(plan.layers, TRAIN_STEPS, "gin", structures)
+        if used[name] != want:
+            raise RuntimeError(f"{name}: launches {used[name]}, expected "
+                               f"{want} ({TRAIN_STEPS} steps and one "
+                               "forward)")
+        losses = np.asarray(results[name]["losses"])
+        if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+            raise RuntimeError(f"{name}: losses {losses.tolist()}")
+        n_cpu = GIN_CPU_STEPS[name]
+        cpu = train_on(torch, graph, cfg, dec_cpu, plan, params, n_cpu)
+        np.testing.assert_allclose(losses[:n_cpu], cpu["losses"],
+                                   **CURVE_TOL)
+        np.testing.assert_allclose(losses, edge_losses, **CURVE_TOL)
+        one, none = (plan_launches(plan.layers, n, "gin", structures)
+                     for n in (1, 0))
+        log("gin", f"{name} {plan.layers}: {TRAIN_STEPS} steps, launches "
+            f"{ {k: v for k, v in used[name].items() if v} } = plan_launches"
+            f"(model='gin'), per step "
+            f"{ {k: one[k] - none[k] for k in one if one[k] - none[k]} }; "
+            f"losses {losses[0]:.6f} -> {losses[-1]:.6f}, accuracy "
+            f"{results[name]['accuracy']:.4f}; max|card - cpu| over {n_cpu} "
+            f"steps {np.abs(losses[:n_cpu] - cpu['losses']).max():.3g}, "
+            f"max|card - edge-list GIN| "
+            f"{np.abs(losses - edge_losses).max():.3g}")
+
+    # the main path: feedback selection on the Louvain reordering
+    for c in counts.values():
+        c.reset()
+    t0 = time.perf_counter()
+    res = gnn.train(graph, fb_cfg, steps=TRAIN_STEPS, device="cuda",
+                    params=params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fb_launches = {k: c.value for k, c in counts.items()}
+    plan = res.plan
+    if [e.structure for e in plan.epilogues] != structures:
+        raise RuntimeError(f"feedback structures {plan.epilogues}")
+    n_probe = len(set(pairs)) * (1 + fb_cfg.warmup_iters)
+    probed = ("block_diag_spmm", "bell_spmm", "block_diag_spmm_fused",
+              "bell_spmm_fused", "tcgnn_spmm", "tcgnn_spmm_fused")
+    trained = plan_launches(plan.layers, TRAIN_STEPS, "gin", structures)
+    want = {k: trained[k] + (n_probe if k in probed else 0) for k in counts}
+    if fb_launches != want:
+        raise RuntimeError(f"GIN feedback launches {fb_launches}, expected "
+                           f"{want}: {n_probe} probe calls of each forward "
+                           f"kernel and {trained} for {TRAIN_STEPS} steps "
+                           "and one forward")
+    losses = np.asarray(res.losses)
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise RuntimeError(f"GIN feedback: losses {res.losses}")
+    cpu = train_on(torch, graph, cfg, dec_cpu, plan, params, TRAIN_STEPS)
+    np.testing.assert_allclose(losses, cpu["losses"], **CURVE_TOL)
+    np.testing.assert_allclose(losses, edge_losses, **CURVE_TOL)
+    one, none = (plan_launches(plan.layers, n, "gin", structures)
+                 for n in (1, 0))
+    log("gin-feedback", f"gnn.train(graph, GNNConfig(model='gin', "
+        f"reorder='louvain')) {TRAIN_STEPS} steps in {wall:.2f} s (Louvain, "
+        f"prepare and selection included; prepare "
+        f"{res.preprocess_seconds:.2f} s); committed plan {plan.layers}, "
+        f"structures {structures}, width pairs {pairs}; launches = "
+        f"{n_probe} probe calls of each of {probed} + the committed plan's "
+        f"{ {k: v for k, v in trained.items() if v} }, per step "
+        f"{ {k: one[k] - none[k] for k in one if one[k] - none[k]} }; "
+        f"losses {losses[0]:.6f} -> {losses[-1]:.6f}, accuracy "
+        f"{res.accuracy:.4f}, step {res.step_seconds * 1e3:.3f} ms (host "
+        f"clock, loss read every step); max|card - cpu| "
+        f"{np.abs(losses - cpu['losses']).max():.3g}, max|card - edge-list "
+        f"GIN| {np.abs(losses - edge_losses).max():.3g}")
+    plans["gin_feedback"] = plan
+    return dict(dec=dec, x=x, params=params, cfg=cfg, plans=plans,
+                structures=structures, launches=launches,
+                fb_launches=fb_launches, result=res, results=results,
+                t_louvain=t_louvain, t_prepare=t_prepare, quality=quality)
+
+
+def phase_gin_structure(torch, counts: dict) -> dict:
+    """GIN of hidden GIN_STRUCT_HIDDEN on proteins_full (29 features, bfs):
+    layer 1 forced to each structure through the plan's epilogues, and
+    under the structure layer_plan_inputs prices on the card, for each of
+    GIN_STRUCT_PLANS.  Aggregate-first sends block_diag_spmm, bell_spmm
+    and tcgnn_spmm through F = 29; the fused kernels run Fi = 29 -> Fo =
+    64 (a fused plan runs transform-first whatever its epilogue says).
+    Each forward's launches (counts set to 0 just before, read just after)
+    must equal plan_launches(steps=0); its logits must agree with the
+    edge-list GIN, and the two structures' with each other (float32 atol
+    1e-4, rtol 1e-5)."""
+    import numpy as np
+    from repro_torch.core import adaptgear, gnn
+    from repro_torch.core import epilogue as ep_mod
+    from repro_torch.core.plan import KernelPlan
+    from repro_torch.graphs import graph as graph_mod
+    pg = graph_mod.synth_dataset("proteins_full", scale=1.0, seed=0)
+    cfg = gnn.GNNConfig(model="gin", hidden=GIN_STRUCT_HIDDEN, n_layers=2,
+                        selector="fixed")
+    in_dim, n_classes, hid = pg.features.shape[1], pg.n_classes, cfg.hidden
+    t0 = time.perf_counter()
+    dec = gnn.prepare(pg, cfg, device="cuda")
+    torch.cuda.synchronize()
+    t_prep = time.perf_counter() - t0
+    pairs, priced = gnn.layer_plan_inputs(cfg, in_dim, n_classes, dec=dec)
+    params = gnn.init_model(torch.Generator().manual_seed(3), cfg, in_dim,
+                            n_classes, device="cpu")
+    params = [dict(p, eps=torch.tensor(0.1 * (i + 1)))
+              for i, p in enumerate(params)]
+    feats = torch.from_numpy(pg.features)
+    x = adaptgear.to_reordered(dec, feats.cuda())
+    p_dev = [{k: v.cuda() for k, v in p.items()} for p in params]
+    edge_ref = edge_list_gin(torch, feats, gin_edge_list(torch, pg), params)
+    last = ep_mod.gin_layer_spec(hid, hid, n_classes, "transform_first")
+    variants = {st: (ep_mod.gin_layer_spec(in_dim, hid, hid, st), last)
+                for st in ("transform_first", "aggregate_first")}
+    variants["priced"] = priced
+    log("gin_structure", f"{pg.name} n={pg.n} edges={pg.n_edges} features="
+        f"{in_dim} classes={n_classes}, GIN hidden {hid}; prepare "
+        f"{t_prep:.2f} s; n_pad={dec.n_pad}; layer_plan_inputs on the card "
+        f"(H100_HW) prices layer 1 {priced[0].structure}, width pairs "
+        f"{pairs}")
+    launches = {k: 0 for k in counts}
+    worst = {}
+    for plan_pair in GIN_STRUCT_PLANS:
+        got, per_fwd = {}, {}
+        for name, eps in variants.items():
+            plan = KernelPlan.make(dec, plan_pair, n_layers=2, epilogues=eps)
+            for c in counts.values():
+                c.reset()
+            with torch.no_grad():
+                y = gnn.forward(p_dev, cfg, dec, x, plan)
+            torch.cuda.synchronize()
+            used = {k: c.value for k, c in counts.items()}
+            want = plan_launches(plan.layers, 0, "gin",
+                                 [e.structure for e in eps])
+            if used != want:
+                raise RuntimeError(f"{plan_pair} {name}: launches {used}, "
+                                   f"expected {want}")
+            for k, v in used.items():
+                launches[k] += v
+            per_fwd[name] = {k: v for k, v in used.items() if v}
+            if not bool(torch.isfinite(y).all()):
+                raise RuntimeError(f"{plan_pair} {name}: non-finite logits")
+            y_orig = adaptgear.from_reordered(dec, y).cpu()
+            torch.testing.assert_close(y_orig, edge_ref, **GIN_TOL)
+            got[name] = y.cpu()
+            worst[(plan_pair, name)] = max_err(y_orig, edge_ref)
+        torch.testing.assert_close(got["aggregate_first"],
+                                   got["transform_first"], **GIN_TOL)
+        log("gin_structure", f"{plan_pair}: launches per forward {per_fwd}"
+            "; max|card - edge-list GIN| " + ", ".join(
+                f"{n} {worst[(plan_pair, n)]:.3g}" for n in variants)
+            + f"; max|aggregate-first - transform-first| "
+            f"{max_err(got['aggregate_first'], got['transform_first']):.3g}")
+    log("gin_structure", f"largest |logit| {float(edge_ref.abs().max()):.3g};"
+        f" launches over all forwards {launches}")
+    return dict(launches=launches, priced=priced[0].structure, worst=worst)
+
+
+def phase_o1(torch, dec) -> dict:
+    """The paper's Fig. 11 ablation on the Louvain pubmed decomposition
+    (GIN's: unit values, no self-loops) at O1_WIDTH features: O1,
+    aggregate_full_static with each kernel that applies to every tier,
+    each checked against the same call on the CPU (plain torch ops) and
+    an edge-list ``index_add_``; O2, the static per-subgraph ("ell",
+    "coo"); O3, the kernels the feedback selector's probe picks.  Times
+    are medians of CUDA events around eager calls after a sync, as
+    Fig. 11 times them; printed, not a benchmark."""
+    from repro_torch.core import adaptgear
+    from repro_torch.core import selector as sel_mod
+    from repro_torch.kernels.registry import DIAG, OFFDIAG, REGISTRY
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn((dec.n_pad, O1_WIDTH), generator=gen, device="cuda")
+    dec_cpu = dec.to("cpu")
+    x_cpu = x.cpu()
+    rows, cols, vals = [], [], []
+    for sub in dec_cpu.subgraphs:
+        coo = sub.formats["coo"]
+        rows.append(coo.rows.long())
+        cols.append(coo.cols.long())
+        vals.append(coo.vals)
+    rows, cols, vals = (torch.cat(t) for t in (rows, cols, vals))
+    want = torch.zeros_like(x_cpu).index_add_(0, rows,
+                                              x_cpu[cols] * vals[:, None])
+    kernels = [s.name for s in REGISTRY.candidates(DIAG)
+               if s.applies_to(OFFDIAG)]
+    times, errs = {}, {}
+    for k in kernels:
+        y = adaptgear.aggregate_full_static(dec, x, k)
+        y_cpu = adaptgear.aggregate_full_static(dec_cpu, x_cpu, k)
+        torch.testing.assert_close(y.cpu(), y_cpu, **F32_TOL)
+        torch.testing.assert_close(y.cpu(), want, **F32_TOL)
+        errs[k] = max_err(y.cpu(), want)
+        times[f"O1 {k}"] = eager_ms(
+            torch, lambda k=k: adaptgear.aggregate_full_static(dec, x, k))
+    o2 = ("ell", "coo")
+    torch.testing.assert_close(adaptgear.aggregate(dec, x, o2).cpu(), want,
+                               **F32_TOL)
+    times[f"O2 {o2}"] = eager_ms(torch, lambda: adaptgear.aggregate(dec, x,
+                                                                     o2))
+    sel = sel_mod.AdaptiveSelector(dec, warmup_iters=1)
+    choice = sel.probe(x, iters=1).choice
+    torch.testing.assert_close(adaptgear.aggregate(dec, x, choice).cpu(),
+                               want, **F32_TOL)
+    times[f"O3 {choice}"] = eager_ms(
+        torch, lambda: adaptgear.aggregate(dec, x, choice))
+    log("o1", f"Fig. 11 on pubmed (Louvain, GIN's unit values) at F = "
+        f"{O1_WIDTH}: each O1 kernel against the edge-list index_add_ "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + "; median ms (CUDA events, eager, host launch included): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in times.items()))
+    return dict(times=times, choice=choice, errs=errs)
 
 
 def time_dual_kernel(torch, sdec, flush) -> dict:
@@ -3292,6 +3699,10 @@ def main() -> int:
     # 7. SAGE: fixed plans, then its main path -------------------------------
     sage = phase_sage_train(torch, graph, sdec, counts)
     sfb = phase_sage_feedback(torch, graph, counts, sage)
+    # 7a. GIN on the Louvain reordering, its structures, the O1 baseline --
+    gin = phase_gin(torch, graph, counts)
+    gst = phase_gin_structure(torch, counts)
+    o1 = phase_o1(torch, gin["dec"])
     # 7b. LM serving: InternLM2-1.8B at full width ----------------------------
     lm2 = phase_lm_two_layer(torch, counts)
     lm32 = phase_lm_f32(torch, counts)
@@ -3312,6 +3723,9 @@ def main() -> int:
     by_path = {"forward": launches_fwd, "train": trained["launches"],
                "feedback": fb["launches"], "sage_train": sage["launches"],
                "sage_feedback": sfb["launches"],
+               "gin_train": gin["launches"],
+               "gin_feedback": gin["fb_launches"],
+               "gin_structure_forwards": gst["launches"],
                "lm_prefill_step_2_layers_f32": lm2["launches"],
                "lm_prefill_step_f32": lm32["launches"],
                "lm_softmax_prefill_decode_f32": lm32["other_launches"],
@@ -3358,6 +3772,9 @@ def main() -> int:
     for name, pair in dict(SAGE_PLANS, sage_feedback=sfb["plan"]).items():
         steps[name] = step_fn(sage_cfg, sdec, pair, sage["params"],
                               sage["x"])
+    for name, plan_of in gin["plans"].items():
+        steps[name] = step_fn(gin["cfg"], gin["dec"], plan_of, gin["params"],
+                              gin["x"])
     step_runs = {name: [] for name in steps}
     for name in list(steps) + list(steps)[::-1]:
         step_runs[name].append(eager_ms(torch, steps[name]))
@@ -3497,6 +3914,10 @@ def main() -> int:
         one, none = (plan_launches(plan_of["plan"].layers, n, model)
                      for n in (1, 0))
         per_step[name] = {k: one[k] - none[k] for k in one}
+    for name, plan_of in gin["plans"].items():
+        one, none = (plan_launches(plan_of.layers, n, "gin",
+                                   gin["structures"]) for n in (1, 0))
+        per_step[name] = {k: one[k] - none[k] for k in one}
     busy_step = {name: profile_busy(torch, fn, 5, step_ms[name],
                                     f"{name} step",
                                     expect=device_events(per_step[name]))
@@ -3506,6 +3927,7 @@ def main() -> int:
     # (asserted to be n_layers) and one serve_lm call, prefill and 32
     # decode steps (asserted to be 0), per model
     per_call = dict(PER_STEP, **SAGE_PER_STEP,
+                    **{n: per_step[n] for n in gin["plans"]},
                     lm_prefill_step=lms["launches"],
                     serve_lm=lms["serve_launches"],
                     rwkv_prefill_step=rws["launches"],
@@ -3538,13 +3960,21 @@ def main() -> int:
         f"{ {str(k): v for k, v in fwd_ms.items()} }; busy {busy}; "
         f"step_ms {step_ms}; busy per step {busy_step}; feedback plan "
         f"{fb['plan'].layers}, cost-model plan {fb['model_plan']}, model "
-        f"agrees {fb['agree'][0]} of {fb['agree'][1]}; train losses "
+        f"agrees {fb['agree'][0]} of {fb['agree'][1]}; GIN: Louvain "
+        f"{gin['t_louvain']:.2f} s, prepare {gin['t_prepare']:.2f} s, "
+        f"quality {gin['quality']}, feedback plan "
+        f"{gin['plans']['gin_feedback'].layers}, structures "
+        f"{gin['structures']}, proteins layer 1 priced {gst['priced']}; O1 "
+        f"{o1['times']}; train losses "
         + json.dumps(dict({n: r.losses for n, r in
                            trained["results"].items()},
                           feedback=fb["result"].losses,
                           sage_feedback=sfb["result"].losses,
                           **{n: r.losses for n, r in
-                             sage["results"].items()}))
+                             sage["results"].items()},
+                          gin_feedback=gin["result"].losses,
+                          **{n: r["losses"] for n, r in
+                             gin["results"].items()}))
         + f"; LM: 2-layer card vs CPU {lm2['err']:.3g}, float32 errors "
         f"{lm32['errs']}, bf16 flash vs softmax {lms['err']:.3g}, bf16 vs "
         f"float32 {lms['spread']}, argmax "

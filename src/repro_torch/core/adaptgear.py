@@ -1,7 +1,8 @@
-"""AdaptGear aggregation dispatch + the GCN and SAGE convolutions (paper
-§3/§4).
+"""AdaptGear aggregation dispatch + the GCN, GIN and SAGE convolutions
+(paper §3/§4).
 
-Counterpart of ``repro/core/adaptgear.py`` for GCN and SAGE.
+Counterpart of ``repro/core/adaptgear.py`` for GCN, GIN and SAGE, and the
+O1 baseline of the paper's ablation (``aggregate_full_static``).
 ``aggregate`` computes Y = sum_s A_s @ X over the decomposition's
 subgraphs with one registry kernel per subgraph.  With ``acc=True`` one
 output buffer is threaded through the subgraph list (the kernels' ``y_in``
@@ -173,6 +174,16 @@ def aggregate_transform_dual(dec: Decomposed, x: torch.Tensor,
     return aggregate_transform(sub_dec, x, w, rest_names, seed=seed, acc=acc)
 
 
+def aggregate_full_static(dec: Decomposed, x: torch.Tensor,
+                          kernel: str = "ell", *,
+                          acc: bool | None = None) -> torch.Tensor:
+    """Baseline O1 (paper §6.2): one static full-graph kernel, the same
+    format on every subgraph (GNNAdvisor/NeuGraph style).  The plan layer
+    rejects a kernel that does not apply to every tier before anything
+    runs."""
+    return aggregate(dec, x, (kernel,) * len(dec.subgraphs), acc=acc)
+
+
 # ---------------------------------------------------------------------------
 # Convolution layers
 # ---------------------------------------------------------------------------
@@ -201,6 +212,52 @@ def gcn_conv(params: dict, dec: Decomposed, x: torch.Tensor,
     the decomposition's edge values)."""
     return aggregate_transform(dec, x, params["w"], kernels,
                                bias=params["b"], acc=acc)
+
+
+def init_gin_conv(generator: torch.Generator, in_dim: int, hidden: int,
+                  out_dim: int,
+                  device: str | torch.device = DEFAULT_DEVICE) -> dict:
+    """GIN layer parameters: ``eps`` () at 0, glorot-uniform ``w1`` (in_dim,
+    hidden) then ``w2`` (hidden, out_dim) drawn in that order from the CPU
+    ``generator``, and zero ``b1`` (hidden,) and ``b2`` (out_dim,)."""
+    dev = resolve_device(device)
+    w1 = _glorot(generator, (in_dim, hidden))
+    w2 = _glorot(generator, (hidden, out_dim))
+    f32 = dict(dtype=torch.float32, device=dev)
+    return dict(eps=torch.zeros((), **f32), w1=w1.to(dev),
+                b1=torch.zeros((hidden,), **f32), w2=w2.to(dev),
+                b2=torch.zeros((out_dim,), **f32))
+
+
+def gin_conv(params: dict, dec: Decomposed, x: torch.Tensor,
+             kernels: Sequence[str], structure: str = "transform_first", *,
+             acc: bool | None = None) -> torch.Tensor:
+    """GIN layer: MLP((1+eps) x + sum-agg(x)) (Xu et al.), under the
+    structure the selector priced (``EpilogueSpec.structure``).
+
+    transform-first: W1 pushes through the aggregation,
+
+        h1 = relu((1+eps) S + A (X W1) + b1),   S = X W1
+        y  = h1 W2 + b2
+
+    the self term ``(1+eps) S + b1`` seeds the threaded accumulator, and
+    ``S`` is the unfused kernels' transform too (computed once).
+    aggregate-first, where the raw input is narrower than the hidden
+    width: z = (1+eps) X + A X, y = relu(z W1 + b1) W2 + b2.  A plan that
+    commits a fused kernel on some tier runs transform-first whatever
+    ``structure`` says (A (X W1) is the only pass a fused kernel does),
+    as in the reference.  The dense products are ``torch.matmul``."""
+    if structure == "aggregate_first":
+        names = plan_mod.normalize_layer(dec, kernels)
+        if not any(REGISTRY.get(k).fused for k in names):
+            z = (1.0 + params["eps"]) * x + aggregate(dec, x, names, acc=acc)
+            h1 = torch.relu(z @ params["w1"] + params["b1"])
+            return h1 @ params["w2"] + params["b2"]
+    s = x @ params["w1"]
+    seed = (1.0 + params["eps"]) * s + params["b1"]
+    h1 = torch.relu(aggregate_transform(dec, x, params["w1"], kernels,
+                                        seed=seed, h=s, acc=acc))
+    return h1 @ params["w2"] + params["b2"]
 
 
 def init_sage_conv(generator: torch.Generator, in_dim: int, out_dim: int,

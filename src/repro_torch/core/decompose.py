@@ -7,21 +7,25 @@ inter-community edges split further into ``inter_buckets`` density tiers.
 
 Everything up to the payloads is numpy and equal to the reference's;
 :meth:`DecomposeSkeleton.materialize` places the payloads on a device as
-torch tensors.  The reorderer ported so far is ``bfs``; louvain/metis wait
-for a later slice (ROADMAP slice A item 5).
+torch tensors.  Two reorderers play METIS's role, as in the reference:
+``bfs`` (deterministic BFS clustering) and ``louvain`` (Louvain
+communities, from the port's own copy of networkx's method in
+``core/louvain.py``, so no networkx is needed); ``metis`` stands in as
+``louvain`` with a warning (:func:`resolve_method`).
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from collections import deque
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch import DEFAULT_DEVICE, resolve_device
-from repro_torch.core import formats
+from repro_torch.core import formats, louvain
 from repro_torch.graphs.graph import Graph
 from repro_torch.kernels.registry import DIAG, OFFDIAG, REGISTRY
 
@@ -71,7 +75,41 @@ def bfs_reorder(n: int, senders: np.ndarray, receivers: np.ndarray,
     return new_of_old
 
 
-REORDERERS = {"bfs": bfs_reorder}
+def louvain_reorder(n: int, senders: np.ndarray, receivers: np.ndarray,
+                    comm_size: int, seed: int = 0) -> np.ndarray:
+    """Louvain communities (``core/louvain.py``, networkx's method) laid
+    out contiguously, largest first, each community's nodes in id order.
+    Returns perm such that new_id = perm[old_id]."""
+    g = louvain.graph_from_edges(n, senders, receivers)
+    comms = louvain.louvain_communities(g, seed=seed)
+    new_of_old = np.full(n, -1, np.int64)
+    nxt = 0
+    for comm in sorted(comms, key=len, reverse=True):
+        for v in sorted(comm):
+            new_of_old[v] = nxt
+            nxt += 1
+    if nxt != n:
+        raise RuntimeError("louvain_reorder did not place every vertex")
+    return new_of_old
+
+
+REORDERERS = {"bfs": bfs_reorder, "louvain": louvain_reorder,
+              "metis": louvain_reorder}
+
+_SUBSTITUTIONS = {"metis": "louvain"}
+_warned_substitutions: set = set()
+
+
+def resolve_method(method: str) -> str:
+    """Map unavailable reorderers to their stand-in, warning once."""
+    effective = _SUBSTITUTIONS.get(method, method)
+    if effective != method and method not in _warned_substitutions:
+        _warned_substitutions.add(method)
+        warnings.warn(
+            f"reorder method {method!r} is unavailable offline; substituting "
+            f"{effective!r} (recorded as stats['effective_method'])",
+            UserWarning, stacklevel=3)
+    return effective
 
 
 # ---------------------------------------------------------------------------
@@ -147,26 +185,57 @@ def _tier_stats(kind: str, n_pad: int, block_size: int, rows: np.ndarray,
                 col_occupancy=col_occ)
 
 
-def _materialize_subgraph(t: "TierEdges", n_pad: int, block_size: int,
-                          device: torch.device) -> Subgraph:
-    """Build every registered candidate payload of one tier (paper §3.3:
-    once, so any kernel can run without re-conversion) on ``device``.
-    ``stats["kernels"]`` names every spec, fused aliases included, whose
-    payload was built, as in the reference."""
-    all_specs = REGISTRY.candidates(t.kind, include_fused=True)
+def _materialize_subgraph(name: str, kind: str, n_pad: int, block_size: int,
+                          rows: np.ndarray, cols: np.ndarray,
+                          vals: np.ndarray, stats: dict,
+                          device: torch.device,
+                          kernels: Sequence[str] | None = None) -> Subgraph:
+    """Build one tier's candidate payloads (paper §3.3: once, so any
+    kernel can run without re-conversion) on ``device``: every registered
+    one, or only those ``kernels`` name (a fused name builds its unfused
+    spec's payload; ``()`` builds none).  ``stats["kernels"]`` names every
+    spec, fused aliases included, whose payload was built, as in the
+    reference."""
+    all_specs = REGISTRY.candidates(kind, include_fused=True)
     # fused specs alias an unfused spec's payload and build nothing
     specs = [s for s in all_specs if s.build is not None]
-    coo = formats.coo_from_edges(n_pad, n_pad, t.rows, t.cols, t.vals)
-    coo_t = (formats.coo_from_edges(n_pad, n_pad, t.cols, t.rows, t.vals)
-             if any(s.needs_transpose for s in specs) else None)
-    fmts = {s.name: formats.to_device(
-                s.build(coo, coo_t, block_size, t.stats), device)
-            for s in specs}
-    stats = dict(t.stats)
+    if kernels is not None:
+        wanted = {REGISTRY.get(k).payload_key for k in kernels
+                  if REGISTRY.get(k).applies_to(kind)}
+        specs = [s for s in specs if s.name in wanted]
+    fmts = {}
+    if specs:
+        coo = formats.coo_from_edges(n_pad, n_pad, rows, cols, vals)
+        coo_t = (formats.coo_from_edges(n_pad, n_pad, cols, rows, vals)
+                 if any(s.needs_transpose for s in specs) else None)
+        fmts = {s.name: formats.to_device(
+                    s.build(coo, coo_t, block_size, stats), device)
+                for s in specs}
+    stats = dict(stats)
     stats["kernels"] = tuple(s.name for s in all_specs
                              if s.payload_key in fmts)
-    return Subgraph(name=t.name, kind=t.kind, n_rows=n_pad,
+    return Subgraph(name=name, kind=kind, n_rows=n_pad,
                     block_size=block_size, formats=fmts, stats=stats)
+
+
+def build_subgraph(name: str, kind: str, n_pad: int, block_size: int,
+                   rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
+                   kernels: Sequence[str] | None = None,
+                   edge_budget: int | None = None, *,
+                   device: str | torch.device = DEFAULT_DEVICE) -> Subgraph:
+    """Materialize the candidate formats of one edge tier on ``device``:
+    every registered one, or those ``kernels`` name (a fused name builds
+    its unfused counterpart's payload).  Density stats come first and go
+    to each format's build function, so formats pick their tiling per
+    tier.  The reference's ``edge_budget`` (budget-capped payloads for
+    mini-batches) is not ported."""
+    if edge_budget:
+        raise NotImplementedError(
+            "edge_budget (budget-capped payloads) is not ported yet: "
+            "ROADMAP section 1 item 6")
+    stats = _tier_stats(kind, n_pad, block_size, rows, cols)
+    return _materialize_subgraph(name, kind, n_pad, block_size, rows, cols,
+                                 vals, stats, resolve_device(device), kernels)
 
 
 def _bucket_inter(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
@@ -217,7 +286,9 @@ class DecomposeSkeleton:
                     ) -> Decomposed:
         """Every tier's candidate payloads, placed on ``device``."""
         dev = resolve_device(device)
-        subs = tuple(_materialize_subgraph(t, self.n_pad, self.block_size, dev)
+        subs = tuple(_materialize_subgraph(t.name, t.kind, self.n_pad,
+                                           self.block_size, t.rows, t.cols,
+                                           t.vals, t.stats, dev)
                      for t in self.tiers)
         return Decomposed(
             n=self.n, n_pad=self.n_pad, block_size=self.block_size,
@@ -229,14 +300,19 @@ class DecomposeSkeleton:
 def decompose_skeleton(graph: Graph, comm_size: int = 16,
                        method: str = "bfs",
                        edge_vals: np.ndarray | None = None,
+                       reorder: bool = True,
                        inter_buckets: int = 1) -> DecomposeSkeleton:
-    """Steps 1-2 of the decomposition (reorder + partition + stats)."""
+    """Steps 1-2 of the decomposition (reorder + partition + stats).
+    ``reorder=False`` keeps the graph's own node order; otherwise
+    ``method`` is resolved (:func:`resolve_method`) and the stand-in
+    actually run is ``stats["effective_method"]``."""
     n, B = graph.n, comm_size
-    if method not in REORDERERS:
-        raise NotImplementedError(
-            f"reorder method {method!r} is not ported yet (only 'bfs'): "
-            "ROADMAP slice A item 5")
-    perm = REORDERERS[method](n, graph.senders, graph.receivers, B)
+    effective = method
+    if reorder:
+        effective = resolve_method(method)
+        perm = REORDERERS[effective](n, graph.senders, graph.receivers, B)
+    else:
+        perm = np.arange(n, dtype=np.int64)
     inv = np.empty_like(perm)
     inv[perm] = np.arange(n)
 
@@ -268,7 +344,7 @@ def decompose_skeleton(graph: Graph, comm_size: int = 16,
         tiers=tuple(tiers),
         stats=dict(
             n=n, n_edges=len(rows), comm_size=B,
-            method=method, effective_method=method,
+            method=method, effective_method=effective,
             inter_buckets=len(buckets),
             intra_edges=int(on_diag.sum()), inter_edges=int((~on_diag).sum()),
             intra_density=float(on_diag.sum()) / max(n_pad * B, 1),
@@ -280,7 +356,8 @@ def decompose_skeleton(graph: Graph, comm_size: int = 16,
 
 
 def decompose(graph: Graph, comm_size: int = 16, method: str = "bfs",
-              edge_vals: np.ndarray | None = None, inter_buckets: int = 1,
+              edge_vals: np.ndarray | None = None, reorder: bool = True,
+              inter_buckets: int = 1,
               device: str | torch.device = DEFAULT_DEVICE) -> Decomposed:
     """Reorder, partition and materialize the payloads on ``device``
     (paper Fig. 7 line 19).  Aggregation convention: rows = receivers
@@ -288,4 +365,13 @@ def decompose(graph: Graph, comm_size: int = 16, method: str = "bfs",
     dev = resolve_device(device)
     return decompose_skeleton(
         graph, comm_size=comm_size, method=method, edge_vals=edge_vals,
-        inter_buckets=inter_buckets).materialize(dev)
+        reorder=reorder, inter_buckets=inter_buckets).materialize(dev)
+
+
+def decomposition_quality(dec: Decomposed) -> dict:
+    """Fig. 4-style densities: full vs intra vs inter (buckets merged)."""
+    s = dec.stats
+    full_density = s["n_edges"] / max(dec.n_pad ** 2, 1)
+    return dict(full=full_density, intra=s["intra_density"],
+                inter=s["inter_density"],
+                intra_frac=s["intra_edges"] / max(s["n_edges"], 1))

@@ -1,10 +1,12 @@
-"""Full-batch GCN and GraphSAGE inference and training on top of
+"""Full-batch GCN, GIN and GraphSAGE inference and training on top of
 AdaptGear aggregation.
 
 Counterpart of ``repro/core/gnn.py``: ``prepare`` -> ``init_model`` ->
 ``select_plan`` -> ``forward``, and ``train`` (masked NLL, gradients
 through the kernels' backward passes, the reference's hand-written Adam).
-Ported so far: the GCN and SAGE models with all three selectors.
+Ported so far: the GCN, GIN and SAGE models with all three selectors;
+GIN's per-layer structure (transform-first or aggregate-first) is priced
+against the decomposition (``layer_plan_inputs``).
 ``feedback``, the default as in the reference, times every registry
 candidate of every subgraph at every layer width on the device that
 trains and commits the fastest (``core/selector.py``); ``cost_model``
@@ -34,11 +36,11 @@ from repro_torch.graphs import graph as graph_mod
 class GNNConfig:
     """The fields of the reference's GNNConfig that the port reads, with
     the reference's defaults (``selector`` is ``feedback``)."""
-    model: str = "gcn"            # gcn | sage
+    model: str = "gcn"            # gcn | gin | sage
     hidden: int = 16
     n_layers: int = 2
     comm_size: int = 16
-    reorder: str = "bfs"
+    reorder: str = "bfs"          # bfs | louvain (metis -> louvain)
     inter_buckets: int = 1        # density tiers
     lr: float = 1e-2
     selector: str = "feedback"    # feedback | cost_model | fixed
@@ -48,7 +50,7 @@ class GNNConfig:
     sampler: str = "full"         # only full-batch training is ported
 
 
-MODELS = ("gcn", "sage")
+MODELS = ("gcn", "gin", "sage")
 
 
 def _require_model(cfg: GNNConfig) -> None:
@@ -63,7 +65,8 @@ def prepare(graph: graph_mod.Graph, cfg: GNNConfig,
             ) -> dec_mod.Decomposed:
     """Preprocessing (paper §3.3/§4.2): the per-model edge normalization
     baked into the edge values (GCN: self-loops and the symmetric norm;
-    SAGE: no self-loops and the mean aggregator's 1/deg(dst)), reorder and
+    SAGE: no self-loops and the mean aggregator's 1/deg(dst); GIN: no
+    self-loops and unit values, its sum aggregation), reorder and
     decomposition, with every registered candidate payload placed on
     ``device``."""
     _require_model(cfg)
@@ -72,11 +75,11 @@ def prepare(graph: graph_mod.Graph, cfg: GNNConfig,
             "inter_buckets=0 (bucket autotuning) is not ported yet: "
             "ROADMAP section 1 item 4")
     dev = resolve_device(device)
+    g, vals = graph, None
     if cfg.model == "gcn":
         g = graph_mod.add_self_loops(graph)
         vals = graph_mod.gcn_norm_values(g.n, g.senders, g.receivers)
-    else:
-        g = graph
+    elif cfg.model == "sage":
         vals = graph_mod.mean_norm_values(g.n, g.senders, g.receivers)
     return dec_mod.decompose(g, comm_size=cfg.comm_size, method=cfg.reorder,
                              edge_vals=vals, inter_buckets=cfg.inter_buckets,
@@ -87,13 +90,17 @@ def init_model(generator: torch.Generator, cfg: GNNConfig, in_dim: int,
                n_classes: int,
                device: str | torch.device = DEFAULT_DEVICE) -> list[dict]:
     """Model parameters, one dict per layer (GCN: ``w, b``; SAGE:
-    ``w_self, w_neigh, b``), drawn in layer order from the CPU
-    ``generator``.  The numbers differ from the reference's
+    ``w_self, w_neigh, b``; GIN: ``eps, w1, b1, w2, b2``), drawn in layer
+    order from the CPU ``generator``.  The numbers differ from the reference's
     ``jax.random`` ones; ``repro_torch.weights.from_jax_params`` carries
     the reference's parameters over instead."""
     _require_model(cfg)
     dev = resolve_device(device)
     dims = [in_dim] + [cfg.hidden] * (cfg.n_layers - 1) + [n_classes]
+    if cfg.model == "gin":
+        return [adaptgear.init_gin_conv(generator, dims[i], cfg.hidden,
+                                        dims[i + 1], dev)
+                for i in range(cfg.n_layers)]
     init = (adaptgear.init_gcn_conv if cfg.model == "gcn"
             else adaptgear.init_sage_conv)
     return [init(generator, dims[i], dims[i + 1], dev)
@@ -118,25 +125,47 @@ def forward(params: list[dict], cfg: GNNConfig, dec: dec_mod.Decomposed,
     ``acc=True`` threads one output buffer through each layer's subgraph
     list (the kernels' ``y_in`` variants) and lets SAGE's self term ride
     the diagonal tier's dual-weight kernel; ``None`` turns it on for CUDA
-    tensors and off for CPU ones."""
+    tensors and off for CPU ones.  A GIN layer runs the structure of the
+    plan's EpilogueSpec (transform-first where the plan has none)."""
     _require_model(cfg)
     plan = _as_plan(dec, kernels, len(params))
-    conv = adaptgear.gcn_conv if cfg.model == "gcn" else adaptgear.sage_conv
     h = x
     for i, layer in enumerate(params):
-        h = conv(layer, dec, h, plan.for_layer(i), acc=acc)
+        names = plan.for_layer(i)
+        if cfg.model == "gin":
+            ep = plan.epilogue_for_layer(i)
+            h = adaptgear.gin_conv(layer, dec, h, names,
+                                   structure=(ep.structure if ep is not None
+                                              else "transform_first"),
+                                   acc=acc)
+        else:
+            conv = (adaptgear.gcn_conv if cfg.model == "gcn"
+                    else adaptgear.sage_conv)
+            h = conv(layer, dec, h, names, acc=acc)
         if i != len(params) - 1:
             h = torch.relu(h)
     return h
 
 
+def agg_widths(cfg: GNNConfig, in_dim: int, n_classes: int) -> list[int]:
+    """The feature width each layer's aggregation runs at."""
+    return [fout for _, fout in agg_width_pairs(cfg, in_dim, n_classes)]
+
+
 def agg_width_pairs(cfg: GNNConfig, in_dim: int,
                     n_classes: int) -> list[tuple]:
-    """Per-layer ``(in_dim, agg_dim)`` width pairs; GCN's and SAGE's
+    """Per-layer ``(in_dim, agg_dim)`` width pairs.  GCN's and SAGE's
     layers are transform-first (SAGE through its dual epilogue), so fused
-    candidates compete at every layer."""
+    candidates compete at every layer.  A GIN layer aggregates at the
+    MLP's hidden width with W1 pushed through, ``(d, hidden)``, unless its
+    raw input is narrower than the hidden width: then it aggregates the
+    raw features, ``(None, d)``, and fused candidates sit out (the
+    decomposition-free rule; ``layer_plan_inputs`` prices it)."""
     _require_model(cfg)
     dims = [in_dim] + [cfg.hidden] * (cfg.n_layers - 1) + [n_classes]
+    if cfg.model == "gin":
+        return [(None, d) if d < cfg.hidden else (d, cfg.hidden)
+                for d in dims[:-1]]
     return list(zip(dims[:-1], dims[1:]))
 
 
@@ -146,13 +175,40 @@ def layer_epilogues(cfg: GNNConfig, in_dim: int, n_classes: int) -> tuple:
     return ep_mod.layer_epilogues(cfg.model, dims, cfg.hidden)
 
 
-def layer_plan_inputs(cfg: GNNConfig, in_dim: int,
-                      n_classes: int) -> tuple[list, tuple]:
-    """``(pairs, epilogues)`` for selection.  For GCN and SAGE they do not
-    depend on the decomposition (the reference prices GIN's structure
-    against it, which comes with GIN)."""
-    return (agg_width_pairs(cfg, in_dim, n_classes),
-            layer_epilogues(cfg, in_dim, n_classes))
+def layer_plan_inputs(cfg: GNNConfig, in_dim: int, n_classes: int,
+                      dec: dec_mod.Decomposed | None = None,
+                      dtype=torch.float32, hw=None) -> tuple[list, tuple]:
+    """``(pairs, epilogues)`` for selection.
+
+    Without ``dec`` they are :func:`agg_width_pairs` and
+    :func:`layer_epilogues`, GIN's structure by the width rule.  With
+    ``dec``, each GIN layer whose hidden width exceeds its input width is
+    priced: both structures go through ``selector.plan_layer_cost`` under
+    ``hw`` (default: ``dec``'s device's model), the MLP's dense terms
+    included, and the cheaper one is committed on the layer's
+    EpilogueSpec (transform-first on a tie)."""
+    pairs = agg_width_pairs(cfg, in_dim, n_classes)
+    eps = layer_epilogues(cfg, in_dim, n_classes)
+    if dec is None or cfg.model != "gin":
+        return pairs, eps
+    hw = hw or sel_mod.default_hw(dec.device)
+    dims = [in_dim] + [cfg.hidden] * (cfg.n_layers - 1) + [n_classes]
+    pairs, eps = list(pairs), list(eps)
+    for i in range(cfg.n_layers):
+        fin = dims[i]
+        if cfg.hidden <= fin:
+            continue        # transform-first narrows the pass: keep it
+        (tf_pair, tf_spec), (af_pair, af_spec) = \
+            ep_mod.gin_structure_candidates(fin, cfg.hidden, dims[i + 1])
+        tf_cost = sel_mod.plan_layer_cost(dec, tf_pair[1], dtype, hw=hw,
+                                          in_dim=tf_pair[0],
+                                          epilogue=tf_spec)
+        af_cost = sel_mod.plan_layer_cost(dec, af_pair[1], dtype, hw=hw,
+                                          in_dim=af_pair[0],
+                                          epilogue=af_spec)
+        pairs[i], eps[i] = ((af_pair, af_spec) if af_cost < tf_cost
+                            else (tf_pair, tf_spec))
+    return pairs, tuple(eps)
 
 
 def select_plan(dec: dec_mod.Decomposed, cfg: GNNConfig, widths: list,
@@ -324,7 +380,8 @@ def train(graph: graph_mod.Graph, cfg: GNNConfig, steps: int = 50,
                    for k, v in layer.items()} for layer in params]
     opt = _adam_init(params)
 
-    pairs, eps = layer_plan_inputs(cfg, in_dim, n_classes)
+    pairs, eps = layer_plan_inputs(cfg, in_dim, n_classes, dec=dec,
+                                   dtype=x.dtype)
     plan, probe_times = select_plan(dec, cfg, pairs, dtype=x.dtype,
                                     epilogues=eps)
     step_fn = make_train_step(cfg, dec, plan)

@@ -15,36 +15,56 @@ import torch
 from repro_torch import DEFAULT_DEVICE, resolve_device
 
 
-# the key set of each ported model's layer
-LAYER_KEYS = ({"w", "b"}, {"w_self", "w_neigh", "b"})
+# the key set of each ported model's layer: GCN, SAGE, GIN
+LAYER_KEYS = ({"w", "b"}, {"w_self", "w_neigh", "b"},
+              {"eps", "w1", "b1", "w2", "b2"})
+
+
+def _check_gnn_layer(i: int, arrs: dict) -> None:
+    """Each weight is (in, out) with its bias (out,); GIN's ``eps`` is a
+    scalar and its two weights chain (w1's out is w2's in)."""
+    if "eps" in arrs:
+        pairs = (("w1", "b1"), ("w2", "b2"))
+        if arrs["eps"].shape != ():
+            raise ValueError(f"layer {i}: eps {arrs['eps'].shape} is not "
+                             "a scalar ()")
+    else:
+        pairs = tuple((k, "b") for k in arrs if k != "b")
+    for w, b in pairs:
+        a, bias = arrs[w], arrs[b]
+        if a.ndim != 2 or bias.shape != (a.shape[1],):
+            raise ValueError(f"layer {i}: {w} {a.shape} and {b} "
+                             f"{bias.shape} are not (in, out) and (out,)")
+    if "w_self" in arrs and arrs["w_self"].shape != arrs["w_neigh"].shape:
+        raise ValueError(f"layer {i}: w_self {arrs['w_self'].shape} and "
+                         f"w_neigh {arrs['w_neigh'].shape} differ")
+    if "w1" in arrs and arrs["w1"].shape[1] != arrs["w2"].shape[0]:
+        raise ValueError(f"layer {i}: w1 {arrs['w1'].shape} and w2 "
+                         f"{arrs['w2'].shape} do not chain")
 
 
 def from_jax_params(params_np: Sequence[Mapping[str, np.ndarray]],
                     device: str | torch.device = DEFAULT_DEVICE
                     ) -> list[dict[str, torch.Tensor]]:
     """Parameters of ``repro.core.gnn.init_model`` (one dict per layer, as
-    numpy: GCN's ``w`` (in, out) and ``b`` (out,), or SAGE's ``w_self``
-    and ``w_neigh`` (in, out) and ``b`` (out,)) as this package's
-    parameters: float32 tensors of the same shapes on ``device``, each
-    with storage of its own (never the caller's arrays).  The result can
-    start ``repro_torch.core.gnn.train(params=...)`` directly, which
-    copies it and writes into nothing it was given."""
+    numpy: GCN's ``w`` (in, out) and ``b`` (out,); SAGE's ``w_self`` and
+    ``w_neigh`` (in, out) and ``b`` (out,); or GIN's ``eps`` (), ``w1``
+    (in, hidden), ``b1`` (hidden,), ``w2`` (hidden, out) and ``b2``
+    (out,)) as this package's parameters: float32 tensors of the same
+    shapes on ``device``, each with storage of its own (never the caller's
+    arrays).  The result can start ``repro_torch.core.gnn.train(params=
+    ...)`` directly, which copies it and writes into nothing it was
+    given."""
     dev = resolve_device(device)
     out = []
     for i, layer in enumerate(params_np):
         if set(layer) not in LAYER_KEYS:
-            raise ValueError(f"layer {i}: expected GCN keys {{'w', 'b'}} or "
-                             "SAGE keys {'w_self', 'w_neigh', 'b'}, got "
+            raise ValueError(f"layer {i}: expected GCN keys {{'w', 'b'}}, "
+                             "SAGE keys {'w_self', 'w_neigh', 'b'} or GIN "
+                             "keys {'eps', 'w1', 'b1', 'w2', 'b2'}, got "
                              f"{sorted(layer)}")
         arrs = {k: np.asarray(v, np.float32) for k, v in layer.items()}
-        b = arrs["b"]
-        for k, a in arrs.items():
-            if k != "b" and (a.ndim != 2 or b.shape != (a.shape[1],)):
-                raise ValueError(f"layer {i}: {k} {a.shape} and b {b.shape} "
-                                 "are not (in, out) and (out,)")
-        if "w_self" in arrs and arrs["w_self"].shape != arrs["w_neigh"].shape:
-            raise ValueError(f"layer {i}: w_self {arrs['w_self'].shape} and "
-                             f"w_neigh {arrs['w_neigh'].shape} differ")
+        _check_gnn_layer(i, arrs)
         out.append({k: torch.from_numpy(a.copy()).to(dev)
                     for k, a in arrs.items()})
     return out

@@ -636,6 +636,78 @@ def test_cuda_sage_gradients_match_cpu(cuda_device, plan):  # noqa: F811
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("structure", ["transform_first", "aggregate_first"])
+@pytest.mark.parametrize("plan", [("block_diag", "bell"),
+                                  ("block_diag", "tcgnn_tile"),
+                                  ("block_diag_fused", "tcgnn_tile_fused"),
+                                  ("block_diag_fused", "bell_fused")])
+def test_cuda_gin_matches_cpu(cuda_device, plan, structure):  # noqa: F811
+    """GIN on proteins_full's 29 features (rows 116 bytes long, not on
+    16-byte boundaries), hidden 64, layer 1 forced to each structure: the
+    logits and every gradient (eps included) on the card (acc on: the
+    self term seeds the kernels' full (n, 64) y_in) against the CPU's,
+    float32 1e-4.  Aggregate-first runs the unfused kernels at F = 29 and
+    layer 1 needs no dX pass, so block_diag_spmm launches 3 times, not 4;
+    a fused plan runs transform-first (Fi = 29 -> Fo = 64) either way."""
+    from repro_torch.core import adaptgear, epilogue, gnn
+    from repro_torch.core.plan import KernelPlan
+    from repro_torch.graphs import graph as graph_mod
+    g = graph_mod.synth_dataset("proteins_full", 0.03, seed=0, comm_size=16)
+    assert g.features.shape[1] == 29
+    cfg = gnn.GNNConfig(model="gin", hidden=64, n_layers=2, selector="fixed",
+                        fixed_kernels=plan)
+    params = gnn.init_model(torch.Generator().manual_seed(0), cfg, 29,
+                            g.n_classes, device="cpu")
+    params = [dict(p, eps=torch.tensor(0.25)) for p in params]
+    eps = (epilogue.gin_layer_spec(29, 64, 64, structure),
+           epilogue.gin_layer_spec(64, 64, g.n_classes, "transform_first"))
+    out = {}
+    before = bd_mod.launches.value
+    for dev in ("cpu", cuda_device):
+        dec = gnn.prepare(g, cfg, device=dev)
+        kplan = KernelPlan.make(dec, plan, n_layers=2, epilogues=eps)
+        x = adaptgear.to_reordered(dec, torch.from_numpy(g.features).to(dev))
+        leaves = [{k: v.detach().clone().to(dev).requires_grad_()
+                   for k, v in p.items()} for p in params]
+        y = gnn.forward(leaves, cfg, dec, x, kplan)
+        (y.square().sum() * 1e-3).backward()
+        out[str(dev)] = (y.detach().cpu(), [{k: v.grad.cpu()
+                                             for k, v in p.items()}
+                                            for p in leaves])
+    torch.cuda.synchronize()
+    if plan == ("block_diag", "bell"):
+        assert bd_mod.launches.value - before == (
+            3 if structure == "aggregate_first" else 4)
+    (yc, gc), (yg, gg) = out["cpu"], out[str(cuda_device)]
+    torch.testing.assert_close(yg, yc, **tp.F32_TOL)
+    for a, b in zip(gc, gg):
+        for k in a:
+            torch.testing.assert_close(b[k], a[k], **tp.F32_TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_gin_trains_on_louvain_like_the_cpu(cuda_device):  # noqa: F811
+    """gnn.train(model="gin", reorder="louvain") on the card and on the
+    CPU from one parameter set: the same permutation, plan and
+    structures, curves within atol 5e-3, rtol 1e-2."""
+    import numpy as np
+    from repro_torch.core import gnn
+    from repro_torch.graphs import graph as graph_mod
+    g = graph_mod.synth_dataset("pubmed", 0.05, seed=0, comm_size=16,
+                                max_feat=24)
+    cfg = gnn.GNNConfig(model="gin", hidden=32, reorder="louvain",
+                        selector="fixed",
+                        fixed_kernels=("block_diag_fused", "tcgnn_tile"))
+    params = gnn.init_model(torch.Generator().manual_seed(1), cfg, 24,
+                            g.n_classes, device="cpu")
+    res = {dev: gnn.train(g, cfg, steps=8, device=dev, params=params)
+           for dev in ("cpu", cuda_device)}
+    rc, rg = res["cpu"], res[cuda_device]
+    assert rc.kernels == rg.kernels and rc.plan.epilogues == rg.plan.epilogues
+    np.testing.assert_allclose(rg.losses, rc.losses, atol=5e-3, rtol=1e-2)
+
+
+@pytest.mark.cuda
 def test_cuda_feedback_selection_probes_every_candidate(cuda_device):  # noqa: F811
     """select_plan("feedback") on the card times every candidate, the
     tcgnn kernels included, and commits a valid plan."""

@@ -1,23 +1,36 @@
-"""Port parity: core/decompose.py (every registered payload), core/plan.py
-and the fixed selector of core/gnn.py.  The reorder, the tier partition, the stats and every payload
-array are host numpy in the reference, so the port must equal them."""
+"""Port parity: core/decompose.py (both reorderers, every registered
+payload, ``build_subgraph``, ``decomposition_quality``), core/louvain.py,
+core/plan.py and the fixed selector of core/gnn.py.  The reorder, the tier
+partition, the stats and every payload array are host numpy in the
+reference, so the port must equal them."""
 import torch_parity as tp  # noqa: I001  (first: pins torch to one thread)
 
 import dataclasses
 import functools
+import os
+import subprocess
+import sys
+import warnings
+from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from repro.core import decompose as RD
 from repro.core import gnn as RGNN
 from repro.core import plan as RP
 from repro.graphs import graph as RG
+from repro_torch.core import adaptgear as TA
 from repro_torch.core import decompose as TD
 from repro_torch.core import formats as TF
 from repro_torch.core import gnn as TGNN
 from repro_torch.core import plan as TP
 from repro_torch.graphs import graph as TG
+from repro_torch.kernels.registry import OFFDIAG
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
 
 def _port_graph(g):
     return TG.Graph(g.n, g.senders, g.receivers, g.features, g.labels,
@@ -69,27 +82,34 @@ def test_skeleton_tiers_identical(k):
             tp.assert_bytes_equal(getattr(rt, f), getattr(pt, f))
 
 
+def _assert_subgraphs_equal(rs, ps) -> None:
+    """Same name, kind, stats and payload arrays (bytes)."""
+    assert (rs.name, rs.kind, rs.n_rows, rs.block_size) == (
+        ps.name, ps.kind, ps.n_rows, ps.block_size)
+    assert set(rs.formats) == set(ps.formats)
+    assert rs.stats == ps.stats          # "kernels" names every spec
+    for key, rp in rs.formats.items():
+        pp = ps.formats[key]
+        if not isinstance(rp, tuple):   # bell, tcgnn_tile are pairs
+            rp, pp = (rp,), (pp,)
+        assert len(rp) == len(pp)
+        for rf, pf in zip(rp, pp):
+            arrays = TF.ARRAY_FIELDS[type(pf)]
+            for f in dataclasses.fields(pf):
+                if f.name in arrays:
+                    tp.assert_bytes_equal(getattr(rf, f.name),
+                                          getattr(pf, f.name))
+                else:
+                    assert getattr(rf, f.name) == getattr(pf, f.name)
+
+
 def test_materialized_payloads_identical():
     ref, port = _pair()
     tp.assert_bytes_equal(ref.perm, port.perm)
     tp.assert_bytes_equal(ref.inv_perm, port.inv_perm)
     assert [s.name for s in ref.subgraphs] == [s.name for s in port.subgraphs]
     for rs, ps in zip(ref.subgraphs, port.subgraphs):
-        assert set(rs.formats) == set(ps.formats)
-        assert rs.stats == ps.stats          # "kernels" names every spec
-        for key, rp in rs.formats.items():
-            pp = ps.formats[key]
-            if not isinstance(rp, tuple):   # bell, tcgnn_tile are pairs
-                rp, pp = (rp,), (pp,)
-            assert len(rp) == len(pp)
-            for rf, pf in zip(rp, pp):
-                arrays = TF.ARRAY_FIELDS[type(pf)]
-                for f in dataclasses.fields(pf):
-                    if f.name in arrays:
-                        tp.assert_bytes_equal(getattr(rf, f.name),
-                                              getattr(pf, f.name))
-                    else:
-                        assert getattr(rf, f.name) == getattr(pf, f.name)
+        _assert_subgraphs_equal(rs, ps)
 
 
 def test_plan_broadcasts_pair_over_inter_buckets():
@@ -130,11 +150,22 @@ def test_select_plan_fixed_matches_reference():
 
 
 @pytest.mark.parametrize("cfg", [
-    dict(model="gin"), dict(inter_buckets=0), dict(reorder="louvain")])
+    dict(model="gat"), dict(inter_buckets=0), dict(reorder="nope")])
 def test_unported_options_raise_naming_the_roadmap(cfg):
-    g = _port_graph(tp.ref_graph())
+    """GAT and bucket autotuning are not ported: NotImplementedError
+    naming the ROADMAP item.  An unknown reorder method is a KeyError, as
+    in the reference."""
+    g = tp.ref_graph()
+    if "reorder" in cfg:
+        with pytest.raises(KeyError):
+            RD.decompose_skeleton(g, comm_size=8, method=cfg["reorder"])
+        with pytest.raises(KeyError):
+            TGNN.prepare(_port_graph(g), TGNN.GNNConfig(comm_size=8, **cfg),
+                         device="cpu")
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TGNN.prepare(g, TGNN.GNNConfig(comm_size=8, **cfg), device="cpu")
+        TGNN.prepare(_port_graph(g), TGNN.GNNConfig(comm_size=8, **cfg),
+                     device="cpu")
 
 
 def test_decomposed_to_moves_every_tensor():
@@ -147,3 +178,170 @@ def test_decomposed_to_moves_every_tensor():
             tp.assert_bytes_equal(ps.formats["bell"][0].blocks,
                                   bell[0].blocks)
     assert np.array_equal(moved.perm.numpy(), port.perm.numpy())
+
+
+# --- Louvain (core/louvain.py) and the decomposition helpers ---------------
+
+def _odd_graph():
+    """60 nodes, the last 10 isolated, random edges among the first 50 with
+    reversed duplicates of 40 of them and 8 self-loops."""
+    rng = np.random.default_rng(0)
+    s, r = rng.integers(0, 50, 200), rng.integers(0, 50, 200)
+    loops = np.arange(0, 50, 7)
+    return (60, np.concatenate([s, r[:40], loops]),
+            np.concatenate([r, s[:40], loops]))
+
+
+def _louvain_graph(name: str, comm: int):
+    if name == "odd":
+        return _odd_graph()
+    g = tp.ref_graph(name, 0.1, comm_size=comm)
+    return g.n, g.senders, g.receivers
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("name,comm", [("pubmed", 16), ("cora", 8),
+                                       ("odd", 8), ("odd", 16)])
+def test_louvain_reorder_identical(name, comm, seed):
+    """The port's own Louvain gives the reference's (networkx's)
+    permutation byte for byte, on the raw graph and with self-loops
+    added, as GCN's prepare gives it."""
+    n, snd, rcv = _louvain_graph(name, comm)
+    loops = np.arange(n, dtype=snd.dtype)
+    for s, r in ((snd, rcv), (np.concatenate([snd, loops]),
+                              np.concatenate([rcv, loops]))):
+        want = RD.louvain_reorder(n, s, r, comm, seed=seed)
+        got = TD.louvain_reorder(n, s, r, comm, seed=seed)
+        tp.assert_bytes_equal(want, got)
+        assert sorted(got) == list(range(n))
+
+
+def test_louvain_on_a_graph_without_edges_keeps_the_order():
+    empty = np.zeros(0, np.int32)
+    tp.assert_bytes_equal(RD.louvain_reorder(5, empty, empty, 8),
+                          TD.louvain_reorder(5, empty, empty, 8))
+
+
+def test_louvain_reorder_runs_without_networkx():
+    """The port's Louvain imports no networkx: it runs with the module
+    blocked, and nothing of networkx is loaded."""
+    code = (
+        "import sys\n"
+        "sys.modules['networkx'] = None\n"
+        "import numpy as np\n"
+        "from repro_torch.core import decompose\n"
+        "s = np.array([0, 1, 2, 3, 4, 5], np.int32)\n"
+        "r = np.array([1, 2, 0, 4, 5, 3], np.int32)\n"
+        "perm = decompose.louvain_reorder(6, s, r, 4)\n"
+        "assert sorted(perm.tolist()) == list(range(6)), perm\n"
+        "assert sorted({int(perm[0]) // 3, int(perm[3]) // 3}) == [0, 1]\n"
+        "bad = sorted(m for m, mod in sys.modules.items() if mod is not "
+        "None and m.split('.')[0] in ('networkx', 'jax', 'repro'))\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("method", ["louvain", "metis"])
+def test_louvain_skeleton_identical(method, monkeypatch):
+    """decompose_skeleton under louvain and under metis, which resolves
+    to louvain with one warning per process and records the method it
+    ran as ``stats["effective_method"]``, as the reference does."""
+    monkeypatch.setattr(RD, "_warned_substitutions", set())
+    monkeypatch.setattr(TD, "_warned_substitutions", set())
+    g, vals = _gcn_inputs("pubmed", 0.03, 8)
+    skels = []
+    for mod, graph in ((RD, g), (TD, _port_graph(g))):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            skels.append(mod.decompose_skeleton(
+                graph, comm_size=8, method=method, edge_vals=vals))
+            mod.decompose_skeleton(graph, comm_size=8, method=method,
+                                   edge_vals=vals)
+        subst = [w for w in caught if "substituting" in str(w.message)]
+        assert len(subst) == (method == "metis")
+    ref, port = skels
+    assert port.stats["method"] == method
+    assert port.stats["effective_method"] == "louvain"
+    assert ref.stats == port.stats
+    tp.assert_bytes_equal(ref.perm, port.perm)
+    for rt, pt in zip(ref.tiers, port.tiers):
+        assert (rt.name, rt.stats) == (pt.name, pt.stats)
+        for f in ("rows", "cols", "vals"):
+            tp.assert_bytes_equal(getattr(rt, f), getattr(pt, f))
+
+
+def test_resolve_method_warns_once_per_method(monkeypatch):
+    monkeypatch.setattr(TD, "_warned_substitutions", set())
+    with pytest.warns(UserWarning, match="'metis'.*'louvain'"):
+        assert TD.resolve_method("metis") == "louvain"
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        assert TD.resolve_method("metis") == "louvain"
+        assert TD.resolve_method("bfs") == "bfs"
+        assert TD.resolve_method("nope") == "nope"
+
+
+def test_skeleton_without_reorder_keeps_node_order():
+    g, vals = _gcn_inputs("pubmed", 0.03, 8)
+    ref = RD.decompose_skeleton(g, comm_size=8, edge_vals=vals,
+                                reorder=False)
+    port = TD.decompose_skeleton(_port_graph(g), comm_size=8,
+                                 edge_vals=vals, reorder=False)
+    assert np.array_equal(port.perm, np.arange(g.n))
+    tp.assert_bytes_equal(ref.perm, port.perm)
+    assert ref.stats == port.stats
+
+
+@pytest.mark.parametrize("tier,kernels", [
+    (0, None), (1, None), (0, ("block_diag_fused",)),
+    (1, ("bell_fused", "coo")), (1, ("block_diag",)), (0, ())])
+def test_build_subgraph_identical(tier, kernels):
+    """build_subgraph from one tier's edges: every payload, or those the
+    names ask for (a fused name builds its unfused payload, a name that
+    does not apply to the tier's kind builds nothing)."""
+    g, vals = _gcn_inputs("pubmed", 0.03, 8)
+    t = RD.decompose_skeleton(g, comm_size=8, edge_vals=vals).tiers[tier]
+    n_pad = ((g.n + 7) // 8) * 8
+    args = (t.name, t.kind, n_pad, 8, t.rows, t.cols, t.vals, kernels)
+    ref = RD.build_subgraph(*args)
+    port = TD.build_subgraph(*args, device="cpu")
+    _assert_subgraphs_equal(ref, port)
+    if kernels == ():
+        assert port.formats == {} and port.stats["kernels"] == ()
+
+
+def test_build_subgraph_refuses_an_edge_budget():
+    t = TD.decompose_skeleton(_port_graph(tp.ref_graph()),
+                              comm_size=8).tiers[1]
+    with pytest.raises(NotImplementedError, match="item 6"):
+        TD.build_subgraph(t.name, OFFDIAG, 64, 8, t.rows, t.cols, t.vals,
+                          edge_budget=128, device="cpu")
+
+
+@pytest.mark.parametrize("method,k", [("bfs", 1), ("louvain", 2)])
+def test_decomposition_quality_identical(method, k):
+    g, vals = _gcn_inputs("pubmed", 0.03, 8)
+    ref = RD.decompose_skeleton(g, comm_size=8, method=method,
+                                edge_vals=vals, inter_buckets=k)
+    port = TD.decompose(_port_graph(g), comm_size=8, method=method,
+                        edge_vals=vals, inter_buckets=k, device="cpu")
+    want = RD.decomposition_quality(ref)
+    assert TD.decomposition_quality(port) == want
+    assert 0.0 < want["intra_frac"] < 1.0
+
+
+@pytest.mark.parametrize("kernel", ["block_diag", "bell", "tcgnn_tile",
+                                    "block_diag_fused"])
+def test_full_static_rejects_a_kernel_that_misses_a_tier(kernel):
+    """O1 runs one kernel on every tier, so a kernel that does not apply
+    to every tier's kind is refused before anything runs, as in the
+    reference (the plan layer's ValueError)."""
+    ref, port = _pair()
+    x = torch.zeros((port.n_pad, 4))
+    with pytest.raises(ValueError):
+        RP.normalize_layer(ref, (kernel,) * len(ref.subgraphs))
+    with pytest.raises(ValueError):
+        TA.aggregate_full_static(port, x, kernel)

@@ -101,6 +101,43 @@ def test_from_jax_params_checks_the_gcn_layout():
                         device="cpu")
 
 
+def test_from_jax_params_checks_the_gin_layout():
+    rng = np.random.default_rng(0)
+    u = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    layer = dict(eps=np.float32(0.25), w1=u(5, 8), b1=u(8), w2=u(8, 3),
+                 b2=u(3))
+    (p,) = from_jax_params([layer], device="cpu")
+    assert p["eps"].shape == () and float(p["eps"]) == 0.25
+    assert [tuple(p[k].shape) for k in ("w1", "b1", "w2", "b2")] == [
+        (5, 8), (8,), (8, 3), (3,)]
+    for k in layer:                       # copied, not shared
+        assert np.array_equal(p[k].numpy(), layer[k])
+        p[k].add_(1.0)
+    assert float(layer["eps"]) == 0.25
+    for bad, match in ((dict(layer, eps=np.zeros(1, np.float32)), "scalar"),
+                       (dict(layer, b1=u(7)), "not"),
+                       (dict(layer, w2=u(7, 3)), "chain"),
+                       ({k: v for k, v in layer.items() if k != "b2"},
+                        "GIN keys")):
+        with pytest.raises(ValueError, match=match):
+            from_jax_params([bad], device="cpu")
+
+
+def test_init_gin_draws_glorot_and_zero_eps():
+    cfg = TGNN.GNNConfig(model="gin", hidden=8, n_layers=3)
+    p1, p2 = (TGNN.init_model(torch.Generator().manual_seed(5), cfg, 32, 3,
+                              device="cpu") for _ in range(2))
+    assert [(tuple(p["w1"].shape), tuple(p["w2"].shape)) for p in p1] == [
+        ((32, 8), (8, 8)), ((8, 8), (8, 8)), ((8, 8), (8, 3))]
+    for a, b in zip(p1, p2):
+        assert float(a["eps"]) == 0.0 and a["eps"].shape == ()
+        assert not a["b1"].any() and not a["b2"].any()
+        for k in ("w1", "w2"):
+            assert torch.equal(a[k], b[k])
+            lim = (6.0 / sum(a[k].shape)) ** 0.5
+            assert float(a[k].abs().max()) <= lim
+
+
 def test_init_model_draws_glorot_from_the_generator():
     cfg = TGNN.GNNConfig(hidden=8)
     p1 = TGNN.init_model(torch.Generator().manual_seed(5), cfg, 32, 3,

@@ -19,6 +19,7 @@ tests/test_torch_cuda.py."""
 import torch_parity as tp  # noqa: I001  (first: pins torch to one thread)
 
 import numpy as np
+import pytest
 import torch
 import jax
 import jax.numpy as jnp
@@ -407,6 +408,145 @@ def test_sage_plan_curves_match_reference_from_its_params():
         assert ref.losses[-1] < ref.losses[0]
         np.testing.assert_allclose(port.losses, ref.losses, atol=5e-3,
                                    rtol=1e-2)
+
+
+# --- GIN and the O1 baseline ------------------------------------------------
+
+GIN_PLANS = (("block_diag", "bell"), ("block_diag_fused", "tcgnn_tile_fused"))
+
+
+def _gin_setup(reorder: str = "bfs"):
+    """A small pubmed-like graph whose 6 features are narrower than GIN's
+    hidden width 8 (so layer 1 may run either structure), the reference's
+    GIN decomposition and parameters, and the port's twins."""
+    from repro.core import epilogue as REP
+    from repro_torch.core import epilogue as TE
+    g = tp.ref_graph("pubmed", 0.03, comm_size=8, max_feat=6)
+    kw = dict(model="gin", hidden=8, n_layers=2, comm_size=8,
+              reorder=reorder, selector="fixed")
+    ref_cfg, cfg = RGNN.GNNConfig(**kw), TGNN.GNNConfig(**kw)
+    dec = RGNN.prepare(g, ref_cfg)
+    params = RGNN.init_model(jax.random.PRNGKey(0), ref_cfg,
+                             g.features.shape[1], g.n_classes)
+    # a nonzero eps, so that the self term's scale is checked too
+    params = [dict(p, eps=jnp.float32(0.1 * (i + 1)))
+              for i, p in enumerate(params)]
+    params_np = [{k: np.asarray(a) for k, a in p.items()} for p in params]
+    port_g = TG.Graph(g.n, g.senders, g.receivers, g.features, g.labels,
+                      g.n_classes, g.name)
+    port_dec = TGNN.prepare(port_g, cfg, device="cpu")
+    specs = {st: (REP.gin_layer_spec(6, 8, 8, st), TE.gin_layer_spec(6, 8, 8,
+                                                                     st))
+             for st in ("transform_first", "aggregate_first")}
+    last = (REP.gin_layer_spec(8, 8, 3, "transform_first"),
+            TE.gin_layer_spec(8, 8, 3, "transform_first"))
+    return (g, port_g, ref_cfg, cfg, dec, port_dec, params, params_np,
+            specs, last)
+
+
+def test_gin_forward_and_grads_match_reference_from_carried_params():
+    """GIN logits and the gradients of every parameter, ``eps`` included,
+    from the reference's parameters: layer 1 forced to each structure
+    through the plan's epilogues (a fused plan runs transform-first in
+    both packages whatever its epilogue says), unfused and fused plans,
+    the port's acc off and on, against jax.grad through the reference's
+    custom_vjps (Pallas kernels in interpret mode); float32 1e-4 / 1e-5."""
+    from repro.core import plan as RP
+    from repro_torch.core import plan as TP
+    (g, _, ref_cfg, cfg, dec, port_dec, params, params_np, specs,
+     last) = _gin_setup()
+    rng = np.random.default_rng(5)
+    cot = rng.standard_normal((dec.n_pad, g.n_classes)).astype(np.float32)
+    xr = RA.to_reordered(dec, jnp.asarray(g.features))
+    xt = TA.to_reordered(port_dec, torch.from_numpy(g.features))
+    tol = dict(atol=1e-4, rtol=1e-5)
+    for plan in GIN_PLANS:
+        for st, (rspec, tspec) in specs.items():
+            rplan = RP.KernelPlan.make(dec, plan, n_layers=2,
+                                       epilogues=(rspec, last[0]))
+            tplan = TP.KernelPlan.make(port_dec, plan, n_layers=2,
+                                       epilogues=(tspec, last[1]))
+
+            def ref_loss(p):
+                return jnp.sum(RGNN.forward(p, ref_cfg, dec, xr, rplan)
+                               * cot)
+            ref_y = np.asarray(RGNN.forward(params, ref_cfg, dec, xr, rplan))
+            ref_g = jax.grad(ref_loss)(params)
+            for acc in (False, True):
+                leaves = [{k: v.requires_grad_() for k, v in p.items()}
+                          for p in from_jax_params(params_np, device="cpu")]
+                y = TGNN.forward(leaves, cfg, port_dec, xt, tplan, acc=acc)
+                tp.assert_close(ref_y, y, **tol)
+                (y * torch.from_numpy(cot)).sum().backward()
+                for rgl, pl in zip(ref_g, leaves):
+                    assert set(rgl) == set(pl)
+                    for k in pl:
+                        tp.assert_close(rgl[k], pl[k].grad, **tol)
+
+
+def test_gin_plan_curves_match_reference_from_its_params():
+    """10 GIN steps from the reference's own initial parameters through
+    each plan (bfs), and through the unfused plan on the Louvain
+    reordering (the port's own Louvain against networkx's), against
+    repro.core.gnn.train: the same committed structures (priced against
+    each decomposition under CPU_HW) and plans, curves within atol 5e-3,
+    rtol 1e-2 (tests/test_fused.py)."""
+    import dataclasses
+    for reorder, plans in (("bfs", GIN_PLANS), ("louvain", GIN_PLANS[:1])):
+        g, port_g, ref_cfg, cfg, *_ = _gin_setup(reorder)
+        for plan in plans:
+            rc = dataclasses.replace(ref_cfg, fixed_kernels=plan)
+            ref = RGNN.train(g, rc, steps=10)
+            params = RGNN.init_model(jax.random.PRNGKey(rc.seed), rc,
+                                     g.features.shape[1], g.n_classes)
+            params_np = [{k: np.asarray(a) for k, a in p.items()}
+                         for p in params]
+            port = TGNN.train(port_g,
+                              dataclasses.replace(cfg, fixed_kernels=plan),
+                              steps=10, device="cpu",
+                              params=from_jax_params(params_np,
+                                                     device="cpu"))
+            assert port.kernels == [tuple(k) for k in ref.kernels]
+            assert ([e.structure for e in port.plan.epilogues]
+                    == [e.structure for e in ref.plan.epilogues]
+                    == ["aggregate_first", "transform_first"])
+            np.testing.assert_allclose(port.losses, ref.losses, atol=5e-3,
+                                       rtol=1e-2)
+
+
+def test_full_static_matches_reference():
+    """The O1 baseline, aggregate_full_static, on a Louvain decomposition
+    (as the paper's Fig. 11 runs it) with each kernel that applies to
+    every tier, against the reference's; a kernel that misses a tier is
+    refused by both."""
+    from repro.core import decompose as RD
+    from repro.graphs import graph as RG
+    from repro_torch.core import decompose as TD
+    from repro_torch.kernels.registry import DIAG, OFFDIAG, REGISTRY
+    g = tp.ref_graph("pubmed", 0.03, comm_size=8, max_feat=12)
+    port_g = TG.Graph(g.n, g.senders, g.receivers, g.features, g.labels,
+                      g.n_classes, g.name)
+    for k in (1, 2):
+        ref = RD.decompose(g, comm_size=8, method="louvain", inter_buckets=k)
+        port = TD.decompose(port_g, comm_size=8, method="louvain",
+                            inter_buckets=k, device="cpu")
+        x = np.random.default_rng(k).standard_normal(
+            (port.n_pad, 12)).astype(np.float32)
+        both = [s.name for s in REGISTRY.candidates(DIAG)
+                if s.applies_to(OFFDIAG)]
+        assert both == ["ell", "coo", "csr", "sell_cs"]
+        for kernel in both:
+            want = RA.aggregate_full_static(ref, jnp.asarray(x), kernel)
+            tp.assert_close(want, TA.aggregate_full_static(
+                port, torch.from_numpy(x), kernel))
+        tp.assert_close(RA.aggregate(ref, jnp.asarray(x), ("ell", "coo")),
+                        TA.aggregate(port, torch.from_numpy(x),
+                                     ("ell", "coo")))
+        for kernel in ("block_diag", "bell"):
+            with pytest.raises(ValueError):
+                RA.aggregate_full_static(ref, jnp.asarray(x), kernel)
+            with pytest.raises(ValueError):
+                TA.aggregate_full_static(port, torch.from_numpy(x), kernel)
 
 
 # --- the LM serving slice: InternLM2-1.8B at its reduced config ------------

@@ -5,6 +5,7 @@ exact or rel 1e-12), and ``select_plan``/``train`` with the paper's
 feedback default on the CPU.  Nothing here makes JAX compile."""
 import torch_parity as tp  # noqa: I001  (first: pins torch to one thread)
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -12,6 +13,7 @@ import pytest
 import torch
 
 from repro.core import decompose as RD
+from repro.core import epilogue as REP
 from repro.core import gnn as RGNN
 from repro.core import selector as RSEL
 from repro.graphs import graph as RG
@@ -188,9 +190,10 @@ def test_epilogues_and_aggregate_sub():
     assert TE.epilogue_cost(TE.EpilogueSpec("linear"), 10, 5, 4,
                             hw=TSEL.CPU_HW) == 0.0
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TE.layer_epilogues("gin", [5, 4, 3], 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TE.epilogue_cost(TE.EpilogueSpec("mlp"), 10, 5, 4, hw=TSEL.CPU_HW)
+        TE.layer_epilogues("gat", [5, 4, 3], 4)
+    for mod, hw in ((TE, TSEL.CPU_HW), (REP, RSEL.CPU_HW)):
+        with pytest.raises(ValueError, match="unknown epilogue kind"):
+            mod.epilogue_cost(mod.EpilogueSpec("nope"), 10, 5, 4, hw=hw)
     _, port = _pair()
     x = torch.from_numpy(np.random.default_rng(3).standard_normal(
         (port.n_pad, 4)).astype(np.float32))
@@ -209,3 +212,119 @@ def test_epilogues_and_aggregate_sub():
         TA.aggregate_sub(port.intra, x, "block_diag_fused")
     with pytest.raises(ValueError, match="not fused"):
         TA.aggregate_sub_fused(port.intra, x, w, "block_diag")
+
+
+# --- GIN's MLP epilogue ------------------------------------------------------
+
+GIN_SPECS = [(6, 8, 3), (32, 64, 7), (16, 16, 3)]   # (fin, hidden, out)
+
+
+def _spec_fields(spec) -> tuple:
+    return (spec.kind, spec.bias, spec.activation, spec.mean_norm,
+            spec.out_dim, spec.structure, spec.hidden, spec.free_transform)
+
+
+@pytest.mark.parametrize("fin,hidden,out", GIN_SPECS)
+def test_gin_epilogue_specs_match_the_reference(fin, hidden, out):
+    """GIN's EpilogueSpecs field for field, ``free_transform`` included:
+    only a transform-first MLP layer shares its transform (S = X W1) with
+    the unfused candidates; an aggregate-first one aggregates raw
+    features, as in the reference."""
+    for structure in ("transform_first", "aggregate_first"):
+        got = TE.gin_layer_spec(fin, hidden, out, structure)
+        want = REP.gin_layer_spec(fin, hidden, out, structure)
+        assert _spec_fields(got) == _spec_fields(want)
+        assert got.free_transform == (structure == "transform_first")
+    assert _spec_fields(TE.EpilogueSpec("mlp")) == _spec_fields(
+        REP.EpilogueSpec("mlp"))
+    got = TE.gin_structure_candidates(fin, hidden, out)
+    want = REP.gin_structure_candidates(fin, hidden, out)
+    assert [(p, _spec_fields(e)) for p, e in got] == [
+        (p, _spec_fields(e)) for p, e in want]
+    dims = [fin, hidden, out]
+    assert ([_spec_fields(e) for e in TE.layer_epilogues("gin", dims,
+                                                         hidden)]
+            == [_spec_fields(e) for e in REP.layer_epilogues("gin", dims,
+                                                             hidden)])
+    for hw in sorted(HWS):
+        rhw, thw = HWS[hw]
+        for (pair, te), (_, re) in zip(got, want):
+            for n, f_in in ((500, pair[0]), (500, fin), (64, None)):
+                _rel_close(REP.epilogue_cost(re, n, f_in, pair[1],
+                                             np.float32, rhw),
+                           TE.epilogue_cost(te, n, f_in, pair[1],
+                                            np.float32, thw))
+
+
+@pytest.mark.parametrize("hw", sorted(HWS))
+@pytest.mark.parametrize("structure", ["transform_first", "aggregate_first"])
+def test_gin_layer_costs_and_plans_match_the_reference(hw, structure):
+    """plan_layer_cost and select_by_cost_model on GIN specs, with and
+    without an in_dim: an aggregate-first spec charges the unfused
+    candidates their share of a transform, a transform-first one does
+    not (the port waived it under both structures before)."""
+    rhw, thw = HWS[hw]
+    for k in (1, 2):
+        ref, port = _pair(k)
+        for fin, hidden, out in GIN_SPECS:
+            te = TE.gin_layer_spec(fin, hidden, out, structure)
+            re = REP.gin_layer_spec(fin, hidden, out, structure)
+            for feat, in_dim in ((hidden, fin), (fin, None), (hidden, None)):
+                _rel_close(RSEL.plan_layer_cost(ref, feat, np.float32, rhw,
+                                                in_dim, re),
+                           TSEL.plan_layer_cost(port, feat, np.float32, thw,
+                                                in_dim, te))
+                assert (TSEL.select_by_cost_model(port, feat, np.float32,
+                                                  thw, in_dim, te)
+                        == RSEL.select_by_cost_model(ref, feat, np.float32,
+                                                     rhw, in_dim, re))
+            _rel_close(RSEL._transform_share(ref, hidden, np.float32, rhw,
+                                             fin, re),
+                       TSEL._transform_share(port, hidden, np.float32, thw,
+                                             fin, te))
+
+
+@functools.lru_cache(maxsize=None)
+def _gin_pair(feat: int, k: int):
+    """(reference, port) decompositions as GIN prepares them: no
+    self-loops, unit values."""
+    g = tp.ref_graph("pubmed", 0.03, comm_size=8, max_feat=feat)
+    rcfg = RGNN.GNNConfig(model="gin", comm_size=8, inter_buckets=k)
+    tcfg = TGNN.GNNConfig(model="gin", comm_size=8, inter_buckets=k)
+    return (g, RGNN.prepare(g, rcfg),
+            TGNN.prepare(_port_graph(g), tcfg, device="cpu"))
+
+
+@pytest.mark.parametrize("hw", sorted(HWS))
+@pytest.mark.parametrize("feat,hidden,n_layers,k", [
+    (6, 8, 2, 1), (32, 64, 3, 2), (32, 16, 2, 1), (8, 64, 2, 2)])
+def test_gin_layer_plan_inputs_price_like_the_reference(hw, feat, hidden,
+                                                        n_layers, k):
+    """layer_plan_inputs(dec=...) commits the reference's pair and
+    structure per layer (priced where the hidden width exceeds the input
+    width), and without a decomposition takes the same width rule."""
+    rhw, thw = HWS[hw]
+    g, ref, port = _gin_pair(feat, k)
+    rcfg = RGNN.GNNConfig(model="gin", hidden=hidden, n_layers=n_layers,
+                          comm_size=8, inter_buckets=k)
+    tcfg = TGNN.GNNConfig(model="gin", hidden=hidden, n_layers=n_layers,
+                          comm_size=8, inter_buckets=k)
+    in_dim = g.features.shape[1]
+    for dec_r, dec_t in ((None, None), (ref, port)):
+        rp, re = RGNN.layer_plan_inputs(rcfg, in_dim, g.n_classes, dec=dec_r,
+                                        hw=rhw)
+        tpairs, teps = TGNN.layer_plan_inputs(tcfg, in_dim, g.n_classes,
+                                              dec=dec_t, hw=thw)
+        assert [tuple(p) for p in tpairs] == [tuple(p) for p in rp]
+        assert [_spec_fields(e) for e in teps] == [_spec_fields(e)
+                                                   for e in re]
+    assert TGNN.agg_widths(tcfg, in_dim, g.n_classes) == RGNN.agg_widths(
+        rcfg, in_dim, g.n_classes)
+    # the cost-model plan under those inputs
+    rplan, _ = RGNN.select_plan(
+        ref, dataclasses.replace(rcfg, selector="cost_model"), rp,
+        epilogues=re)
+    tplan, _ = TGNN.select_plan(
+        port, dataclasses.replace(tcfg, selector="cost_model"), tpairs,
+        epilogues=teps)
+    assert tplan.layers == rplan.layers

@@ -1,6 +1,7 @@
 """The port's training path on the CPU: the kernels' autograd Functions
 (float64 gradcheck through the plain versions), fused and unfused GCN plans
-against a dense-adjacency GCN, the hand-written Adam against a numpy
+against a dense-adjacency GCN, GIN under both structures against a
+dense-adjacency GIN, the hand-written Adam against a numpy
 transcription of the reference's formula, skipped dX passes, the fused
 registry aliases, and ``train``'s contract.  The same training against
 ``repro.core.gnn.train`` is in tests/test_torch_jax_parity.py; the CUDA
@@ -291,9 +292,158 @@ def test_train_leaves_carried_params_untouched_and_learns():
 
 
 @pytest.mark.parametrize("field,value", [("sampler", "cluster"),
-                                         ("model", "gin")])
+                                         ("model", "gat")])
 def test_train_raises_for_unported_options(field, value):
     cfg = dataclasses.replace(TGNN.GNNConfig(hidden=8, comm_size=8),
                               **{field: value})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TGNN.train(_graph(), cfg, steps=1, device="cpu")
+
+
+# --- GIN ---------------------------------------------------------------------
+
+GIN_PLANS = [("block_diag", "bell"), ("block_diag_fused", "tcgnn_tile_fused"),
+             ("block_diag", "tcgnn_tile"), ("ell", "coo")]
+
+
+@functools.lru_cache(maxsize=None)
+def _gin_prepared(k: int = 2):
+    g = _graph()
+    cfg = TGNN.GNNConfig(model="gin", hidden=48, n_layers=2, comm_size=8,
+                         inter_buckets=k)
+    return g, cfg, TGNN.prepare(g, cfg, device="cpu")
+
+
+def _gin_params(in_dim: int, hidden: int, n_classes: int, seed: int = 4):
+    """Two GIN layers as numpy (the reference's layout), with a nonzero
+    ``eps`` and biases so that every term shows in the checks."""
+    rng = np.random.default_rng(seed)
+    u = lambda *s: rng.uniform(-0.3, 0.3, s).astype(np.float32)  # noqa: E731
+    return [dict(eps=np.float32(rng.uniform(-0.2, 0.4)), w1=u(fi, hidden),
+                 b1=u(hidden), w2=u(hidden, fo), b2=u(fo))
+            for fi, fo in ((in_dim, hidden), (hidden, n_classes))]
+
+
+def _dense_gin(a, feats, params):
+    """GIN over the dense unit adjacency: MLP((1+eps) h + A h) per layer,
+    ReLU between layers."""
+    h = feats
+    for i, p in enumerate(params):
+        z = (1 + p["eps"]) * h + a @ h
+        h = torch.relu(z @ p["w1"] + p["b1"]) @ p["w2"] + p["b2"]
+        if i != len(params) - 1:
+            h = torch.relu(h)
+    return h
+
+
+@pytest.mark.parametrize("structure", ["transform_first", "aggregate_first"])
+@pytest.mark.parametrize("plan", GIN_PLANS)
+def test_gin_plans_match_dense_gin_fwd_and_grads(plan, structure):
+    """Two GIN layers through each plan, layer 1 forced to each structure
+    through the plan's epilogues (a fused plan runs transform-first
+    whatever it says), acc off and on, against the same model over the
+    dense unit adjacency: logits and every parameter's gradient, ``eps``
+    included, float32 1e-4."""
+    from repro_torch.core import epilogue as TE
+    g, cfg, dec = _gin_prepared()
+    a = torch.zeros((g.n, g.n))
+    a[torch.from_numpy(g.receivers).long(),
+      torch.from_numpy(g.senders).long()] = 1.0
+    feats = torch.from_numpy(g.features)
+    in_dim = feats.shape[1]
+    assert in_dim < cfg.hidden           # both structures are valid here
+    eps = (TE.gin_layer_spec(in_dim, cfg.hidden, cfg.hidden, structure),
+           TE.gin_layer_spec(cfg.hidden, cfg.hidden, g.n_classes,
+                             "transform_first"))
+    kplan = KernelPlan.make(dec, plan, n_layers=2, epilogues=eps)
+    cot = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (g.n, g.n_classes)).astype(np.float32))
+    params_np = _gin_params(in_dim, cfg.hidden, g.n_classes)
+    leaves = lambda: [{k: torch.tensor(v).requires_grad_()  # noqa: E731
+                       for k, v in p.items()} for p in params_np]
+    want_p = leaves()
+    want = _dense_gin(a, feats, want_p)
+    (want * cot).sum().backward()
+    x = TA.to_reordered(dec, feats)
+    for acc in (False, True):
+        got_p = leaves()
+        got = TA.from_reordered(dec, TGNN.forward(got_p, cfg, dec, x, kplan,
+                                                  acc=acc))
+        tp.assert_close(want.detach(), got)
+        (got * cot).sum().backward()
+        for pw, pg in zip(want_p, got_p):
+            assert set(pg) == {"eps", "w1", "b1", "w2", "b2"}
+            for k in pw:
+                tp.assert_close(pw[k].grad, pg[k].grad)
+
+
+def test_gin_structures_aggregate_at_their_widths(monkeypatch):
+    """Aggregate-first aggregates the raw features (F = in_dim, no
+    transform reaches the kernels); transform-first aggregates X W1 at the
+    hidden width, seeded by the self term (a full (n, hidden) y_in), with
+    S = X W1 formed once and shared with the unfused kernels."""
+    from repro_torch.core import epilogue as TE
+    g, cfg, dec = _gin_prepared(k=1)
+    widths, seeds = [], []
+    real, real_acc = ops.block_diag_matvec, ops.block_diag_matvec_acc
+
+    def spy(blocks, x):
+        widths.append(x.shape[1])
+        return real(blocks, x)
+
+    def spy_acc(blocks, x, y):
+        widths.append(x.shape[1])
+        seeds.append(tuple(y.stride()))
+        return real_acc(blocks, x, y)
+    monkeypatch.setattr(ops, "block_diag_matvec", spy)
+    monkeypatch.setattr(ops, "block_diag_matvec_acc", spy_acc)
+    in_dim = g.features.shape[1]
+    p = [{k: torch.tensor(v) for k, v in q.items()}
+         for q in _gin_params(in_dim, cfg.hidden, g.n_classes)]
+    x = TA.to_reordered(dec, torch.from_numpy(g.features))
+    for structure, want in (("aggregate_first", in_dim),
+                            ("transform_first", cfg.hidden)):
+        widths.clear()
+        seeds.clear()
+        for acc in (False, True):
+            TA.gin_conv(p[0], dec, x, ("block_diag", "bell"), structure,
+                        acc=acc)
+        assert widths == [want, want]
+        assert seeds == ([(cfg.hidden, 1)] if structure == "transform_first"
+                         else [])
+    assert TE.gin_layer_spec(in_dim, cfg.hidden, 3,
+                             "aggregate_first").hidden == cfg.hidden
+
+
+def test_gin_train_prices_structure_learns_and_leaves_params():
+    """train(model="gin") commits layer_plan_inputs(dec=...)'s structures
+    on the plan, lowers the loss from carried parameters and writes into
+    none of them; the feedback default probes layer 1 at its raw width
+    (aggregate-first, no fused candidates) and layer 2 fused and
+    unfused."""
+    g, cfg, dec = _gin_prepared(k=1)
+    in_dim = g.features.shape[1]
+    params = from_jax_params(_gin_params(in_dim, cfg.hidden, g.n_classes),
+                             device="cpu")
+    before = [{k: v.clone() for k, v in p.items()} for p in params]
+    pairs, eps = TGNN.layer_plan_inputs(cfg, in_dim, g.n_classes, dec=dec)
+    fixed = dataclasses.replace(cfg, inter_buckets=1, selector="fixed",
+                                fixed_kernels=("block_diag", "bell"))
+    # sum aggregation makes GIN's first Adam step overshoot: the loss
+    # rises at step 2 and falls below its start after a few more
+    res = TGNN.train(g, fixed, steps=8, device="cpu", params=params)
+    assert res.plan.epilogues == eps
+    assert [e.structure for e in eps] == ["aggregate_first",
+                                          "transform_first"]
+    assert res.losses[-1] < res.losses[0]
+    for p, q in zip(params, before):
+        for k in p:
+            assert torch.equal(p[k], q[k])
+    fb = TGNN.train(g, dataclasses.replace(cfg, inter_buckets=1,
+                                           warmup_iters=1),
+                    steps=2, device="cpu", params=params)
+    assert fb.plan.epilogues == eps and np.isfinite(fb.losses).all()
+    assert {w for (_, _, w) in fb.probe_times} == {in_dim, cfg.hidden}
+    fused = {k for (_, k, w) in fb.probe_times if REGISTRY.get(k).fused}
+    assert fused and all(w == cfg.hidden for (_, k, w) in fb.probe_times
+                         if k in fused)
