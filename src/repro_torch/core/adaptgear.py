@@ -1,8 +1,8 @@
-"""AdaptGear aggregation dispatch + the GCN, GIN and SAGE convolutions
-(paper §3/§4).
+"""AdaptGear aggregation dispatch + the GCN, GIN, SAGE and GAT
+convolutions (paper §3/§4) and the mean and max aggregators (§2.1).
 
-Counterpart of ``repro/core/adaptgear.py`` for GCN, GIN and SAGE, and the
-O1 baseline of the paper's ablation (``aggregate_full_static``).
+Counterpart of ``repro/core/adaptgear.py``, with the O1 baseline of the
+paper's ablation (``aggregate_full_static``).
 ``aggregate`` computes Y = sum_s A_s @ X over the decomposition's
 subgraphs with one registry kernel per subgraph.  With ``acc=True`` one
 output buffer is threaded through the subgraph list (the kernels' ``y_in``
@@ -22,6 +22,7 @@ import math
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import DEFAULT_DEVICE, resolve_device
 from repro_torch.core import plan as plan_mod
@@ -289,3 +290,127 @@ def sage_conv(params: dict, dec: Decomposed, x: torch.Tensor,
     return aggregate_transform_dual(dec, x, params["w_neigh"],
                                     params["w_self"], kernels,
                                     bias=params["b"], acc=acc)
+
+
+def init_gat_conv(generator: torch.Generator, in_dim: int, out_dim: int,
+                  device: str | torch.device = DEFAULT_DEVICE) -> dict:
+    """Single-head GAT layer parameters: glorot-uniform ``w`` (in_dim,
+    out_dim), then ``a_dst`` and ``a_src`` (out_dim,) (each the column of
+    an (out_dim, 1) glorot draw), drawn in that order from the CPU
+    ``generator``, and zero ``b`` (out_dim,)."""
+    dev = resolve_device(device)
+    w = _glorot(generator, (in_dim, out_dim))
+    a_dst = _glorot(generator, (out_dim, 1))[:, 0]
+    a_src = _glorot(generator, (out_dim, 1))[:, 0]
+    return dict(w=w.to(dev), a_dst=a_dst.to(dev), a_src=a_src.to(dev),
+                b=torch.zeros((out_dim,), dtype=torch.float32, device=dev))
+
+
+def _segment_max(vals: torch.Tensor, rows: torch.Tensor,
+                 n_rows: int) -> torch.Tensor:
+    """Per-row max of ``vals`` (E, ...) over the edges of each row, -inf
+    where a row has none (``jax.ops.segment_max``); its gradient splits
+    evenly among tied maxima, as JAX's does."""
+    out = torch.full((n_rows,) + vals.shape[1:], -math.inf,
+                     dtype=vals.dtype, device=vals.device)
+    idx = rows.view((-1,) + (1,) * (vals.dim() - 1)).expand_as(vals)
+    return out.scatter_reduce(0, idx, vals, "amax", include_self=True)
+
+
+def _segment_sum(vals: torch.Tensor, rows: torch.Tensor,
+                 n_rows: int) -> torch.Tensor:
+    """Per-row sum of ``vals`` (E, ...) over the edges of each row, 0 where
+    a row has none (``jax.ops.segment_sum``)."""
+    out = torch.zeros((n_rows,) + vals.shape[1:], dtype=vals.dtype,
+                      device=vals.device)
+    return out.index_add(0, rows, vals)
+
+
+def gat_conv(params: dict, dec: Decomposed, x: torch.Tensor,
+             negative_slope: float = 0.2) -> torch.Tensor:
+    """Single-head GAT (Velickovic et al.) with subgraph-level execution.
+
+    The logits e_ij = LeakyReLU(a_dst.h_i + a_src.h_j), h = x W, are
+    softmax-normalized over all in-neighbours of i across every subgraph,
+    so the parts share one row max and one row sum.  The diagonal tier is
+    dense masked per-block logits (mask ``blocks != 0``) and one batched
+    product (``torch.bmm``); each inter bucket is a COO edge softmax
+    (``scatter_reduce`` / ``index_add``).  A row with no in-neighbour
+    has max -inf, taken as 0, and sum 0, clamped to 1e-9, so its output
+    is ``b`` and no NaN reaches the forward or the gradients.  Like the
+    reference's, it reads the decomposition's edges, not a kernel plan:
+    none of this is a Pallas kernel there, so it stays torch ops here."""
+    h = x @ params["w"]                                     # (n_pad, F)
+    s_dst = h @ params["a_dst"]                             # (n_pad,)
+    s_src = h @ params["a_src"]
+    B = dec.block_size
+    nb = dec.n_pad // B
+    neg_inf = torch.tensor(-math.inf, dtype=h.dtype, device=h.device)
+    # -- intra: dense per-block logits
+    mask = dec.intra.formats["block_diag"].blocks != 0      # (nb, B, B)
+    e_in = s_dst.reshape(nb, B)[:, :, None] + s_src.reshape(nb, B)[:, None, :]
+    e_in = torch.where(mask, F.leaky_relu(e_in, negative_slope), neg_inf)
+    # -- inter buckets: per-edge logits (each bucket's COO is row-sorted)
+    edge_parts = [(rows, cols, F.leaky_relu(s_dst[rows] + s_src[cols],
+                                            negative_slope))
+                  for rows, cols in dec.inter_edges_i64]
+    # -- joint row max across all subgraphs (-inf for a row with none)
+    m = torch.amax(e_in, dim=-1).reshape(-1)
+    for rows, _, e_out in edge_parts:
+        m = torch.maximum(m, _segment_max(e_out, rows, dec.n_pad))
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    # -- exp and joint row sum
+    p_in = torch.where(mask, torch.exp(e_in - m.reshape(nb, B)[:, :, None]),
+                       torch.zeros_like(e_in))
+    z = p_in.sum(-1).reshape(-1)
+    p_outs = []
+    for rows, _, e_out in edge_parts:
+        p_out = torch.exp(e_out - m[rows])
+        p_outs.append(p_out)
+        z = z + _segment_sum(p_out, rows, dec.n_pad)
+    z = torch.clamp(z, min=1e-9)
+    # -- weighted aggregation per subgraph
+    y = torch.bmm(p_in, h.reshape(nb, B, -1)).reshape(dec.n_pad, -1)
+    for (rows, cols, _), p_out in zip(edge_parts, p_outs):
+        y = y + _segment_sum(h[cols] * p_out[:, None], rows, dec.n_pad)
+    return (y / z[:, None]).to(x.dtype) + params["b"]
+
+
+# ---------------------------------------------------------------------------
+# Non-sum aggregation operators (paper §2.1: aggregate-mean / aggregate-max)
+# ---------------------------------------------------------------------------
+
+def aggregate_mean(dec: Decomposed, x: torch.Tensor, inv_deg: torch.Tensor,
+                   kernels: Sequence[str] = DEFAULT_KERNELS, *,
+                   acc: bool | None = None) -> torch.Tensor:
+    """Mean over in-neighbours: :func:`aggregate` (the kernels of the plan
+    given, the dense diagonal kernel among them) times ``inv_deg``
+    (n_pad,) per row."""
+    return aggregate(dec, x, kernels, acc=acc) * inv_deg[:, None]
+
+
+# the reference's fill for masked slots (float32's lowest, rounded)
+_MAX_FILL = -3.4e38
+
+
+def aggregate_max(dec: Decomposed, x: torch.Tensor) -> torch.Tensor:
+    """Max over in-neighbours across every subgraph; 0 for a row with
+    none.  Max is not a product, so no dense-block kernel computes it: the
+    diagonal tier gathers through its ELL payload (masked slots filled
+    with -3.4e38), each inter bucket takes a segment max over its COO
+    edges, and an elementwise max joins them, in float32 (float64 for
+    float64 inputs), cast back to ``x``'s dtype.  Gradients split evenly
+    among tied maxima (``torch.amax``, ``scatter_reduce`` ``"amax"``,
+    ``torch.maximum``), as the reference's ``jnp.max``, ``segment_max``
+    and ``jnp.maximum`` do; ``torch.max(dim=)`` would send it all to one
+    index."""
+    acc_t = torch.promote_types(x.dtype, torch.float32)
+    neg = torch.tensor(_MAX_FILL, dtype=torch.float32,
+                       device=x.device).to(acc_t)
+    xa = x.to(acc_t)
+    ell = dec.intra.formats["ell"]
+    g_in = torch.where(ell.mask[..., None], xa[ell.indices], neg)
+    m = torch.amax(g_in, dim=1)                              # (n_pad, F)
+    for rows, cols in dec.inter_edges_i64:
+        m = torch.maximum(m, _segment_max(xa[cols], rows, dec.n_pad))
+    return torch.where(m <= neg / 2, torch.zeros_like(m), m).to(x.dtype)

@@ -16,6 +16,7 @@ communities, from the port's own copy of networkx's method in
 from __future__ import annotations
 
 import dataclasses
+import functools
 import warnings
 from collections import deque
 from dataclasses import dataclass
@@ -148,6 +149,16 @@ class Decomposed:
     @property
     def device(self) -> torch.device:
         return self.perm.device
+
+    @functools.cached_property
+    def inter_edges_i64(self) -> tuple:
+        """``(rows, cols)`` of each inter tier's COO payload as int64
+        tensors (what ``scatter_reduce`` and ``index_add_`` index with),
+        made once per decomposition, beside the payloads: their int32
+        bytes stay the reference's."""
+        return tuple((s.formats["coo"].rows.long(),
+                      s.formats["coo"].cols.long())
+                     for s in self.subgraphs[1:])
 
     def sub(self, name: str) -> Subgraph:
         for s in self.subgraphs:

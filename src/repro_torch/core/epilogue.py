@@ -65,18 +65,14 @@ class EpilogueSpec:
         return self.kind == "mlp" and self.structure == "transform_first"
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (GCN, SAGE and GIN are): ROADMAP "
-        "section 1 item 4")
-
-
 def layer_epilogues(model: str, dims: list, hidden: int) -> tuple:
     """Per-layer epilogue specs for ``model`` over its width chain
     ``dims`` (``[in_dim, hidden, ..., n_classes]``).  GIN takes the
     decomposition-free structure rule: aggregate-first where the raw input
     is narrower than the MLP's hidden width (``core.gnn.layer_plan_inputs``
-    prices the choice where a decomposition exists)."""
+    prices the choice where a decomposition exists).  Any other model
+    (GAT) aggregates raw features with no fusable epilogue: ``None`` per
+    layer, as in the reference."""
     n_layers = len(dims) - 1
     if model == "gcn":
         return tuple(EpilogueSpec(kind="linear") for _ in range(n_layers))
@@ -89,7 +85,7 @@ def layer_epilogues(model: str, dims: list, hidden: int) -> tuple:
                                                if dims[i] < hidden
                                                else "transform_first"))
                      for i in range(n_layers))
-    raise _not_ported(f"the {model!r} epilogue")
+    return (None,) * n_layers
 
 
 def gin_layer_spec(fin: int, hidden: int, out_dim: int,

@@ -42,6 +42,14 @@ class COO:
     cols: Array = None   # (E,) int32, source vertex per edge
     vals: Array = None   # (E,) float32, edge weight (e.g. GCN normalization)
 
+    @property
+    def nnz(self) -> int:
+        return int(self.rows.shape[0])
+
+    @property
+    def density(self) -> float:
+        return self.nnz / max(self.n_rows * self.n_cols, 1)
+
 
 @dataclass(frozen=True)
 class CSR:
@@ -77,6 +85,18 @@ class BlockDiag:
     n: int            # padded node count
     block_size: int   # community size B
     blocks: Array = None   # (n // B, B, B) float32 dense adjacency blocks
+
+    @property
+    def n_blocks(self) -> int:
+        return self.n // self.block_size
+
+    @property
+    def nnz(self) -> int:
+        return int((_np(self.blocks) != 0).sum())
+
+    @property
+    def density(self) -> float:
+        return self.nnz / max(_np(self.blocks).size, 1)
 
 
 @dataclass(frozen=True)
@@ -123,6 +143,26 @@ def to_device(payload, device: torch.device):
     return dataclasses.replace(payload, **{
         f: torch.as_tensor(_np(getattr(payload, f))).to(device)
         for f in fields})
+
+
+def format_stats(fmt) -> dict:
+    """Size and density statistics of a format container, the reference's
+    keys per kind."""
+    if isinstance(fmt, COO):
+        return dict(kind="coo", nnz=fmt.nnz, n=fmt.n_rows,
+                    density=fmt.density)
+    if isinstance(fmt, CSR):
+        return dict(kind="csr", nnz=fmt.nnz, n=fmt.n_rows)
+    if isinstance(fmt, ELL):
+        return dict(kind="ell", n=fmt.n_rows, max_deg=fmt.max_deg,
+                    padded=fmt.n_rows * fmt.max_deg)
+    if isinstance(fmt, BlockDiag):
+        return dict(kind="block_diag", n_blocks=fmt.n_blocks,
+                    block_size=fmt.block_size, density=fmt.density)
+    if isinstance(fmt, BlockELL):
+        return dict(kind="bell", n_brow=fmt.n_brow, max_blocks=fmt.max_blocks,
+                    block_size=fmt.block_size)
+    raise TypeError(type(fmt))
 
 
 # ---------------------------------------------------------------------------

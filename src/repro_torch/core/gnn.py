@@ -1,19 +1,20 @@
-"""Full-batch GCN, GIN and GraphSAGE inference and training on top of
-AdaptGear aggregation.
+"""Full-batch GCN, GIN, GAT and GraphSAGE inference and training on top
+of AdaptGear aggregation.
 
-Counterpart of ``repro/core/gnn.py``: ``prepare`` -> ``init_model`` ->
-``select_plan`` -> ``forward``, and ``train`` (masked NLL, gradients
-through the kernels' backward passes, the reference's hand-written Adam).
-Ported so far: the GCN, GIN and SAGE models with all three selectors;
-GIN's per-layer structure (transform-first or aggregate-first) is priced
-against the decomposition (``layer_plan_inputs``).
-``feedback``, the default as in the reference, times every registry
-candidate of every subgraph at every layer width on the device that
-trains and commits the fastest (``core/selector.py``); ``cost_model``
-ranks them by the analytic model of that device; ``fixed`` applies
-``fixed_kernels``.  Other models, bucket autotuning and mini-batch
-sampling raise ``NotImplementedError`` naming the ROADMAP item that brings
-them.
+Counterpart of ``repro/core/gnn.py``: ``prepare`` (with bucket-count
+autotuning at ``inter_buckets=0``) -> ``init_model`` -> ``select_plan`` ->
+``forward``, and ``train`` (masked NLL, gradients through the kernels'
+backward passes, the reference's hand-written Adam), for every model of
+the reference with all three selectors.  GIN's per-layer structure
+(transform-first or aggregate-first) is priced against the decomposition
+(``layer_plan_inputs``).  ``feedback``, the default as in the reference,
+times every registry candidate of every subgraph at every layer width on
+the device that trains and commits the fastest (``core/selector.py``);
+``cost_model`` ranks them by the analytic model of that device; ``fixed``
+applies ``fixed_kernels``.  GAT reads the decomposition's edges, not the
+plan (``adaptgear.gat_conv``), yet selection still commits one, as in the
+reference.  Mini-batch sampling raises ``NotImplementedError`` naming the
+ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -36,12 +37,12 @@ from repro_torch.graphs import graph as graph_mod
 class GNNConfig:
     """The fields of the reference's GNNConfig that the port reads, with
     the reference's defaults (``selector`` is ``feedback``)."""
-    model: str = "gcn"            # gcn | gin | sage
+    model: str = "gcn"            # gcn | gin | gat | sage
     hidden: int = 16
     n_layers: int = 2
     comm_size: int = 16
     reorder: str = "bfs"          # bfs | louvain (metis -> louvain)
-    inter_buckets: int = 1        # density tiers
+    inter_buckets: int = 1        # density tiers; 0 = autotune over {1,2,4}
     lr: float = 1e-2
     selector: str = "feedback"    # feedback | cost_model | fixed
     fixed_kernels: tuple = ("block_diag", "bell")
@@ -50,14 +51,12 @@ class GNNConfig:
     sampler: str = "full"         # only full-batch training is ported
 
 
-MODELS = ("gcn", "gin", "sage")
+MODELS = ("gcn", "gin", "gat", "sage")
 
 
 def _require_model(cfg: GNNConfig) -> None:
     if cfg.model not in MODELS:
-        raise NotImplementedError(
-            f"model {cfg.model!r} is not ported yet (only {MODELS}): "
-            "ROADMAP section 1 item 4")
+        raise ValueError(f"unknown model {cfg.model!r} (one of {MODELS})")
 
 
 def prepare(graph: graph_mod.Graph, cfg: GNNConfig,
@@ -65,15 +64,12 @@ def prepare(graph: graph_mod.Graph, cfg: GNNConfig,
             ) -> dec_mod.Decomposed:
     """Preprocessing (paper §3.3/§4.2): the per-model edge normalization
     baked into the edge values (GCN: self-loops and the symmetric norm;
-    SAGE: no self-loops and the mean aggregator's 1/deg(dst); GIN: no
-    self-loops and unit values, its sum aggregation), reorder and
-    decomposition, with every registered candidate payload placed on
-    ``device``."""
+    SAGE: no self-loops and the mean aggregator's 1/deg(dst); GIN and GAT:
+    no self-loops and unit values), reorder and decomposition, with every
+    registered candidate payload placed on ``device``.
+    ``cfg.inter_buckets == 0`` autotunes the bucket count
+    (:func:`autotune_decomposition`)."""
     _require_model(cfg)
-    if cfg.inter_buckets == 0:
-        raise NotImplementedError(
-            "inter_buckets=0 (bucket autotuning) is not ported yet: "
-            "ROADMAP section 1 item 4")
     dev = resolve_device(device)
     g, vals = graph, None
     if cfg.model == "gcn":
@@ -81,19 +77,55 @@ def prepare(graph: graph_mod.Graph, cfg: GNNConfig,
         vals = graph_mod.gcn_norm_values(g.n, g.senders, g.receivers)
     elif cfg.model == "sage":
         vals = graph_mod.mean_norm_values(g.n, g.senders, g.receivers)
+    if cfg.inter_buckets == 0:
+        return autotune_decomposition(
+            g, cfg, vals, in_dim=graph.features.shape[-1],
+            n_classes=graph.n_classes, device=dev)
     return dec_mod.decompose(g, comm_size=cfg.comm_size, method=cfg.reorder,
                              edge_vals=vals, inter_buckets=cfg.inter_buckets,
                              device=dev)
+
+
+def autotune_decomposition(g: graph_mod.Graph, cfg: GNNConfig, edge_vals,
+                           in_dim: int, n_classes: int,
+                           ks: tuple = (1, 2, 4), *,
+                           device: str | torch.device = DEFAULT_DEVICE
+                           ) -> dec_mod.Decomposed:
+    """Bucket-count autotuning: decompose at each inter-bucket count in
+    ``ks`` on ``device``, total ``selector.plan_layer_cost`` over the
+    model's layers under the device's cost model
+    (``selector.default_hw``: ``H100_HW`` on CUDA, ``CPU_HW`` elsewhere),
+    and return the cheapest decomposition (the first on a tie).  Layers
+    are priced per k: a GIN layer's structure may flip with the tiers.
+    The per-k totals land in ``dec.stats["bucket_autotune"]``."""
+    dev = resolve_device(device)
+    hw = sel_mod.default_hw(dev)
+    best, best_total, totals = None, None, {}
+    for k in ks:
+        dec = dec_mod.decompose(g, comm_size=cfg.comm_size,
+                                method=cfg.reorder, edge_vals=edge_vals,
+                                inter_buckets=k, device=dev)
+        pairs, eps = layer_plan_inputs(cfg, in_dim, n_classes, dec=dec,
+                                       hw=hw)
+        total = sum(sel_mod.plan_layer_cost(dec, fout, hw=hw, in_dim=fin,
+                                            epilogue=ep)
+                    for (fin, fout), ep in zip(pairs, eps))
+        totals[k] = float(total)
+        if best_total is None or total < best_total:
+            best, best_total = dec, total
+    best.stats["bucket_autotune"] = totals
+    return best
 
 
 def init_model(generator: torch.Generator, cfg: GNNConfig, in_dim: int,
                n_classes: int,
                device: str | torch.device = DEFAULT_DEVICE) -> list[dict]:
     """Model parameters, one dict per layer (GCN: ``w, b``; SAGE:
-    ``w_self, w_neigh, b``; GIN: ``eps, w1, b1, w2, b2``), drawn in layer
-    order from the CPU ``generator``.  The numbers differ from the reference's
-    ``jax.random`` ones; ``repro_torch.weights.from_jax_params`` carries
-    the reference's parameters over instead."""
+    ``w_self, w_neigh, b``; GIN: ``eps, w1, b1, w2, b2``; GAT: ``w,
+    a_dst, a_src, b``), drawn in layer order from the CPU ``generator``.
+    The numbers differ from the reference's ``jax.random`` ones;
+    ``repro_torch.weights.from_jax_params`` carries the reference's
+    parameters over instead."""
     _require_model(cfg)
     dev = resolve_device(device)
     dims = [in_dim] + [cfg.hidden] * (cfg.n_layers - 1) + [n_classes]
@@ -101,8 +133,8 @@ def init_model(generator: torch.Generator, cfg: GNNConfig, in_dim: int,
         return [adaptgear.init_gin_conv(generator, dims[i], cfg.hidden,
                                         dims[i + 1], dev)
                 for i in range(cfg.n_layers)]
-    init = (adaptgear.init_gcn_conv if cfg.model == "gcn"
-            else adaptgear.init_sage_conv)
+    init = {"gcn": adaptgear.init_gcn_conv, "gat": adaptgear.init_gat_conv,
+            "sage": adaptgear.init_sage_conv}[cfg.model]
     return [init(generator, dims[i], dims[i + 1], dev)
             for i in range(cfg.n_layers)]
 
@@ -126,7 +158,8 @@ def forward(params: list[dict], cfg: GNNConfig, dec: dec_mod.Decomposed,
     list (the kernels' ``y_in`` variants) and lets SAGE's self term ride
     the diagonal tier's dual-weight kernel; ``None`` turns it on for CUDA
     tensors and off for CPU ones.  A GIN layer runs the structure of the
-    plan's EpilogueSpec (transform-first where the plan has none)."""
+    plan's EpilogueSpec (transform-first where the plan has none); a GAT
+    layer reads the decomposition's edges, not the plan."""
     _require_model(cfg)
     plan = _as_plan(dec, kernels, len(params))
     h = x
@@ -138,6 +171,8 @@ def forward(params: list[dict], cfg: GNNConfig, dec: dec_mod.Decomposed,
                                    structure=(ep.structure if ep is not None
                                               else "transform_first"),
                                    acc=acc)
+        elif cfg.model == "gat":
+            h = adaptgear.gat_conv(layer, dec, h)
         else:
             conv = (adaptgear.gcn_conv if cfg.model == "gcn"
                     else adaptgear.sage_conv)
@@ -160,12 +195,15 @@ def agg_width_pairs(cfg: GNNConfig, in_dim: int,
     MLP's hidden width with W1 pushed through, ``(d, hidden)``, unless its
     raw input is narrower than the hidden width: then it aggregates the
     raw features, ``(None, d)``, and fused candidates sit out (the
-    decomposition-free rule; ``layer_plan_inputs`` prices it)."""
+    decomposition-free rule; ``layer_plan_inputs`` prices it).  GAT
+    aggregates raw inputs: ``(None, d)`` at every layer."""
     _require_model(cfg)
     dims = [in_dim] + [cfg.hidden] * (cfg.n_layers - 1) + [n_classes]
     if cfg.model == "gin":
         return [(None, d) if d < cfg.hidden else (d, cfg.hidden)
                 for d in dims[:-1]]
+    if cfg.model == "gat":
+        return [(None, d) for d in dims[:-1]]
     return list(zip(dims[:-1], dims[1:]))
 
 

@@ -1,6 +1,7 @@
-"""Graph substrate: host container and synthetic stand-ins for the paper's
-Table-1 datasets (no downloads: graphs are synthesized with matching
-vertex/edge/feature/class statistics, scaled by a factor).
+"""Graph substrate: host container, the R-MAT and community generators,
+and synthetic stand-ins for the paper's Table-1 datasets (no downloads:
+graphs are synthesized with matching vertex/edge/feature/class
+statistics, scaled by a factor).
 
 Counterpart of ``repro/graphs/graph.py``.  Pure numpy, so the same seed
 gives byte-identical arrays in both packages."""
@@ -29,6 +30,31 @@ class Graph:
         return int(self.senders.shape[0])
 
 
+def rmat(n: int, n_edges: int, seed: int = 0, a: float = 0.57,
+         b: float = 0.19, c: float = 0.19) -> tuple[np.ndarray, np.ndarray]:
+    """R-MAT recursive generator (Chakrabarti et al., SDM'04), the paper's
+    density sweep (§2.1).  Returns deduplicated (src, dst), int32."""
+    rng = np.random.default_rng(seed)
+    scale = max(int(np.ceil(np.log2(max(n, 2)))), 1)
+    m = int(n_edges * 1.2) + 16  # oversample; dedup below
+    # each level picks a quadrant with probs (a, b, c, d): the src bit is
+    # set for the bottom half (c, d), the dst bit for the right half (b, d)
+    src = np.zeros(m, np.int64)
+    dst = np.zeros(m, np.int64)
+    for _ in range(scale):
+        r = rng.random(m)
+        src_bit = (r > a + b).astype(np.int64)
+        dst_bit = (((r > a) & (r <= a + b)) | (r > a + b + c)).astype(np.int64)
+        src = src * 2 + src_bit
+        dst = dst * 2 + dst_bit
+    src %= n
+    dst %= n
+    eid = src * n + dst
+    _, keep = np.unique(eid, return_index=True)
+    keep = keep[: n_edges]
+    return src[keep].astype(np.int32), dst[keep].astype(np.int32)
+
+
 def community_graph(n: int, n_edges: int, comm_size: int = 16,
                     intra_frac: float = 0.7, seed: int = 0
                     ) -> tuple[np.ndarray, np.ndarray]:
@@ -49,6 +75,32 @@ def community_graph(n: int, n_edges: int, comm_size: int = 16,
     src = np.concatenate([s_in, s_out]) % n
     dst = np.concatenate([d_in, d_out]) % n
     src, dst = comm[src], comm[dst]   # apply hiding permutation
+    eid = src.astype(np.int64) * n + dst
+    _, keep = np.unique(eid, return_index=True)
+    return src[keep].astype(np.int32), dst[keep].astype(np.int32)
+
+
+def aligned_community_graph(n: int, n_edges: int, block: int = 128,
+                            intra_frac: float = 0.9, seed: int = 0
+                            ) -> tuple[np.ndarray, np.ndarray]:
+    """Block-diagonal-dominant graph with aligned communities: intra edges
+    land on size-``block`` diagonal blocks directly (decompose it with
+    ``reorder=False``), inter edges join neighbouring communities in a
+    ring, so the off-diagonal blocks are few and coherent (small
+    blocked-ELL K): where the dense intra kernel and the fused
+    transform+aggregate pass dominate.  Deduplicated (src, dst), int32."""
+    rng = np.random.default_rng(seed)
+    nb = max(n // block, 1)
+    n_intra = int(n_edges * intra_frac)
+    n_inter = n_edges - n_intra
+    cb = rng.integers(0, nb, n_intra) * block
+    s_in = cb + rng.integers(0, block, n_intra)
+    d_in = cb + rng.integers(0, block, n_intra)
+    rb = rng.integers(0, nb, n_inter)
+    s_out = ((rb + 1) % nb) * block + rng.integers(0, block, n_inter)
+    d_out = rb * block + rng.integers(0, block, n_inter)
+    src = np.concatenate([s_in, s_out]) % n
+    dst = np.concatenate([d_in, d_out]) % n
     eid = src.astype(np.int64) * n + dst
     _, keep = np.unique(eid, return_index=True)
     return src[keep].astype(np.int32), dst[keep].astype(np.int32)

@@ -173,6 +173,17 @@ def coo_spmm(rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
     return y.index_add_(0, rows.long(), msgs).to(x.dtype)
 
 
+def coo_spmm_dense_ref(rows: torch.Tensor, cols: torch.Tensor,
+                       vals: torch.Tensor, x: torch.Tensor,
+                       n_rows: int) -> torch.Tensor:
+    """O(n^2) dense-materialized oracle (small shapes only): A (n_rows,
+    n_cols) with duplicate edges added, times x, in float32."""
+    a = torch.zeros((n_rows, x.shape[0]), dtype=torch.float32,
+                    device=x.device)
+    a.index_put_((rows.long(), cols.long()), vals.float(), accumulate=True)
+    return (a @ x.float()).to(x.dtype)
+
+
 # --- attention -------------------------------------------------------------
 
 NEG_INF = -1e30     # the reference's mask value (finite, as in its kernels)

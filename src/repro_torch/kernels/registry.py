@@ -130,6 +130,23 @@ REGISTRY = KernelRegistry()
 LANE = 128
 
 
+def payload_nbytes(payload) -> int:
+    """Bytes of a format payload: every array it holds (a container's
+    array fields, or each container of a tuple such as ``(bell,
+    bell_t)``), numpy or torch, as the reference counts a payload's
+    leaves."""
+    if isinstance(payload, tuple):
+        return sum(payload_nbytes(p) for p in payload)
+    total = 0
+    for name in formats.ARRAY_FIELDS[type(payload)]:
+        a = getattr(payload, name)
+        if isinstance(a, torch.Tensor):
+            total += a.numel() * a.element_size()
+        elif a is not None:
+            total += np.asarray(a).nbytes
+    return total
+
+
 def _bytes_el(dtype) -> int:
     """Bytes per element of a numpy or torch dtype."""
     if isinstance(dtype, torch.dtype):

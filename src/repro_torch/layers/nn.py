@@ -12,6 +12,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 
 def trunc_normal(gen: torch.Generator, shape, std: float = 0.02,
@@ -51,6 +52,14 @@ def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """Rows of ``table`` at ``ids`` (a gather, as the reference's
     ``jnp.take``)."""
     return table[ids.long()]
+
+
+def embed_lookup_onehot(table: torch.Tensor,
+                        ids: torch.Tensor) -> torch.Tensor:
+    """Rows of ``table`` at ``ids`` as a one-hot product (the reference's
+    form for vocab-sharded tables), in ``table``'s dtype."""
+    oh = F.one_hot(ids.long(), table.shape[0]).to(table.dtype)
+    return oh @ table
 
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

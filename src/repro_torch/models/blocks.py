@@ -40,6 +40,23 @@ def einsum(s: str, *xs: torch.Tensor) -> torch.Tensor:
     return torch.einsum(s, *xs)
 
 
+def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` batched over the leading (expert) axis, (E, n, k) x (E,
+    k, m) -> (E, n, m), with float32 sums and a float32 result from
+    operands of any dtype: the reference's ``einsum`` where it keeps the
+    float32 sums (no cast back to the model dtype).  On CUDA one cuBLAS
+    product with a float32 output (``out_dtype``); on the CPU, where that
+    overload has no kernel, one expert at a time on float32 copies (a
+    product of two bfloat16 values is exact in float32).  Neither makes a
+    float32 copy of the whole of ``b``."""
+    if a.dtype == b.dtype == torch.float32:
+        return torch.bmm(a, b)
+    if a.device.type == "cuda":
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.stack([a[e].float() @ b[e].float()
+                        for e in range(b.shape[0])])
+
+
 # ---------------------------------------------------------------------------
 # Attention (MHA / GQA, optional QKV bias)
 # ---------------------------------------------------------------------------
@@ -252,8 +269,9 @@ def _moe_gates(params, cfg: MoEConfig, x2d):
 
 def moe_apply_dense(params, cfg: MoEConfig, x2d):
     """Dense path: every expert for every token, masked combine.  The
-    experts' outputs round to the model dtype before the float32 combine
-    (the reference keeps them float32; the same in float32 models)."""
+    experts' outputs keep their float32 sums into the float32 combine, as
+    the reference's do (:func:`bmm_f32`, without a float32 copy of the
+    expert weights)."""
     top_vals, top_idx, aux = _moe_gates(params, cfg, x2d)
     N = x2d.shape[0]
     combine = torch.zeros((N, cfg.n_experts), dtype=torch.float32,
@@ -264,8 +282,8 @@ def moe_apply_dense(params, cfg: MoEConfig, x2d):
     gate = torch.matmul(x2d[None], params["w_gate"]).to(x2d.dtype)
     up = torch.matmul(x2d[None], params["w_up"]).to(x2d.dtype)
     h = F.silu(gate) * up
-    y = einsum("enf,efd->end", h, params["w_down"])
-    out = einsum("end,ne->nd", y.float(), combine).to(x2d.dtype)
+    y = bmm_f32(h, params["w_down"])
+    out = einsum("end,ne->nd", y, combine).to(x2d.dtype)
     return out, aux
 
 

@@ -15,21 +15,27 @@ import torch
 from repro_torch import DEFAULT_DEVICE, resolve_device
 
 
-# the key set of each ported model's layer: GCN, SAGE, GIN
+# the key set of each model's layer: GCN, SAGE, GIN, GAT
 LAYER_KEYS = ({"w", "b"}, {"w_self", "w_neigh", "b"},
-              {"eps", "w1", "b1", "w2", "b2"})
+              {"eps", "w1", "b1", "w2", "b2"}, {"w", "a_dst", "a_src", "b"})
 
 
 def _check_gnn_layer(i: int, arrs: dict) -> None:
     """Each weight is (in, out) with its bias (out,); GIN's ``eps`` is a
-    scalar and its two weights chain (w1's out is w2's in)."""
+    scalar and its two weights chain (w1's out is w2's in); GAT's
+    attention vectors ``a_dst`` and ``a_src`` are (out,)."""
+    for a in ("a_dst", "a_src"):
+        if a in arrs and arrs[a].shape != arrs["b"].shape:
+            raise ValueError(f"layer {i}: {a} {arrs[a].shape} is not "
+                             f"(out,) = {arrs['b'].shape}")
     if "eps" in arrs:
         pairs = (("w1", "b1"), ("w2", "b2"))
         if arrs["eps"].shape != ():
             raise ValueError(f"layer {i}: eps {arrs['eps'].shape} is not "
                              "a scalar ()")
     else:
-        pairs = tuple((k, "b") for k in arrs if k != "b")
+        pairs = tuple((k, "b") for k in arrs
+                      if k not in ("b", "a_dst", "a_src"))
     for w, b in pairs:
         a, bias = arrs[w], arrs[b]
         if a.ndim != 2 or bias.shape != (a.shape[1],):
@@ -48,8 +54,9 @@ def from_jax_params(params_np: Sequence[Mapping[str, np.ndarray]],
                     ) -> list[dict[str, torch.Tensor]]:
     """Parameters of ``repro.core.gnn.init_model`` (one dict per layer, as
     numpy: GCN's ``w`` (in, out) and ``b`` (out,); SAGE's ``w_self`` and
-    ``w_neigh`` (in, out) and ``b`` (out,); or GIN's ``eps`` (), ``w1``
+    ``w_neigh`` (in, out) and ``b`` (out,); GIN's ``eps`` (), ``w1``
     (in, hidden), ``b1`` (hidden,), ``w2`` (hidden, out) and ``b2``
+    (out,); or GAT's ``w`` (in, out), ``a_dst``, ``a_src`` and ``b``
     (out,)) as this package's parameters: float32 tensors of the same
     shapes on ``device``, each with storage of its own (never the caller's
     arrays).  The result can start ``repro_torch.core.gnn.train(params=
@@ -60,8 +67,9 @@ def from_jax_params(params_np: Sequence[Mapping[str, np.ndarray]],
     for i, layer in enumerate(params_np):
         if set(layer) not in LAYER_KEYS:
             raise ValueError(f"layer {i}: expected GCN keys {{'w', 'b'}}, "
-                             "SAGE keys {'w_self', 'w_neigh', 'b'} or GIN "
-                             "keys {'eps', 'w1', 'b1', 'w2', 'b2'}, got "
+                             "SAGE keys {'w_self', 'w_neigh', 'b'}, GIN "
+                             "keys {'eps', 'w1', 'b1', 'w2', 'b2'} or GAT "
+                             "keys {'w', 'a_dst', 'a_src', 'b'}, got "
                              f"{sorted(layer)}")
         arrs = {k: np.asarray(v, np.float32) for k, v in layer.items()}
         _check_gnn_layer(i, arrs)

@@ -1199,3 +1199,171 @@ def test_cuda_mamba_scan_rejects_bad_operands(cuda_device, case):  # noqa: F811
     with pytest.raises(ValueError):
         ms_mod.mamba_scan(x, dt, Bc, Cc, A, D, chunk=chunk)
     assert ms_mod.launches.value == before
+
+
+# --- GAT, mean/max aggregation, several inter buckets, the dense MoE ------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", [("block_diag", "bell"),
+                                  ("block_diag_fused", "tcgnn_tile_fused")])
+def test_cuda_gcn_trains_on_four_inter_buckets_like_the_cpu(
+        cuda_device, plan):  # noqa: F811
+    """GCN on a fixed inter_buckets=4 decomposition: the hand kernels run
+    over each of the four inter tiers, one inter-kernel launch per bucket
+    where the plan launches one for a single tier; the curve on the card
+    matches the CPU's (atol 5e-3, rtol 1e-2) and the same plan's at k = 1."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.core import gnn
+    from repro_torch.graphs import graph as graph_mod
+    g = graph_mod.synth_dataset("pubmed", 0.05, seed=0, comm_size=16,
+                                max_feat=24)
+    cfg = gnn.GNNConfig(hidden=16, inter_buckets=4, selector="fixed",
+                        fixed_kernels=plan)
+    params = gnn.init_model(torch.Generator().manual_seed(2), cfg, 24,
+                            g.n_classes, device="cpu")
+    inter = {"bell": bell_mod.launches,
+             "tcgnn_tile_fused": tc_mod.fused_launches}[plan[1]]
+    before = inter.value
+    steps = 6
+    res = gnn.train(g, cfg, steps=steps, device=cuda_device, params=params)
+    torch.cuda.synchronize()
+    k = len(res.plan.layers[0]) - 1
+    assert k == 4
+    # per layer and bucket: unfused forward + backward; fused forward, and
+    # the dX pass for layer 2; plus one forward of both layers
+    per_step = 4 * k if plan[1] == "bell" else 3 * k
+    assert inter.value - before == steps * per_step + 2 * k
+    cpu = gnn.train(g, cfg, steps=steps, device="cpu", params=params)
+    one = gnn.train(g, dataclasses.replace(cfg, inter_buckets=1),
+                    steps=steps, device=cuda_device, params=params)
+    np.testing.assert_allclose(res.losses, cpu.losses, atol=5e-3, rtol=1e-2)
+    np.testing.assert_allclose(res.losses, one.losses, atol=5e-3, rtol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", [("block_diag", "bell"),
+                                  ("block_diag", "tcgnn_tile")])
+def test_cuda_mean_and_max_aggregation_match_cpu(cuda_device, plan):  # noqa: F811
+    """aggregate_mean through the hand kernels (acc on, the card's
+    default) and aggregate_max with its gradient (integer-valued features:
+    tied maxima), at inter_buckets 2, against the same on the CPU: float32
+    1e-4, and the max and its gradient equal."""
+    import numpy as np
+    from repro_torch.core import adaptgear, gnn
+    from repro_torch.graphs import graph as graph_mod
+    g = graph_mod.synth_dataset("pubmed", 0.05, seed=0, comm_size=16,
+                                max_feat=8)
+    cfg = gnn.GNNConfig(model="gat", inter_buckets=2, selector="fixed")
+    decs = {dev: gnn.prepare(g, cfg, device=dev)
+            for dev in ("cpu", cuda_device)}
+    dec = decs["cpu"]
+    deg = np.bincount(g.receivers, minlength=g.n).astype(np.float32)
+    inv = np.zeros(dec.n_pad, np.float32)
+    inv[dec.perm.numpy()] = 1.0 / np.maximum(deg, 1.0)
+    rng = np.random.default_rng(0)
+    names = (plan[0],) + (plan[1],) * (len(dec.subgraphs) - 1)
+    before = bd_mod.launches.value
+    for F in (16, 500):
+        x = torch.from_numpy(rng.standard_normal((dec.n_pad, F)).astype(
+            np.float32))
+        want = adaptgear.aggregate_mean(dec, x, torch.from_numpy(inv), names)
+        got = adaptgear.aggregate_mean(decs[cuda_device], x.to(cuda_device),
+                                       torch.from_numpy(inv).to(cuda_device),
+                                       names)
+        torch.testing.assert_close(got.cpu(), want, **tp.F32_TOL)
+        xi = torch.from_numpy(rng.integers(-3, 4, (dec.n_pad, F)).astype(
+            np.float32))
+        out = {}
+        for dev in ("cpu", cuda_device):
+            leaf = xi.to(dev).detach().requires_grad_()
+            y = adaptgear.aggregate_max(decs[dev], leaf)
+            y.sum().backward()
+            out[str(dev)] = (y.detach().cpu(), leaf.grad.cpu())
+        torch.testing.assert_close(out[str(cuda_device)][0], out["cpu"][0],
+                                   atol=0, rtol=0)
+        torch.testing.assert_close(out[str(cuda_device)][1], out["cpu"][1],
+                                   atol=1e-6, rtol=0)
+    torch.cuda.synchronize()
+    assert bd_mod.launches.value - before == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 4])
+def test_cuda_gat_matches_cpu(cuda_device, k):  # noqa: F811
+    """One GAT forward and backward on the card against the CPU, from the
+    same parameters: logits and every gradient (w, a_dst, a_src, b) within
+    float32 1e-4, all finite; GAT launches no hand kernel."""
+    from repro_torch.core import adaptgear, gnn
+    from repro_torch.graphs import graph as graph_mod
+    g = graph_mod.synth_dataset("pubmed", 0.05, seed=0, comm_size=16,
+                                max_feat=32)
+    cfg = gnn.GNNConfig(model="gat", hidden=16, inter_buckets=k,
+                        selector="fixed")
+    params = gnn.init_model(torch.Generator().manual_seed(0), cfg, 32,
+                            g.n_classes, device="cpu")
+    params = [dict(p, b=torch.linspace(-0.1, 0.1, p["b"].shape[0]))
+              for p in params]
+    before = (bd_mod.launches.value, bell_mod.launches.value)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        dec = gnn.prepare(g, cfg, device=dev)
+        x = adaptgear.to_reordered(dec, torch.from_numpy(g.features).to(dev))
+        leaves = [{key: v.detach().clone().to(dev).requires_grad_()
+                   for key, v in p.items()} for p in params]
+        y = gnn.forward(leaves, cfg, dec, x, ("block_diag", "bell"))
+        (y.square().sum() * 1e-2).backward()
+        out[str(dev)] = (y.detach().cpu(), [{key: v.grad.cpu()
+                                             for key, v in p.items()}
+                                            for p in leaves])
+    torch.cuda.synchronize()
+    assert (bd_mod.launches.value, bell_mod.launches.value) == before
+    (yc, gc), (yg, gg) = out["cpu"], out[str(cuda_device)]
+    torch.testing.assert_close(yg, yc, **tp.F32_TOL)
+    for a, b in zip(gc, gg):
+        for key in a:
+            assert bool(torch.isfinite(b[key]).all())
+            torch.testing.assert_close(b[key], a[key], **tp.F32_TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_moe_dense_bf16_keeps_float32_expert_sums(cuda_device):  # noqa: F811
+    """bf16 moe_apply_dense on the card: bmm_f32 returns float32 sums
+    (within 1e-5 of max|y| of the float64 products of the bf16 operands),
+    and at least 98 % of the bf16 outputs equal the float32-sum reference
+    rounded to bf16 (a product rounded to bf16 before the combine reads
+    about two thirds)."""
+    from repro_torch.models import blocks as blk
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    cfg = blk.MoEConfig(d_model=64, n_experts=4, top_k=2, d_ff_expert=160)
+    p = blk.init_moe(gen, cfg, torch.bfloat16)
+    h = torch.randn((4, 96, 160), generator=gen,
+                    device=cuda_device).bfloat16()
+    y = blk.bmm_f32(h, p["w_down"])
+    assert y.dtype == torch.float32
+    want = torch.bmm(h.double(), p["w_down"].double())
+    assert float((y.double() - want).abs().max()) <= 1e-5 * float(
+        want.abs().max())
+    x = torch.randn((96, 64), generator=gen, device=cuda_device).bfloat16()
+    got, _ = blk.moe_apply_dense(p, cfg, x)
+    ref = _moe_dense_f32_sums(blk, p, cfg, x)
+    assert got.dtype == torch.bfloat16
+    assert float((got == ref.bfloat16()).float().mean()) >= 0.98
+
+
+def _moe_dense_f32_sums(blk, p, cfg, x):
+    """The dense MoE path (its gate and up products as the port forms
+    them) with each expert's down product summed in float32 one expert at
+    a time (float32 copies of one expert's bf16 weights, exact) and
+    combined in float32: the float32-sum reference."""
+    top_vals, top_idx, _ = blk._moe_gates(p, cfg, x)
+    combine = torch.zeros((x.shape[0], cfg.n_experts), dtype=torch.float32,
+                          device=x.device).scatter_add_(1, top_idx, top_vals)
+    gate = torch.matmul(x[None], p["w_gate"]).to(x.dtype)
+    up = torch.matmul(x[None], p["w_up"]).to(x.dtype)
+    h = torch.nn.functional.silu(gate) * up
+    out = torch.zeros((x.shape[0], cfg.d_model), dtype=torch.float32,
+                      device=x.device)
+    for e in range(cfg.n_experts):
+        out += (h[e].float() @ p["w_down"][e].float()) * combine[:, e:e + 1]
+    return out

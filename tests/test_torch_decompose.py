@@ -150,11 +150,12 @@ def test_select_plan_fixed_matches_reference():
 
 
 @pytest.mark.parametrize("cfg", [
-    dict(model="gat"), dict(inter_buckets=0), dict(reorder="nope")])
+    dict(edge_budget=128), dict(sampler="cluster"), dict(reorder="nope")])
 def test_unported_options_raise_naming_the_roadmap(cfg):
-    """GAT and bucket autotuning are not ported: NotImplementedError
-    naming the ROADMAP item.  An unknown reorder method is a KeyError, as
-    in the reference."""
+    """Budget-capped payloads (``build_subgraph(edge_budget=)``) and the
+    mini-batch samplers are not ported: NotImplementedError naming the
+    ROADMAP item.  An unknown reorder method is a KeyError, as in the
+    reference."""
     g = tp.ref_graph()
     if "reorder" in cfg:
         with pytest.raises(KeyError):
@@ -164,8 +165,13 @@ def test_unported_options_raise_naming_the_roadmap(cfg):
                          device="cpu")
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TGNN.prepare(_port_graph(g), TGNN.GNNConfig(comm_size=8, **cfg),
-                     device="cpu")
+        if "edge_budget" in cfg:
+            t = TD.decompose_skeleton(_port_graph(g), comm_size=8).tiers[1]
+            TD.build_subgraph(t.name, OFFDIAG, 64, 8, t.rows, t.cols,
+                              t.vals, device="cpu", **cfg)
+        else:
+            TGNN.train(_port_graph(g), TGNN.GNNConfig(comm_size=8, **cfg),
+                       steps=1, device="cpu")
 
 
 def test_decomposed_to_moves_every_tensor():

@@ -21,10 +21,12 @@ from repro.kernels.registry import REGISTRY as RREG
 from repro_torch.core import adaptgear as TA
 from repro_torch.core import decompose as TD
 from repro_torch.core import epilogue as TE
+from repro_torch.core import formats as TF
 from repro_torch.core import gnn as TGNN
 from repro_torch.core import selector as TSEL
 from repro_torch.core.plan import KernelPlan
 from repro_torch.graphs import graph as TG
+from repro_torch.kernels import registry as TR
 from repro_torch.kernels.registry import REGISTRY
 
 PAIRS = [(32, 8), (8, 3)]
@@ -189,8 +191,11 @@ def test_epilogues_and_aggregate_sub():
         TE.EpilogueSpec("linear"),) * 2
     assert TE.epilogue_cost(TE.EpilogueSpec("linear"), 10, 5, 4,
                             hw=TSEL.CPU_HW) == 0.0
+    assert TE.layer_epilogues("gat", [5, 4, 3], 4) == (None, None)
+    # budget-capped blocked-ELL (mini-batch payloads) is not ported
+    coo = TF.coo_from_edges(16, 16, [0], [9], [1.0])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TE.layer_epilogues("gat", [5, 4, 3], 4)
+        TR._bell_build(coo, coo, 8, {"edge_budget": 64})
     for mod, hw in ((TE, TSEL.CPU_HW), (REP, RSEL.CPU_HW)):
         with pytest.raises(ValueError, match="unknown epilogue kind"):
             mod.epilogue_cost(mod.EpilogueSpec("nope"), 10, 5, 4, hw=hw)

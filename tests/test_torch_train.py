@@ -292,8 +292,10 @@ def test_train_leaves_carried_params_untouched_and_learns():
 
 
 @pytest.mark.parametrize("field,value", [("sampler", "cluster"),
-                                         ("model", "gat")])
+                                         ("sampler", "neighbor")])
 def test_train_raises_for_unported_options(field, value):
+    """The mini-batch samplers are not ported: NotImplementedError naming
+    the ROADMAP item."""
     cfg = dataclasses.replace(TGNN.GNNConfig(hidden=8, comm_size=8),
                               **{field: value})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
