@@ -16,8 +16,10 @@ its feedback main path; then GIN as the paper's Fig. 8 trains it
 two fixed plans and its feedback main path, GIN's two layer structures on
 proteins_full's 29 features, and the O1 baseline of Fig. 11; GAT's main
 path (``GNNConfig(model="gat")``), the mean and max aggregators, bucket
-autotuning and GCN trained over four inter buckets; then the LM
-stack's serving paths at full
+autotuning and GCN trained over four inter buckets; mini-batch training
+(``GNNConfig(sampler="cluster" | "neighbor")``: GCN, GIN and SAGE through
+the PlanCache on budget-capped payloads); then the LM stack's serving
+paths at full
 published widths: InternLM2-1.8B (flash prefill, cache prefill, greedy
 decode), RWKV6-7B (the rwkv6_chunked kernel in the prefill step,
 sequential cache prefill, greedy decode) and one period of Jamba-v0.1
@@ -143,6 +145,25 @@ Phases, each of which raises (exit code != 0) on failure:
    TRAIN_STEPS steps of gnn.train with the launches of plan_launches (one
    inter kernel per bucket where k = 1 runs one), each curve against the
    same plan's at k = 1 (atol 5e-3, rtol 1e-2);
+7a''. [minibatch]: first each kernel over the budget-capped payloads the
+   runs meet (capped bell and bell_t with n_valid < K on padded rows, capped
+   tcgnn tc and tc_t, the diagonal blocks, SAGE's dual kernel, an inter
+   tier with no edge under an edge budget) against its plain version as in
+   phase 2, and the registry's capped dispatch (the spill's torch ops
+   beside the kernels) against the CPU, values and gradients; then
+   gnn.train(graph, GNNConfig(sampler=...)) for MB_STEPS steps per run of
+   MB_RUNS (GCN, GIN and SAGE at 16 and 256 clusters of 16 with the
+   feedback selector through the PlanCache, GCN on the neighbor sampler,
+   one run with adapt_budget_k, one with probe_every=2), the launch counts
+   set to 0 just before and read just after each run and equal to what its
+   committed plans imply (a spill adds no launch; the probe's timed
+   candidates are read from the selector audit), n_traces == len(plans);
+   MB_FIXED's plans at 256 clusters (between them every GNN kernel) on the
+   card and on the CPU from one parameter set: the same plans, hits and
+   cache counters and losses within atol 5e-3, rtol 1e-2; telemetry on and off (deterministic algorithms on
+   for both) with identical losses, plans and hits.  Per run: step ms and
+   each prepare stage's ms (host clock), the device-busy us of its first
+   batch's step (kernel events checked), hit rate, spill fractions, plans;
 7b. LM serving, InternLM2-1.8B (24 layers, d_model 2048, 16/8 heads of
    128, d_ff 8192, vocab 92544): flash_attention against its plain
    version is in phase 2 (the reference test's shapes, InternLM2's
@@ -420,6 +441,29 @@ MOE_BF16_EQUAL = 0.98
 AUTOTUNE_K = 4
 AUTOTUNE_PLANS = {"gcn_k4_unfused": "unfused",
                   "gcn_k4_tcgnn_fused": "tcgnn_fused"}
+# [minibatch]: steps per run, the two cluster counts (16 clusters of 16 =
+# benchmarks/minibatch.py's 256 nodes; 256 clusters = 4096 nodes), the
+# feedback runs (mb_cfg's changes) and the fixed plans held card vs CPU
+MB_STEPS = 30
+MB_CLUSTERS = (16, 256)
+MB_RUNS = {
+    "mb_gcn_c16": dict(),
+    "mb_gin_c16": dict(model="gin"),
+    "mb_sage_c16": dict(model="sage"),
+    "mb_gcn_c256": dict(clusters_per_batch=MB_CLUSTERS[1]),
+    "mb_gin_c256": dict(model="gin", clusters_per_batch=MB_CLUSTERS[1]),
+    "mb_sage_c256": dict(model="sage", clusters_per_batch=MB_CLUSTERS[1]),
+    "mb_gcn_neighbor": dict(sampler="neighbor"),
+    "mb_gcn_adapt_k": dict(adapt_budget_k=True),
+    "mb_gcn_probe2": dict(probe_every=2, telemetry=True),
+}
+MB_FIXED = {"mb_fixed_unfused": ("gcn", ("block_diag", "bell")),
+            "mb_fixed_tcgnn_fused": ("gcn", ("block_diag_fused",
+                                             "tcgnn_tile_fused")),
+            # with these two, every GNN kernel runs on a mini-batch path
+            "mb_fixed_tcgnn_unfused": ("gcn", ("block_diag", "tcgnn_tile")),
+            "mb_fixed_sage_bell_fused": ("sage", ("block_diag_fused",
+                                                  "bell_fused"))}
 
 
 def plan_launches(layers, steps: int, model: str = "gcn",
@@ -2580,6 +2624,430 @@ def phase_autotune(torch, graph, counts: dict, params, k1_results) -> dict:
                 nnz=nnz)
 
 
+# ---------------------------------------------------------------------------
+# [minibatch]: mini-batch training (cluster and neighbor samplers, the
+# PlanCache, budget-capped payloads)
+# ---------------------------------------------------------------------------
+
+def mb_cfg(**changes):
+    """A mini-batch GNNConfig on pubmed: GCN, 2 layers of hidden 16, bfs,
+    16-node clusters, one inter tier, the feedback selector (the
+    reference's default, which the mini-batch path resolves to cached
+    cost-model selection under H100_HW), with ``changes``."""
+    from repro_torch.core import gnn
+    base = dict(model="gcn", hidden=16, n_layers=2, comm_size=16,
+                reorder="bfs", inter_buckets=1, sampler="cluster",
+                clusters_per_batch=MB_CLUSTERS[0], selector="feedback",
+                seed=0)
+    base.update(changes)
+    return gnn.GNNConfig(**base)
+
+
+def mb_launches(res, model: str, probe_events=(), probe_iters: int = 2
+                ) -> tuple[dict, dict]:
+    """The CUDA-kernel launches a mini-batch run implies, and those of its
+    first batch's step: each training batch's step and each eval batch's
+    forward under its committed plan (plan_launches), plus, for a run that
+    probed, each timed candidate's 1 + ``probe_iters`` forward calls
+    (``probe_events``, the selector audit's). A spill launches nothing."""
+    out = {k: 0 for k in KERNELS}
+
+    def add(layers, steps, fwd):
+        one, none = (plan_launches(layers, n, model) for n in (1, 0))
+        for k in out:
+            out[k] += steps * (one[k] - none[k]) + fwd * none[k]
+        return {k: one[k] - none[k] for k in out if one[k] - none[k]}
+
+    first = None
+    for layers in res.plan_history:
+        step = add(layers, 1, 0)
+        if first is None:
+            first = step
+    for layers in res.eval_plans:
+        add(layers, 0, 1)
+    for e in probe_events:
+        kernels = SPEC_KERNELS.get(e["kernel"], ())
+        if kernels:
+            out[kernels[0]] += 1 + probe_iters
+    return out, first
+
+
+def mb_step_closure(torch, graph, cfg, res):
+    """One training step of the run's first batch under its committed plan
+    (fresh sampler of the same seed, the run's final params), for the
+    profiler: ``fn()`` runs the step; the step's launches are the plan's."""
+    from repro_torch.core import gnn
+    from repro_torch.core.plan import KernelPlan
+    from repro_torch.sampling import plan_payload_keys
+    from repro_torch.train import gnn_steps
+    sampler = gnn_steps.make_sampler(graph, cfg)
+    batch = sampler.sample()
+    skel, inv = gnn_steps.prepare_skeleton(batch, cfg)
+    eps = gnn.layer_epilogues(cfg, graph.features.shape[1], graph.n_classes)
+    plan = KernelPlan(tuple(t.name for t in skel.tiers),
+                      res.plan_history[0], eps)
+    dec = skel.materialize(plan_payload_keys(plan), device=None)
+    pad = sampler.edge_budget + (sampler.node_budget
+                                 if cfg.model == "gcn" else 0)
+    args = gnn_steps.step_args(batch, dec, inv, plan, pad,
+                               torch.device("cuda"))
+    step = gnn_steps.make_sampled_step(cfg, plan, dict(traces=0))
+    params = res.params
+    opt = gnn._adam_init(params)
+    return lambda: step(params, opt, *args)
+
+
+def check_mb_payloads(torch, label: str, dec, errs: dict,
+                      tiers=None) -> int:
+    """Each kernel over one mini-batch decomposition's payloads on the card
+    (``dec``: every MB_KERNELS payload, unpadded) against its plain
+    version, as phase_kernels_train holds them: float32 and bfloat16, y_in
+    off and on, at WIDTHS (dW within DW_REL_TOL of max|dW|).  The diagonal
+    tier: block_diag_spmm (both reads), block_diag_spmm_fused (both reads),
+    block_diag_spmm_dual, bell_spmm_dw over its blocks.  Each capped inter
+    tier: bell_spmm over bell and bell_t (n_valid < K on padded rows),
+    bell_spmm_fused over bell and bell_t (the dX pass), bell_spmm_dw over
+    bell_t; tcgnn_spmm over tc and tc_t, tcgnn_spmm_fused over both,
+    tcgnn_spmm_dw over tc_t.  Then the registry's capped dispatch
+    (kernels plus the spill's torch ops) for bell, bell_fused, tcgnn_tile
+    and tcgnn_tile_fused, plain and accumulating, against the same on the
+    CPU in float32 (the payloads' dtype; the backward's bf16 kernel calls
+    are the ones above): values and the gradients of x, w and y_in.
+    Returns the cases."""
+    from repro_torch.core import formats
+    from repro_torch.kernels import bell_spmm as bell_mod
+    from repro_torch.kernels import bell_spmm_fused as bellf_mod
+    from repro_torch.kernels import block_diag_spmm as bd_mod
+    from repro_torch.kernels import block_diag_spmm_fused as bdf_mod
+    from repro_torch.kernels import tcgnn_tile as tc_mod
+    from repro_torch.kernels.registry import REGISTRY
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    n_cases = 0
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    def check(name, got, want, dtype):
+        nonlocal n_cases
+        torch.cuda.synchronize()
+        key = str(dtype).removeprefix("torch.")
+        if name.endswith("_dw") and not bool(want.any()):
+            if bool(got.any()):                # an empty tier's dW is 0
+                raise RuntimeError(f"{label} {name} {key}: dW of an empty "
+                                   "tier is not zero")
+        elif name.endswith("_dw"):
+            rel = dw_rel_err(got, want, f"{label} {name} {key}")
+            errs[name][f"{key}_rel"] = max(errs[name].get(f"{key}_rel", 0.0),
+                                           rel)
+        else:
+            tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+            torch.testing.assert_close(got.float(), want.float(), **tol)
+        errs[name][key] = max(errs[name][key], max_err(got, want))
+        n_cases += 1
+
+    subs = dec.subgraphs if tiers is None else tiers
+    for dtype in (torch.float32, torch.bfloat16):
+        for Fi, Fo in WIDTHS:
+            w = (randn(Fi, Fo) / Fi ** 0.5).to(dtype)
+            for sub in subs:
+                n = sub.n_rows
+                x = randn(n, Fi).to(dtype)
+                g = randn(n, Fo).to(dtype)
+                ys = [None, randn(n, Fo).to(dtype)]
+                yx = [None, randn(n, Fi).to(dtype)]
+                if "block_diag" in sub.formats:
+                    blk = sub.formats["block_diag"].blocks.to(dtype)
+                    check("bell_spmm_dw",
+                          bellf_mod.bell_spmm_dw(blk.unsqueeze(1), None, x,
+                                                 g, transpose=True),
+                          bellf_mod.plain_dw(blk.unsqueeze(1), None, x, g,
+                                             transpose=True), dtype)
+                    ws = (randn(Fi, Fo) / Fi ** 0.5).to(dtype)
+                    for y, y1 in zip(ys, yx):
+                        for t in (False, True):
+                            check("block_diag_spmm",
+                                  bd_mod.block_diag_spmm(blk, x, y1,
+                                                         transpose=t),
+                                  bd_mod.plain(blk, x, y1, transpose=t),
+                                  dtype)
+                            check("block_diag_spmm_fused",
+                                  bdf_mod.block_diag_spmm_fused(
+                                      blk, x, w, y, transpose=t),
+                                  bdf_mod.plain(blk, x, w, y, transpose=t),
+                                  dtype)
+                        check("block_diag_spmm_dual",
+                              bdf_mod.block_diag_spmm_dual(blk, x, w, ws, y),
+                              bdf_mod.plain_dual(blk, x, w, ws, y), dtype)
+                    continue
+                bell, bell_t, _ = sub.formats["bell"]
+                tc, tc_t, _ = sub.formats["tcgnn_tile"]
+                for p in (bell, bell_t):
+                    blk = p.blocks.to(dtype)
+                    for y, y1 in zip(ys, yx):
+                        check("bell_spmm",
+                              bell_mod.bell_spmm(blk, p.col_idx, x, y1,
+                                                 n_valid=p.n_valid),
+                              bell_mod.plain(blk, p.col_idx, x, y1), dtype)
+                        check("bell_spmm_fused",
+                              bellf_mod.bell_spmm_fused(blk, p.col_idx, x, w,
+                                                        y, n_valid=p.n_valid),
+                              bellf_mod.plain(blk, p.col_idx, x, w, y), dtype)
+                check("bell_spmm_dw",
+                      bellf_mod.bell_spmm_dw(bell_t.blocks.to(dtype),
+                                             bell_t.col_idx, x, g,
+                                             n_valid=bell_t.n_valid),
+                      bellf_mod.plain_dw(bell_t.blocks.to(dtype),
+                                         bell_t.col_idx, x, g), dtype)
+                for p in (tc, tc_t):
+                    for y, y1 in zip(ys, yx):
+                        check("tcgnn_spmm",
+                              tc_mod.tcgnn_spmm(p.tiles, p.gather_idx, x, y1),
+                              tc_mod.plain(p.tiles, p.gather_idx, x, y1),
+                              dtype)
+                        check("tcgnn_spmm_fused",
+                              tc_mod.tcgnn_spmm_fused(p.tiles, p.gather_idx,
+                                                      x, w, y),
+                              tc_mod.plain_fused(p.tiles, p.gather_idx, x, w,
+                                                 y), dtype)
+                check("tcgnn_spmm_dw",
+                      tc_mod.tcgnn_spmm_dw(tc_t.tiles, tc_t.gather_idx, x, g),
+                      tc_mod.plain_dw(tc_t.tiles, tc_t.gather_idx, x, g),
+                      dtype)
+
+    # the capped dispatch with its spill, values and gradients, card vs CPU
+    worst = 0.0
+    for sub in subs:
+        if "bell" not in sub.formats:
+            continue
+        n = sub.n_rows
+        cpu = {k: formats.to_device(sub.formats[k], torch.device("cpu"))
+               for k in ("bell", "tcgnn_tile")}
+        for dtype in (torch.float32,):     # the payloads are float32
+            tol = F32_TOL
+            x0, w0 = randn(n, 16).to(dtype), (randn(16, 3) / 4).to(dtype)
+            y0, cot = randn(n, 3).to(dtype), randn(n, 3)
+            for key in ("bell", "tcgnn_tile"):
+                spec, fspec = REGISTRY.get(key), REGISTRY.get(key + "_fused")
+                forms = {
+                    "matvec": lambda p, x, w, y: spec.matvec(p, x @ w),
+                    "matvec_acc": lambda p, x, w, y: spec.matvec_acc(
+                        p, x @ w, y),
+                    "fused": lambda p, x, w, y: fspec.fused_matvec(p, x, w),
+                    "fused_acc": lambda p, x, w, y: fspec.fused_matvec_acc(
+                        p, x, w, y)}
+                for form, fn in forms.items():
+                    outs = []
+                    for p, dev in ((sub.formats[key], "cuda"),
+                                   (cpu[key], "cpu")):
+                        leaves = [t.detach().to(dev).requires_grad_()
+                                  for t in (x0, w0, y0)]
+                        y = fn(p, *leaves)
+                        (y.float() * cot.to(dev)).sum().backward()
+                        outs.append([y.detach().cpu()] + [
+                            (t.grad if t.grad is not None
+                             else torch.zeros_like(t)).cpu()
+                            for t in leaves])
+                    for a, b in zip(*outs):
+                        torch.testing.assert_close(a.float(), b.float(),
+                                                   **tol)
+                        if dtype == torch.float32:
+                            worst = max(worst, max_err(a, b))
+                    n_cases += 1
+    log("minibatch", f"{label}: {n_cases} kernel cases within tolerance "
+        f"(capped dispatch card vs CPU, float32 max|err| {worst:.3g})")
+    return n_cases
+
+
+def phase_minibatch(torch, graph, counts: dict, errs: dict) -> dict:
+    """[minibatch]: gnn.train(graph, GNNConfig(sampler=...)) on the card for
+    each of MB_RUNS (MB_STEPS steps each), the launch counts set to 0 just
+    before and read just after each run and held equal to what its
+    committed plans imply (:func:`mb_launches`; a spill adds none), and
+    n_traces == len(plans) (the adaptive-K run: one more per slack step
+    that changed a cap).  Before the runs, each kernel over the
+    budget-capped payloads the runs meet (:func:`check_mb_payloads`): the
+    first batch of the 16- and 256-cluster GCN runs and of the neighbor
+    run, SAGE's diagonal blocks at 256 clusters, and an inter tier with no
+    edge under an edge budget.  The MB_FIXED plans at 256 clusters
+    (between them every GNN kernel) from one parameter set on the card and
+    on the CPU: the same batch stream (plans, hits), cache counters and
+    losses within CURVE_TOL.  Telemetry
+    on against off (the 16-cluster GCN run twice, deterministic
+    algorithms on for both): equal losses, plans and hit history.  Per
+    run it prints step ms and each prepare stage's ms (host clock), the
+    device-busy us of its first batch's step (profile_busy, kernel events
+    checked), the hit rate, the capped tiers' spill fractions and the
+    committed plans."""
+    import numpy as np
+    from repro_torch.core import decompose as dec_mod
+    from repro_torch.core import gnn
+    from repro_torch.kernels.registry import OFFDIAG
+    from repro_torch.sampling import MB_KERNELS
+    from repro_torch.train import gnn_steps
+    t_phase = time.perf_counter()
+    in_dim, n_classes = graph.features.shape[1], graph.n_classes
+
+    # the kernels over the payloads the runs meet
+    n_cases = 0
+    for label, cfg in (("gcn c16", mb_cfg()),
+                       ("gcn c256", mb_cfg(clusters_per_batch=MB_CLUSTERS[1])),
+                       ("gcn neighbor", mb_cfg(sampler="neighbor"))):
+        sampler = gnn_steps.make_sampler(graph, cfg)
+        dec, _ = gnn_steps.prepare_batch(sampler.sample(), cfg, MB_KERNELS,
+                                         device="cuda")
+        shapes = {s.name: (tuple(s.formats["bell"][0].blocks.shape),
+                           int(s.formats["bell"][0].n_valid.sum()),
+                           tuple(s.formats["tcgnn_tile"][0].tiles.shape),
+                           s.formats["bell"][2].nnz,
+                           s.formats["tcgnn_tile"][2].nnz, s.stats["nnz"])
+                  for s in dec.subgraphs[1:]}
+        log("minibatch", f"{label} batch 0: n_pad {dec.n_pad}, budget "
+            f"{sampler.edge_budget} (+ self-loops), inter (bell blocks, real "
+            f"blocks, tcgnn tiles, bell spill, tcgnn spill, nnz) {shapes}")
+        n_cases += check_mb_payloads(torch, label, dec, errs)
+    scfg = mb_cfg(model="sage", clusters_per_batch=MB_CLUSTERS[1])
+    sdec, _ = gnn_steps.prepare_batch(
+        gnn_steps.make_sampler(graph, scfg).sample(), scfg, ("block_diag",),
+        device="cuda")
+    n_cases += check_mb_payloads(torch, "sage c256 diagonal", sdec, errs,
+                                 tiers=sdec.subgraphs[:1])
+    none = np.zeros(0, np.int32)
+    empty = dec_mod.build_subgraph("empty", OFFDIAG, 256, 16, none, none,
+                                   np.zeros(0, np.float32), edge_budget=4860,
+                                   device="cuda")
+    for key in ("bell", "tcgnn_tile"):
+        if empty.formats[key][0].budgeted is not True:
+            raise RuntimeError(f"empty bucket {key} is not budget-capped")
+    n_cases += check_mb_payloads(torch, "empty pinned bucket", None, errs,
+                                 tiers=(empty,))
+
+    # the runs
+    runs, used, per_step, info = {}, {}, {}, {}
+    for name, changes in MB_RUNS.items():
+        cfg = mb_cfg(**changes)
+        for cnt in counts.values():
+            cnt.reset()
+        t0 = time.perf_counter()
+        res = gnn.train(graph, cfg, steps=MB_STEPS, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        used[name] = {k: cnt.value for k, cnt in counts.items()}
+        probes = ([e for e in res.plan_cache.tele.audit.events()
+                   if e["event"] == "probe"] if cfg.probe_every else ())
+        want, per_step[name] = mb_launches(res, cfg.model, probes,
+                                           res.plan_cache.probe_iters)
+        if used[name] != want:
+            raise RuntimeError(f"{name}: launches {used[name]}, expected "
+                               f"{want}")
+        losses = np.asarray(res.losses)
+        if not np.isfinite(losses).all():
+            raise RuntimeError(f"{name}: losses {losses.tolist()}")
+        caps = res.cache.get("slack_changes", 0)
+        if not (res.n_traces == len(res.plans) or (
+                cfg.adapt_budget_k
+                and len(res.plans) <= res.n_traces <= len(res.plans) * (
+                    1 + caps))):
+            raise RuntimeError(f"{name}: n_traces {res.n_traces}, plans "
+                               f"{len(res.plans)}, slack steps {caps}")
+        runs[name] = res
+        spill = {k: round(s / max(e, 1), 6) for k, (s, e) in
+                 res.spill.items()}
+        busy = profile_busy(torch, mb_step_closure(torch, graph, cfg, res),
+                            5, res.step_seconds * 1e3, f"{name} step",
+                            expect=device_events(per_step[name]))
+        info[name] = dict(step_ms=res.step_seconds * 1e3,
+                          iter_ms=res.iter_seconds * 1e3,
+                          stage_ms={k: v * 1e3
+                                    for k, v in res.stage_seconds.items()},
+                          busy_us=busy and busy["busy_us"],
+                          hit_rate=res.hit_rate(), spill=spill,
+                          plans=res.plans, n_traces=res.n_traces,
+                          cache=res.cache, wall_s=wall,
+                          probes=len(probes))
+        log("minibatch", f"{name} {changes}: {MB_STEPS} steps in {wall:.2f} "
+            f"s; step {info[name]['step_ms']:.3f} ms, iteration "
+            f"{info[name]['iter_ms']:.3f} ms (host clock); prepare ms "
+            + ", ".join(f"{k} {v:.3f}"
+                        for k, v in info[name]["stage_ms"].items())
+            + f"; device busy {info[name]['busy_us']} us a step; hit rate "
+            f"{res.hit_rate():.3f} (cache {res.cache}); spill fraction "
+            f"{spill}; plans {res.plans}; n_traces {res.n_traces}; launches "
+            f"{ {k: v for k, v in used[name].items() if v} } as the plans "
+            f"imply (probe events {len(probes)}); per first step "
+            f"{per_step[name]}; losses {losses[0]:.6f} -> {losses[-1]:.6f}; "
+            f"accuracy {res.accuracy:.4f}; skeleton cache "
+            f"{res.skeleton_hits}/{res.skeleton_misses}")
+
+    # fixed plans, card against CPU from one parameter set per model
+    params = {m: gnn.init_model(torch.Generator().manual_seed(0),
+                                mb_cfg(model=m), in_dim, n_classes,
+                                device="cpu") for m in ("gcn", "sage")}
+    fixed = {}
+    for name, (model, pair) in MB_FIXED.items():
+        cfg = mb_cfg(model=model, clusters_per_batch=MB_CLUSTERS[1],
+                     selector="fixed", fixed_kernels=pair)
+        for cnt in counts.values():
+            cnt.reset()
+        card = gnn.train(graph, cfg, steps=MB_STEPS, device="cuda",
+                         params=params[model])
+        torch.cuda.synchronize()
+        used[name] = {k: cnt.value for k, cnt in counts.items()}
+        want, per_step[name] = mb_launches(card, cfg.model)
+        if used[name] != want:
+            raise RuntimeError(f"{name}: launches {used[name]}, expected "
+                               f"{want}")
+        t0 = time.perf_counter()
+        cpu = gnn.train(graph, cfg, steps=MB_STEPS, device="cpu",
+                        params=params[model])
+        t_cpu = time.perf_counter() - t0
+        if (card.plan_history, card.hit_history, card.cache) != (
+                cpu.plan_history, cpu.hit_history, cpu.cache):
+            raise RuntimeError(f"{name}: the card's batch stream or cache "
+                               "differs from the CPU's")
+        if card.n_traces != len(card.plans):
+            raise RuntimeError(f"{name}: n_traces {card.n_traces}")
+        np.testing.assert_allclose(card.losses, cpu.losses, **CURVE_TOL)
+        diff = float(np.abs(np.asarray(card.losses)
+                            - np.asarray(cpu.losses)).max())
+        fixed[name] = dict(max_loss_diff=diff, step_ms=card.step_seconds * 1e3,
+                           spill={k: round(s / max(e, 1), 6)
+                                  for k, (s, e) in card.spill.items()})
+        runs[name] = card
+        busy = profile_busy(torch, mb_step_closure(torch, graph, cfg, card),
+                            5, card.step_seconds * 1e3, f"{name} step",
+                            expect=device_events(per_step[name]))
+        fixed[name]["busy_us"] = busy and busy["busy_us"]
+        log("minibatch", f"{name} {model} {pair} at {MB_CLUSTERS[1]} "
+            f"clusters: card "
+            f"vs CPU ({t_cpu:.2f} s on the CPU): same plans, hits and cache "
+            f"{card.cache}; max|loss diff| {diff:.3g} over {MB_STEPS} steps; "
+            f"launches {used[name]} as the plan implies; step "
+            f"{fixed[name]['step_ms']:.3f} ms (host clock), device busy "
+            f"{fixed[name]['busy_us']} us a step; spill fraction "
+            f"{fixed[name]['spill']}")
+
+    # telemetry on against off, deterministic algorithms on for both
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        tele = {on: gnn.train(graph, mb_cfg(telemetry=on), steps=MB_STEPS,
+                              device="cuda") for on in (False, True)}
+    finally:
+        torch.use_deterministic_algorithms(False)
+    off, on = tele[False], tele[True]
+    if (on.losses, on.plans, on.hit_history, on.cache, on.n_traces) != (
+            off.losses, off.plans, off.hit_history, off.cache, off.n_traces):
+        raise RuntimeError("telemetry changed the run: losses "
+                           f"{off.losses} / {on.losses}")
+    log("minibatch", f"telemetry on vs off: identical losses, plans, hits, "
+        f"cache and n_traces; {on.telemetry['n_span_events']} spans, "
+        f"{on.telemetry['n_audit_events']} audit events")
+    launches = {k: sum(u[k] for u in used.values()) for k in counts}
+    log("minibatch", f"{n_cases} payload kernel cases; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return dict(runs=runs, info=info, fixed=fixed, launches=launches,
+                used=used, per_step=per_step, n_cases=n_cases)
+
+
 def time_dual_kernel(torch, sdec, flush) -> dict:
     """block_diag_spmm_dual on pubmed's SAGE diagonal blocks (L2 flushed)
     at both layers' widths, beside its plain version, the library
@@ -4181,6 +4649,8 @@ def main() -> int:
     mm = phase_mean_max(torch, graph, gat["dec"], counts)
     tune = phase_autotune(torch, graph, counts, trained["params"],
                         trained["results"])
+    # 7a''. mini-batch training: samplers, PlanCache, capped payloads ------
+    mb = phase_minibatch(torch, graph, counts, errs)
     # 7b. LM serving: InternLM2-1.8B at full width ----------------------------
     lm2 = phase_lm_two_layer(torch, counts)
     lm32 = phase_lm_f32(torch, counts)
@@ -4207,6 +4677,7 @@ def main() -> int:
                "gat_feedback": gat["launches"],
                "mean_max": mm["launches"],
                "gcn_k4_train": tune["launches"],
+               **{f"minibatch_{n}": u for n, u in mb["used"].items()},
                "lm_prefill_step_2_layers_f32": lm2["launches"],
                "lm_prefill_step_f32": lm32["launches"],
                "lm_softmax_prefill_decode_f32": lm32["other_launches"],
@@ -4422,6 +4893,7 @@ def main() -> int:
                     **{n: per_step[n] for n in gin["plans"]},
                     **{n: per_step[n] for n in tune["plans"]},
                     gat=per_step["gat"],
+                    **{f"minibatch_{n}": t for n, t in mb["per_step"].items()},
                     lm_prefill_step=lms["launches"],
                     serve_lm=lms["serve_launches"],
                     rwkv_prefill_step=rws["launches"],
@@ -4463,7 +4935,8 @@ def main() -> int:
         f"{gat['result'].step_seconds * 1e3:.3f} ms (host clock); mean/max "
         f"{mm['errs']}; autotune totals {tune['totals']}, committed k = "
         f"{tune['k_best']}, k = {AUTOTUNE_K} nnz {tune['nnz']}, per step "
-        f"{tune['per_step']}; train losses "
+        f"{tune['per_step']}; minibatch {mb['info']}, fixed card vs CPU "
+        f"{mb['fixed']}; train losses "
         + json.dumps(dict({n: r.losses for n, r in
                            trained["results"].items()},
                           feedback=fb["result"].losses,

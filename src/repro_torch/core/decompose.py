@@ -7,7 +7,11 @@ inter-community edges split further into ``inter_buckets`` density tiers.
 
 Everything up to the payloads is numpy and equal to the reference's;
 :meth:`DecomposeSkeleton.materialize` places the payloads on a device as
-torch tensors.  Two reorderers play METIS's role, as in the reference:
+torch tensors (or keeps them host numpy with ``device=None``, as the
+mini-batch path does before it pads them to the edge budget).  A skeleton
+built with ``edge_budget`` (the mini-batch path) gets budget-capped
+blocked-ELL and tcgnn payloads, and ``keep_empty_buckets`` pins its tier
+count.  Two reorderers play METIS's role, as in the reference:
 ``bfs`` (deterministic BFS clustering) and ``louvain`` (Louvain
 communities, from the port's own copy of networkx's method in
 ``core/louvain.py``, so no networkx is needed); ``metis`` stands in as
@@ -147,8 +151,15 @@ class Decomposed:
         return self.subgraphs[0]
 
     @property
+    def inters(self) -> tuple:
+        return self.subgraphs[1:]
+
+    @property
     def device(self) -> torch.device:
-        return self.perm.device
+        """The payloads' device (the CPU for host numpy payloads)."""
+        if isinstance(self.perm, torch.Tensor):
+            return self.perm.device
+        return torch.device("cpu")
 
     @functools.cached_property
     def inter_edges_i64(self) -> tuple:
@@ -173,15 +184,18 @@ class Decomposed:
             s, formats={k: formats.to_device(p, dev)
                         for k, p in s.formats.items()})
             for s in self.subgraphs)
-        return dataclasses.replace(self, perm=self.perm.to(dev),
-                                   inv_perm=self.inv_perm.to(dev),
-                                   subgraphs=subs)
+        return dataclasses.replace(
+            self, perm=torch.as_tensor(self.perm).to(dev),
+            inv_perm=torch.as_tensor(self.inv_perm).to(dev), subgraphs=subs)
 
 
 def _tier_stats(kind: str, n_pad: int, block_size: int, rows: np.ndarray,
-                cols: np.ndarray) -> dict:
-    """Density statistics for one edge tier (the reference's full-batch
-    keys: nnz, density, block-row and column occupancy)."""
+                cols: np.ndarray, edge_budget: int | None = None,
+                bell_slack: float | None = None) -> dict:
+    """Density statistics for one edge tier (the reference's keys: nnz,
+    density, block-row and column occupancy).  ``edge_budget`` marks the
+    tier budget-paddable (the capped builders read it), ``bell_slack``
+    rides along as the caps' slack factor."""
     nnz = len(rows)
     denom = (n_pad * block_size if kind == DIAG else n_pad * n_pad)
     n_brow = max(n_pad // block_size, 1)
@@ -192,21 +206,26 @@ def _tier_stats(kind: str, n_pad: int, block_size: int, rows: np.ndarray,
         pairs = (np.asarray(rows, np.int64) // block_size) * np.int64(n_pad
                  ) + np.asarray(cols, np.int64)
         col_occ = len(np.unique(pairs)) / nnz
-    return dict(nnz=nnz, density=nnz / max(denom, 1), brow_occupancy=occ,
-                col_occupancy=col_occ)
+    stats = dict(nnz=nnz, density=nnz / max(denom, 1), brow_occupancy=occ,
+                 col_occupancy=col_occ)
+    if edge_budget:
+        stats["edge_budget"] = int(edge_budget)
+        if bell_slack is not None:
+            stats["bell_slack"] = float(bell_slack)
+    return stats
 
 
 def _materialize_subgraph(name: str, kind: str, n_pad: int, block_size: int,
                           rows: np.ndarray, cols: np.ndarray,
                           vals: np.ndarray, stats: dict,
-                          device: torch.device,
+                          device: torch.device | None,
                           kernels: Sequence[str] | None = None) -> Subgraph:
     """Build one tier's candidate payloads (paper §3.3: once, so any
-    kernel can run without re-conversion) on ``device``: every registered
-    one, or only those ``kernels`` name (a fused name builds its unfused
-    spec's payload; ``()`` builds none).  ``stats["kernels"]`` names every
-    spec, fused aliases included, whose payload was built, as in the
-    reference."""
+    kernel can run without re-conversion) on ``device`` (host numpy where
+    it is None): every registered one, or only those ``kernels`` name (a
+    fused name builds its unfused spec's payload; ``()`` builds none).
+    ``stats["kernels"]`` names every spec, fused aliases included, whose
+    payload was built, as in the reference."""
     all_specs = REGISTRY.candidates(kind, include_fused=True)
     # fused specs alias an unfused spec's payload and build nothing
     specs = [s for s in all_specs if s.build is not None]
@@ -218,10 +237,11 @@ def _materialize_subgraph(name: str, kind: str, n_pad: int, block_size: int,
     if specs:
         coo = formats.coo_from_edges(n_pad, n_pad, rows, cols, vals)
         coo_t = (formats.coo_from_edges(n_pad, n_pad, cols, rows, vals)
-                 if any(s.needs_transpose for s in specs) else None)
-        fmts = {s.name: formats.to_device(
-                    s.build(coo, coo_t, block_size, stats), device)
+                 if any(s.wants_transpose(stats) for s in specs) else None)
+        fmts = {s.name: s.build(coo, coo_t, block_size, stats)
                 for s in specs}
+        if device is not None:
+            fmts = {k: formats.to_device(p, device) for k, p in fmts.items()}
     stats = dict(stats)
     stats["kernels"] = tuple(s.name for s in all_specs
                              if s.payload_key in fmts)
@@ -238,24 +258,27 @@ def build_subgraph(name: str, kind: str, n_pad: int, block_size: int,
     every registered one, or those ``kernels`` name (a fused name builds
     its unfused counterpart's payload).  Density stats come first and go
     to each format's build function, so formats pick their tiling per
-    tier.  The reference's ``edge_budget`` (budget-capped payloads for
-    mini-batches) is not ported."""
-    if edge_budget:
-        raise NotImplementedError(
-            "edge_budget (budget-capped payloads) is not ported yet: "
-            "ROADMAP section 1 item 6")
-    stats = _tier_stats(kind, n_pad, block_size, rows, cols)
+    tier; with ``edge_budget`` the blocked-ELL and tcgnn payloads are the
+    budget-capped triples (their stored blocks or columns capped from the
+    budget alone, the overflow in a COO spill)."""
+    stats = _tier_stats(kind, n_pad, block_size, rows, cols, edge_budget)
     return _materialize_subgraph(name, kind, n_pad, block_size, rows, cols,
                                  vals, stats, resolve_device(device), kernels)
 
 
 def _bucket_inter(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
-                  n_brow: int, block_size: int, k: int) -> list[tuple]:
+                  n_brow: int, block_size: int, k: int,
+                  keep_empty: bool = False) -> list[tuple]:
     """Partition inter edges into <=k tiers by destination block-row
     occupancy (sparsest tier first).  Tiers that receive no edges are
-    dropped; k=1 is the identity partition."""
+    dropped unless ``keep_empty`` (the mini-batch path: exactly ``k``
+    tiers, so every batch has one structure); k=1 is the identity
+    partition."""
     if len(rows) == 0 or k <= 1:
-        return [(rows, cols, vals)]
+        out = [(rows, cols, vals)]
+        if keep_empty:
+            out += [(rows[:0], cols[:0], vals[:0])] * (k - len(out))
+        return out
     brow = rows // block_size
     row_nnz = np.bincount(brow, minlength=n_brow)
     occupied = row_nnz[row_nnz > 0]
@@ -265,7 +288,7 @@ def _bucket_inter(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
     out = []
     for t in range(k):
         m = tier == t
-        if m.any():
+        if keep_empty or m.any():
             out.append((rows[m], cols[m], vals[m]))
     return out or [(rows, cols, vals)]
 
@@ -284,7 +307,9 @@ class TierEdges:
 @dataclass(frozen=True)
 class DecomposeSkeleton:
     """Reorder + partition + stats, all host numpy; :meth:`materialize`
-    builds the payloads."""
+    builds the payloads.  The mini-batch path partitions each batch once
+    into one, looks the PlanCache up on its stats (:attr:`subgraphs`) and
+    materializes only the payloads the committed plan runs."""
     n: int
     n_pad: int
     block_size: int
@@ -293,30 +318,66 @@ class DecomposeSkeleton:
     tiers: tuple                 # tuple[TierEdges, ...], intra first
     stats: dict
 
-    def materialize(self, device: str | torch.device = DEFAULT_DEVICE
+    def materialize(self, kernels=None,
+                    device: str | torch.device | None = DEFAULT_DEVICE
                     ) -> Decomposed:
-        """Every tier's candidate payloads, placed on ``device``."""
-        dev = resolve_device(device)
+        """A :class:`Decomposed` with the payloads of ``kernels`` (None:
+        every registry candidate; ``()``: none) on ``device``, reusing the
+        partition and stats.  ``kernels`` is one name sequence for every
+        tier, or one collection of names per tier (the committed plan's
+        keys, ``plan_cache.plan_payload_keys``).  ``device=None`` keeps
+        the payloads and ``perm`` host numpy, as the reference's mini-batch
+        path does until it pads them to the edge budget."""
+        dev = None if device is None else resolve_device(device)
+        per_tier = (tuple(kernels)
+                    if (kernels is not None and len(kernels) == len(self.tiers)
+                        and not any(isinstance(k, str) for k in kernels))
+                    else (kernels,) * len(self.tiers))
         subs = tuple(_materialize_subgraph(t.name, t.kind, self.n_pad,
                                            self.block_size, t.rows, t.cols,
-                                           t.vals, t.stats, dev)
-                     for t in self.tiers)
+                                           t.vals, t.stats, dev, ks)
+                     for t, ks in zip(self.tiers, per_tier))
+        perm, inv_perm = self.perm, self.inv_perm
+        if dev is not None:
+            perm = torch.as_tensor(perm).to(dev)
+            inv_perm = torch.as_tensor(inv_perm).to(dev)
         return Decomposed(
             n=self.n, n_pad=self.n_pad, block_size=self.block_size,
-            perm=torch.as_tensor(self.perm).to(dev),
-            inv_perm=torch.as_tensor(self.inv_perm).to(dev),
-            subgraphs=subs, stats=dict(self.stats))
+            perm=perm, inv_perm=inv_perm, subgraphs=subs,
+            stats=dict(self.stats))
+
+    @property
+    def subgraphs(self) -> tuple:
+        """The tiers, read as a Decomposed's subgraphs: they carry the
+        same ``name``, ``kind`` and ``stats``, which is all the PlanCache's
+        signature reads."""
+        return self.tiers
+
+    def stats_only(self) -> Decomposed:
+        """The payload-free host view (``materialize((), device=None)``),
+        made once."""
+        cached = self.__dict__.get("_stats_only")
+        if cached is None:
+            cached = self.materialize((), device=None)
+            object.__setattr__(self, "_stats_only", cached)
+        return cached
 
 
 def decompose_skeleton(graph: Graph, comm_size: int = 16,
                        method: str = "bfs",
                        edge_vals: np.ndarray | None = None,
-                       reorder: bool = True,
-                       inter_buckets: int = 1) -> DecomposeSkeleton:
+                       reorder: bool = True, inter_buckets: int = 1,
+                       keep_empty_buckets: bool = False,
+                       edge_budget: int | None = None,
+                       bell_slack: float | None = None) -> DecomposeSkeleton:
     """Steps 1-2 of the decomposition (reorder + partition + stats).
     ``reorder=False`` keeps the graph's own node order; otherwise
     ``method`` is resolved (:func:`resolve_method`) and the stand-in
-    actually run is ``stats["effective_method"]``."""
+    actually run is ``stats["effective_method"]``.  ``keep_empty_buckets``
+    keeps exactly ``inter_buckets`` inter tiers, empty ones included;
+    ``edge_budget`` lands in every tier's stats and switches the
+    blocked-ELL and tcgnn builders to their budget-capped payloads, with
+    ``bell_slack`` as the caps' slack factor."""
     n, B = graph.n, comm_size
     effective = method
     if reorder:
@@ -340,11 +401,13 @@ def decompose_skeleton(graph: Graph, comm_size: int = 16,
     def _tier(name, kind, r, c, v):
         order = np.argsort(r, kind="stable")
         r, c, v = r[order], c[order], v[order]
-        return TierEdges(name, kind, r, c, v, _tier_stats(kind, n_pad, B, r, c))
+        return TierEdges(name, kind, r, c, v,
+                         _tier_stats(kind, n_pad, B, r, c, edge_budget,
+                                     bell_slack))
 
     tiers = [_tier("intra", DIAG, r_in, c_in, v_in)]
     buckets = _bucket_inter(r_out, c_out, v_out, n_pad // B, B,
-                            inter_buckets)
+                            inter_buckets, keep_empty=keep_empty_buckets)
     for t, (rb, cb, vb) in enumerate(buckets):
         name = "inter" if len(buckets) == 1 else f"inter{t}"
         tiers.append(_tier(name, OFFDIAG, rb, cb, vb))
@@ -369,14 +432,21 @@ def decompose_skeleton(graph: Graph, comm_size: int = 16,
 def decompose(graph: Graph, comm_size: int = 16, method: str = "bfs",
               edge_vals: np.ndarray | None = None, reorder: bool = True,
               inter_buckets: int = 1,
+              kernels: Sequence[str] | None = None,
+              keep_empty_buckets: bool = False,
+              edge_budget: int | None = None,
+              bell_slack: float | None = None,
               device: str | torch.device = DEFAULT_DEVICE) -> Decomposed:
-    """Reorder, partition and materialize the payloads on ``device``
-    (paper Fig. 7 line 19).  Aggregation convention: rows = receivers
-    (dst), cols = senders (src)."""
+    """Reorder, partition and materialize the payloads of ``kernels``
+    (None: every candidate) on ``device`` (paper Fig. 7 line 19); the
+    mini-batch options as in :func:`decompose_skeleton`.  Aggregation
+    convention: rows = receivers (dst), cols = senders (src)."""
     dev = resolve_device(device)
     return decompose_skeleton(
         graph, comm_size=comm_size, method=method, edge_vals=edge_vals,
-        reorder=reorder, inter_buckets=inter_buckets).materialize(dev)
+        reorder=reorder, inter_buckets=inter_buckets,
+        keep_empty_buckets=keep_empty_buckets, edge_budget=edge_budget,
+        bell_slack=bell_slack).materialize(kernels, device=dev)
 
 
 def decomposition_quality(dec: Decomposed) -> dict:

@@ -265,3 +265,85 @@ def coo_to_bell(coo: COO, block_size: int, f_tile_cap: int = 512) -> BlockELL:
         blocks[i, blk_of[(i, j)], rows[r] % B, cols[r] % B] = vals[r]
     return BlockELL(n_rpad, n_cpad, B, K, f_tile_cap,
                     blocks=blocks, col_idx=col_idx, n_valid=n_valid)
+
+
+# ---------------------------------------------------------------------------
+# Budget-padded blocked-ELL (the mini-batch fixed-shape variant)
+# ---------------------------------------------------------------------------
+
+def bell_budget_k(edge_budget: int, n_pad: int, block_size: int,
+                  slack: float = 2.0) -> int:
+    """Stored-block cap K of the budget-padded blocked-ELL.
+
+    A function of the sampler's edge budget alone, never of a batch's
+    edges, so every batch's payload has one (n_brow, K, B, B) shape: K
+    covers ``slack`` times the per-block-row average stored-block count
+    under dense packing (each stored block absorbing about B edges),
+    bounded above by the block-row count."""
+    nbr = max(n_pad // block_size, 1)
+    k = -(-int(slack * edge_budget) // max(nbr * block_size, 1))
+    return int(max(1, min(k, nbr)))
+
+
+def coo_to_bell_capped(coo: COO, block_size: int, k_max: int,
+                       n_cols_pad: int | None = None,
+                       f_tile_cap: int = 512, build_blocks: bool = True
+                       ) -> tuple[BlockELL | None, COO, COO]:
+    """Blocked-ELL with exactly ``k_max`` stored-block slots per block row.
+
+    Rows needing more keep their densest ``k_max`` blocks (ties toward the
+    lower block column); the other edges come back as a row-sorted spill
+    COO, and the stored edges as a third COO.  Slots past a row's real
+    block count are all-zero blocks pointing at block column 0, with
+    ``n_valid`` counting the real ones.  Returns ``(bell, spill, stored)``
+    with ``bell.budgeted=True``; ``build_blocks=False`` skips the
+    (n_brow, K, B, B) scatter and returns ``bell=None``."""
+    B = block_size
+    n_rpad = ((coo.n_rows + B - 1) // B) * B
+    n_cpad = n_cols_pad or ((coo.n_cols + B - 1) // B) * B
+    nbr = n_rpad // B
+    nbc = n_cpad // B
+    K = int(max(1, min(k_max, nbc)))
+    rows = _np(coo.rows)
+    cols = _np(coo.cols)
+    vals = _np(coo.vals)
+    if build_blocks:
+        blocks = np.zeros((nbr, K, B, B), np.float32)
+        col_idx = np.zeros((nbr, K), np.int32)
+        n_valid = np.zeros((nbr,), np.int32)
+
+    if len(rows):
+        brow = (rows // B).astype(np.int64)
+        bcol = (cols // B).astype(np.int64)
+        key = brow * nbc + bcol
+        uniq, inv, counts = np.unique(key, return_inverse=True,
+                                      return_counts=True)
+        ubrow, ubcol = uniq // nbc, uniq % nbc
+        # a block's slot is its rank in its row, densest first (after the
+        # lexsort rows are contiguous: rank = index - first in the row)
+        order = np.lexsort((ubcol, -counts, ubrow))
+        sorted_brow = ubrow[order]
+        rank_sorted = (np.arange(len(uniq))
+                       - np.searchsorted(sorted_brow, sorted_brow))
+        slot = np.empty(len(uniq), np.int64)
+        slot[order] = rank_sorted
+
+        edge_slot = slot[inv]
+        stored_m = edge_slot < K
+        if build_blocks:
+            sb = np.flatnonzero(slot < K)
+            col_idx[ubrow[sb], slot[sb]] = ubcol[sb]
+            n_valid[:] = np.minimum(np.bincount(ubrow, minlength=nbr), K)
+            blocks[brow[stored_m], edge_slot[stored_m],
+                   rows[stored_m] % B, cols[stored_m] % B] = vals[stored_m]
+    else:
+        stored_m = np.zeros(0, bool)
+
+    bell = (BlockELL(n_rpad, n_cpad, B, K, f_tile_cap, budgeted=True,
+                     blocks=blocks, col_idx=col_idx, n_valid=n_valid)
+            if build_blocks else None)
+    spill = coo_from_edges(n_rpad, n_cpad, rows[~stored_m], cols[~stored_m],
+                           vals[~stored_m])
+    stored = coo_from_edges(n_rpad, n_cpad, rows[stored_m], cols[stored_m],
+                            vals[stored_m])
+    return bell, spill, stored

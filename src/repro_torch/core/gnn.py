@@ -13,8 +13,9 @@ the device that trains and commits the fastest (``core/selector.py``);
 ``cost_model`` ranks them by the analytic model of that device; ``fixed``
 applies ``fixed_kernels``.  GAT reads the decomposition's edges, not the
 plan (``adaptgear.gat_conv``), yet selection still commits one, as in the
-reference.  Mini-batch sampling raises ``NotImplementedError`` naming the
-ROADMAP item that brings it.
+reference.  ``cfg.sampler`` ``"cluster"`` or ``"neighbor"`` switches
+``train`` to mini-batch training over sampled subgraphs
+(``train/gnn_steps.py``), as in the reference.
 """
 from __future__ import annotations
 
@@ -36,7 +37,10 @@ from repro_torch.graphs import graph as graph_mod
 @dataclass
 class GNNConfig:
     """The fields of the reference's GNNConfig that the port reads, with
-    the reference's defaults (``selector`` is ``feedback``)."""
+    the reference's defaults (``selector`` is ``feedback``).  The
+    mini-batch fields are read by ``train/gnn_steps.py``;
+    ``prefetch_depth > 0``, ``checkpoint_dir``/``checkpoint_every``,
+    ``resume_from`` and ``retry_max > 0`` raise there (not ported)."""
     model: str = "gcn"            # gcn | gin | gat | sage
     hidden: int = 16
     n_layers: int = 2
@@ -48,7 +52,41 @@ class GNNConfig:
     fixed_kernels: tuple = ("block_diag", "bell")
     warmup_iters: int = 2         # feedback: timed calls per candidate
     seed: int = 0
-    sampler: str = "full"         # only full-batch training is ported
+    # --- mini-batch sampling (train/gnn_steps.py; "full" = whole graph) ---
+    sampler: str = "full"         # full | cluster | neighbor
+    clusters_per_batch: int = 8   # cluster: batch = q community blocks
+    batch_nodes: int = 128        # neighbor: loss-carrying seeds per batch
+    fanouts: tuple = (8, 4)       # neighbor: per-layer in-neighbor caps
+    edge_budget: int = 0          # cluster: padded edge slots (0 = auto)
+    cache_entries: int = 128      # PlanCache LRU bound
+    # probe-on-Nth-miss: every Nth PlanCache miss times the top-2
+    # cost-model candidates on the device and pins the winner (0 = off)
+    probe_every: int = 0
+    probe_k_max: int = 4          # widest probe frontier
+    probe_budget_s: float = 2.0   # one miss's probe wall time
+    # budget-K autotuning: observed capped-payload spill steps the caps'
+    # slack factor along a ladder (each step changes payload shapes)
+    adapt_budget_k: bool = False
+    skeleton_cache_entries: int = 64   # cluster-tuple skeleton LRU (0 = off)
+    prefetch_depth: int = 0       # async pipeline: not ported (must be 0)
+    pipeline_workers: int = 2
+    max_ladder_recompiles: int = 4     # cap on slack-ladder steps per run
+    # fault tolerance: not ported (must stay off)
+    checkpoint_dir: str = ""
+    checkpoint_every: int = 0
+    checkpoint_keep: int = 3
+    resume_from: str = ""
+    retry_max: int = 0
+    retry_base_delay_s: float = 0.05
+    # non-finite guard: a batch whose loss or any gradient is NaN/Inf
+    # leaves params and the whole Adam state (t included) as they were,
+    # and is counted
+    nonfinite_guard: bool = True
+    # observability (repro_torch.obs): span tracer + selector audit; the
+    # exports are written when training ends and imply telemetry on
+    telemetry: bool = False
+    trace_out: str = ""           # Chrome trace path ("" = no export)
+    telemetry_out: str = ""       # audit JSONL path ("" = no export)
 
 
 MODELS = ("gcn", "gin", "gat", "sage")
@@ -388,9 +426,12 @@ class TrainResult:
 def train(graph: graph_mod.Graph, cfg: GNNConfig, steps: int = 50,
           verbose: bool = False, *,
           device: str | torch.device = DEFAULT_DEVICE,
-          params: list[dict] | None = None) -> TrainResult:
-    """Full-batch training (the full-batch branch of the reference's
-    ``train``) on ``device``.
+          params: list[dict] | None = None):
+    """Training on ``device``, as the reference's ``train``: full-batch,
+    returning a :class:`TrainResult`, or with ``cfg.sampler`` other than
+    ``"full"`` mini-batch training over sampled subgraphs
+    (``train.gnn_steps.train_minibatch``), returning its
+    ``MinibatchResult``.
 
     ``params`` are the initial parameters (e.g. the reference's, through
     ``repro_torch.weights.from_jax_params``); they are copied to ``device``
@@ -398,9 +439,10 @@ def train(graph: graph_mod.Graph, cfg: GNNConfig, steps: int = 50,
     :func:`init_model` from ``cfg.seed`` (torch's numbers, not
     ``jax.random``'s)."""
     if cfg.sampler != "full":
-        raise NotImplementedError(
-            f"sampler {cfg.sampler!r} (mini-batch training) is not ported "
-            "yet: ROADMAP slice C")
+        from repro_torch.train import gnn_steps   # lazy: import cycle
+        return gnn_steps.train_minibatch(graph, cfg, steps=steps,
+                                         verbose=verbose, device=device,
+                                         params=params)
     dev = resolve_device(device)
     t0 = time.perf_counter()
     dec = prepare(graph, cfg, dev)

@@ -101,11 +101,18 @@ def candidate_cost(sub: Subgraph, kernel: str, feat_dim: int,
 
 def select_for_subgraph(sub: Subgraph, feat_dim: int, dtype=np.float32,
                         hw: HwModel = HwModel(), in_dim: int | None = None,
-                        transform_share: float = 0.0) -> str:
-    """The modeled-cheapest kernel of one subgraph (first on ties)."""
-    specs = REGISTRY.candidates_for(sub, include_fused=in_dim is not None)
+                        transform_share: float = 0.0,
+                        exclude: frozenset = frozenset()) -> str:
+    """The modeled-cheapest kernel of one subgraph (first on ties), among
+    the candidates ``exclude`` does not name (the PlanCache's quarantine
+    set)."""
+    specs = [s for s in REGISTRY.candidates_for(
+                 sub, include_fused=in_dim is not None)
+             if s.name not in exclude]
     if not specs:
-        raise ValueError(f"no kernel candidates for subgraph {sub.name!r}")
+        raise ValueError(f"no kernel candidates for subgraph {sub.name!r}"
+                         + (f" outside exclusion set {sorted(exclude)}"
+                            if exclude else ""))
     return min(specs, key=lambda s: candidate_cost(
         sub, s.name, feat_dim, dtype, hw, in_dim, transform_share)).name
 
@@ -124,13 +131,16 @@ def _transform_share(dec: Decomposed, feat_dim: int, dtype, hw,
 
 def select_by_cost_model(dec: Decomposed, feat_dim: int, dtype=np.float32,
                          hw: HwModel = HwModel(), in_dim: int | None = None,
-                         epilogue: EpilogueSpec | None = None
+                         epilogue: EpilogueSpec | None = None,
+                         exclude: frozenset = frozenset()
                          ) -> tuple[str, ...]:
     """One KernelPlan layer: the modeled-cheapest kernel per subgraph.
     With ``in_dim`` set, fused candidates compete and each unfused one is
-    charged its share of the shared transform."""
+    charged its share of the shared transform; ``exclude`` strikes kernel
+    names from every subgraph's candidates."""
     share = _transform_share(dec, feat_dim, dtype, hw, in_dim, epilogue)
-    return tuple(select_for_subgraph(s, feat_dim, dtype, hw, in_dim, share)
+    return tuple(select_for_subgraph(s, feat_dim, dtype, hw, in_dim, share,
+                                     exclude=exclude)
                  for s in dec.subgraphs)
 
 
@@ -168,6 +178,153 @@ def _times(fn, iters: int, device: torch.device) -> list[float]:
             fn()
             out.append(time.perf_counter() - t0)
     return out
+
+
+def plan_modeled_costs(dec: Decomposed, layers, pairs, dtype=np.float32,
+                       hw: HwModel | None = None,
+                       epilogues=None) -> list[list[float]]:
+    """Modeled seconds of each chosen kernel of a committed plan:
+    ``layers`` are its per-layer kernel-name tuples (aligned with
+    ``dec.subgraphs``), ``pairs`` the ``(in_dim, agg_dim)`` of each layer.
+    One row per layer, unfused kernels with their transform share as in
+    selection (the selector audit's modeled side).  ``hw`` defaults to
+    ``dec``'s device's model."""
+    hw = hw or default_hw(dec.device)
+    pairs = list(pairs)
+    epilogues = epilogues or [None] * len(pairs)
+    out = []
+    for names, (fin, fout), ep in zip(layers, pairs, epilogues):
+        share = _transform_share(dec, fout, dtype, hw, fin, ep)
+        out.append([candidate_cost(sub, name, fout, dtype, hw, fin, share)
+                    for sub, name in zip(dec.subgraphs, names)])
+    return out
+
+
+def _mean_time(fn, iters: int, device: torch.device) -> float:
+    """Mean seconds of one call of ``fn`` over ``iters`` calls after one
+    untimed call (a kernel's first-launch build): on a CUDA device all
+    ``iters`` calls sit between one pair of CUDA events, so an eager
+    call's launch gap between two events is not what is timed (ROADMAP
+    section 3 fault 2); elsewhere the host clock."""
+    fn()
+    if device.type == "cuda":
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(iters):
+            fn()
+        e1.record()
+        e1.synchronize()
+        return e0.elapsed_time(e1) * 1e-3 / iters
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) / iters
+
+
+def _time_candidate(sub: Subgraph, spec, fin: int | None, fout: int,
+                    dtype, iters: int, dev: torch.device) -> float:
+    """Seconds of one call of a candidate on ones-filled operands of the
+    tier's width on ``dev``, where its payloads are (:func:`_mean_time`):
+    the unit :func:`probe_topk` and the PlanCache's Nth-miss probe
+    measure."""
+    from repro_torch.core import adaptgear  # local: import cycle
+    tdt = _torch_dtype(dtype)
+    with torch.no_grad():
+        if spec.fused:
+            x_in = torch.ones((sub.n_rows, fin), dtype=tdt, device=dev)
+            w = torch.ones((fin, fout), dtype=tdt, device=dev)
+            fn = (lambda: adaptgear.aggregate_sub_fused(sub, x_in, w,
+                                                        spec.name))
+        else:
+            x = torch.ones((sub.n_rows, fout), dtype=tdt, device=dev)
+            fn = lambda: adaptgear.aggregate_sub(sub, x, spec.name)  # noqa: E731
+        return _mean_time(fn, iters, dev)
+
+
+def _torch_dtype(dtype) -> torch.dtype:
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return {np.dtype(np.float32): torch.float32,
+            np.dtype(np.float64): torch.float64}[np.dtype(dtype)]
+
+
+def probe_topk(dec: Decomposed, pairs, dtype=np.float32,
+               hw: HwModel | None = None, k: int = 2,
+               iters: int = 2, time_dec: Decomposed | None = None,
+               epilogues=None, k_max: int | None = None,
+               margin: float | None = None,
+               time_budget_s: float | None = None,
+               errs: list | None = None,
+               timings: dict | None = None) -> list[tuple[str, ...]]:
+    """Times only the ``k`` modeled-cheapest candidates per (layer,
+    subgraph) and pins the measured fastest: the PlanCache's amortized
+    feedback on every Nth miss.  Unfused candidates carry the modeled
+    transform share; fused ones are timed whole.  ``pairs`` are the
+    ``(in_dim, agg_dim)`` per layer, ``epilogues`` the aligned
+    EpilogueSpecs.  Returns one kernel-name tuple per pair.
+
+    With ``margin`` (the model's observed relative error) the frontier
+    widens to every candidate within ``(1 + margin)`` of the modeled best,
+    up to ``k_max``; ``time_budget_s`` caps the probe's wall time, after
+    which untimed candidates are skipped.  ``errs`` collects
+    ``(modeled_s, measured_s)`` per timed candidate, ``timings`` the same
+    keyed by ``(sub_name, kernel, in_dim, agg_dim)``.  ``time_dec``
+    supplies the payloads to time (the budget-padded twin, on the device
+    that trains) while ``dec`` drives the ranking.  ``hw`` defaults to
+    ``time_dec``'s (else ``dec``'s) device's model."""
+    dev = (time_dec or dec).device
+    hw = hw or default_hw(dev)
+    timed: dict[tuple, float] = {}
+    layers = []
+    time_subs = (time_dec or dec).subgraphs
+    pairs = list(pairs)
+    epilogues = epilogues or [None] * len(pairs)
+    t_start = time.perf_counter()
+
+    def budget_left() -> bool:
+        return (time_budget_s is None
+                or time.perf_counter() - t_start < time_budget_s)
+
+    for (fin, fout), ep in zip(pairs, epilogues):
+        share = _transform_share(dec, fout, dtype, hw, fin, ep)
+        choice = []
+        for sub, tsub in zip(dec.subgraphs, time_subs):
+            specs = REGISTRY.candidates_for(sub,
+                                            include_fused=fin is not None)
+            if not specs:
+                raise ValueError(
+                    f"no kernel candidates for subgraph {sub.name!r}")
+            modeled = {s.name: candidate_cost(sub, s.name, fout, dtype, hw,
+                                              fin, share) for s in specs}
+            ranked = sorted(specs, key=lambda s: modeled[s.name])
+            cands = ranked[:max(k, 1)]
+            if margin is not None and len(ranked) > len(cands):
+                lim = modeled[ranked[0].name] * (1.0 + max(margin, 0.0))
+                cands += [s for s in ranked[len(cands):max(k_max or k, k)]
+                          if modeled[s.name] <= lim]
+            if len(cands) < 2:
+                choice.append(cands[0].name)
+                continue
+            best_name, best_t = None, None
+            for spec in cands:
+                key = (sub.name, spec.name, fin or 0, fout)
+                own = modeled[spec.name] - (0.0 if spec.fused else share)
+                if key not in timed:
+                    if not budget_left():
+                        continue        # budget spent: modeled ranking holds
+                    timed[key] = _time_candidate(tsub, spec, fin, fout,
+                                                 dtype, iters, dev)
+                    if errs is not None:
+                        errs.append((own, timed[key]))
+                    if timings is not None:
+                        timings[key] = (own, timed[key])
+                t = timed[key] + (0.0 if spec.fused else share)
+                if best_t is None or t < best_t:
+                    best_name, best_t = spec.name, t
+            choice.append(best_name or cands[0].name)
+        layers.append(tuple(choice))
+    return layers
 
 
 @dataclass

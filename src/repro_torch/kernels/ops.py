@@ -226,3 +226,17 @@ def ell_matvec(ell: formats.ELL, x: torch.Tensor) -> torch.Tensor:
 def coo_matvec(coo: formats.COO, x: torch.Tensor) -> torch.Tensor:
     """Edge-parallel scatter-add through ``index_add_``."""
     return ref.coo_spmm(coo.rows, coo.cols, coo.vals, x, coo.n_rows)
+
+
+def coo_transform_matvec(coo: formats.COO, x: torch.Tensor,
+                         w: torch.Tensor) -> torch.Tensor:
+    """Y = A_coo @ (x @ w) without forming H = x @ w: each edge transforms
+    only its gathered source row, (E, Fi) @ (Fi, Fo), and ``index_add_``
+    sums the weighted rows in float32.  The spill tier of the budget-capped
+    fused payloads (E is the overflow the cap rejected).  Plain torch ops,
+    differentiated by autograd, as the reference's XLA form is."""
+    h_e = ((x.index_select(0, coo.cols.long()) @ w).float()
+           * coo.vals.float()[:, None])
+    y = torch.zeros((coo.n_rows, w.shape[-1]), dtype=torch.float32,
+                    device=x.device)
+    return y.index_add_(0, coo.rows.long(), h_e).to(x.dtype)

@@ -166,8 +166,11 @@ def ell_spmm(indices: torch.Tensor, vals: torch.Tensor,
 
 def coo_spmm(rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
              x: torch.Tensor, n_rows: int) -> torch.Tensor:
-    """Edge-parallel scatter-add."""
-    msgs = x[cols.long()].float() * vals.float()[:, None]
+    """Edge-parallel scatter-add.  The gather is ``index_select``, whose
+    backward is one ``index_add_``: an indexing gather's backward sorts
+    its indices, which takes milliseconds on a spill padded to the edge
+    budget (every pad slot reads row 0)."""
+    msgs = x.index_select(0, cols.long()).float() * vals.float()[:, None]
     y = torch.zeros((n_rows, x.shape[-1]), dtype=torch.float32,
                     device=x.device)
     return y.index_add_(0, rows.long(), msgs).to(x.dtype)

@@ -59,7 +59,9 @@ class KernelSpec:
     build: Callable[[formats.COO, formats.COO, int, dict], Any] | None
     matvec: Callable[[Any, Any], Any] | None
     cost: Callable[[Any, Any, Any, Any], float]
-    needs_transpose: bool = False   # build consumes coo_t
+    # build consumes coo_t: a bool, or a function of the tier stats (the
+    # budget-capped builds derive their transpose from the stored edges)
+    needs_transpose: Any = False    # bool | Callable[[dict], bool]
     matvec_acc: Callable[[Any, Any, Any], Any] | None = None
     fused_matvec: Callable[..., Any] | None = None
     fused_matvec_acc: Callable[..., Any] | None = None
@@ -67,6 +69,11 @@ class KernelSpec:
     fused_dual_matvec_acc: Callable[..., Any] | None = None
     payload_of: str | None = None   # alias another kernel's format payload
     doc: str = ""
+
+    def wants_transpose(self, stats: dict | None) -> bool:
+        if callable(self.needs_transpose):
+            return bool(self.needs_transpose(stats or {}))
+        return bool(self.needs_transpose)
 
     def applies_to(self, kind: str) -> bool:
         return kind in self.kinds
@@ -223,16 +230,85 @@ def _bell_f_cap(block_size: int) -> int:
 
 
 def _bell_build(coo, coo_t, block_size, stats):
-    """Full-batch blocked-ELL payload ``(bell, bell_t)`` with the
-    data-dependent per-bucket block size and K."""
-    if (stats or {}).get("edge_budget"):
-        raise NotImplementedError(
-            "budget-capped blocked-ELL (mini-batch) is not ported yet: "
-            "ROADMAP slice C")
+    """Blocked-ELL payload.  With ``stats["edge_budget"]`` (the mini-batch
+    path) it is the budget-padded triple ``(bell, bell_t, spill)``
+    (:func:`_bell_build_capped`); otherwise the full-batch pair ``(bell,
+    bell_t)`` with the data-dependent per-bucket block size and K."""
+    budget = (stats or {}).get("edge_budget")
+    if budget:
+        return _bell_build_capped(coo, block_size, int(budget),
+                                  slack=(stats or {}).get("bell_slack"))
     Bb = _bell_pick_block(coo, block_size)
     cap = _bell_f_cap(Bb)
     return (formats.coo_to_bell(coo, Bb, f_tile_cap=cap),
             formats.coo_to_bell(coo_t, Bb, f_tile_cap=cap))
+
+
+def _np_edges(coo):
+    return (formats._np(coo.rows), formats._np(coo.cols),
+            formats._np(coo.vals))
+
+
+def _bell_build_capped(coo, block_size, edge_budget, slack=None):
+    """Budget-padded blocked-ELL payload ``(bell, bell_t, spill)``.
+
+    The block size is the community size and K is
+    :func:`formats.bell_budget_k` of the edge budget (``slack``, the
+    PlanCache's adapted factor, overrides its default), so every batch's
+    payload has one shape.  The forward cap keeps each block row's densest
+    blocks; the transpose of the stored edges is capped again, and the
+    forward payload is rebuilt from the edges that survive both, so
+    ``bell_t`` is exactly the transpose of ``bell``: the blocked-ELL
+    backward passes stay right as they are.  Every edge either cap
+    rejected goes to the spill COO, which aggregates through torch ops in
+    both directions."""
+    K = formats.bell_budget_k(edge_budget, coo.n_rows, block_size,
+                              **({} if slack is None else dict(slack=slack)))
+    cap = _bell_f_cap(block_size)
+    _, spill_fwd, stored = formats.coo_to_bell_capped(
+        coo, block_size, K, f_tile_cap=cap, build_blocks=False)
+    sr, sc, sv = _np_edges(stored)
+    coo_st = formats.coo_from_edges(stored.n_cols, stored.n_rows, sc, sr, sv)
+    bell_t, spill_t, stored_t = formats.coo_to_bell_capped(
+        coo_st, block_size, K, f_tile_cap=cap)
+    tr, tc, tv = _np_edges(stored_t)
+    bell, leftover, _ = formats.coo_to_bell_capped(
+        formats.coo_from_edges(coo.n_rows, coo.n_cols, tc, tr, tv),
+        block_size, K, f_tile_cap=cap)
+    if leftover.nnz:    # a subset of a K-fitting edge set fits K
+        raise RuntimeError("capped blocked-ELL rebuild spilled edges")
+    fr, fc, fv = _np_edges(spill_fwd)
+    xr, xc, xv = _np_edges(spill_t)      # transpose orientation: swap back
+    spill = formats.coo_from_edges(
+        coo.n_rows, coo.n_cols, np.concatenate([fr, xc]),
+        np.concatenate([fc, xr]), np.concatenate([fv, xv]))
+    return (bell, bell_t, spill)
+
+
+# Dispatch shims over both blocked-ELL payloads: the full-batch (bell,
+# bell_t) pair and the budget-padded (bell, bell_t, spill) triple.  Only
+# the pair goes through the kernels' autograd Functions; the spill is
+# plain torch ops (index_add_, or the per-edge transform when fused), so
+# autograd differentiates it once, beside them.
+
+def _bell_mv(p, x):
+    y = ops.bell_matvec(p[0], p[1], x)
+    return y + ops.coo_matvec(p[2], x) if len(p) > 2 else y
+
+
+def _bell_mv_acc(p, x, y_in):
+    y = ops.bell_matvec_acc(p[0], p[1], x, y_in)
+    return y + ops.coo_matvec(p[2], x) if len(p) > 2 else y
+
+
+def _bell_fmv(p, x, w):
+    y = ops.bell_fused_matvec(p[0], p[1], x, w)
+    return y + ops.coo_transform_matvec(p[2], x, w) if len(p) > 2 else y
+
+
+def _bell_fmv_acc(p, x, w, y_in):
+    y = ops.bell_fused_matvec_acc(p[0], p[1], x, w, y_in)
+    return y + ops.coo_transform_matvec(p[2], x, w) if len(p) > 2 else y
 
 
 # ---------------------------------------------------------------------------
@@ -249,18 +325,26 @@ def _block_diag_cost(sub, feat_dim, dtype, hw) -> float:
     return t + hw.launch_overhead_s
 
 
-# The reference's blocked-ELL and tcgnn costs add a spill term for the
-# budget-capped mini-batch payloads (``_bell_spill_cost``); it comes with
-# those payloads (ROADMAP slice C).
+def _bell_spill_cost(nnz, n_rows, feat_dim, dtype, hw) -> float:
+    """Scatter-class seconds of a capped payload's spilled edges (the COO
+    term's shape, no launch of its own), priced at the real spill nnz."""
+    be = _bytes_el(dtype)
+    flops = 2.0 * nnz * feat_dim
+    bytes_ = nnz * (2 * feat_dim * be + 8) + n_rows * feat_dim * be
+    return max(flops / hw.peak_flops, bytes_ / (hw.hbm_bw * hw.scatter_eff))
+
 
 def _bell_cost(sub, feat_dim, dtype, hw) -> float:
     be = _bytes_el(dtype)
-    bl = sub.formats["bell"][0]
+    p = sub.formats["bell"]
+    bl = p[0]
     B = bl.block_size
     nblk = bl.n_brow * bl.max_blocks       # every slot, padding included
     flops = 2.0 * nblk * B * B * feat_dim
     bytes_ = nblk * (B * B * be + B * feat_dim * be) + sub.n_rows * feat_dim * be
     t = max(flops / (hw.peak_flops * hw.mxu_eff(B)), bytes_ / hw.hbm_bw)
+    if len(p) > 2 and p[2].nnz:          # budget-capped: the spill's term
+        t += _bell_spill_cost(p[2].nnz, sub.n_rows, feat_dim, dtype, hw)
     return t + hw.launch_overhead_s
 
 
@@ -302,9 +386,10 @@ def _block_diag_fused_cost(sub, feat_dims, dtype, hw) -> float:
 def _bell_fused_cost(sub, feat_dims, dtype, hw) -> float:
     fin, fout = feat_dims
     be = _bytes_el(dtype)
-    bl = sub.formats["bell"][0]
+    p = sub.formats["bell"]
+    bl = p[0]
     B = bl.block_size
-    nblk = bl.n_brow * bl.max_blocks
+    nblk = bl.n_brow * bl.max_blocks     # includes budget-cap padding
     ft = min(bl.f_tile_cap, _fused_f_cap(B, _lane_pad(fin)), _lane_pad(fout))
     njt = max(1, -(-_lane_pad(fout) // ft))
     # the transform re-runs per stored block (recompute for the H trip)
@@ -314,6 +399,15 @@ def _bell_fused_cost(sub, feat_dims, dtype, hw) -> float:
               + nblk * fin * fout * be           # weight stripe per step
               + sub.n_rows * fout * be)
     t = max(flops / (hw.peak_flops * hw.mxu_eff(B)), bytes_ / hw.hbm_bw)
+    if len(p) > 2 and p[2].nnz:
+        # spilled edges transform their gathered source rows one by one
+        # (coo_transform_matvec)
+        E = p[2].nnz
+        flops_s = 2.0 * E * (fin * fout + fout)
+        bytes_s = (E * (fin * be + fout * be + 8)
+                   + sub.n_rows * fout * be)
+        t += max(flops_s / hw.peak_flops,
+                 bytes_s / (hw.hbm_bw * hw.scatter_eff))
     return t + hw.launch_overhead_s
 
 
@@ -331,12 +425,14 @@ REGISTRY.register(KernelSpec(
     name="bell",
     kinds=frozenset({OFFDIAG}),
     build=_bell_build,
-    matvec=lambda p, x: ops.bell_matvec(p[0], p[1], x),
-    matvec_acc=lambda p, x, y: ops.bell_matvec_acc(p[0], p[1], x, y),
+    matvec=_bell_mv,
+    matvec_acc=_bell_mv_acc,
     cost=_bell_cost,
-    needs_transpose=True,
+    # the full-batch build reads coo_t; the capped one derives its own
+    needs_transpose=lambda stats: not stats.get("edge_budget"),
     doc="blocked-ELL over per-bucket (B,B) tiles; CUDA kernel; transpose "
-        "materialized for the backward pass",
+        "materialized for the backward pass; budget-capped K and a COO "
+        "spill under an edge budget",
 ))
 
 REGISTRY.register(KernelSpec(
@@ -382,9 +478,8 @@ REGISTRY.register(KernelSpec(
     build=None,
     payload_of="bell",
     matvec=None,
-    fused_matvec=lambda p, x, w: ops.bell_fused_matvec(p[0], p[1], x, w),
-    fused_matvec_acc=lambda p, x, w, y:
-        ops.bell_fused_matvec_acc(p[0], p[1], x, w, y),
+    fused_matvec=_bell_fmv,
+    fused_matvec_acc=_bell_fmv_acc,
     cost=_bell_fused_cost,
     doc="fused blocked-ELL A @ (X W); each stored block transforms its "
         "gathered rows again (recompute traded for the H round trip); "

@@ -22,8 +22,13 @@ The ``torch.autograd.Function``s mirror the reference's four custom VJPs:
 dX = A^T dY is the same kernel over the transpose payload ``tc_t``; the
 fused form's dX = A^T (dY W^T) is the fused kernel over ``tc_t`` with W^T,
 and dW = X^T (A^T dY) is the ``tcgnn_spmm_dw`` reduction.  dX is computed
-only when autograd asks for it.  The budget-capped mini-batch payload
-(with its COO spill) comes with ROADMAP slice C.
+only when autograd asks for it.
+
+Under the mini-batch edge budget the payload is the budget-capped triple
+``(tc, tc_t, spill)``: C is :func:`tcgnn_budget_c` of the budget alone,
+each block row keeps its densest C columns, and the overflow goes to a
+COO spill that torch ops aggregate (``index_add_``, or the per-edge
+transform when fused) beside the kernels.
 """
 from __future__ import annotations
 
@@ -34,10 +39,11 @@ import numpy as np
 import torch
 
 from repro_torch.core import formats
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.registry import (LANE, OFFDIAG, REGISTRY,
-                                          KernelSpec, _bytes_el, _f_tile,
-                                          _lane_pad)
+                                          KernelSpec, _bell_spill_cost,
+                                          _bytes_el, _f_tile, _lane_pad,
+                                          _np_edges)
 
 C_TILE_CAP = 512     # the reference's condensed-column tile (cost terms)
 
@@ -132,16 +138,100 @@ def _tcgnn_f_cap(block_size: int) -> int:
     return int(max(LANE, min(1024, (cap // LANE) * LANE)))
 
 
+def tcgnn_budget_c(edge_budget: int, n_pad: int, block_size: int,
+                   slack: float = 2.0) -> int:
+    """Condensed-column cap C of the budget-capped payload: a function of
+    the edge budget alone, so every batch has one (n_brow, B, C) shape.
+    C covers ``slack`` times the per-block-row average edge count (each
+    stored edge its own column at worst), rounded up to a multiple of 128
+    and bounded by the 128-rounded column count."""
+    nbr = max(n_pad // block_size, 1)
+    c = -(-int(slack * edge_budget) // nbr)
+    c = -(-max(c, 1) // LANE) * LANE
+    return int(max(LANE, min(c, _lane_pad(n_pad))))
+
+
+def coo_to_tcgnn_capped(coo: formats.COO, block_size: int, c_max: int,
+                        f_tile_cap: int = 512, build_tiles: bool = True
+                        ) -> tuple[TcgnnTile | None, formats.COO,
+                                   formats.COO]:
+    """Condensed tiles with exactly ``c_max`` (rounded up to a multiple of
+    128) column slots per block row.  Rows with more distinct columns keep
+    their densest (ties toward the lower column id); the other edges come
+    back as a row-sorted spill COO and the stored ones as a third COO.
+    Returns ``(tc, spill, stored)`` with ``tc.budgeted=True``;
+    ``build_tiles=False`` skips the (n_brow, B, C) scatter (``tc=None``)."""
+    B = block_size
+    n_rpad = ((coo.n_rows + B - 1) // B) * B
+    nbr = max(n_rpad // B, 1)
+    C = int(max(LANE, -(-int(c_max) // LANE) * LANE))
+    rows, cols, vals = _np_edges(coo)
+    if build_tiles:
+        tiles = np.zeros((nbr, B, C), np.float32)
+        gather_idx = np.zeros((nbr, C), np.int32)
+    if len(rows):
+        brow, ubrow, ucol, slot, edge_slot = _cond_rank(
+            rows, cols, coo.n_cols, B)
+        stored_m = edge_slot < C
+        if build_tiles:
+            sb = np.flatnonzero(slot < C)
+            gather_idx[ubrow[sb], slot[sb]] = ucol[sb]
+            tiles[brow[stored_m], rows[stored_m] % B,
+                  edge_slot[stored_m]] = vals[stored_m]
+    else:
+        stored_m = np.zeros(0, bool)
+    tc = (TcgnnTile(n_rpad, coo.n_cols, B, C, f_tile_cap, budgeted=True,
+                    tiles=tiles, gather_idx=gather_idx)
+          if build_tiles else None)
+    spill = formats.coo_from_edges(n_rpad, coo.n_cols, rows[~stored_m],
+                                   cols[~stored_m], vals[~stored_m])
+    stored = formats.coo_from_edges(n_rpad, coo.n_cols, rows[stored_m],
+                                    cols[stored_m], vals[stored_m])
+    return tc, spill, stored
+
+
 def _tcgnn_build(coo, coo_t, block_size, stats):
-    """Full-batch payload ``(tc, tc_t)``: the transpose is what the
-    backward passes run over."""
-    if (stats or {}).get("edge_budget"):
-        raise NotImplementedError(
-            "budget-capped tcgnn_tile (mini-batch) is not ported yet: "
-            "ROADMAP slice C")
+    """Condensed-tile payload.  With ``stats["edge_budget"]`` (the
+    mini-batch path) it is the budget-capped triple ``(tc, tc_t, spill)``
+    (:func:`_tcgnn_build_capped`, its slack shared with blocked-ELL's,
+    ``stats["bell_slack"]``); otherwise the full-batch pair ``(tc, tc_t)``,
+    whose transpose the backward passes run over."""
+    budget = (stats or {}).get("edge_budget")
+    if budget:
+        return _tcgnn_build_capped(coo, block_size, int(budget),
+                                   slack=(stats or {}).get("bell_slack"))
     cap = _tcgnn_f_cap(block_size)
     return (coo_to_tcgnn(coo, block_size, f_tile_cap=cap),
             coo_to_tcgnn(coo_t, block_size, f_tile_cap=cap))
+
+
+def _tcgnn_build_capped(coo, block_size, edge_budget, slack=None):
+    """Budget-capped payload ``(tc, tc_t, spill)``, built as the capped
+    blocked-ELL is at column granularity: cap the forward edges, cap the
+    transpose of the stored ones, rebuild the forward payload from the
+    survivors (it never spills), so ``tc_t`` is exactly ``tc``
+    transposed; every rejected edge goes to the spill."""
+    C = tcgnn_budget_c(edge_budget, coo.n_rows, block_size,
+                       **({} if slack is None else dict(slack=slack)))
+    cap = _tcgnn_f_cap(block_size)
+    _, spill_fwd, stored = coo_to_tcgnn_capped(
+        coo, block_size, C, build_tiles=False)
+    sr, sc, sv = _np_edges(stored)
+    coo_st = formats.coo_from_edges(stored.n_cols, stored.n_rows, sc, sr, sv)
+    tc_t, spill_t, stored_t = coo_to_tcgnn_capped(
+        coo_st, block_size, C, f_tile_cap=cap)
+    tr, tcc, tv = _np_edges(stored_t)
+    tc, leftover, _ = coo_to_tcgnn_capped(
+        formats.coo_from_edges(coo.n_rows, coo.n_cols, tcc, tr, tv),
+        block_size, C, f_tile_cap=cap)
+    if leftover.nnz:    # a subset of a C-fitting column set fits C
+        raise RuntimeError("capped tcgnn_tile rebuild spilled edges")
+    fr, fc, fv = _np_edges(spill_fwd)
+    xr, xc, xv = _np_edges(spill_t)      # transpose orientation: swap back
+    spill = formats.coo_from_edges(
+        coo.n_rows, coo.n_cols, np.concatenate([fr, xc]),
+        np.concatenate([fc, xr]), np.concatenate([fv, xv]))
+    return (tc, tc_t, spill)
 
 
 def real_slots(tiles: torch.Tensor) -> torch.Tensor:
@@ -341,24 +431,28 @@ def tcgnn_fused_matvec_acc(tc: TcgnnTile, tc_t: TcgnnTile, x: torch.Tensor,
     return _TcgnnFused.apply(tc, tc_t, x, w, y_in.contiguous())
 
 
-# Dispatch shims over the full-batch payload ``(tc, tc_t)``.  The
-# reference's capped ``(tc, tc_t, spill)`` triple adds a COO spill term;
-# it comes with the mini-batch slice.
+# Dispatch shims over both payloads: the full-batch (tc, tc_t) pair and
+# the budget-capped (tc, tc_t, spill) triple, whose spill is torch ops
+# beside the kernels' autograd Functions (as blocked-ELL's is)
 
 def _tc_mv(p, x):
-    return tcgnn_matvec(p[0], p[1], x)
+    y = tcgnn_matvec(p[0], p[1], x)
+    return y + ops.coo_matvec(p[2], x) if len(p) > 2 else y
 
 
 def _tc_mv_acc(p, x, y_in):
-    return tcgnn_matvec_acc(p[0], p[1], x, y_in)
+    y = tcgnn_matvec_acc(p[0], p[1], x, y_in)
+    return y + ops.coo_matvec(p[2], x) if len(p) > 2 else y
 
 
 def _tc_fmv(p, x, w):
-    return tcgnn_fused_matvec(p[0], p[1], x, w)
+    y = tcgnn_fused_matvec(p[0], p[1], x, w)
+    return y + ops.coo_transform_matvec(p[2], x, w) if len(p) > 2 else y
 
 
 def _tc_fmv_acc(p, x, w, y_in):
-    return tcgnn_fused_matvec_acc(p[0], p[1], x, w, y_in)
+    y = tcgnn_fused_matvec_acc(p[0], p[1], x, w, y_in)
+    return y + ops.coo_transform_matvec(p[2], x, w) if len(p) > 2 else y
 
 
 # ---------------------------------------------------------------------------
@@ -380,7 +474,8 @@ def _tc_fused_f_cap(block_size: int, c_tile: int, fin_padded: int) -> int:
 
 def _tcgnn_cost(sub, feat_dim, dtype, hw) -> float:
     be = _bytes_el(dtype)
-    tc = sub.formats["tcgnn_tile"][0]
+    p = sub.formats["tcgnn_tile"]
+    tc = p[0]
     B, nbr, C = tc.block_size, tc.n_brow, tc.n_cond
     flops = 2.0 * nbr * B * C * feat_dim
     gather_bytes = nbr * C * feat_dim * be     # (nbr, C, F) stripe volume
@@ -389,13 +484,16 @@ def _tcgnn_cost(sub, feat_dim, dtype, hw) -> float:
               + sub.n_rows * feat_dim * be)    # output
     t = max(flops / (hw.peak_flops * hw.mxu_eff(B)), bytes_ / hw.hbm_bw)
     t += gather_bytes / (hw.hbm_bw * hw.gather_eff)
+    if len(p) > 2 and p[2].nnz:                # budget-capped: spill term
+        t += _bell_spill_cost(p[2].nnz, sub.n_rows, feat_dim, dtype, hw)
     return t + hw.launch_overhead_s
 
 
 def _tcgnn_fused_cost(sub, feat_dims, dtype, hw) -> float:
     fin, fout = feat_dims
     be = _bytes_el(dtype)
-    tc = sub.formats["tcgnn_tile"][0]
+    p = sub.formats["tcgnn_tile"]
+    tc = p[0]
     B, nbr, C = tc.block_size, tc.n_brow, tc.n_cond
     ct = _c_tile_of(C)
     ft = min(tc.f_tile_cap, _tc_fused_f_cap(B, ct, _lane_pad(fin)),
@@ -410,6 +508,13 @@ def _tcgnn_fused_cost(sub, feat_dims, dtype, hw) -> float:
               + sub.n_rows * fout * be)
     t = max(flops / (hw.peak_flops * hw.mxu_eff(B)), bytes_ / hw.hbm_bw)
     t += gather_bytes / (hw.hbm_bw * hw.gather_eff)
+    if len(p) > 2 and p[2].nnz:
+        # spilled edges transform their gathered source rows one by one
+        E = p[2].nnz
+        flops_s = 2.0 * E * (fin * fout + fout)
+        bytes_s = E * (fin * be + fout * be + 8) + sub.n_rows * fout * be
+        t += max(flops_s / hw.peak_flops,
+                 bytes_s / (hw.hbm_bw * hw.scatter_eff))
     return t + hw.launch_overhead_s
 
 
@@ -420,10 +525,12 @@ REGISTRY.register(KernelSpec(
     matvec=_tc_mv,
     matvec_acc=_tc_mv_acc,
     cost=_tcgnn_cost,
-    needs_transpose=True,
+    # the full-batch build reads coo_t; the capped one derives its own
+    needs_transpose=lambda stats: not stats.get("edge_budget"),
     doc="TC-GNN-style column condensation: each block row's non-zero "
         "columns packed into dense (B, C) tiles + a gather index; CUDA "
-        "kernel that gathers the rows of x itself",
+        "kernel that gathers the rows of x itself; budget-capped C and a "
+        "COO spill under an edge budget",
 ))
 
 REGISTRY.register(KernelSpec(

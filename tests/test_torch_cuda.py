@@ -1367,3 +1367,152 @@ def _moe_dense_f32_sums(blk, p, cfg, x):
     for e in range(cfg.n_experts):
         out += (h[e].float() @ p["w_down"][e].float()) * combine[:, e:e + 1]
     return out
+
+
+# --- mini-batch: budget-capped payloads --------------------------------------
+
+def _capped_payloads(device, n=512, B=16, budget=2048, seed=0,
+                     empty=False):
+    """The capped (bell, bell_t, spill) and (tc, tc_t, spill) triples on
+    ``device`` (K = 8, C = 128) of edges whose first 256 rows keep within
+    one block of the diagonal (at most 3 blocks a block row: padded slots
+    past n_valid) and whose last 256 rows scatter (about 200 distinct
+    columns a block row: both caps spill), or of no edge with ``empty``."""
+    import numpy as np
+    from repro_torch.core import formats as TF
+    from repro_torch.kernels import registry as TR
+    if empty:
+        r = c = np.zeros(0, np.int32)
+        v = np.zeros(0, np.float32)
+    else:
+        near = tp.random_edges(n, 3000, seed, block=B, spread=1)
+        far = tp.random_edges(n, 8000, seed + 1)
+        keep = (near[0] < n // 2, far[0] >= n // 2)
+        r, c, v = (np.concatenate([a[keep[0]], b[keep[1]]])
+                   for a, b in zip(near, far))
+    coo = TF.coo_from_edges(n, n, r, c, v)
+    stats = {"edge_budget": budget}
+    return (TF.to_device(TR._bell_build(coo, None, B, stats), device),
+            TF.to_device(tc_mod._tcgnn_build(coo, None, B, stats), device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("empty", [False, True])
+def test_cuda_capped_payloads_match_plain(cuda_device, dtype, empty):  # noqa: F811
+    """Every kernel over the budget-capped payloads (padded slots past
+    n_valid pointing at block column 0; tcgnn C capped to 128) against its
+    plain version, y_in off and on, at (Fi, Fo) in (500, 16), (16, 3),
+    (3, 16); dW within 1e-5 of max|dW| (an empty tier's dW exactly 0)."""
+    tol = (tp.F32_TOL if dtype == torch.float32
+           else dict(atol=2e-1, rtol=3e-1))
+    (bell, bell_t, bspill), (tc, tc_t, tspill) = _capped_payloads(
+        cuda_device, empty=empty)
+    assert bell.budgeted and tc.budgeted and tc.n_cond == 128
+    assert bell.max_blocks == 8
+    if not empty:
+        assert bspill.nnz > 0 and tspill.nnz > 0
+        assert int(bell.n_valid.min()) < bell.max_blocks
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+
+    def randn(*s):
+        return torch.randn(s, generator=gen, device=cuda_device).to(dtype)
+
+    def close(got, want):
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+
+    def close_dw(got, want):
+        scale = float(want.abs().max())
+        if scale == 0.0:
+            assert not bool(got.any())
+        else:
+            assert float((got - want).abs().max()) <= 1e-5 * scale
+
+    n = bell.n_rows
+    for Fi, Fo in ((500, 16), (16, 3), (3, 16)):
+        x, g, w = randn(n, Fi), randn(n, Fo), randn(Fi, Fo) / Fi ** 0.5
+        for y, yx in ((None, None), (randn(n, Fo), randn(n, Fi))):
+            for p in (bell, bell_t):
+                blk = p.blocks.to(dtype)
+                close(bell_mod.bell_spmm(blk, p.col_idx, x, yx,
+                                         n_valid=p.n_valid),
+                      bell_mod.plain(blk, p.col_idx, x, yx))
+                close(bellf_mod.bell_spmm_fused(blk, p.col_idx, x, w, y,
+                                                n_valid=p.n_valid),
+                      bellf_mod.plain(blk, p.col_idx, x, w, y))
+            for p in (tc, tc_t):
+                close(tc_mod.tcgnn_spmm(p.tiles, p.gather_idx, x, yx),
+                      tc_mod.plain(p.tiles, p.gather_idx, x, yx))
+                close(tc_mod.tcgnn_spmm_fused(p.tiles, p.gather_idx, x, w, y),
+                      tc_mod.plain_fused(p.tiles, p.gather_idx, x, w, y))
+        blk_t = bell_t.blocks.to(dtype)
+        close_dw(bellf_mod.bell_spmm_dw(blk_t, bell_t.col_idx, x, g,
+                                        n_valid=bell_t.n_valid),
+                 bellf_mod.plain_dw(blk_t, bell_t.col_idx, x, g))
+        close_dw(tc_mod.tcgnn_spmm_dw(tc_t.tiles, tc_t.gather_idx, x, g),
+                 tc_mod.plain_dw(tc_t.tiles, tc_t.gather_idx, x, g))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("acc", [False, True])
+def test_cuda_capped_dispatch_matches_cpu(cuda_device, acc):  # noqa: F811
+    """The registry's capped dispatch (kernels, with the spill's torch ops
+    beside them) for bell, bell_fused, tcgnn_tile and tcgnn_tile_fused,
+    plain (``acc``: accumulating) on the card against the CPU in float32,
+    the payloads' dtype: values and the gradients of x, w and y_in."""
+    from repro_torch.kernels.registry import REGISTRY
+    tol, dtype = tp.F32_TOL, torch.float32
+    card = dict(zip(("bell", "tcgnn_tile"), _capped_payloads(cuda_device)))
+    cpu = dict(zip(("bell", "tcgnn_tile"), _capped_payloads(tp.CPU)))
+    gen = torch.Generator().manual_seed(4)
+    n = card["bell"][0].n_rows
+    x0, w0 = torch.randn(n, 16, generator=gen), torch.randn(16, 3,
+                                                            generator=gen)
+    y0, cot = torch.randn(n, 3, generator=gen), torch.randn(n, 3,
+                                                            generator=gen)
+    for key in ("bell", "tcgnn_tile"):
+        spec, fspec = REGISTRY.get(key), REGISTRY.get(key + "_fused")
+        forms = ((lambda p, x, w, y: spec.matvec_acc(p, x @ w, y),
+                  lambda p, x, w, y: fspec.fused_matvec_acc(p, x, w, y))
+                 if acc else
+                 (lambda p, x, w, y: spec.matvec(p, x @ w),
+                  lambda p, x, w, y: fspec.fused_matvec(p, x, w)))
+        for fn in forms:
+            outs = []
+            for p, dev in ((card[key], cuda_device), (cpu[key], tp.CPU)):
+                leaves = [t.detach().to(dev, dtype).requires_grad_()
+                          for t in (x0, w0, y0)]
+                y = fn(p, *leaves)
+                (y.float() * cot.to(dev)).sum().backward()
+                outs.append([y.detach().cpu()] + [
+                    (t.grad if t.grad is not None
+                     else torch.zeros_like(t)).cpu() for t in leaves])
+            for a, b in zip(*outs):
+                torch.testing.assert_close(a.float(), b.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", [("block_diag", "bell"),
+                                  ("block_diag_fused", "tcgnn_tile_fused")])
+@pytest.mark.parametrize("model", ["gcn", "sage"])
+def test_cuda_minibatch_training_matches_cpu(cuda_device, plan, model):  # noqa: F811
+    """Mini-batch training with a fixed plan on the card against the CPU
+    from one parameter set: the same batch stream (plans, hits), cache
+    counters and trace count, losses within atol 5e-3, rtol 1e-2."""
+    import numpy as np
+    from repro_torch.core import gnn
+    from repro_torch.graphs import graph as TG
+    g = TG.synth_dataset("cora", 0.2, seed=0, comm_size=16)
+    cfg = gnn.GNNConfig(model=model, hidden=16, comm_size=16,
+                        sampler="cluster", clusters_per_batch=8,
+                        inter_buckets=2, selector="fixed",
+                        fixed_kernels=plan)
+    params = gnn.init_model(torch.Generator().manual_seed(0), cfg,
+                            g.features.shape[1], g.n_classes, "cpu")
+    card = gnn.train(g, cfg, steps=6, device=cuda_device, params=params)
+    cpu = gnn.train(g, cfg, steps=6, device="cpu", params=params)
+    assert card.plan_history == cpu.plan_history
+    assert card.hit_history == cpu.hit_history and card.cache == cpu.cache
+    assert card.n_traces == len(card.plans) == 1
+    np.testing.assert_allclose(card.losses, cpu.losses, atol=5e-3,
+                               rtol=1e-2)

@@ -150,12 +150,14 @@ def test_select_plan_fixed_matches_reference():
 
 
 @pytest.mark.parametrize("cfg", [
-    dict(edge_budget=128), dict(sampler="cluster"), dict(reorder="nope")])
+    dict(sampler="cluster", prefetch_depth=2),
+    dict(sampler="neighbor", checkpoint_dir="ckpt", checkpoint_every=1),
+    dict(reorder="nope")])
 def test_unported_options_raise_naming_the_roadmap(cfg):
-    """Budget-capped payloads (``build_subgraph(edge_budget=)``) and the
-    mini-batch samplers are not ported: NotImplementedError naming the
-    ROADMAP item.  An unknown reorder method is a KeyError, as in the
-    reference."""
+    """The mini-batch path's unported knobs (the asynchronous pipeline,
+    checkpoints) raise NotImplementedError naming the ROADMAP item before
+    any batch is drawn, and never run another path instead.  An unknown
+    reorder method is a KeyError, as in the reference."""
     g = tp.ref_graph()
     if "reorder" in cfg:
         with pytest.raises(KeyError):
@@ -164,14 +166,9 @@ def test_unported_options_raise_naming_the_roadmap(cfg):
             TGNN.prepare(_port_graph(g), TGNN.GNNConfig(comm_size=8, **cfg),
                          device="cpu")
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if "edge_budget" in cfg:
-            t = TD.decompose_skeleton(_port_graph(g), comm_size=8).tiers[1]
-            TD.build_subgraph(t.name, OFFDIAG, 64, 8, t.rows, t.cols,
-                              t.vals, device="cpu", **cfg)
-        else:
-            TGNN.train(_port_graph(g), TGNN.GNNConfig(comm_size=8, **cfg),
-                       steps=1, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP section 1 item"):
+        TGNN.train(_port_graph(g), TGNN.GNNConfig(comm_size=8, **cfg),
+                   steps=1, device="cpu")
 
 
 def test_decomposed_to_moves_every_tensor():
@@ -320,11 +317,25 @@ def test_build_subgraph_identical(tier, kernels):
 
 
 def test_build_subgraph_refuses_an_edge_budget():
-    t = TD.decompose_skeleton(_port_graph(tp.ref_graph()),
-                              comm_size=8).tiers[1]
-    with pytest.raises(NotImplementedError, match="item 6"):
-        TD.build_subgraph(t.name, OFFDIAG, 64, 8, t.rows, t.cols, t.vals,
-                          edge_budget=128, device="cpu")
+    """``build_subgraph(edge_budget=)`` (refused before the mini-batch
+    path was ported) builds the reference's budget-capped payloads: the
+    stats carry the budget, blocked-ELL and tcgnn are the capped triples,
+    byte for byte, at a budget that spills and at one that does not."""
+    g, vals = _gcn_inputs("pubmed", 0.03, 8)
+    t = RD.decompose_skeleton(g, comm_size=8, edge_vals=vals).tiers[1]
+    n_pad = ((g.n + 7) // 8) * 8
+    for budget in (64, 10 ** 6):      # K = 1; K = every block column
+        args = (t.name, OFFDIAG, n_pad, 8, t.rows, t.cols, t.vals, None,
+                budget)
+        ref = RD.build_subgraph(*args)
+        port = TD.build_subgraph(*args, device="cpu")
+        _assert_subgraphs_equal(ref, port)
+        assert port.stats["edge_budget"] == budget
+        for key in ("bell", "tcgnn_tile"):
+            assert len(port.formats[key]) == 3
+            assert port.formats[key][0].budgeted
+        spill = port.formats["bell"][2].nnz
+        assert (spill > 0) == (budget == 64)
 
 
 @pytest.mark.parametrize("method,k", [("bfs", 1), ("louvain", 2)])

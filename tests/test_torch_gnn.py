@@ -184,10 +184,13 @@ def test_package_imports_neither_jax_nor_repro():
         "import sys\n"
         "import repro_torch, repro_torch.weights\n"
         "import repro_torch.core.gnn, repro_torch.kernels.registry\n"
+        "import repro_torch.sampling, repro_torch.obs\n"
+        "import repro_torch.train.gnn_steps\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
-        "assert 'repro_torch.core.gnn' in sys.modules\n")
+        "assert 'repro_torch.core.gnn' in sys.modules\n"
+        "assert 'repro_torch.train.gnn_steps' in sys.modules\n")
     env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)

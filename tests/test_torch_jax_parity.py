@@ -1406,3 +1406,154 @@ def test_jamba_serving_slice_matches_reference(monkeypatch):
         assert out["tokens"].dtype == np.int32
         np.testing.assert_array_equal(out["tokens"],
                                       np.asarray(ref["tokens"]))
+
+
+# --- mini-batch training ----------------------------------------------------------
+
+MB_TOL = dict(atol=1e-4, rtol=1e-5)
+BATCH_FIELDS = ("nodes", "node_mask", "senders", "receivers", "edge_mask",
+                "features", "labels", "target_mask")
+
+
+def _mb_graphs():
+    """cora at scale 0.05 (reference graph, port graph)."""
+    g = tp.ref_graph("cora", 0.05, comm_size=8, max_feat=32)
+    return g, TG.Graph(g.n, g.senders, g.receivers, g.features, g.labels,
+                       g.n_classes, g.name)
+
+
+def _mb_cfgs(**kw):
+    base = dict(model="gcn", hidden=8, n_layers=2, comm_size=8,
+                sampler="cluster", clusters_per_batch=4, inter_buckets=2,
+                selector="cost_model", batch_nodes=16, fanouts=(4, 2),
+                seed=3)
+    base.update(kw)
+    return RGNN.GNNConfig(**base), TGNN.GNNConfig(**base)
+
+
+def test_minibatch_batches_payloads_and_plans_match_reference():
+    """Both samplers' first 8 batches are the reference's byte for byte;
+    each batch's skeleton, budget-capped payloads (bell and tcgnn triples,
+    the spill included) and density signature are too; and the PlanCache
+    commits the reference's plan, with its counters, batch by batch under
+    CPU_HW."""
+    from repro.sampling import PlanCache as RPC
+    from repro.sampling import density_signature as rsig
+    from repro.train import gnn_steps as RS
+    from repro_torch.sampling import PlanCache as TPC
+    from repro_torch.sampling import density_signature as tsig
+    from repro_torch.train import gnn_steps as TS
+    g, pg = _mb_graphs()
+    for sampler, model in (("cluster", "gcn"), ("neighbor", "sage")):
+        rcfg, tcfg = _mb_cfgs(sampler=sampler, model=model)
+        rs, ts = RS.make_sampler(g, rcfg), TS.make_sampler(pg, tcfg)
+        assert (rs.node_budget, rs.edge_budget) == (ts.node_budget,
+                                                    ts.edge_budget)
+        pairs = RGNN.agg_width_pairs(rcfg, g.features.shape[1], g.n_classes)
+        rcache = RPC(pairs, edge_budget=rs.edge_budget)
+        tcache = TPC(pairs, edge_budget=ts.edge_budget, device="cpu")
+        for i in range(8):
+            rb, tb = rs.sample(), ts.sample()
+            for f in BATCH_FIELDS:
+                tp.assert_bytes_equal(getattr(rb, f), getattr(tb, f))
+            assert rb.meta == tb.meta
+            rdec, rinv = RS.prepare_batch(rb, rcfg)
+            tdec, tinv = TS.prepare_batch(tb, tcfg, device=None)
+            tp.assert_bytes_equal(rinv, tinv)
+            assert rsig(rdec) == tsig(tdec)
+            for rsub, psub in zip(rdec.subgraphs, tdec.subgraphs):
+                assert rsub.stats == psub.stats
+                assert set(rsub.formats) == set(psub.formats)
+                for key in ("bell", "tcgnn_tile", "coo", "block_diag"):
+                    if key not in rsub.formats:
+                        continue
+                    rp, pp = rsub.formats[key], psub.formats[key]
+                    rp, pp = ((rp, pp) if isinstance(rp, tuple)
+                              else ((rp,), (pp,)))
+                    assert len(rp) == len(pp)
+                    for rc, pc in zip(rp, pp):
+                        for f in TF.ARRAY_FIELDS[type(pc)]:
+                            tp.assert_bytes_equal(getattr(rc, f),
+                                                  getattr(pc, f))
+            rplan, rhit = rcache.plan_for(rdec)
+            tplan, thit = tcache.plan_for(tdec)
+            assert (tplan.layers, thit) == (rplan.layers, rhit), i
+            assert tcache.stats == rcache.stats, i
+
+
+def test_minibatch_matvecs_match_reference():
+    """coo_transform_matvec and the capped (bell | tcgnn, transpose,
+    spill) triples' matvecs and fused matvecs, each also accumulating,
+    against the reference's (Pallas interpret mode, the spill in XLA):
+    values and the gradients of x, w and y_in, float32 atol 1e-4 /
+    rtol 1e-5."""
+    from repro.kernels import ops as RO
+    from repro.kernels import registry as RR
+    from repro.kernels import tcgnn_tile as RT
+    from repro_torch.kernels import registry as TR
+    from repro_torch.kernels import tcgnn_tile as TT
+    rng = np.random.default_rng(31)
+    for name, n, e, block, budget in (("bell", 128, 700, 8, 96),
+                                      ("tcgnn_tile", 512, 12000, None, 96)):
+        r, c, v = tp.random_edges(n, e, 30, block=block and 8, spread=4)
+        build_r = RR._bell_build if name == "bell" else RT._tcgnn_build
+        build_t = TR._bell_build if name == "bell" else TT._tcgnn_build
+        ref_p = build_r(RF.coo_from_edges(n, n, r, c, v), None, 8,
+                        {"edge_budget": budget})
+        port_p = TF.to_device(build_t(TF.coo_from_edges(n, n, r, c, v), None,
+                                      8, {"edge_budget": budget}), tp.CPU)
+        assert port_p[2].nnz > 0
+        rs, ts = RR.REGISTRY.get(name), TR.REGISTRY.get(name)
+        rf, tf = (RR.REGISTRY.get(name + "_fused"),
+                  TR.REGISTRY.get(name + "_fused"))
+        x, w, h, y_in, cot = (rng.standard_normal(s).astype(np.float32)
+                              for s in ((n, 5), (5, 3), (n, 3), (n, 3),
+                                        (n, 3)))
+        cases = {
+            "mv": (lambda h: rs.matvec(ref_p, h),
+                   lambda h: ts.matvec(port_p, h), (h,)),
+            "mv_acc": (lambda h, y: rs.matvec_acc(ref_p, h, y),
+                       lambda h, y: ts.matvec_acc(port_p, h, y), (h, y_in)),
+            "fmv": (lambda x, w: rf.fused_matvec(ref_p, x, w),
+                    lambda x, w: tf.fused_matvec(port_p, x, w), (x, w)),
+            "fmv_acc": (lambda x, w, y: rf.fused_matvec_acc(ref_p, x, w, y),
+                        lambda x, w, y: tf.fused_matvec_acc(port_p, x, w, y),
+                        (x, w, y_in)),
+            "spill": (lambda x, w: RO.coo_transform_matvec(ref_p[2], x, w),
+                      lambda x, w: ops.coo_transform_matvec(port_p[2], x, w),
+                      (x, w)),
+        }
+        for what, (rfn, pfn, args) in cases.items():
+            ref_y, ref_g = _grads_ref(rfn, [jnp.asarray(a) for a in args],
+                                      cot)
+            port_y, port_g = _grads_port(
+                pfn, [torch.from_numpy(a) for a in args], cot)
+            tp.assert_close(ref_y, port_y, **MB_TOL)
+            for rg, pg in zip(ref_g, port_g):
+                tp.assert_close(rg, pg, **MB_TOL)
+
+
+def test_minibatch_curves_match_reference_from_its_params():
+    """train_minibatch from the reference's own initial parameters (cora
+    at scale 0.05, 5 steps): GCN, GIN and SAGE on the cluster sampler and
+    GCN on the neighbor sampler give the reference's plans, hit history,
+    cache counters and trace count, and its loss curve (atol 5e-3, rtol
+    1e-2, tests/test_fused.py's curve tolerance)."""
+    from repro.train import gnn_steps as RS
+    g, pg = _mb_graphs()
+    for model, sampler in (("gcn", "cluster"), ("gin", "cluster"),
+                           ("sage", "cluster"), ("gcn", "neighbor")):
+        rcfg, tcfg = _mb_cfgs(model=model, sampler=sampler)
+        ref = RS.train_minibatch(g, rcfg, steps=5, eval_batches=1)
+        params = RGNN.init_model(jax.random.PRNGKey(rcfg.seed), rcfg,
+                                 g.features.shape[1], g.n_classes)
+        params_np = [{k: np.asarray(a) for k, a in p.items()}
+                     for p in params]
+        port = TGNN.train(pg, tcfg, steps=5, device="cpu",
+                          params=from_jax_params(params_np, device="cpu"))
+        assert port.plans == ref.plans, model
+        assert port.hit_history == ref.hit_history
+        assert port.cache == ref.cache
+        assert port.n_traces == ref.n_traces == len(port.plans)
+        np.testing.assert_allclose(port.losses, ref.losses, atol=5e-3,
+                                   rtol=1e-2)

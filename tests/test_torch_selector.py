@@ -192,10 +192,11 @@ def test_epilogues_and_aggregate_sub():
     assert TE.epilogue_cost(TE.EpilogueSpec("linear"), 10, 5, 4,
                             hw=TSEL.CPU_HW) == 0.0
     assert TE.layer_epilogues("gat", [5, 4, 3], 4) == (None, None)
-    # budget-capped blocked-ELL (mini-batch payloads) is not ported
+    # budget-capped blocked-ELL (the mini-batch payload): the triple
     coo = TF.coo_from_edges(16, 16, [0], [9], [1.0])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TR._bell_build(coo, coo, 8, {"edge_budget": 64})
+    bell, bell_t, spill = TR._bell_build(coo, None, 8, {"edge_budget": 64})
+    assert bell.budgeted and bell_t.budgeted and spill.nnz == 0
+    assert int(bell.n_valid.sum()) == int(bell_t.n_valid.sum()) == 1
     for mod, hw in ((TE, TSEL.CPU_HW), (REP, RSEL.CPU_HW)):
         with pytest.raises(ValueError, match="unknown epilogue kind"):
             mod.epilogue_cost(mod.EpilogueSpec("nope"), 10, 5, 4, hw=hw)

@@ -84,9 +84,24 @@ def test_tcgnn_payload_byte_identical(B, e):
 
 
 def test_tcgnn_budget_capped_build_is_not_ported_yet():
-    coo = TF.coo_from_edges(16, 16, [0], [1], [1.0])
-    with pytest.raises(NotImplementedError, match="ROADMAP slice C"):
-        TT._tcgnn_build(coo, coo, 8, {"edge_budget": 64})
+    """The budget-capped build (once refused, now ported): with an edge
+    budget the payload is the reference's triple ``(tc, tc_t, spill)``,
+    C the lane-rounded cap, byte for byte at a spilling budget too."""
+    n, B = 512, 8
+    r, c, v = tp.random_edges(n, 16000, 5)     # ~250 columns a block row
+    for budget in (100000, 1024):               # C = 512 (no cap), 128
+        stats = {"edge_budget": budget}
+        ref = RT._tcgnn_build(RF.coo_from_edges(n, n, r, c, v), None, B,
+                              stats)
+        port = TT._tcgnn_build(TF.coo_from_edges(n, n, r, c, v), None, B,
+                               stats)
+        assert len(port) == 3 and port[0].budgeted and port[1].budgeted
+        assert port[0].n_cond == TT.tcgnn_budget_c(budget, n, B)
+        for rp, pp in zip(ref[:2], port[:2]):
+            _assert_payload_equal(rp, pp)
+        for f in ("rows", "cols", "vals"):
+            tp.assert_bytes_equal(getattr(ref[2], f), getattr(port[2], f))
+        assert (port[2].nnz > 0) == (budget == 1024)
 
 
 def _payloads(n=48, e=150, seed=0, B=8, dtype=torch.float64):

@@ -294,12 +294,16 @@ def test_train_leaves_carried_params_untouched_and_learns():
 @pytest.mark.parametrize("field,value", [("sampler", "cluster"),
                                          ("sampler", "neighbor")])
 def test_train_raises_for_unported_options(field, value):
-    """The mini-batch samplers are not ported: NotImplementedError naming
-    the ROADMAP item."""
+    """Both samplers train now; their unported knobs (retries, resume)
+    raise NotImplementedError naming the ROADMAP item, never running
+    another path instead."""
     cfg = dataclasses.replace(TGNN.GNNConfig(hidden=8, comm_size=8),
                               **{field: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TGNN.train(_graph(), cfg, steps=1, device="cpu")
+    for knob in (dict(retry_max=2), dict(resume_from="ckpt")):
+        with pytest.raises(NotImplementedError, match="ROADMAP section 1 "
+                                                      "item 7"):
+            TGNN.train(_graph(), dataclasses.replace(cfg, **knob), steps=1,
+                       device="cpu")
 
 
 # --- GIN ---------------------------------------------------------------------
