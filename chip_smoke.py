@@ -164,6 +164,18 @@ Phases, each of which raises (exit code != 0) on failure:
    for both) with identical losses, plans and hits.  Per run: step ms and
    each prepare stage's ms (host clock), the device-busy us of its first
    batch's step (kernel events checked), hit rate, spill fractions, plans;
+7a'''. [pipeline]: the same runs through the asynchronous batch pipeline
+   (prefetch_depth=3, pipeline_workers=2: GCN, GIN and SAGE at 256
+   clusters and GCN on the neighbor sampler), each against its
+   [minibatch] run (the same batches, plans, hits, cache counters,
+   n_traces and launches, losses within atol 5e-3, rtol 1e-2) and, both
+   again under deterministic algorithms, losses bit for bit; the GCN run
+   crashed at batch 20 with a checkpoint every 5 batches, sync and async,
+   and resumed: the uninterrupted run exactly, no worker thread left; one
+   async run probing every 2nd miss on the workers.  Per model: sync and
+   async step and iteration ms, efficiency_pct, the pipeline's waits and
+   ready mean, the device-busy us of a step over a staged batch, and the
+   checkpoint write seconds;
 7b. LM serving, InternLM2-1.8B (24 layers, d_model 2048, 16/8 heads of
    128, d_ff 8192, vocab 92544): flash_attention against its plain
    version is in phase 2 (the reference test's shapes, InternLM2's
@@ -464,6 +476,23 @@ MB_FIXED = {"mb_fixed_unfused": ("gcn", ("block_diag", "bell")),
             "mb_fixed_tcgnn_unfused": ("gcn", ("block_diag", "tcgnn_tile")),
             "mb_fixed_sage_bell_fused": ("sage", ("block_diag_fused",
                                                   "bell_fused"))}
+
+
+# [pipeline]: the asynchronous side of each timed pair (the [minibatch]
+# run of the same name is the synchronous side), the crash-resume run
+# (a sampler build that raises at PIPE_CRASH_AT, a checkpoint every
+# PIPE_CKPT_EVERY batches) and the probing async run
+PIPE_ASYNC = dict(prefetch_depth=3, pipeline_workers=2)
+PIPE_RUNS = ("mb_gcn_c256", "mb_gin_c256", "mb_sage_c256", "mb_gcn_neighbor")
+PIPE_CRASH_AT = 20
+PIPE_CKPT_EVERY = 5
+# what bounds the overlap: one worker (no worker-against-worker contention
+# for the interpreter lock) and a 0.5 ms switch interval (Python's default
+# is 5 ms), each on these runs, timed only
+PIPE_PROBES = {"workers_1": dict(pipeline_workers=1),
+               "switch_0.5ms": dict()}
+PIPE_PROBE_RUNS = ("mb_gcn_c256", "mb_gcn_neighbor")
+PIPE_SWITCH_S = 0.0005
 
 
 def plan_launches(layers, steps: int, model: str = "gcn",
@@ -2672,10 +2701,13 @@ def mb_launches(res, model: str, probe_events=(), probe_iters: int = 2
     return out, first
 
 
-def mb_step_closure(torch, graph, cfg, res):
+def mb_step_closure(torch, graph, cfg, res, staged: bool = False):
     """One training step of the run's first batch under its committed plan
     (fresh sampler of the same seed, the run's final params), for the
-    profiler: ``fn()`` runs the step; the step's launches are the plan's."""
+    profiler: ``fn()`` runs the step; the step's launches are the plan's.
+    ``staged`` copies the batch as the pipeline's workers do (pinned host
+    buffers, a stream of the stager's own, handed over to the consumer's
+    stream)."""
     from repro_torch.core import gnn
     from repro_torch.core.plan import KernelPlan
     from repro_torch.sampling import plan_payload_keys
@@ -2689,8 +2721,14 @@ def mb_step_closure(torch, graph, cfg, res):
     dec = skel.materialize(plan_payload_keys(plan), device=None)
     pad = sampler.edge_budget + (sampler.node_budget
                                  if cfg.model == "gcn" else 0)
-    args = gnn_steps.step_args(batch, dec, inv, plan, pad,
-                               torch.device("cuda"))
+    dev = torch.device("cuda")
+    if staged:
+        args, ready, tensors = gnn_steps._Stager(dev).stage(
+            lambda copy: gnn_steps.step_args(batch, dec, inv, plan, pad, dev,
+                                             copy=copy))
+        gnn_steps._Stager.hand_over(ready, tensors)
+    else:
+        args = gnn_steps.step_args(batch, dec, inv, plan, pad, dev)
     step = gnn_steps.make_sampled_step(cfg, plan, dict(traces=0))
     params = res.params
     opt = gnn._adam_init(params)
@@ -3046,6 +3084,236 @@ def phase_minibatch(torch, graph, counts: dict, errs: dict) -> dict:
         f"{time.perf_counter() - t_phase:.1f} s")
     return dict(runs=runs, info=info, fixed=fixed, launches=launches,
                 used=used, per_step=per_step, n_cases=n_cases)
+
+
+class PipelineCrash(RuntimeError):
+    """The [pipeline] phase's deliberate crash of a training run."""
+
+
+def same_runs(a, b, what: str, exact: bool) -> None:
+    """Raise unless two mini-batch runs have the same batch stream: plans
+    (per batch and per eval batch), hits, cache counters and n_traces, and
+    their losses bit for bit (``exact``) or within CURVE_TOL."""
+    import numpy as np
+    for k in ("plan_history", "eval_plans", "hit_history", "plans", "cache",
+              "n_traces"):
+        if getattr(a, k) != getattr(b, k):
+            raise RuntimeError(f"{what}: {k} differ: {getattr(a, k)} / "
+                               f"{getattr(b, k)}")
+    if exact and a.losses != b.losses:
+        raise RuntimeError(f"{what}: losses differ: {a.losses} / {b.losses}")
+    np.testing.assert_allclose(a.losses, b.losses, **CURVE_TOL)
+
+
+def phase_pipeline(torch, graph, counts: dict, mb: dict) -> dict:
+    """[pipeline]: gnn.train(graph, GNNConfig(sampler=..., prefetch_depth=3,
+    pipeline_workers=2)) for each of PIPE_RUNS (MB_STEPS steps; GCN, GIN
+    and SAGE at MB_CLUSTERS[1] clusters and GCN on the neighbor sampler,
+    feedback), the launch counts set to 0 just before and read just after
+    each run: each async run against the [minibatch] run of its name (the
+    same batch stream, cache counters, n_traces and launches, losses within
+    CURVE_TOL), then both again under deterministic algorithms (losses bit
+    for bit, the same launches).  Checkpoint/resume: the GCN run at
+    MB_CLUSTERS[1] clusters with a checkpoint every PIPE_CKPT_EVERY batches,
+    crashed by its sampler's build of batch PIPE_CRASH_AT, sync and async,
+    then resumed from its directory, deterministic throughout: the
+    uninterrupted run's losses, plans, hits and cache counters exactly,
+    resumed_at == PIPE_CRASH_AT, and no pipeline-* or ckpt-writer thread
+    alive after the crash.  One async run probes every 2nd miss on the
+    workers (launches held to its plans and probes).  Prints per model the
+    sync and async step and iteration ms (host clock), the pipeline's
+    efficiency_pct, waits and ready mean, the device-busy us of one step
+    over a staged batch, and the checkpoint write seconds."""
+    import dataclasses
+    import tempfile
+    import threading
+    from repro_torch.core import gnn
+    from repro_torch.train import gnn_steps
+    t_phase = time.perf_counter()
+    used, per_step, info = {}, {}, {}
+
+    def run(name, cfg, det: bool = False):
+        for cnt in counts.values():
+            cnt.reset()
+        if det:
+            torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            res = gnn.train(graph, cfg, steps=MB_STEPS, device="cuda")
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+            used[name] = {k: cnt.value for k, cnt in counts.items()}
+        return res
+
+    det_ref = None
+    for name in PIPE_RUNS:
+        changes = MB_RUNS[name]
+        cfg = mb_cfg(**changes, **PIPE_ASYNC)
+        sync = mb["runs"][name]
+        asyn = run(f"{name}_async", cfg)
+        want, per_step[f"{name}_async"] = mb_launches(asyn, cfg.model)
+        if used[f"{name}_async"] != want or want != mb["used"][name]:
+            raise RuntimeError(f"{name} async: launches "
+                               f"{used[f'{name}_async']}, its plans imply "
+                               f"{want}, the sync run's {mb['used'][name]}")
+        same_runs(asyn, sync, f"{name} async vs sync", exact=False)
+        dsync = run(f"{name}_det_sync", mb_cfg(**changes), det=True)
+        dasyn = run(f"{name}_det_async", cfg, det=True)
+        same_runs(dasyn, dsync, f"{name} async vs sync, deterministic",
+                  exact=True)
+        if used[f"{name}_det_async"] != used[f"{name}_det_sync"]:
+            raise RuntimeError(f"{name}: deterministic launches differ: "
+                               f"{used[f'{name}_det_async']} / "
+                               f"{used[f'{name}_det_sync']}")
+        if name == "mb_gcn_c256":
+            det_ref = dsync
+        p = asyn.pipeline
+        busy = profile_busy(
+            torch, mb_step_closure(torch, graph, cfg, asyn, staged=True), 5,
+            asyn.step_seconds * 1e3, f"{name} async step",
+            expect=device_events(per_step[f"{name}_async"]))
+        info[name] = dict(
+            sync_step_ms=sync.step_seconds * 1e3,
+            sync_iter_ms=sync.iter_seconds * 1e3,
+            sync_step_share_pct=100 * sync.step_seconds
+            / max(sync.iter_seconds, 1e-12),
+            async_step_ms=asyn.step_seconds * 1e3,
+            async_iter_ms=asyn.iter_seconds * 1e3,
+            efficiency_pct=p["efficiency_pct"],
+            wait_full_s=p["wait_full_s"], wait_empty_s=p["wait_empty_s"],
+            ready_mean=p["ready_mean"], loop_s=p["loop_seconds"],
+            async_stage_ms={k: round(v * 1e3, 3)
+                            for k, v in asyn.stage_seconds.items()},
+            busy_us=busy and busy["busy_us"],
+            max_loss_diff=float(max(abs(a - b) for a, b in
+                                    zip(asyn.losses, sync.losses))))
+        i = info[name]
+        log("pipeline", f"{name} {changes} {PIPE_ASYNC}: the sync run's "
+            f"batches, plans, hits, cache, n_traces ({asyn.n_traces}) and "
+            f"launches; max|loss diff| {i['max_loss_diff']:.3g}, "
+            f"deterministic bit for bit; sync step {i['sync_step_ms']:.3f} "
+            f"ms, iteration {i['sync_iter_ms']:.3f} ms (step "
+            f"{i['sync_step_share_pct']:.1f} %); async step "
+            f"{i['async_step_ms']:.3f} ms, iteration {i['async_iter_ms']:.3f}"
+            f" ms, efficiency_pct {p['efficiency_pct']:.1f}, wait_full_s "
+            f"{p['wait_full_s']:.4f}, wait_empty_s {p['wait_empty_s']:.4f}, "
+            f"ready_mean {p['ready_mean']:.2f}, loop {p['loop_seconds']:.3f}"
+            f" s (host clock); stage ms on the workers "
+            f"{i['async_stage_ms']}; device busy {i['busy_us']} us a step "
+            f"over a staged batch")
+
+    # what bounds the overlap: the interpreter lock's contention
+    for name in PIPE_PROBE_RUNS:
+        for probe, extra in PIPE_PROBES.items():
+            cfg = mb_cfg(**MB_RUNS[name], **dict(PIPE_ASYNC, **extra))
+            old_switch = sys.getswitchinterval()
+            if probe.startswith("switch"):
+                sys.setswitchinterval(PIPE_SWITCH_S)
+            try:
+                res = run(f"{name}_{probe}", cfg)
+            finally:
+                sys.setswitchinterval(old_switch)
+            if used[f"{name}_{probe}"] != mb["used"][name]:
+                raise RuntimeError(f"{name} {probe}: launches differ")
+            same_runs(res, mb["runs"][name], f"{name} {probe}", exact=False)
+            info[name][probe] = dict(
+                step_ms=res.step_seconds * 1e3,
+                iter_ms=res.iter_seconds * 1e3,
+                efficiency_pct=res.pipeline["efficiency_pct"],
+                stage_ms={k: round(v * 1e3, 3)
+                          for k, v in res.stage_seconds.items()})
+            log("pipeline", f"{name} async, {probe} {extra or PIPE_SWITCH_S}:"
+                f" the sync run's batch stream; step "
+                f"{res.step_seconds * 1e3:.3f} ms, iteration "
+                f"{res.iter_seconds * 1e3:.3f} ms, efficiency_pct "
+                f"{res.pipeline['efficiency_pct']:.1f}, stage ms on the "
+                f"workers {info[name][probe]['stage_ms']}")
+
+    # crash at batch PIPE_CRASH_AT, then resume from the checkpoints
+    real_make = gnn_steps.make_sampler
+
+    def crashing_sampler(graph_, cfg_):
+        sampler = real_make(graph_, cfg_)
+        build = sampler.build
+
+        def crash_build(ticket):
+            if ticket.index == PIPE_CRASH_AT:
+                raise PipelineCrash(f"crash at batch {PIPE_CRASH_AT}")
+            return build(ticket)
+
+        sampler.build = crash_build
+        return sampler
+
+    resume = {}
+    for side, extra in (("sync", {}), ("async", PIPE_ASYNC)):
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+            cfg = mb_cfg(**MB_RUNS["mb_gcn_c256"], **extra, checkpoint_dir=d,
+                         checkpoint_every=PIPE_CKPT_EVERY)
+            gnn_steps.make_sampler = crashing_sampler
+            try:
+                run(f"crash_{side}", cfg, det=True)
+            except PipelineCrash:
+                pass
+            else:
+                raise RuntimeError(f"{side}: the crash hook did not fire")
+            finally:
+                gnn_steps.make_sampler = real_make
+            alive = [t.name for t in threading.enumerate()
+                     if t.name.startswith(("pipeline-", "ckpt-writer"))]
+            if alive:
+                raise RuntimeError(f"{side}: threads alive after the crash: "
+                                   f"{alive}")
+            res = run(f"resumed_{side}",
+                      dataclasses.replace(cfg, resume_from=d), det=True)
+        # the last checkpoint the crashed run committed
+        if res.faults["resumed_at"] != (PIPE_CRASH_AT // PIPE_CKPT_EVERY
+                                        * PIPE_CKPT_EVERY):
+            raise RuntimeError(f"{side}: resumed at "
+                               f"{res.faults['resumed_at']}")
+        for k in ("losses", "plan_history", "hit_history", "plans", "cache",
+                  "eval_plans"):
+            if getattr(res, k) != getattr(det_ref, k):
+                raise RuntimeError(f"resumed {side} run: {k} differ from the "
+                                   f"uninterrupted run's")
+        write = res.telemetry["metrics"]["checkpoint.write_s"]
+        resume[side] = dict(checkpoints=res.faults["checkpoints"],
+                            write_s=write)
+        log("pipeline", f"crash at batch {PIPE_CRASH_AT} ({side}, checkpoint"
+            f" every {PIPE_CKPT_EVERY}), resumed at "
+            f"{res.faults['resumed_at']}: the uninterrupted run's losses, "
+            f"plans, hits and cache exactly; no worker thread left; "
+            f"checkpoint write s {write} ({res.faults['checkpoints']} "
+            f"saves after the resume)")
+
+    # probing on the workers (the [minibatch] probing run's config, whose
+    # misses probe)
+    cfg = mb_cfg(**MB_RUNS["mb_gcn_probe2"], **PIPE_ASYNC)
+    res = run("probe2_async", cfg)
+    probes = [e for e in res.plan_cache.tele.audit.events()
+              if e["event"] == "probe"]
+    if not probes:
+        raise RuntimeError("probe2 async: no candidate was probed")
+    want, per_step["probe2_async"] = mb_launches(
+        res, cfg.model, probes, res.plan_cache.probe_iters)
+    if used["probe2_async"] != want:
+        raise RuntimeError(f"probe2 async: launches {used['probe2_async']}, "
+                           f"expected {want}")
+    if res.n_traces != len(res.plans):
+        raise RuntimeError(f"probe2 async: n_traces {res.n_traces}")
+    info["probe2_async"] = dict(plans=res.plans, probes=len(probes),
+                                cache=res.cache,
+                                efficiency_pct=res.pipeline["efficiency_pct"],
+                                step_ms=res.step_seconds * 1e3,
+                                iter_ms=res.iter_seconds * 1e3)
+    log("pipeline", f"probe every 2nd miss on the workers at "
+        f"{cfg.clusters_per_batch} clusters: {len(probes)} probe events, "
+        f"cache {res.cache}, plans "
+        f"{res.plans}, launches as the plans and probes imply; step "
+        f"{info['probe2_async']['step_ms']:.3f} ms, iteration "
+        f"{info['probe2_async']['iter_ms']:.3f} ms, efficiency_pct "
+        f"{res.pipeline['efficiency_pct']:.1f}")
+    log("pipeline", f"phase {time.perf_counter() - t_phase:.1f} s")
+    return dict(used=used, per_step=per_step, info=info, resume=resume)
 
 
 def time_dual_kernel(torch, sdec, flush) -> dict:
@@ -4651,6 +4919,8 @@ def main() -> int:
                         trained["results"])
     # 7a''. mini-batch training: samplers, PlanCache, capped payloads ------
     mb = phase_minibatch(torch, graph, counts, errs)
+    # 7a'''. the asynchronous pipeline and checkpoint/resume -------
+    pipe = phase_pipeline(torch, graph, counts, mb)
     # 7b. LM serving: InternLM2-1.8B at full width ----------------------------
     lm2 = phase_lm_two_layer(torch, counts)
     lm32 = phase_lm_f32(torch, counts)
@@ -4678,6 +4948,7 @@ def main() -> int:
                "mean_max": mm["launches"],
                "gcn_k4_train": tune["launches"],
                **{f"minibatch_{n}": u for n, u in mb["used"].items()},
+               **{f"pipeline_{n}": u for n, u in pipe["used"].items()},
                "lm_prefill_step_2_layers_f32": lm2["launches"],
                "lm_prefill_step_f32": lm32["launches"],
                "lm_softmax_prefill_decode_f32": lm32["other_launches"],
@@ -4894,6 +5165,8 @@ def main() -> int:
                     **{n: per_step[n] for n in tune["plans"]},
                     gat=per_step["gat"],
                     **{f"minibatch_{n}": t for n, t in mb["per_step"].items()},
+                    **{f"pipeline_{n}": t
+                       for n, t in pipe["per_step"].items()},
                     lm_prefill_step=lms["launches"],
                     serve_lm=lms["serve_launches"],
                     rwkv_prefill_step=rws["launches"],
@@ -4936,7 +5209,8 @@ def main() -> int:
         f"{mm['errs']}; autotune totals {tune['totals']}, committed k = "
         f"{tune['k_best']}, k = {AUTOTUNE_K} nnz {tune['nnz']}, per step "
         f"{tune['per_step']}; minibatch {mb['info']}, fixed card vs CPU "
-        f"{mb['fixed']}; train losses "
+        f"{mb['fixed']}; pipeline {pipe['info']}, resume {pipe['resume']}; "
+        f"train losses "
         + json.dumps(dict({n: r.losses for n, r in
                            trained["results"].items()},
                           feedback=fb["result"].losses,

@@ -177,16 +177,20 @@ class Decomposed:
                 return s
         raise KeyError(name)
 
-    def to(self, device: str | torch.device) -> "Decomposed":
-        """The same decomposition with every tensor on ``device``."""
+    def to(self, device: str | torch.device, copy=None) -> "Decomposed":
+        """The same decomposition with every tensor on ``device``, copied
+        by ``copy(host_array) -> tensor`` where given (the mini-batch
+        pipeline's staging copy)."""
         dev = resolve_device(device)
+        if copy is None:
+            copy = lambda a: torch.as_tensor(a).to(dev)  # noqa: E731
         subs = tuple(dataclasses.replace(
-            s, formats={k: formats.to_device(p, dev)
+            s, formats={k: formats.to_device(p, dev, copy)
                         for k, p in s.formats.items()})
             for s in self.subgraphs)
         return dataclasses.replace(
-            self, perm=torch.as_tensor(self.perm).to(dev),
-            inv_perm=torch.as_tensor(self.inv_perm).to(dev), subgraphs=subs)
+            self, perm=copy(self.perm), inv_perm=copy(self.inv_perm),
+            subgraphs=subs)
 
 
 def _tier_stats(kind: str, n_pad: int, block_size: int, rows: np.ndarray,

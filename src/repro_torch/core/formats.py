@@ -134,15 +134,17 @@ ARRAY_FIELDS = {
 }
 
 
-def to_device(payload, device: torch.device):
+def to_device(payload, device: torch.device, copy=None):
     """Place a format container (or a tuple of them) on ``device``; every
-    array field becomes a tensor of the same dtype there."""
+    array field becomes a tensor of the same dtype there, through
+    ``copy(host_array) -> tensor`` where given."""
     if isinstance(payload, tuple):
-        return tuple(to_device(p, device) for p in payload)
+        return tuple(to_device(p, device, copy) for p in payload)
+    if copy is None:
+        copy = lambda a: torch.as_tensor(a).to(device)  # noqa: E731
     fields = ARRAY_FIELDS[type(payload)]
     return dataclasses.replace(payload, **{
-        f: torch.as_tensor(_np(getattr(payload, f))).to(device)
-        for f in fields})
+        f: copy(_np(getattr(payload, f))) for f in fields})
 
 
 def format_stats(fmt) -> dict:

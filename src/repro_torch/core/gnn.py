@@ -39,8 +39,7 @@ class GNNConfig:
     """The fields of the reference's GNNConfig that the port reads, with
     the reference's defaults (``selector`` is ``feedback``).  The
     mini-batch fields are read by ``train/gnn_steps.py``;
-    ``prefetch_depth > 0``, ``checkpoint_dir``/``checkpoint_every``,
-    ``resume_from`` and ``retry_max > 0`` raise there (not ported)."""
+    ``retry_max > 0`` raises there (retries are not ported)."""
     model: str = "gcn"            # gcn | gin | gat | sage
     hidden: int = 16
     n_layers: int = 2
@@ -68,14 +67,18 @@ class GNNConfig:
     # slack factor along a ladder (each step changes payload shapes)
     adapt_budget_k: bool = False
     skeleton_cache_entries: int = 64   # cluster-tuple skeleton LRU (0 = off)
-    prefetch_depth: int = 0       # async pipeline: not ported (must be 0)
+    # async pipeline (train/pipeline.py): batches prepared on
+    # pipeline_workers threads up to prefetch_depth ahead (0 = sync loop)
+    prefetch_depth: int = 0
     pipeline_workers: int = 2
     max_ladder_recompiles: int = 4     # cap on slack-ladder steps per run
-    # fault tolerance: not ported (must stay off)
+    # crash-safe checkpoints every checkpoint_every batches (the newest
+    # checkpoint_keep kept), and resume from a checkpoint directory
     checkpoint_dir: str = ""
     checkpoint_every: int = 0
     checkpoint_keep: int = 3
     resume_from: str = ""
+    # retries: not ported (retry_max must stay 0)
     retry_max: int = 0
     retry_base_delay_s: float = 0.05
     # non-finite guard: a batch whose loss or any gradient is NaN/Inf

@@ -24,10 +24,11 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("block_diag_spmm", "bell_spmm", "bell_spmm_fused", "bell_spmm_dw",
-           "tcgnn_spmm", "tcgnn_spmm_fused", "tcgnn_spmm_dw",
-           "block_diag_spmm_dual", "flash_attention", "rwkv6_chunked",
-           "mamba_scan")
+# the aggregation kernels' sources: every kernel a GNN plan can launch
+GNN_SOURCES = ("block_diag_spmm", "bell_spmm", "bell_spmm_fused",
+               "bell_spmm_dw", "tcgnn_spmm", "tcgnn_spmm_fused",
+               "tcgnn_spmm_dw", "block_diag_spmm_dual")
+SOURCES = GNN_SOURCES + ("flash_attention", "rwkv6_chunked", "mamba_scan")
 HEADERS = ("cp_async.cuh", "dtype.cuh", "dw_reduce.cuh", "mma_tf32.cuh",
            "tcgnn_real.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -1,35 +1,58 @@
 """Mini-batch GNN training: sampled subgraphs through the AdaptGear stack.
 
-Counterpart of ``repro/train/gnn_steps.py``, its synchronous path.  Per
-step (host side): sample a fixed-shape :class:`SampledBatch`, partition it
-once into a decomposition skeleton, look its quantized density signature
-up in the :class:`PlanCache` (cost-model selection on a miss), materialize
-only the committed plan's payloads, pad them to the edge budget and copy
-them to the device, then run the step.  The step function is one per
-committed :class:`KernelPlan`; it records the shapes and dtypes of the
-first batch it sees (every payload tensor, the features, labels and
-masks) and checks every later batch against that record, so a batch that
-would retrace the reference's jitted step raises here instead
-(``n_traces`` counts the records, as the reference counts traces).
+Counterpart of ``repro/train/gnn_steps.py``.  Per step (host side):
+sample a fixed-shape :class:`SampledBatch`, partition it once into a
+decomposition skeleton, look its quantized density signature up in the
+:class:`PlanCache` (cost-model selection on a miss), materialize only the
+committed plan's payloads, pad them to the edge budget and copy them to
+the device, then run the step.  The step function is one per committed
+:class:`KernelPlan`; it records the shapes and dtypes of the first batch
+it sees (every payload tensor, the features, labels and masks) and checks
+every later batch against that record, so a batch that would retrace the
+reference's jitted step raises here instead (``n_traces`` counts the
+records, as the reference counts traces).
 
 The loop mirrors :func:`repro_torch.core.gnn.train` (same models, same
 hand-written Adam, the same masked cross-entropy, here masked to the
-batch's target nodes) over ``steps`` sampled batches.  With
-``cfg.nonfinite_guard`` a batch whose loss or any gradient is NaN or Inf
-leaves params and the whole Adam state (``t`` included) as they were, and
-is counted (``faults["nonfinite_skips"]``).
+batch's target nodes) over ``steps`` sampled batches.
 
-Not ported yet, and refused with ``NotImplementedError`` naming their
-ROADMAP item: the asynchronous pipeline (``prefetch_depth > 0``),
-checkpoint/resume, retries, and kernel quarantine on a failure (the
-PlanCache keeps its quarantine bookkeeping as data).
+``cfg.prefetch_depth > 0`` runs the host prepare on the asynchronous
+pipeline (``train/pipeline.py``): ``cfg.pipeline_workers`` threads build,
+resolve (in batch order) and finish batches up to ``prefetch_depth``
+ahead, staging each batch's copy to the card on a stream of their own,
+and the loop becomes a consumer of ready batches.  Batches, plans, cache
+counters, ``n_traces`` and losses are the synchronous loop's, bit for
+bit where the device's arithmetic is deterministic.
+
+Fault tolerance, as in the reference:
+
+* **crash-safe checkpoint/resume**: every ``cfg.checkpoint_every``
+  consumed batches the loop saves params and Adam state
+  (``distributed/checkpoint.py``) with an aux payload: the batch cursor,
+  the PlanCache state, the plans and their canonical signatures in
+  step-function order, and the losses, hits and plans so far.  The cache
+  snapshot is taken in the batch-ordered resolve stage, so batches the
+  pipeline resolved ahead never leak into it.  Batch i is a pure function
+  of (seed, i), so ``cfg.resume_from`` replays from the cursor to the
+  uninterrupted run's losses, plans and hits.
+* **non-finite guard** (``cfg.nonfinite_guard``): a batch whose loss or
+  any gradient is NaN or Inf leaves params and the whole Adam state
+  (``t`` included) as they were, and is counted
+  (``faults["nonfinite_skips"]``).
+
+Not ported yet, and refused with ``NotImplementedError`` naming ROADMAP
+section 1 item 7: retries (``cfg.retry_max``), fault injection
+(``fault_plan``) and kernel quarantine on a failure (the PlanCache keeps
+its quarantine bookkeeping as data).
 """
 from __future__ import annotations
 
 import logging
+import threading
 import time
+import warnings
 from collections import OrderedDict
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any
 
 import numpy as np
@@ -39,12 +62,15 @@ from repro_torch import DEFAULT_DEVICE, resolve_device
 from repro_torch.core import decompose as dec_mod
 from repro_torch.core import formats, gnn, selector as sel_mod
 from repro_torch.core.plan import KernelPlan
+from repro_torch.distributed import checkpoint as ckpt_mod
 from repro_torch.graphs import graph as graph_mod
+from repro_torch.kernels import _build
 from repro_torch.obs import Telemetry, enable_verbose, get_logger
 from repro_torch.sampling.plan_cache import (MB_KERNELS, PlanCache,
                                              fix_shapes, plan_payload_keys)
 from repro_torch.sampling.sampler import (ClusterSampler, NeighborSampler,
                                           SampledBatch)
+from repro_torch.train.pipeline import BatchPipeline
 
 _log = get_logger("repro_torch.train")
 
@@ -119,16 +145,64 @@ def prepare_batch(batch: SampledBatch, cfg: gnn.GNNConfig,
 
 def step_args(batch: SampledBatch, dec: dec_mod.Decomposed,
               inv_deg: np.ndarray, plan: KernelPlan, edge_budget: int,
-              device: torch.device, stats: tuple | None = None) -> tuple:
+              device: torch.device, stats: tuple | None = None,
+              copy=None) -> tuple:
     """The step's argument tail ``(dec, x, labels, target_mask,
     inv_deg)`` on ``device``: the plan's payloads padded to the edge
-    budget (:func:`fix_shapes`) and copied there, labels as int64."""
+    budget (:func:`fix_shapes`) and copied there, labels as int64.
+    ``copy(host_array) -> tensor`` replaces the plain copy (the
+    pipeline's staging copy, :class:`_Stager`)."""
+    if copy is None:
+        copy = lambda a: torch.as_tensor(a).to(device)  # noqa: E731
     fixed = fix_shapes(dec, edge_budget, keep=plan_payload_keys(plan),
-                       stats=stats).to(device)
-    as_dev = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
-    return (fixed, as_dev(batch.features),
-            as_dev(batch.labels.astype(np.int64)),
-            as_dev(batch.target_mask), as_dev(inv_deg))
+                       stats=stats).to(device, copy=copy)
+    return (fixed, copy(batch.features),
+            copy(batch.labels.astype(np.int64)),
+            copy(batch.target_mask), copy(inv_deg))
+
+
+class _Stager:
+    """The pipeline workers' copy to the card: each worker thread stages
+    on a CUDA stream of its own, from pinned host buffers, without
+    blocking (a pageable copy on the default stream would queue behind
+    the consumer's step and stall the worker).  :meth:`stage` returns the
+    argument tail, an event recorded after its copies, and the tensors it
+    made; the consumer waits on the event and records its own stream on
+    each tensor (:meth:`hand_over`) before the step reads them."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self._local = threading.local()
+
+    def stage(self, make_args) -> tuple:
+        """``make_args(copy)`` on this thread's stream, ``copy`` being
+        the staging copy: ``(args, event, staged tensors)``."""
+        stream = getattr(self._local, "stream", None)
+        if stream is None:
+            stream = self._local.stream = torch.cuda.Stream(self.device)
+        staged = []
+
+        def copy(a):
+            t = torch.as_tensor(a).pin_memory().to(self.device,
+                                                   non_blocking=True)
+            staged.append(t)
+            return t
+
+        with torch.cuda.stream(stream):
+            args = make_args(copy)
+            ready = torch.cuda.Event()
+            ready.record(stream)
+        return args, ready, staged
+
+    @staticmethod
+    def hand_over(ready, staged) -> None:
+        """On the consumer: order its stream after the staging copies, and
+        keep the caching allocator from reusing a staged tensor's memory
+        on the worker's stream before the consumer's work on it is done."""
+        consumer = torch.cuda.current_stream(staged[0].device)
+        consumer.wait_event(ready)
+        for t in staged:
+            t.record_stream(consumer)
 
 
 def _tensor_shapes(args) -> tuple:
@@ -194,7 +268,10 @@ def make_sampled_step(cfg: gnn.GNNConfig, plan: KernelPlan, counters: dict):
 
     ``dec`` is an argument (its payloads change every batch, its shapes
     do not): the first batch's shapes are recorded and every later batch
-    is checked against them (``counters["traces"]`` counts the records).
+    is checked against them (``counters["traces"]`` counts the records;
+    ``check=False`` skips the check for a caller that made it already
+    through ``step.record``, as the training loop does in its finish
+    stage).
     The step never writes into the params or moments it is given.  With
     ``cfg.nonfinite_guard`` the update is skipped when the loss or any
     gradient is not finite: the params and the whole Adam state (``t``
@@ -204,8 +281,10 @@ def make_sampled_step(cfg: gnn.GNNConfig, plan: KernelPlan, counters: dict):
     record = _ShapeRecord(plan, counters)
     guard = cfg.nonfinite_guard
 
-    def step(params, opt, dec, x, labels, target_mask, inv_deg):
-        record.check((dec, x, labels, target_mask, inv_deg))
+    def step(params, opt, dec, x, labels, target_mask, inv_deg, *,
+             check: bool = True):
+        if check:
+            record.check((dec, x, labels, target_mask, inv_deg))
         leaves = [{k: v.detach().requires_grad_() for k, v in layer.items()}
                   for layer in params]
         loss = gnn._loss(leaves, cfg, dec, x, labels, target_mask, plan)
@@ -258,15 +337,29 @@ class MinibatchResult:
     skeleton_hits: int = 0       # batches whose cluster tuple reused a
     skeleton_misses: int = 0     # cached DecomposeSkeleton (ClusterSampler)
     iter_seconds: float = 0.0    # median wall time of one whole iteration
+    #                              (dequeue or prepare, then the step): the
+    #                              overlap metric, async ~ max(step,
+    #                              prepare), sync ~ their sum
+    pipeline: dict | None = None  # BatchPipeline.stats + loop_seconds,
+    #                               efficiency_pct (step time over
+    #                               iteration time, the first iteration
+    #                               left out), retries, quarantined,
+    #                               nonfinite_skips; None on the sync path
     faults: dict | None = None   # retries, quarantined, recoveries,
     #                              nonfinite_skips, checkpoints, resumed_at
+    #                              (-1: a fresh run); on a resumed run the
+    #                              losses, hit_history, plan_history, spill
+    #                              and dropped_edges hold the whole run
+    #                              (restored prefix + new)
     telemetry: dict | None = None  # Telemetry.summary()
     params: Any = None           # trained model params
     # port only: the committed plan layers of each training batch and of
     # each eval batch (what their steps and forwards launched); the median
     # host seconds of each prepare stage: sample, skeleton (partition +
     # stats), lookup (PlanCache, selection on a miss), materialize (the
-    # plan's payloads, padded, on the device); and per capped payload
+    # plan's payloads, padded, on the device), timed on the pipeline's
+    # worker threads under the pipeline (where they race one another and
+    # the consumer for the interpreter lock); and per capped payload
     # key the training batches' [spilled, all] edges of the tiers that
     # dispatched it
     plan_history: list | None = None
@@ -284,11 +377,14 @@ class SkeletonCache:
     cluster combinations without replacement per epoch, so tuples recur
     across epochs; a batch drawn for a tuple is fully determined by it
     unless the edge budget truncated a random subset (never cached).  The
-    adapted bell slack is part of the key."""
+    adapted bell slack is part of the key.  get/put hold a lock, so the
+    pipeline's workers share the memo (two racing one tuple both build,
+    counted as two misses; entries are deterministic per key)."""
 
     def __init__(self, max_entries: int = 64):
         self.max_entries = max_entries
         self._entries: OrderedDict[tuple, tuple] = OrderedDict()
+        self._lock = threading.Lock()
         self.hits = 0
         self.misses = 0
 
@@ -300,48 +396,63 @@ class SkeletonCache:
         return (tuple(clusters), bell_slack)
 
     def get(self, key: tuple):
-        hit = self._entries.get(key)
-        if hit is not None:
-            self.hits += 1
-            self._entries.move_to_end(key)
-        return hit
+        with self._lock:
+            hit = self._entries.get(key)
+            if hit is not None:
+                self.hits += 1
+                self._entries.move_to_end(key)
+            return hit
 
     def put(self, key: tuple, value: tuple) -> None:
-        self.misses += 1
-        self._entries[key] = value
-        while len(self._entries) > self.max_entries:
-            self._entries.popitem(last=False)
+        with self._lock:
+            self.misses += 1
+            self._entries[key] = value
+            while len(self._entries) > self.max_entries:
+                self._entries.popitem(last=False)
 
 
 @dataclass
 class _InFlight:
-    """One batch between the loop's stages: built (skeleton), resolved
-    (plan, hit, canonical signature: every shared-cache decision), then
-    finished (payloads padded and on the device)."""
+    """One batch between the loop's stages: built (skeleton, racing),
+    resolved in batch order (plan, hit, canonical signature: every
+    shared-cache decision), then finished (racing: payloads padded and
+    on the device, :class:`_Prepared`)."""
     batch: SampledBatch
     skel: dec_mod.DecomposeSkeleton
     inv_deg: np.ndarray
+    slack: float | None          # bell slack the skeleton was built with
+    times: dict                  # host seconds of each stage so far
     dec: dec_mod.Decomposed | None = None
     plan: KernelPlan | None = None
     sig: tuple | None = None
     hit: bool = False
 
 
+@dataclass
+class _Prepared:
+    """One batch ready for its step, what the pipeline hands the consumer:
+    the step's argument tail on the device, the batch's stage times and
+    its capped payloads' spill ([spilled, all] edges per key), and, for a
+    batch a worker staged, the event after its copies and the tensors
+    they made (:meth:`_Stager.hand_over`)."""
+    batch: SampledBatch
+    plan: KernelPlan
+    args: tuple
+    hit: bool
+    times: dict
+    spill: dict
+    ready: Any = None
+    staged: list = field(default_factory=list)
+
+
 def _refuse_unported(cfg: gnn.GNNConfig, fault_plan) -> None:
     """The reference's knobs this port does not run yet: each raises,
     naming the ROADMAP item that ports it, and never falls back."""
-    if cfg.prefetch_depth > 0:
-        raise NotImplementedError(
-            "prefetch_depth > 0 (the asynchronous batch pipeline, "
-            "train/pipeline.py) is not ported yet: ROADMAP section 1 item 6")
-    for name, on in (("checkpoint_dir", bool(cfg.checkpoint_dir)),
-                     ("checkpoint_every", cfg.checkpoint_every > 0),
-                     ("resume_from", bool(cfg.resume_from)),
-                     ("retry_max", cfg.retry_max > 0),
+    for name, on in (("retry_max", cfg.retry_max > 0),
                      ("fault_plan", fault_plan is not None)):
         if on:
             raise NotImplementedError(
-                f"{name} (checkpoint/resume, retries and kernel quarantine)"
+                f"{name} (retries, fault injection and kernel quarantine)"
                 " is not ported yet: ROADMAP section 1 item 7")
 
 
@@ -361,7 +472,19 @@ def train_minibatch(graph: graph_mod.Graph, cfg: gnn.GNNConfig,
     (no cache lookup; they must be budget-paddable, e.g. ``("block_diag",
     "bell")``); ``feedback`` and ``cost_model`` both select by the cost
     model of ``device`` through the PlanCache, and ``cfg.probe_every``
-    times the top candidates on every Nth miss and pins the winner.
+    times the top candidates on every Nth miss and pins the winner (on a
+    pipeline worker under the pipeline, as in the reference).
+
+    ``cfg.prefetch_depth > 0`` prepares batches on the asynchronous
+    pipeline (the module docstring): the batch stream, committed plans,
+    cache counters, ``n_traces`` and losses are the synchronous loop's.
+    With ``cfg.adapt_budget_k`` the committed payloads materialize in the
+    ordered stage (the spill feedback that steps the slack ladder must see
+    batches in order), which trades some overlap for determinism.
+    ``cfg.checkpoint_dir`` with ``cfg.checkpoint_every`` saves a
+    checkpoint after every ``checkpoint_every``-th batch, and
+    ``cfg.resume_from`` resumes from the latest valid one (or warns and
+    starts fresh when there is none).
 
     ``params`` are the initial parameters (e.g. the reference's, through
     ``repro_torch.weights.from_jax_params``), copied to ``device`` and
@@ -369,7 +492,7 @@ def train_minibatch(graph: graph_mod.Graph, cfg: gnn.GNNConfig,
     (or ``cfg.telemetry`` / ``trace_out`` / ``telemetry_out``) turns on
     the span tracer and the selector audit; they never feed back into a
     decision, so losses, plans, hit history and ``n_traces`` are the same
-    with them on or off.  ``fault_plan`` and the unported knobs raise
+    with them on or off.  ``fault_plan`` and ``cfg.retry_max`` raise
     (:func:`_refuse_unported`)."""
     if cfg.model not in MINIBATCH_MODELS:
         raise ValueError(f"mini-batch training supports gcn/gin/sage, "
@@ -417,6 +540,10 @@ def train_minibatch(graph: graph_mod.Graph, cfg: gnn.GNNConfig,
                    for k, v in layer.items()} for layer in params]
     opt = gnn._adam_init(params)
 
+    ckpt = (ckpt_mod.CheckpointManager(cfg.checkpoint_dir,
+                                       keep=cfg.checkpoint_keep,
+                                       telemetry=tele)
+            if cfg.checkpoint_dir and cfg.checkpoint_every > 0 else None)
     fault = {k: tele.metrics.counter(f"faults.{k}")
              for k in ("retries", "quarantined", "recoveries",
                        "nonfinite_skips", "checkpoints")}
@@ -428,12 +555,21 @@ def train_minibatch(graph: graph_mod.Graph, cfg: gnn.GNNConfig,
     sig_of_layers: dict[tuple, tuple] = {}
     counters = dict(traces=0)
     step_fns: dict[tuple, Any] = {}     # plan.layers -> step, first-use order
+    # plan.layers -> its KernelPlan at first use: checkpoints carry the
+    # plans in step-function order, so a resumed run reseeds that order
+    first_plan: dict[tuple, KernelPlan] = {}
+    # step-function creation and the shape records the finish stage makes
+    step_lock = threading.RLock()
 
     def get_step_fn(plan):
         fn = step_fns.get(plan.layers)
         if fn is None:
-            fn = step_fns[plan.layers] = make_sampled_step(cfg, plan,
-                                                           counters)
+            with step_lock:
+                fn = step_fns.get(plan.layers)
+                if fn is None:
+                    first_plan[plan.layers] = plan
+                    fn = step_fns[plan.layers] = make_sampled_step(
+                        cfg, plan, counters)
         return fn
 
     def skeleton_for(batch, slack):
@@ -447,27 +583,55 @@ def train_minibatch(graph: graph_mod.Graph, cfg: gnn.GNNConfig,
             skel_cache.put(skey, (skel, inv_deg))
         return skel, inv_deg
 
-    def build_batch(batch) -> _InFlight:
-        """The partition pass into a skeleton (through the SkeletonCache),
-        plus the fixed selector's host payloads."""
+    def build_batch(batch, sample_s: float) -> _InFlight:
+        """Racing stage: the partition pass into a skeleton (through the
+        SkeletonCache), at the bell slack of the moment under the budget-K
+        autotuner (the ordered stage rebuilds it if the ladder stepped
+        while the batch was in flight), plus the fixed selector's host
+        payloads, which take no shared-state decision (deferred to the
+        ordered stage under the autotuner)."""
+        t0 = time.perf_counter()
         with tracer.span("build", cat="host"):
             slack = cache.bell_slack if cfg.adapt_budget_k else None
             skel, inv_deg = skeleton_for(batch, slack)
-            c = _InFlight(batch=batch, skel=skel, inv_deg=inv_deg)
-            if fixed_names is not None:
+            c = _InFlight(batch=batch, skel=skel, inv_deg=inv_deg,
+                          slack=slack, times=dict(sample=sample_s))
+            if fixed_names is not None and not cfg.adapt_budget_k:
                 c.dec = skel.materialize(fixed_names, device=None)
                 c.plan = KernelPlan.make(c.dec, fixed_names,
                                          n_layers=cfg.n_layers,
                                          epilogues=epilogues)
+        c.times["skeleton"] = time.perf_counter() - t0
         return c
 
-    def resolve_batch(c: _InFlight) -> _InFlight:
-        """Every shared-cache decision, in batch order: the PlanCache
-        lookup (selection on a miss), the budget-K spill feedback, the
-        canonical signature, the step function's place in first-use
-        order."""
+    # resolve-time checkpoint snapshots by batch index, waiting for the
+    # consumer to commit that batch's params
+    pending_snaps: dict[int, dict] = {}
+    snap_lock = threading.Lock()
+
+    def resolve_batch(c: _InFlight, gi: int | None = None) -> _InFlight:
+        """Ordered stage: every shared-cache decision, in batch order (the
+        pipeline's turnstile; the sync loop is in order anyway): the
+        PlanCache lookup (selection on a miss), the budget-K spill
+        feedback, the canonical signature, the step function's place in
+        first-use order, and, for a training batch ``gi`` that ends a
+        checkpoint interval, the snapshot of cache and plans (taken here:
+        at the consumer's commit of batch gi the pipeline has resolved
+        batches past it)."""
+        t0 = time.perf_counter()
         with tracer.span("resolve", cat="host"):
+            if cfg.adapt_budget_k:
+                slack = cache.bell_slack
+                if slack != c.slack:   # the ladder stepped while in flight
+                    c.slack = slack
+                    c.skel, c.inv_deg = skeleton_for(c.batch, slack)
+                    c.dec = c.plan = None
             if fixed_names is not None:
+                if c.dec is None:      # adapt_budget_k defers it here
+                    c.dec = c.skel.materialize(fixed_names, device=None)
+                    c.plan = KernelPlan.make(c.dec, fixed_names,
+                                             n_layers=cfg.n_layers,
+                                             epilogues=epilogues)
                 c.hit = True
                 if tele.audit.enabled:
                     sig = cache.signature(c.dec)
@@ -496,65 +660,206 @@ def train_minibatch(graph: graph_mod.Graph, cfg: gnn.GNNConfig,
             c.sig = sig_of_layers.setdefault(c.plan.layers,
                                              cache.signature(c.skel))
             get_step_fn(c.plan)
+            if (ckpt is not None and gi is not None
+                    and (gi + 1) % cfg.checkpoint_every == 0):
+                with step_lock:
+                    plans = [first_plan[k] for k in step_fns]
+                    sigs = [sig_of_layers[k] for k in step_fns]
+                with snap_lock:
+                    pending_snaps[gi] = dict(cache=cache.state_dict(),
+                                             plans=plans, sigs=sigs)
+        c.times["lookup"] = time.perf_counter() - t0
         return c
 
-    spill = {}
-
-    def finish_batch(c: _InFlight, count_spill: bool = True) -> tuple:
-        """The plan's payloads padded to the budget and, with the batch,
-        copied to the device: the step's argument tail."""
+    def finish_batch(c: _InFlight, train: bool = True,
+                     stager: _Stager | None = None) -> _Prepared:
+        """Racing stage: the plan's payloads padded to the budget and, with
+        the batch, copied to the device (staged by ``stager`` on a
+        pipeline worker); for a training batch, its spill and the step's
+        shape record (counted once per plan and caps, under one lock).
+        On the card it also makes sure the kernel libraries are loaded, so
+        the consumer never waits on nvcc."""
+        t0 = time.perf_counter()
         with tracer.span("finish", cat="host"):
             keys = plan_payload_keys(c.plan)
             if c.dec is None:
                 c.dec = c.skel.materialize(keys, device=None)
+            spill = {}
             for sub, ks in zip(c.dec.subgraphs, keys):
-                for key in ks & {"bell", "tcgnn_tile"} if count_spill else ():
+                for key in ks & {"bell", "tcgnn_tile"} if train else ():
                     acc = spill.setdefault(key, [0, 0])
                     acc[0] += sub.formats[key][2].nnz
                     acc[1] += sub.stats["nnz"]
-            return step_args(c.batch, c.dec, c.inv_deg, c.plan, pad_budget,
-                             dev, stats=c.sig)
+
+            def make(copy=None):
+                return step_args(c.batch, c.dec, c.inv_deg, c.plan,
+                                 pad_budget, dev, stats=c.sig, copy=copy)
+
+            ready, staged = None, []
+            if stager is not None:
+                args, ready, staged = stager.stage(make)
+            else:
+                args = make()
+            if train:
+                with step_lock:
+                    get_step_fn(c.plan).record.check(args)
+            if dev.type == "cuda":
+                _build.build_all(_build.GNN_SOURCES)
+        c.times["materialize"] = time.perf_counter() - t0
+        return _Prepared(c.batch, c.plan, args, c.hit, c.times, spill,
+                         ready, staged)
+
+    def build_stage(ticket) -> _InFlight:
+        """The sampler's build of a drawn ticket, then :func:`build_batch`
+        (the pipeline's racing work stage)."""
+        t0 = time.perf_counter()
+        with tracer.span("sample", cat="host", index=ticket.index):
+            batch = sampler.build(ticket)
+        return build_batch(batch, time.perf_counter() - t0)
 
     losses, hit_history, plan_history = [], [], []
+    spill: dict = {}
+    dropped = 0
+    start_i = 0
+    if cfg.resume_from:
+        mgr = (ckpt if ckpt is not None
+               and cfg.resume_from == cfg.checkpoint_dir
+               else ckpt_mod.CheckpointManager(cfg.resume_from,
+                                               keep=cfg.checkpoint_keep))
+        step_no = mgr.latest_valid_step()
+        if step_no is None:
+            # crashed before the first checkpoint landed: a fresh run is
+            # the right resume
+            warnings.warn(f"resume_from={cfg.resume_from!r} has no valid "
+                          f"checkpoint; starting fresh", stacklevel=2)
+        else:
+            state, _ = mgr.restore(dict(params=params, opt=opt),
+                                   step=step_no, device=dev)
+            params, opt = state["params"], state["opt"]
+            aux = mgr.load_aux(step_no)
+            start_i = aux["cursor"]
+            # batch i is a pure function of (seed, i): replaying the draw
+            # count re-aligns the sampler's streams
+            sampler.fast_forward(start_i)
+            cache.load_state_dict(aux["cache"])
+            losses = list(aux["losses"])
+            hit_history = list(aux["hit_history"])
+            plan_history = list(aux["plan_history"])
+            spill = {k: list(v) for k, v in aux["spill"].items()}
+            dropped = aux["dropped"]
+            # step functions in the checkpointed first-use order, so the
+            # reported plans match the uninterrupted run's (their shape
+            # records start anew, so n_traces counts this run's records)
+            for plan, sig in zip(aux["plans"], aux["sigs"]):
+                sig_of_layers[plan.layers] = sig
+                get_step_fn(plan)
+            f_resumed.set(start_i)
+            _log.info("resumed from %s at batch %d", cfg.resume_from,
+                      start_i)
+    n_new = max(steps - start_i, 0)
     times = {k: [] for k in ("sample", "skeleton", "lookup", "materialize",
                              "step", "iter")}
-    dropped = 0
 
-    def timed(stage, fn, *args):
+    def consume(i: int, item: _Prepared) -> None:
+        """Commit one batch on the calling thread: its step, its records
+        and, at the end of a checkpoint interval, the checkpoint."""
+        nonlocal params, opt, dropped
+        gi = start_i + i
+        dropped += item.batch.meta.get("dropped_edges", 0)
+        hit_history.append(item.hit)
+        plan_history.append(item.plan.layers)
+        for k, v in item.times.items():
+            times[k].append(v)
+        for k, (spilled, edges) in item.spill.items():
+            acc = spill.setdefault(k, [0, 0])
+            acc[0] += spilled
+            acc[1] += edges
+        if item.ready is not None:
+            _Stager.hand_over(item.ready, item.staged)
         t0 = time.perf_counter()
-        out = fn(*args)
-        times[stage].append(time.perf_counter() - t0)
-        return out
-
-    for i in range(steps):
-        it0 = time.perf_counter()
-        with tracer.span("sample", cat="host", index=i):
-            batch = timed("sample", lambda: sampler.build(sampler.draw()))
-        c = timed("skeleton", build_batch, batch)
-        c = timed("lookup", resolve_batch, c)
-        args = timed("materialize", finish_batch, c)
-        dropped += batch.meta.get("dropped_edges", 0)
-        hit_history.append(c.hit)
-        plan_history.append(c.plan.layers)
-        t0 = time.perf_counter()
-        with tracer.span("device_step", cat="device", index=i, hit=c.hit):
-            params, opt, loss, finite = get_step_fn(c.plan)(params, opt,
-                                                            *args)
+        with tracer.span("device_step", cat="device", index=gi,
+                         hit=item.hit):
+            params, opt, loss, finite = get_step_fn(item.plan)(
+                params, opt, *item.args, check=False)
             loss_f = float(loss)
         dt = time.perf_counter() - t0
         times["step"].append(dt)
-        tele.audit.observe_step(c.plan.layers, dt)
+        tele.audit.observe_step(item.plan.layers, dt)
         if not finite:
             fault["nonfinite_skips"].inc()
         losses.append(loss_f)
-        times["iter"].append(time.perf_counter() - it0)
+        if ckpt is not None:
+            with snap_lock:
+                snap = pending_snaps.pop(gi, None)
+            if snap is not None:
+                # the consumer's params and Adam state with the resolve
+                # stage's cache snapshot: the state a fresh run holds
+                # after batch gi with nothing in flight
+                aux = dict(cursor=gi + 1, losses=list(losses),
+                           hit_history=list(hit_history),
+                           plan_history=list(plan_history),
+                           spill={k: list(v) for k, v in spill.items()},
+                           dropped=dropped, **snap)
+                ckpt.save(gi + 1, dict(params=params, opt=opt), aux=aux)
+                fault["checkpoints"].inc()
         if i % 10 == 0 and _log.isEnabledFor(logging.INFO):
             cs = cache.stats
-            _log.info(f"batch {i:4d} loss {loss_f:.4f} cache_hit={c.hit} "
-                      f"plan={c.plan.layers[0]} cache[h={cs['hits']} "
-                      f"nh={cs['near_hits']} m={cs['misses']} "
-                      f"ev={cs['evictions']} pr={cs['probes']} "
-                      f"rate={cs['hit_rate']:.2f}]")
+            _log.info(f"batch {gi:4d} loss {loss_f:.4f} "
+                      f"cache_hit={item.hit} plan={item.plan.layers[0]} "
+                      f"cache[h={cs['hits']} nh={cs['near_hits']} "
+                      f"m={cs['misses']} ev={cs['evictions']} "
+                      f"pr={cs['probes']} rate={cs['hit_rate']:.2f}]")
+
+    pipe_stats = None
+    t_loop0 = time.perf_counter()
+    try:
+        if cfg.prefetch_depth > 0:
+            stager = _Stager(dev) if dev.type == "cuda" else None
+            pipe = BatchPipeline(
+                sampler.draw, lambda idx, ticket: build_stage(ticket),
+                n_items=n_new,
+                resolve_fn=lambda idx, c: resolve_batch(c, start_i + idx),
+                finish_fn=lambda idx, c: finish_batch(c, stager=stager),
+                prefetch_depth=cfg.prefetch_depth,
+                workers=cfg.pipeline_workers,
+                name=f"{cfg.sampler}-{cfg.model}", telemetry=tele)
+            try:
+                for i in range(n_new):
+                    it0 = time.perf_counter()
+                    consume(i, pipe.get())
+                    times["iter"].append(time.perf_counter() - it0)
+            finally:
+                pipe_stats = pipe.stats
+                pipe.close()
+        else:
+            for i in range(n_new):
+                it0 = time.perf_counter()
+                c = resolve_batch(build_stage(sampler.draw()), start_i + i)
+                consume(i, finish_batch(c))
+                times["iter"].append(time.perf_counter() - it0)
+    finally:
+        if ckpt is not None:
+            ckpt.wait()     # a crash still lands the last save
+    loop_s = time.perf_counter() - t_loop0
+    if pipe_stats is not None:
+        # the step's share of the steady-state iteration: 100 % = the
+        # host prepare fully hidden (the first iteration, which waits for
+        # the first batch with nothing to overlap, is left out)
+        busy = float(np.sum(times["step"][1:]))
+        steady = float(np.sum(times["iter"][1:]))
+        pipe_stats.update(
+            loop_seconds=loop_s,
+            efficiency_pct=100.0 * busy / max(steady, 1e-12),
+            retries=fault["retries"].value,
+            quarantined=fault["quarantined"].value,
+            nonfinite_skips=fault["nonfinite_skips"].value)
+        _log.info("pipeline: depth=%d workers=%d ready_mean=%.1f "
+                  "wait_full=%.1fms wait_empty=%.1fms efficiency=%.0f%%",
+                  pipe_stats["depth"], pipe_stats["workers"],
+                  pipe_stats["ready_mean"],
+                  pipe_stats["wait_full_s"] * 1e3,
+                  pipe_stats["wait_empty_s"] * 1e3,
+                  pipe_stats["efficiency_pct"])
 
     # the training steady state, before the eval batches' own lookups
     cache_stats = dict(cache.stats)
@@ -564,10 +869,9 @@ def train_minibatch(graph: graph_mod.Graph, cfg: gnn.GNNConfig,
     correct = total = 0
     eval_plans = []
     for _ in range(eval_batches):
-        batch = sampler.sample()
-        c = resolve_batch(build_batch(batch))
+        c = resolve_batch(build_batch(sampler.sample(), 0.0))
         eval_plans.append(c.plan.layers)
-        dec, x, labels, tm, _ = finish_batch(c, count_spill=False)
+        dec, x, labels, tm, _ = finish_batch(c, train=False).args
         with torch.no_grad():
             pred = gnn.forward(params, cfg, dec, x, c.plan).argmax(-1)
         correct += int(((pred == labels) & tm).sum())
@@ -592,7 +896,7 @@ def train_minibatch(graph: graph_mod.Graph, cfg: gnn.GNNConfig,
         step_seconds=med(times["step"], skip=min(len(times["step"]) - 1, 1)),
         sample_seconds=med(times["sample"]), prepare_seconds=med(prepare),
         iter_seconds=med(times["iter"], skip=min(len(times["iter"]) - 1, 1)),
-        dropped_edges=dropped, plan_cache=cache,
+        pipeline=pipe_stats, dropped_edges=dropped, plan_cache=cache,
         skeleton_hits=skel_cache.hits if skel_cache else 0,
         skeleton_misses=skel_cache.misses if skel_cache else 0,
         faults=faults, telemetry=tele.summary(), params=params,

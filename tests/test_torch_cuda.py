@@ -1516,3 +1516,85 @@ def test_cuda_minibatch_training_matches_cpu(cuda_device, plan, model):  # noqa:
     assert card.n_traces == len(card.plans) == 1
     np.testing.assert_allclose(card.losses, cpu.losses, atol=5e-3,
                                rtol=1e-2)
+
+
+def _mb_async_pair(cuda_device, steps=8, **changes):  # noqa: F811
+    """One mini-batch run on the card synchronously and one through the
+    pipeline (prefetch 3, 2 workers), both under deterministic
+    algorithms (CUDA index_add_ is not deterministic otherwise)."""
+    import dataclasses
+    from repro_torch.core import gnn
+    from repro_torch.graphs import graph as TG
+    g = TG.synth_dataset("cora", 0.2, seed=0, comm_size=16)
+    cfg = gnn.GNNConfig(hidden=16, comm_size=16, sampler="cluster",
+                        clusters_per_batch=8, inter_buckets=2, **changes)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        sync = gnn.train(g, cfg, steps=steps, device=cuda_device)
+        asyn = gnn.train(g, dataclasses.replace(cfg, prefetch_depth=3,
+                                                pipeline_workers=2),
+                         steps=steps, device=cuda_device)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return sync, asyn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("changes", [
+    dict(), dict(model="sage", selector="fixed",
+                 fixed_kernels=("block_diag_fused", "tcgnn_tile_fused"))],
+    ids=["gcn_feedback", "sage_fixed"])
+def test_cuda_async_minibatch_matches_sync(cuda_device, changes):  # noqa: F811
+    """Batches staged by the pipeline's workers on streams of their own
+    give the synchronous run's losses bit for bit, and its plans, hits,
+    cache counters and trace count."""
+    sync, asyn = _mb_async_pair(cuda_device, **changes)
+    assert asyn.losses == sync.losses
+    assert asyn.plan_history == sync.plan_history
+    assert asyn.hit_history == sync.hit_history and asyn.cache == sync.cache
+    assert asyn.n_traces == sync.n_traces == len(sync.plans)
+    assert asyn.pipeline["delivered"] == 8 and sync.pipeline is None
+
+
+@pytest.mark.cuda
+def test_cuda_pipeline_staged_tensors_are_recorded_on_the_consumer_stream(
+        cuda_device, monkeypatch):  # noqa: F811
+    """The staging copy runs on the worker's own stream, from pinned host
+    memory; the consumer orders its stream after the copy's event and
+    records its stream on every staged tensor before the step reads it."""
+    import threading
+    import numpy as np
+    from repro_torch.train import gnn_steps
+    stager = gnn_steps._Stager(cuda_device)
+    host = [np.arange(12, dtype=np.float32), np.ones(5, dtype=bool)]
+    out = {}
+
+    def worker():
+        out["staged"] = stager.stage(lambda copy: [copy(a) for a in host])
+        out["worker_stream"] = stager._local.stream
+
+    t = threading.Thread(target=worker)
+    t.start()
+    t.join(timeout=60)
+    assert not t.is_alive()
+    args, ready, staged = out["staged"]
+    assert out["worker_stream"] != torch.cuda.default_stream(cuda_device)
+    assert [a.data_ptr() for a in args] == [a.data_ptr() for a in staged]
+    recorded = []
+    real = torch.Tensor.record_stream
+
+    def spy(self, stream):
+        recorded.append((self.data_ptr(), stream))
+        return real(self, stream)
+
+    monkeypatch.setattr(torch.Tensor, "record_stream", spy)
+    gnn_steps._Stager.hand_over(ready, staged)
+    consumer = torch.cuda.current_stream(cuda_device)
+    assert recorded == [(a.data_ptr(), consumer) for a in staged]
+    for a, h in zip(args, host):
+        assert np.array_equal(a.cpu().numpy(), h)
+    # a whole run: every staged tensor of every batch is recorded
+    recorded.clear()
+    _, asyn = _mb_async_pair(cuda_device, steps=4)
+    assert len(recorded) >= 4 * 5
+    assert all(s == consumer for _, s in recorded)

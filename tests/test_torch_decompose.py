@@ -153,11 +153,11 @@ def test_select_plan_fixed_matches_reference():
     dict(sampler="cluster", prefetch_depth=2),
     dict(sampler="neighbor", checkpoint_dir="ckpt", checkpoint_every=1),
     dict(reorder="nope")])
-def test_unported_options_raise_naming_the_roadmap(cfg):
-    """The mini-batch path's unported knobs (the asynchronous pipeline,
-    checkpoints) raise NotImplementedError naming the ROADMAP item before
-    any batch is drawn, and never run another path instead.  An unknown
-    reorder method is a KeyError, as in the reference."""
+def test_unported_options_raise_naming_the_roadmap(cfg, tmp_path):
+    """The mini-batch path's asynchronous pipeline and checkpoints, ported
+    now, run through ``gnn.train`` and give the sync run's losses, plans,
+    hits and cache counters, never another path.  An unknown reorder
+    method is a KeyError, as in the reference."""
     g = tp.ref_graph()
     if "reorder" in cfg:
         with pytest.raises(KeyError):
@@ -166,9 +166,18 @@ def test_unported_options_raise_naming_the_roadmap(cfg):
             TGNN.prepare(_port_graph(g), TGNN.GNNConfig(comm_size=8, **cfg),
                          device="cpu")
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP section 1 item"):
-        TGNN.train(_port_graph(g), TGNN.GNNConfig(comm_size=8, **cfg),
-                   steps=1, device="cpu")
+    if "checkpoint_dir" in cfg:
+        cfg = dict(cfg, checkpoint_dir=str(tmp_path / cfg["checkpoint_dir"]))
+    knob = TGNN.GNNConfig(comm_size=8, **cfg)
+    sync = dataclasses.replace(knob, prefetch_depth=0, checkpoint_dir="",
+                               checkpoint_every=0)
+    got, want = (TGNN.train(_port_graph(g), c, steps=3, device="cpu")
+                 for c in (knob, sync))
+    assert got.losses == want.losses
+    assert (got.plan_history, got.hit_history, got.cache, got.n_traces) == (
+        want.plan_history, want.hit_history, want.cache, want.n_traces)
+    assert (got.pipeline is not None) == (knob.prefetch_depth > 0)
+    assert got.faults["checkpoints"] == (3 if knob.checkpoint_every else 0)
 
 
 def test_decomposed_to_moves_every_tensor():

@@ -1557,3 +1557,102 @@ def test_minibatch_curves_match_reference_from_its_params():
         assert port.n_traces == ref.n_traces == len(port.plans)
         np.testing.assert_allclose(port.losses, ref.losses, atol=5e-3,
                                    rtol=1e-2)
+
+
+def _recording_samplers(monkeypatch, *modules):
+    """Patch each module's ``make_sampler`` to record the nodes of every
+    batch its sampler builds, by draw index; one dict per module."""
+    seen = []
+    for mod in modules:
+        built = {}
+        real = mod.make_sampler
+
+        def make(graph, cfg, real=real, built=built):
+            sampler = real(graph, cfg)
+            build = sampler.build
+
+            def recording(ticket):
+                batch = build(ticket)
+                built[ticket.index] = batch.nodes.copy()
+                return batch
+
+            sampler.build = recording
+            return sampler
+
+        monkeypatch.setattr(mod, "make_sampler", make)
+        seen.append(built)
+    return seen
+
+
+def test_minibatch_pipeline_matches_reference_from_its_params(monkeypatch):
+    """train_minibatch with prefetch_depth=3 in both packages, from the
+    reference's initial parameters (cora at scale 0.05, 8 steps), on the
+    cluster and the neighbor sampler: the same batches, plans, hit history
+    and cache counters, losses within the curve tolerance (atol 5e-3,
+    rtol 1e-2), and pipeline stats with the reference's keys."""
+    from repro.train import gnn_steps as RS
+    from repro_torch.train import gnn_steps as TS
+    g, pg = _mb_graphs()
+    for sampler in ("cluster", "neighbor"):
+        rcfg, tcfg = _mb_cfgs(sampler=sampler, prefetch_depth=3,
+                              pipeline_workers=2)
+        with monkeypatch.context() as m:
+            rbatches, tbatches = _recording_samplers(m, RS, TS)
+            ref = RS.train_minibatch(g, rcfg, steps=8, eval_batches=1)
+            params = RGNN.init_model(jax.random.PRNGKey(rcfg.seed), rcfg,
+                                     g.features.shape[1], g.n_classes)
+            params_np = [{k: np.asarray(a) for k, a in p.items()}
+                         for p in params]
+            port = TS.train_minibatch(
+                pg, tcfg, steps=8, eval_batches=1, device="cpu",
+                params=from_jax_params(params_np, device="cpu"))
+        assert sorted(tbatches) == sorted(rbatches) and len(rbatches) == 9
+        for i in rbatches:
+            tp.assert_bytes_equal(rbatches[i], tbatches[i])
+        assert port.plans == ref.plans, sampler
+        assert port.hit_history == ref.hit_history
+        assert port.cache == ref.cache
+        assert port.n_traces == ref.n_traces == len(port.plans)
+        assert set(ref.pipeline) <= set(port.pipeline)
+        assert port.pipeline["delivered"] == ref.pipeline["delivered"] == 8
+        np.testing.assert_allclose(port.losses, ref.losses, atol=5e-3,
+                                   rtol=1e-2)
+
+
+def test_checkpoint_matches_reference_manager(tmp_path):
+    """One GCN state (the reference's initial params and a fresh Adam
+    state, carried over) saved by each package's CheckpointManager: the
+    same manifest keys, the same arrays (dtypes included) in arrays.npz,
+    and the port restores the reference's file."""
+    import json
+    from repro.distributed import checkpoint as RC
+    from repro_torch.distributed import checkpoint as TC
+    g, _ = _mb_graphs()
+    rcfg, _ = _mb_cfgs()
+    params = RGNN.init_model(jax.random.PRNGKey(rcfg.seed), rcfg,
+                             g.features.shape[1], g.n_classes)
+    port_params = from_jax_params(
+        [{k: np.asarray(a) for k, a in p.items()} for p in params],
+        device="cpu")
+    rstate = dict(params=params, opt=RGNN._adam_init(params))
+    tstate = dict(params=port_params, opt=TGNN._adam_init(port_params))
+    RC.CheckpointManager(str(tmp_path / "ref"), async_write=False).save(
+        1, rstate, blocking=True)
+    TC.CheckpointManager(str(tmp_path / "port"), async_write=False).save(
+        1, tstate, blocking=True)
+    step_dir = "step_000000000001"
+    manifests = [json.loads((tmp_path / d / step_dir / "manifest.json")
+                            .read_text()) for d in ("ref", "port")]
+    assert manifests[0]["keys"] == manifests[1]["keys"]
+    with np.load(tmp_path / "ref" / step_dir / "arrays.npz") as r, \
+            np.load(tmp_path / "port" / step_dir / "arrays.npz") as p:
+        assert sorted(r.files) == sorted(p.files)
+        for k in r.files:
+            assert r[k].dtype == p[k].dtype, k
+            tp.assert_bytes_equal(r[k], p[k])
+    got, step = TC.CheckpointManager(str(tmp_path / "ref")).restore(
+        tstate, device="cpu")
+    assert step == 1 and got["opt"]["t"] == 0
+    for a, b in zip(got["params"], port_params):
+        for k in b:
+            assert torch.equal(a[k], b[k])

@@ -485,14 +485,19 @@ def test_telemetry_on_and_off_are_bit_identical(tmp_path):
 
 
 def test_minibatch_refuses_gat_and_unported_knobs():
+    """GAT is no mini-batch model; fault_plan (fault injection) raises,
+    naming ROADMAP section 1 item 7; prefetch_depth, ported now, runs the
+    pipeline and gives the sync run's batches and losses."""
     with pytest.raises(ValueError, match="gcn/gin/sage"):
         train(cfg_of(model="gat"), steps=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP section 1 item 6"):
-        train(cfg_of(prefetch_depth=1), steps=1)
+    res = train(cfg_of(), steps=2, eval_batches=0)
+    one = train(cfg_of(prefetch_depth=1), steps=2, eval_batches=0)
+    assert (one.losses, one.plan_history, one.hit_history) == (
+        res.losses, res.plan_history, res.hit_history)
+    assert one.pipeline["delivered"] == 2 and res.pipeline is None
     with pytest.raises(NotImplementedError, match="ROADMAP section 1 item 7"):
         gnn_steps.train_minibatch(small_graph(), cfg_of(), steps=1,
                                   fault_plan=object(), device="cpu")
-    res = train(cfg_of(), steps=2, eval_batches=0)
     assert plan_payload_keys(KernelPlan(
         ("intra", "inter0", "inter1"),
         (("block_diag_fused", "bell_fused", "coo"),))) == (

@@ -23,6 +23,7 @@ from repro_torch.core.plan import KernelPlan
 from repro_torch.graphs import graph as TG
 from repro_torch.kernels import ops
 from repro_torch.kernels.registry import REGISTRY, KernelSpec
+from repro_torch.train import gnn_steps
 from repro_torch.weights import from_jax_params
 
 PLANS = [("block_diag", "bell"), ("block_diag_fused", "bell_fused"),
@@ -293,17 +294,24 @@ def test_train_leaves_carried_params_untouched_and_learns():
 
 @pytest.mark.parametrize("field,value", [("sampler", "cluster"),
                                          ("sampler", "neighbor")])
-def test_train_raises_for_unported_options(field, value):
-    """Both samplers train now; their unported knobs (retries, resume)
-    raise NotImplementedError naming the ROADMAP item, never running
-    another path instead."""
+def test_train_raises_for_unported_options(field, value, tmp_path):
+    """Both samplers train; their unported knobs (retries, fault
+    injection) raise NotImplementedError naming the ROADMAP item, never
+    running another path instead.  ``resume_from``, ported now, runs: from
+    a directory that holds no checkpoint it warns and trains afresh."""
     cfg = dataclasses.replace(TGNN.GNNConfig(hidden=8, comm_size=8),
                               **{field: value})
-    for knob in (dict(retry_max=2), dict(resume_from="ckpt")):
-        with pytest.raises(NotImplementedError, match="ROADMAP section 1 "
-                                                      "item 7"):
-            TGNN.train(_graph(), dataclasses.replace(cfg, **knob), steps=1,
-                       device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP section 1 item 7"):
+        TGNN.train(_graph(), dataclasses.replace(cfg, retry_max=2), steps=1,
+                   device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP section 1 item 7"):
+        gnn_steps.train_minibatch(_graph(), cfg, steps=1, fault_plan=object(),
+                                  device="cpu")
+    fresh = TGNN.train(_graph(), cfg, steps=2, device="cpu")
+    with pytest.warns(UserWarning, match="no valid checkpoint"):
+        res = TGNN.train(_graph(), dataclasses.replace(
+            cfg, resume_from=str(tmp_path / "ckpt")), steps=2, device="cpu")
+    assert res.losses == fresh.losses and res.faults["resumed_at"] == -1
 
 
 # --- GIN ---------------------------------------------------------------------
