@@ -18,7 +18,9 @@ proteins_full's 29 features, and the O1 baseline of Fig. 11; GAT's main
 path (``GNNConfig(model="gat")``), the mean and max aggregators, bucket
 autotuning and GCN trained over four inter buckets; mini-batch training
 (``GNNConfig(sampler="cluster" | "neighbor")``: GCN, GIN and SAGE through
-the PlanCache on budget-capped payloads); then the LM stack's serving
+the PlanCache on budget-capped payloads), its asynchronous pipeline,
+checkpoint/resume, retries and deterministic fault injection
+(``FaultPlan``); then the LM stack's serving
 paths at full
 published widths: InternLM2-1.8B (flash prefill, cache prefill, greedy
 decode), RWKV6-7B (the rwkv6_chunked kernel in the prefill step,
@@ -176,6 +178,25 @@ Phases, each of which raises (exit code != 0) on failure:
    async step and iteration ms, efficiency_pct, the pipeline's waits and
    ready mean, the device-busy us of a step over a staged batch, and the
    checkpoint write seconds;
+7a''''. [faults]: the GCN run at 256 clusters under deterministic
+   algorithms with FAULT_RETRY (retry_max=3, 1 ms base delay) and
+   FaultPlan(worker_faults=FAULT_WORKER), sync and async, after the same
+   settings with an empty FaultPlan (timed beside it): the fault-free
+   [pipeline] run of the same side's losses bit for bit, plans, hits,
+   cache counters, n_traces and launches, 3 retries counted and injected;
+   FaultPlan(fatal_at={FAULT_FATAL_AT}) with retry_max=5 and a 10 s base
+   delay (checkpoint every batch), sync and async: ValueError within 5 s,
+   no pipeline-* or ckpt-writer thread left; FaultPlan(nonfinite_at=
+   {FAULT_NONFINITE_AT}), sync: one skip, the losses before it the
+   fault-free run's, NaN there, finite after; FaultPlan(crash_at=
+   PIPE_CRASH_AT) with a checkpoint every PIPE_CKPT_EVERY batches, sync
+   and async: SimulatedCrash, then the resumed run equals the
+   uninterrupted run exactly; and one kernel of the committed plan whose
+   wrapper (patched for that run only) raises RuntimeError at its first
+   call, async with retry_max=3: that error, 0 retries, the wrapper
+   called once, no launch beyond the first batch's step.  Per run: wall
+   ms beside the fault-free run's, retries and the backoff seconds paid
+   (the tracer's retry.backoff spans);
 7b. LM serving, InternLM2-1.8B (24 layers, d_model 2048, 16/8 heads of
    128, d_ff 8192, vocab 92544): flash_attention against its plain
    version is in phase 2 (the reference test's shapes, InternLM2's
@@ -493,6 +514,18 @@ PIPE_PROBES = {"workers_1": dict(pipeline_workers=1),
                "switch_0.5ms": dict()}
 PIPE_PROBE_RUNS = ("mb_gcn_c256", "mb_gcn_neighbor")
 PIPE_SWITCH_S = 0.0005
+# [faults]: the run it injects into (the [pipeline] phase's deterministic
+# pair of that name is the fault-free side), the retry settings, the
+# transient faults per batch, the fatal batch and the NaN batch; the
+# kernel wrappers (names in kernels/ops.py and in the launch counts) one
+# of which is made to fail
+FAULT_RUN = "mb_gcn_c256"
+FAULT_RETRY = dict(retry_max=3, retry_base_delay_s=0.001)
+FAULT_WORKER = {3: 2, 11: 1}
+FAULT_FATAL_AT = 2
+FAULT_NONFINITE_AT = 17
+FAULT_WRAPPERS = ("block_diag_spmm", "bell_spmm", "block_diag_spmm_fused",
+                  "bell_spmm_fused", "bell_spmm_dw", "block_diag_spmm_dual")
 
 
 def plan_launches(layers, steps: int, model: str = "gcn",
@@ -3126,26 +3159,27 @@ def phase_pipeline(torch, graph, counts: dict, mb: dict) -> dict:
     over a staged batch, and the checkpoint write seconds."""
     import dataclasses
     import tempfile
-    import threading
     from repro_torch.core import gnn
     from repro_torch.train import gnn_steps
     t_phase = time.perf_counter()
-    used, per_step, info = {}, {}, {}
+    used, per_step, info, wall = {}, {}, {}, {}
 
     def run(name, cfg, det: bool = False):
         for cnt in counts.values():
             cnt.reset()
         if det:
             torch.use_deterministic_algorithms(True, warn_only=True)
+        t0 = time.perf_counter()
         try:
             res = gnn.train(graph, cfg, steps=MB_STEPS, device="cuda")
             torch.cuda.synchronize()
         finally:
+            wall[name] = time.perf_counter() - t0
             torch.use_deterministic_algorithms(False)
             used[name] = {k: cnt.value for k, cnt in counts.items()}
         return res
 
-    det_ref = None
+    det_ref = det_pair = None
     for name in PIPE_RUNS:
         changes = MB_RUNS[name]
         cfg = mb_cfg(**changes, **PIPE_ASYNC)
@@ -3167,6 +3201,8 @@ def phase_pipeline(torch, graph, counts: dict, mb: dict) -> dict:
                                f"{used[f'{name}_det_sync']}")
         if name == "mb_gcn_c256":
             det_ref = dsync
+        if name == FAULT_RUN:
+            det_pair = dict(sync=dsync, async_=dasyn)
         p = asyn.pipeline
         busy = profile_busy(
             torch, mb_step_closure(torch, graph, cfg, asyn, staged=True), 5,
@@ -3258,8 +3294,7 @@ def phase_pipeline(torch, graph, counts: dict, mb: dict) -> dict:
                 raise RuntimeError(f"{side}: the crash hook did not fire")
             finally:
                 gnn_steps.make_sampler = real_make
-            alive = [t.name for t in threading.enumerate()
-                     if t.name.startswith(("pipeline-", "ckpt-writer"))]
+            alive = worker_threads()
             if alive:
                 raise RuntimeError(f"{side}: threads alive after the crash: "
                                    f"{alive}")
@@ -3313,7 +3348,197 @@ def phase_pipeline(torch, graph, counts: dict, mb: dict) -> dict:
         f"{info['probe2_async']['iter_ms']:.3f} ms, efficiency_pct "
         f"{res.pipeline['efficiency_pct']:.1f}")
     log("pipeline", f"phase {time.perf_counter() - t_phase:.1f} s")
-    return dict(used=used, per_step=per_step, info=info, resume=resume)
+    return dict(used=used, per_step=per_step, info=info, resume=resume,
+                wall=wall, det=det_pair)
+
+
+def worker_threads() -> list:
+    """Names of the mini-batch loop's worker threads still alive."""
+    import threading
+    return [t.name for t in threading.enumerate()
+            if t.name.startswith(("pipeline-", "ckpt-writer"))]
+
+
+def phase_faults(torch, graph, counts: dict, pipe: dict) -> dict:
+    """[faults]: retries and deterministic fault injection in mini-batch
+    training on the card (the module docstring's 7a''''), FAULT_RUN's
+    config under deterministic algorithms, each run through
+    ``train_minibatch(..., fault_plan=...)`` with the launch counts set to
+    0 just before and read just after it.  Raises on any failed check."""
+    import dataclasses
+    import math
+    import tempfile
+    from repro_torch.distributed import FaultPlan, SimulatedCrash
+    from repro_torch.kernels import ops
+    from repro_torch.obs import Telemetry
+    from repro_torch.train import gnn_steps
+    t_phase = time.perf_counter()
+    used, info = {}, {}
+
+    def run(name, cfg, fp=None, expect=None):
+        """One run with the tracer on; ``expect``: the exception class it
+        must raise (then returned in place of the result)."""
+        for cnt in counts.values():
+            cnt.reset()
+        tele = Telemetry(enabled=True)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        t0 = time.perf_counter()
+        try:
+            res = gnn_steps.train_minibatch(graph, cfg, steps=MB_STEPS,
+                                            fault_plan=fp, telemetry=tele,
+                                            device="cuda")
+            torch.cuda.synchronize()
+        except Exception as exc:
+            if expect is None or not isinstance(exc, expect):
+                raise
+            res = exc
+        else:
+            if expect is not None:
+                raise RuntimeError(f"{name}: no {expect.__name__} raised")
+        finally:
+            secs = time.perf_counter() - t0
+            torch.use_deterministic_algorithms(False)
+            used[name] = {k: cnt.value for k, cnt in counts.items()}
+        m = tele.metrics
+        info[name] = dict(
+            ms=secs * 1e3, retries=m.counter("faults.retries").value,
+            pipeline_retries=m.counter("pipeline.retries").value,
+            backoff_s=sum(e[5] - e[4] for e in tele.tracer.events()
+                          if e[0] == "retry.backoff"))
+        return res, tele
+
+    base = mb_cfg(**MB_RUNS[FAULT_RUN])
+    for side, extra in (("sync", {}), ("async", PIPE_ASYNC)):
+        ref = pipe["det"][side if side == "sync" else "async_"]
+        ref_name = f"{FAULT_RUN}_det_{side}"
+        ref_ms = pipe["wall"][ref_name] * 1e3
+
+        # the same settings with no fault and the tracer on, then transient
+        # worker faults absorbed by the retries
+        retry_cfg = dataclasses.replace(base, **extra, **FAULT_RETRY)
+        res, _ = run(f"clean_{side}", retry_cfg, FaultPlan())
+        same_runs(res, ref, f"clean {side} vs fault-free", exact=True)
+        name = f"retried_{side}"
+        fp = FaultPlan(worker_faults=dict(FAULT_WORKER))
+        res, _ = run(name, retry_cfg, fp)
+        same_runs(res, ref, f"{name} vs fault-free", exact=True)
+        want = sum(FAULT_WORKER.values())
+        if (res.faults["retries"] != want or fp.injected_worker != want
+                or (extra and res.pipeline["retries"] != want)):
+            raise RuntimeError(f"{name}: retries {res.faults['retries']}, "
+                               f"injected {fp.injected_worker}, want {want}")
+        if used[name] != pipe["used"][ref_name]:
+            raise RuntimeError(f"{name}: launches {used[name]}, the "
+                               f"fault-free run's {pipe['used'][ref_name]}")
+        i = info[name]
+        log("faults", f"{FAULT_RUN} {side} {FAULT_RETRY}, worker faults "
+            f"{FAULT_WORKER}: the fault-free run's losses bit for bit, "
+            f"plans, hits, cache, n_traces and launches; {i['retries']} "
+            f"retries, backoff paid {i['backoff_s'] * 1e3:.3f} ms; run "
+            f"{i['ms']:.1f} ms against {info[f'clean_{side}']['ms']:.1f} ms "
+            f"with no fault and the tracer on, {ref_ms:.1f} ms with "
+            f"neither ([pipeline]; host clock, the whole call)")
+
+        # a fatal fault fails fast through a retry budget of 5 x 10 s
+        name = f"fatal_{side}"
+        fp = FaultPlan(fatal_at={FAULT_FATAL_AT})
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+            exc, _ = run(name, dataclasses.replace(
+                base, **extra, retry_max=5, retry_base_delay_s=10.0,
+                checkpoint_dir=d, checkpoint_every=1), fp, expect=ValueError)
+            alive = worker_threads()
+        i = info[name]
+        if (i["ms"] > 5000.0 or fp.injected_fatal != 1 or i["retries"]
+                or i["pipeline_retries"] or alive):
+            raise RuntimeError(f"{name}: {i}, injected {fp.injected_fatal},"
+                               f" threads alive {alive}")
+        log("faults", f"{side} fatal_at={{{FAULT_FATAL_AT}}}, retry_max=5 "
+            f"at 10 s: ValueError ({exc}) in {i['ms']:.1f} ms, 0 retries, "
+            f"no worker thread left")
+
+        # a non-finite batch, skipped by the guard
+        if side == "sync":
+            name, k = "nonfinite_sync", FAULT_NONFINITE_AT
+            fp = FaultPlan(nonfinite_at={k})
+            res, _ = run(name, base, fp)
+            if (res.faults["nonfinite_skips"] != 1
+                    or fp.injected_nonfinite != 1
+                    or res.losses[:k] != ref.losses[:k]
+                    or not math.isnan(res.losses[k])
+                    or not all(map(math.isfinite, res.losses[k + 1:]))):
+                raise RuntimeError(
+                    f"{name}: skips {res.faults['nonfinite_skips']}, losses "
+                    f"{res.losses} against {ref.losses}")
+            log("faults", f"nonfinite_at={{{k}}}: 1 skip; losses 0-{k - 1} "
+                f"the fault-free run's, loss {k} NaN, the rest finite; run "
+                f"{info[name]['ms']:.1f} ms")
+
+        # a crash after batch PIPE_CRASH_AT commits, then the resume
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+            cfg = dataclasses.replace(base, **extra, checkpoint_dir=d,
+                                      checkpoint_every=PIPE_CKPT_EVERY)
+            run(f"crash_{side}", cfg, FaultPlan(crash_at=PIPE_CRASH_AT),
+                expect=SimulatedCrash)
+            alive = worker_threads()
+            if alive:
+                raise RuntimeError(f"crash {side}: threads alive {alive}")
+            res, _ = run(f"resumed_{side}",
+                         dataclasses.replace(cfg, resume_from=d))
+        if res.faults["resumed_at"] != (PIPE_CRASH_AT // PIPE_CKPT_EVERY
+                                        * PIPE_CKPT_EVERY):
+            raise RuntimeError(f"resumed {side}: at "
+                               f"{res.faults['resumed_at']}")
+        for k in ("losses", "plan_history", "hit_history", "plans", "cache",
+                  "eval_plans"):
+            if getattr(res, k) != getattr(ref, k):
+                raise RuntimeError(f"resumed {side} run: {k} differ from the "
+                                   f"uninterrupted run's")
+        log("faults", f"{side} FaultPlan(crash_at={PIPE_CRASH_AT}), "
+            f"checkpoint every {PIPE_CKPT_EVERY}: SimulatedCrash, no worker "
+            f"thread left, resumed at {res.faults['resumed_at']} to the "
+            f"uninterrupted run exactly; crash run "
+            f"{info[f'crash_{side}']['ms']:.1f} ms, resumed "
+            f"{info[f'resumed_{side}']['ms']:.1f} ms")
+
+    # a kernel launch that fails is fatal: no retry, no other plan
+    ref = pipe["det"]["async_"]
+    _, first = mb_launches(ref, base.model)
+    target = next((k for k in FAULT_WRAPPERS if first.get(k)), None)
+    if target is None:
+        raise RuntimeError(f"no patchable kernel on the committed plan "
+                           f"{ref.plan_history[0]} (launches {first})")
+    real = getattr(ops, target)
+    calls = []
+    err = RuntimeError(f"{target} launch failed: injected by chip_smoke")
+
+    def failing(*args, **kwargs):
+        calls.append(1)
+        raise err
+
+    name = "kernel_failure_async"
+    setattr(ops, target, failing)
+    try:
+        exc, tele = run(name, dataclasses.replace(
+            base, **PIPE_ASYNC, retry_max=3, retry_base_delay_s=10.0),
+            expect=RuntimeError)
+    finally:
+        setattr(ops, target, real)
+    steps_run = sum(e[0] == "device_step" for e in tele.tracer.events())
+    over = {k: v for k, v in used[name].items() if v > first.get(k, 0)}
+    i = info[name]
+    if (exc is not err or len(calls) != 1 or i["retries"]
+            or i["pipeline_retries"] or steps_run != 1 or over
+            or worker_threads()):
+        raise RuntimeError(f"{name}: {exc!r}, wrapper calls {len(calls)}, "
+                           f"{i}, steps {steps_run}, launches beyond the "
+                           f"first step {over}")
+    log("faults", f"{target} of the committed plan {ref.plan_history[0]} "
+        f"raising at its first call (async, retry_max=3): that "
+        f"RuntimeError, 0 retries, 1 call, one step begun, no launch of "
+        f"another plan; {i['ms']:.1f} ms")
+    log("faults", f"phase {time.perf_counter() - t_phase:.1f} s; "
+        + json.dumps(info))
+    return dict(used=used, info=info)
 
 
 def time_dual_kernel(torch, sdec, flush) -> dict:
@@ -4921,6 +5146,8 @@ def main() -> int:
     mb = phase_minibatch(torch, graph, counts, errs)
     # 7a'''. the asynchronous pipeline and checkpoint/resume -------
     pipe = phase_pipeline(torch, graph, counts, mb)
+    # 7a''''. retries and fault injection ----------------------------------
+    flt = phase_faults(torch, graph, counts, pipe)
     # 7b. LM serving: InternLM2-1.8B at full width ----------------------------
     lm2 = phase_lm_two_layer(torch, counts)
     lm32 = phase_lm_f32(torch, counts)
@@ -4949,6 +5176,7 @@ def main() -> int:
                "gcn_k4_train": tune["launches"],
                **{f"minibatch_{n}": u for n, u in mb["used"].items()},
                **{f"pipeline_{n}": u for n, u in pipe["used"].items()},
+               **{f"faults_{n}": u for n, u in flt["used"].items()},
                "lm_prefill_step_2_layers_f32": lm2["launches"],
                "lm_prefill_step_f32": lm32["launches"],
                "lm_softmax_prefill_decode_f32": lm32["other_launches"],
@@ -5210,6 +5438,7 @@ def main() -> int:
         f"{tune['k_best']}, k = {AUTOTUNE_K} nnz {tune['nnz']}, per step "
         f"{tune['per_step']}; minibatch {mb['info']}, fixed card vs CPU "
         f"{mb['fixed']}; pipeline {pipe['info']}, resume {pipe['resume']}; "
+        f"faults {flt['info']}; "
         f"train losses "
         + json.dumps(dict({n: r.losses for n, r in
                            trained["results"].items()},

@@ -38,8 +38,8 @@ from repro_torch.graphs import graph as graph_mod
 class GNNConfig:
     """The fields of the reference's GNNConfig that the port reads, with
     the reference's defaults (``selector`` is ``feedback``).  The
-    mini-batch fields are read by ``train/gnn_steps.py``;
-    ``retry_max > 0`` raises there (retries are not ported)."""
+    mini-batch fields, the retries among them, are read by
+    ``train/gnn_steps.py``."""
     model: str = "gcn"            # gcn | gin | gat | sage
     hidden: int = 16
     n_layers: int = 2
@@ -78,7 +78,8 @@ class GNNConfig:
     checkpoint_every: int = 0
     checkpoint_keep: int = 3
     resume_from: str = ""
-    # retries: not ported (retry_max must stay 0)
+    # bounded exponential-backoff retries of a batch's build on transient
+    # failures (fault_tolerance.default_transient); 0 = off
     retry_max: int = 0
     retry_base_delay_s: float = 0.05
     # non-finite guard: a batch whose loss or any gradient is NaN/Inf

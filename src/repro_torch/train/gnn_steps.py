@@ -39,14 +39,26 @@ Fault tolerance, as in the reference:
   any gradient is NaN or Inf leaves params and the whole Adam state
   (``t`` included) as they were, and is counted
   (``faults["nonfinite_skips"]``).
+* **transient-failure retry** (``cfg.retry_max > 0``): the sampler build
+  and skeleton of a batch (the sync loop's, and the pipeline's racing
+  stages) retry with bounded exponential backoff on the failures
+  ``distributed.fault_tolerance.default_transient`` accepts, and nothing
+  wider; retries are counted (``faults["retries"]``).  A kernel that
+  fails to build or launch, a shape-record mismatch and an
+  out-of-memory error are fatal: the run fails at once, with no retry, no
+  other plan and no plain version.
+* **fault injection** (``fault_plan``, a ``FaultPlan``): transient and
+  fatal faults at a batch's build, NaN features, and a simulated crash
+  after a batch commits, at the reference's points.
 
-Not ported yet, and refused with ``NotImplementedError`` naming ROADMAP
-section 1 item 7: retries (``cfg.retry_max``), fault injection
-(``fault_plan``) and kernel quarantine on a failure (the PlanCache keeps
-its quarantine bookkeeping as data).
+Not ported yet: kernel quarantine with its degrade to the next plan (the
+PlanCache keeps its quarantine bookkeeping as data); a ``FaultPlan`` with
+``kernel_faults`` raises ``NotImplementedError`` naming ROADMAP section 1
+item 7.
 """
 from __future__ import annotations
 
+import contextlib
 import logging
 import threading
 import time
@@ -63,6 +75,7 @@ from repro_torch.core import decompose as dec_mod
 from repro_torch.core import formats, gnn, selector as sel_mod
 from repro_torch.core.plan import KernelPlan
 from repro_torch.distributed import checkpoint as ckpt_mod
+from repro_torch.distributed import fault_tolerance as ft
 from repro_torch.graphs import graph as graph_mod
 from repro_torch.kernels import _build
 from repro_torch.obs import Telemetry, enable_verbose, get_logger
@@ -445,15 +458,25 @@ class _Prepared:
     staged: list = field(default_factory=list)
 
 
-def _refuse_unported(cfg: gnn.GNNConfig, fault_plan) -> None:
-    """The reference's knobs this port does not run yet: each raises,
-    naming the ROADMAP item that ports it, and never falls back."""
-    for name, on in (("retry_max", cfg.retry_max > 0),
-                     ("fault_plan", fault_plan is not None)):
-        if on:
-            raise NotImplementedError(
-                f"{name} (retries, fault injection and kernel quarantine)"
-                " is not ported yet: ROADMAP section 1 item 7")
+def _refuse_unported(fault_plan) -> None:
+    """The reference's injected kernel faults need kernel quarantine,
+    which this port does not run yet: raise, naming its ROADMAP item,
+    and never fall back."""
+    if fault_plan is not None and fault_plan.kernel_faults:
+        raise NotImplementedError(ft.KERNEL_QUARANTINE_UNPORTED)
+
+
+@contextlib.contextmanager
+def _fatal(what: str):
+    """Make every failure inside non-retryable: ``default_transient``
+    reads an ``OSError`` as transient, and one here (a library that does
+    not load, nvcc that does not start) must fail the run at once."""
+    try:
+        yield
+    except Exception as exc:
+        if not ft.default_transient(exc):
+            raise
+        raise RuntimeError(f"{what} failed: {exc!r}") from exc
 
 
 def train_minibatch(graph: graph_mod.Graph, cfg: gnn.GNNConfig,
@@ -492,12 +515,19 @@ def train_minibatch(graph: graph_mod.Graph, cfg: gnn.GNNConfig,
     (or ``cfg.telemetry`` / ``trace_out`` / ``telemetry_out``) turns on
     the span tracer and the selector audit; they never feed back into a
     decision, so losses, plans, hit history and ``n_traces`` are the same
-    with them on or off.  ``fault_plan`` and ``cfg.retry_max`` raise
+    with them on or off.
+
+    ``cfg.retry_max > 0`` retries a batch's build on transient failures
+    (the module docstring), and ``fault_plan`` (a ``FaultPlan``) injects
+    its faults: ``on_built`` after each sampler build (inside the retried
+    unit, before the skeleton, so an aborted attempt never reaches the
+    SkeletonCache or the PlanCache) and ``on_committed`` after each
+    commit.  A plan with ``kernel_faults`` raises
     (:func:`_refuse_unported`)."""
     if cfg.model not in MINIBATCH_MODELS:
         raise ValueError(f"mini-batch training supports gcn/gin/sage, "
                          f"not {cfg.model!r}")
-    _refuse_unported(cfg, fault_plan)
+    _refuse_unported(fault_plan)
     dev = resolve_device(device)
     if verbose:
         enable_verbose("repro_torch.train")
@@ -544,6 +574,10 @@ def train_minibatch(graph: graph_mod.Graph, cfg: gnn.GNNConfig,
                                        keep=cfg.checkpoint_keep,
                                        telemetry=tele)
             if cfg.checkpoint_dir and cfg.checkpoint_every > 0 else None)
+    retry_policy = (ft.RetryPolicy(max_retries=cfg.retry_max,
+                                   base_delay_s=cfg.retry_base_delay_s,
+                                   tracer=tracer if tele.enabled else None)
+                    if cfg.retry_max > 0 else None)
     fault = {k: tele.metrics.counter(f"faults.{k}")
              for k in ("retries", "quarantined", "recoveries",
                        "nonfinite_skips", "checkpoints")}
@@ -677,8 +711,16 @@ def train_minibatch(graph: graph_mod.Graph, cfg: gnn.GNNConfig,
         the batch, copied to the device (staged by ``stager`` on a
         pipeline worker); for a training batch, its spill and the step's
         shape record (counted once per plan and caps, under one lock).
-        On the card it also makes sure the kernel libraries are loaded, so
-        the consumer never waits on nvcc."""
+        On the card it first makes sure the kernel libraries are loaded,
+        so the consumer never waits on nvcc.
+
+        The pipeline's retry policy may re-run this stage from the same
+        ``c``, so its state comes last: the host payloads (kept on ``c``,
+        a pure function of it) and the spill come first, then the kernel
+        libraries, then the staging copy (pinned buffers, the event) and
+        the shape record.  Every failure from the libraries on is fatal
+        (:func:`_fatal`), so no retry ever follows a staging copy or a
+        shape record of a failed attempt."""
         t0 = time.perf_counter()
         with tracer.span("finish", cat="host"):
             keys = plan_payload_keys(c.plan)
@@ -695,26 +737,33 @@ def train_minibatch(graph: graph_mod.Graph, cfg: gnn.GNNConfig,
                 return step_args(c.batch, c.dec, c.inv_deg, c.plan,
                                  pad_budget, dev, stats=c.sig, copy=copy)
 
-            ready, staged = None, []
-            if stager is not None:
-                args, ready, staged = stager.stage(make)
-            else:
-                args = make()
-            if train:
-                with step_lock:
-                    get_step_fn(c.plan).record.check(args)
-            if dev.type == "cuda":
-                _build.build_all(_build.GNN_SOURCES)
+            with _fatal("loading the GNN kernel libraries"):
+                if dev.type == "cuda":
+                    _build.build_all(_build.GNN_SOURCES)
+            with _fatal("staging the batch"):
+                ready, staged = None, []
+                if stager is not None:
+                    args, ready, staged = stager.stage(make)
+                else:
+                    args = make()
+                if train:
+                    with step_lock:
+                        get_step_fn(c.plan).record.check(args)
         c.times["materialize"] = time.perf_counter() - t0
         return _Prepared(c.batch, c.plan, args, c.hit, c.times, spill,
                          ready, staged)
 
     def build_stage(ticket) -> _InFlight:
-        """The sampler's build of a drawn ticket, then :func:`build_batch`
-        (the pipeline's racing work stage)."""
+        """The sampler's build of a drawn ticket and the fault plan's hook,
+        then :func:`build_batch`: the unit the retry policy re-runs (the
+        pipeline's racing work stage).  The hook comes before the
+        skeleton, so an aborted attempt never reaches the SkeletonCache or
+        the PlanCache."""
         t0 = time.perf_counter()
         with tracer.span("sample", cat="host", index=ticket.index):
             batch = sampler.build(ticket)
+            if fault_plan is not None:
+                batch = fault_plan.on_built(ticket.index, batch)
         return build_batch(batch, time.perf_counter() - t0)
 
     losses, hit_history, plan_history = [], [], []
@@ -802,6 +851,8 @@ def train_minibatch(graph: graph_mod.Graph, cfg: gnn.GNNConfig,
                            dropped=dropped, **snap)
                 ckpt.save(gi + 1, dict(params=params, opt=opt), aux=aux)
                 fault["checkpoints"].inc()
+        if fault_plan is not None:
+            fault_plan.on_committed(gi)
         if i % 10 == 0 and _log.isEnabledFor(logging.INFO):
             cs = cache.stats
             _log.info(f"batch {gi:4d} loss {loss_f:.4f} "
@@ -822,7 +873,8 @@ def train_minibatch(graph: graph_mod.Graph, cfg: gnn.GNNConfig,
                 finish_fn=lambda idx, c: finish_batch(c, stager=stager),
                 prefetch_depth=cfg.prefetch_depth,
                 workers=cfg.pipeline_workers,
-                name=f"{cfg.sampler}-{cfg.model}", telemetry=tele)
+                name=f"{cfg.sampler}-{cfg.model}", retry=retry_policy,
+                retryable=ft.default_transient, telemetry=tele)
             try:
                 for i in range(n_new):
                     it0 = time.perf_counter()
@@ -831,11 +883,21 @@ def train_minibatch(graph: graph_mod.Graph, cfg: gnn.GNNConfig,
             finally:
                 pipe_stats = pipe.stats
                 pipe.close()
+            fault["retries"].inc(pipe_stats["retries"])
         else:
+            def on_retry(attempt):
+                fault["retries"].inc()
+
             for i in range(n_new):
                 it0 = time.perf_counter()
-                c = resolve_batch(build_stage(sampler.draw()), start_i + i)
-                consume(i, finish_batch(c))
+                ticket = sampler.draw()
+                if retry_policy is None:
+                    c = build_stage(ticket)
+                else:
+                    c = retry_policy.run(build_stage, ticket,
+                                         on_retry=on_retry,
+                                         retryable=ft.default_transient)
+                consume(i, finish_batch(resolve_batch(c, start_i + i)))
                 times["iter"].append(time.perf_counter() - it0)
     finally:
         if ckpt is not None:

@@ -44,8 +44,13 @@ vacates its turnstile slot so later items never deadlock behind it.
 :meth:`close` is idempotent, joins every worker, and is safe mid-stream,
 used directly or through the context manager.
 
-The reference's ``retry`` policy (retries of the racing stages) is not
-ported: any policy raises ``NotImplementedError`` naming its ROADMAP item.
+An optional ``retry`` policy (``distributed.fault_tolerance.RetryPolicy``)
+re-runs the racing stages, ``work_fn`` and ``finish_fn``, from the same
+input on a failure its ``retryable`` classifier accepts; each retry is
+counted (``pipeline.retries``).  The draw and the resolve are never
+retried: re-running them would replay sequential sampler state and
+shared-cache decisions.  The backoff waits on the stop event, so
+:meth:`close` mid-backoff joins promptly.
 """
 from __future__ import annotations
 
@@ -94,8 +99,10 @@ class BatchPipeline:
     runs through an index-ordered turnstile: put every shared-state
     decision that must match the sequential loop bit for bit there, and
     keep it cheap (it serializes).  ``finish_fn(index, item)``, if given,
-    races again after the resolve (padding, device staging).  ``retry``
-    must be None (retries are not ported).
+    races again after the resolve (padding, device staging).  ``retry``,
+    if given, is a ``RetryPolicy`` whose ``run`` re-runs ``work_fn`` and
+    ``finish_fn`` on the failures ``retryable`` accepts; both must be
+    safe to re-run from the same input.
     """
 
     def __init__(self, draw_fn: Callable[[], Any],
@@ -105,12 +112,8 @@ class BatchPipeline:
                  resolve_fn: Callable[[int, Any], Any] | None = None,
                  finish_fn: Callable[[int, Any], Any] | None = None,
                  retry: Any = None,
+                 retryable: Callable[[BaseException], bool] | None = None,
                  telemetry: Telemetry | None = None):
-        if retry is not None:
-            raise NotImplementedError(
-                "BatchPipeline(retry=...) (retries of the racing stages, "
-                "distributed/fault_tolerance.py's RetryPolicy) is not "
-                "ported yet: ROADMAP section 1 item 7")
         # telemetry before the counter-backed attributes below
         self.tele = telemetry if telemetry is not None else Telemetry()
         m = self.tele.metrics
@@ -129,6 +132,8 @@ class BatchPipeline:
         self._work_fn = work_fn
         self._resolve_fn = resolve_fn
         self._finish_fn = finish_fn
+        self._retry = retry
+        self._retryable = retryable
         self._slots = threading.Semaphore(self.depth)
         self._draw_lock = threading.Lock()
         self._stat_lock = threading.Lock()
@@ -146,7 +151,7 @@ class BatchPipeline:
         self._closed = False
         self.wait_full_s = 0.0     # producers blocked: every slot staged
         self.wait_empty_s = 0.0    # consumer blocked: next item not ready
-        self.retries = 0           # no retry policy: stays 0
+        self.retries = 0           # racing-stage retries
         self.starved = False       # warn-once latch (queue below half-full)
         self._threads = [
             threading.Thread(target=self._worker, daemon=True,
@@ -200,7 +205,7 @@ class BatchPipeline:
                         self._post(idx, False, e)
                         continue
                 try:
-                    item = self._work_fn(idx, ticket)
+                    item = self._run_racing(self._work_fn, idx, ticket)
                     if self._resolve_fn is not None:
                         self._await_turn(idx)
                         try:
@@ -210,7 +215,7 @@ class BatchPipeline:
                     else:
                         self._finish_turn(idx)
                     if self._finish_fn is not None:
-                        item = self._finish_fn(idx, item)
+                        item = self._run_racing(self._finish_fn, idx, item)
                 except _Cancelled:
                     return
                 except BaseException as e:       # noqa: BLE001 — propagated
@@ -222,6 +227,20 @@ class BatchPipeline:
             with self._cond:
                 self._live -= 1
                 self._cond.notify_all()
+
+    def _run_racing(self, fn, idx: int, item):
+        """Run a racing stage, absorbing the failures the retry policy's
+        classifier accepts; its backoff waits on the stop event, so
+        close() interrupts it."""
+        if self._retry is None:
+            return fn(idx, item)
+
+        def on_retry(attempt):
+            with self._stat_lock:
+                self.retries += 1
+
+        return self._retry.run(fn, idx, item, on_retry=on_retry,
+                               cancel=self._stop, retryable=self._retryable)
 
     def _await_turn(self, idx: int) -> None:
         """Block until every lower index has finished its resolve stage."""

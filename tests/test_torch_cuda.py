@@ -1557,6 +1557,80 @@ def test_cuda_async_minibatch_matches_sync(cuda_device, changes):  # noqa: F811
 
 
 @pytest.mark.cuda
+def test_cuda_retried_async_minibatch_matches_sync(cuda_device):  # noqa: F811
+    """Transient worker faults absorbed by the pipeline's retries on the
+    card: under deterministic algorithms the retried async run gives the
+    fault-free sync run's losses bit for bit, and its plans, hits, cache
+    counters and trace count; three retries counted."""
+    import dataclasses
+    from repro_torch.core import gnn
+    from repro_torch.distributed import FaultPlan
+    from repro_torch.graphs import graph as TG
+    from repro_torch.train import gnn_steps
+    g = TG.synth_dataset("cora", 0.2, seed=0, comm_size=16)
+    cfg = gnn.GNNConfig(hidden=16, comm_size=16, sampler="cluster",
+                        clusters_per_batch=8, inter_buckets=2)
+    fp = FaultPlan(worker_faults={2: 2, 5: 1})
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        sync = gnn.train(g, cfg, steps=8, device=cuda_device)
+        asyn = gnn_steps.train_minibatch(
+            g, dataclasses.replace(cfg, prefetch_depth=3, pipeline_workers=2,
+                                   retry_max=3, retry_base_delay_s=0.001),
+            steps=8, device=cuda_device, fault_plan=fp)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert asyn.losses == sync.losses
+    assert asyn.plan_history == sync.plan_history
+    assert asyn.hit_history == sync.hit_history and asyn.cache == sync.cache
+    assert asyn.n_traces == sync.n_traces == len(sync.plans)
+    assert asyn.faults["retries"] == asyn.pipeline["retries"] == 3
+    assert fp.injected_worker == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prefetch", [0, 3], ids=["sync", "async"])
+def test_cuda_failing_launch_is_not_retried(cuda_device, monkeypatch,
+                                            prefetch):  # noqa: F811
+    """A kernel launch that fails (its library's launch raising, as a CUDA
+    error does) ends the run with that error through a retry budget of 3:
+    no retry, no second launch, no other plan."""
+    import dataclasses
+    import threading
+    from repro_torch.core import gnn
+    from repro_torch.graphs import graph as TG
+    from repro_torch.kernels import _build
+    from repro_torch.obs import Telemetry
+    from repro_torch.train import gnn_steps
+    g = TG.synth_dataset("cora", 0.2, seed=0, comm_size=16)
+    cfg = gnn.GNNConfig(hidden=16, comm_size=16, sampler="cluster",
+                        clusters_per_batch=8, inter_buckets=2,
+                        selector="fixed", fixed_kernels=("block_diag", "bell"),
+                        retry_max=3, retry_base_delay_s=10.0)
+    cfg = dataclasses.replace(cfg, prefetch_depth=prefetch,
+                              pipeline_workers=2)
+    real = _build.Built.launch
+    calls = []
+    err = RuntimeError("block_diag_spmm launch failed: injected")
+
+    def launch(self, *args):
+        if self.name == "block_diag_spmm":
+            calls.append(1)
+            raise err
+        return real(self, *args)
+
+    monkeypatch.setattr(_build.Built, "launch", launch)
+    tele = Telemetry()
+    with pytest.raises(RuntimeError) as info:
+        gnn_steps.train_minibatch(g, cfg, steps=6, device=cuda_device,
+                                  telemetry=tele)
+    assert info.value is err and len(calls) == 1
+    assert tele.metrics.counter("faults.retries").value == 0
+    assert not [t for t in threading.enumerate()
+                if t.name.startswith("pipeline-")]
+
+
+@pytest.mark.cuda
 def test_cuda_pipeline_staged_tensors_are_recorded_on_the_consumer_stream(
         cuda_device, monkeypatch):  # noqa: F811
     """The staging copy runs on the worker's own stream, from pinned host

@@ -1619,6 +1619,69 @@ def test_minibatch_pipeline_matches_reference_from_its_params(monkeypatch):
                                    rtol=1e-2)
 
 
+def test_retry_jitter_ladders_match_reference():
+    """RetryPolicy's decorrelated-jitter ladders are the reference's
+    number for number: three seeds, two successive calls each (stream
+    (seed, call index)), and the plain exponential ladder with a cap."""
+    from repro.distributed import fault_tolerance as RFT
+    from repro_torch.distributed import fault_tolerance as TFT
+    for seed in (0, 11, 2024):
+        kw = dict(max_retries=5, base_delay_s=0.01, jitter=True, seed=seed,
+                  max_delay_s=0.5)
+        ref, port = RFT.RetryPolicy(**kw), TFT.RetryPolicy(**kw)
+        for _ in range(2):
+            assert port.delays() == ref.delays()
+    kw = dict(max_retries=4, base_delay_s=0.05, max_delay_s=0.3)
+    assert TFT.RetryPolicy(**kw).delays() == RFT.RetryPolicy(**kw).delays()
+
+
+def test_minibatch_fault_plan_matches_reference_from_its_params(monkeypatch):
+    """train_minibatch in both packages, from the reference's initial
+    parameters, under the same FaultPlan (transient worker faults on
+    batches 1 and 4, NaN features on batch 3) with retry_max=3, sync and
+    async: the same batches, plans, hit history, cache counters and fault
+    counts (retries, non-finite skips), losses within the curve tolerance
+    with NaN at the same index."""
+    from repro.distributed import fault_tolerance as RFT
+    from repro.train import gnn_steps as RS
+    from repro_torch.distributed import fault_tolerance as TFT
+    from repro_torch.train import gnn_steps as TS
+    g, pg = _mb_graphs()
+    plan = dict(worker_faults={1: 1, 4: 2}, nonfinite_at={3})
+    for prefetch in (0, 3):
+        rcfg, tcfg = _mb_cfgs(prefetch_depth=prefetch, pipeline_workers=2,
+                              retry_max=3, retry_base_delay_s=0.0)
+        rfp, tfp = RFT.FaultPlan(**plan), TFT.FaultPlan(**plan)
+        with monkeypatch.context() as m:
+            rbatches, tbatches = _recording_samplers(m, RS, TS)
+            ref = RS.train_minibatch(g, rcfg, steps=8, eval_batches=1,
+                                     fault_plan=rfp)
+            params = RGNN.init_model(jax.random.PRNGKey(rcfg.seed), rcfg,
+                                     g.features.shape[1], g.n_classes)
+            port = TS.train_minibatch(
+                pg, tcfg, steps=8, eval_batches=1, device="cpu",
+                fault_plan=tfp, params=from_jax_params(
+                    [{k: np.asarray(a) for k, a in p.items()}
+                     for p in params], device="cpu"))
+        assert sorted(tbatches) == sorted(rbatches) and len(rbatches) == 9
+        for i in rbatches:
+            tp.assert_bytes_equal(rbatches[i], tbatches[i])
+        assert port.plans == ref.plans, prefetch
+        assert port.hit_history == ref.hit_history
+        assert port.cache == ref.cache
+        for k in ("retries", "nonfinite_skips"):
+            assert port.faults[k] == ref.faults[k], k
+        assert port.faults["retries"] == 3
+        assert port.faults["nonfinite_skips"] == 1
+        assert (tfp.injected_worker, tfp.injected_nonfinite) == (
+            rfp.injected_worker, rfp.injected_nonfinite) == (3, 1)
+        if prefetch:
+            assert port.pipeline["retries"] == ref.pipeline["retries"] == 3
+        assert np.isnan(port.losses[3]) and np.isnan(ref.losses[3])
+        np.testing.assert_allclose(port.losses, ref.losses, atol=5e-3,
+                                   rtol=1e-2)
+
+
 def test_checkpoint_matches_reference_manager(tmp_path):
     """One GCN state (the reference's initial params and a fresh Adam
     state, carried over) saved by each package's CheckpointManager: the

@@ -19,6 +19,7 @@ import pytest
 
 from repro_torch.core import gnn as TGNN
 from repro_torch.core import selector as sel_mod
+from repro_torch.distributed import fault_tolerance as ft
 from repro_torch.graphs import graph as TG
 from repro_torch.sampling import ClusterSampler, NeighborSampler, PlanCache
 from repro_torch.train import gnn_steps
@@ -246,13 +247,41 @@ def test_starvation_warns_once():
 
 
 def test_retry_policy_raises_naming_the_roadmap():
+    """``retry=`` runs now: the racing stages (work, finish) retry and
+    count their retries, the ordered resolve never does.  Injected kernel
+    faults (kernel quarantine, not ported) still raise naming ROADMAP
+    section 1 item 7."""
+    failed = set()
+
+    def flaky_once(stage):
+        def fn(i, t):
+            if i % 3 == 1 and (stage, i) not in failed:
+                failed.add((stage, i))
+                raise ft.TransientError(f"{stage} {i}")
+            return t
+        return fn
+
+    def resolve(i, t):
+        if i == 5:
+            raise ft.TransientError("resolve is never retried")
+        return t * 10
+
+    counter = iter(range(100))
+    with BatchPipeline(lambda: next(counter), flaky_once("work"), n_items=6,
+                       prefetch_depth=3, workers=2, resolve_fn=resolve,
+                       finish_fn=flaky_once("finish"),
+                       retry=ft.RetryPolicy(max_retries=2, base_delay_s=0.0),
+                       retryable=ft.default_transient) as pipe:
+        assert get_all(pipe, 5) == [i * 10 for i in range(5)]
+        with pytest.raises(ft.TransientError, match="never retried"):
+            pipe.get(timeout=WAIT_S)
+    assert pipe.stats["retries"] == 4      # items 1 and 4, work and finish
+    assert failed == {(s, i) for s in ("work", "finish") for i in (1, 4)}
     with pytest.raises(NotImplementedError, match="ROADMAP section 1 item 7"):
-        BatchPipeline(lambda: 0, lambda i, t: t, n_items=1,
-                      retry=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP section 1 item 7"):
-        gnn_steps.train_minibatch(small_graph(), cfg_of(prefetch_depth=2,
-                                                        retry_max=1),
-                                  steps=1, device="cpu")
+        gnn_steps.train_minibatch(
+            small_graph(), cfg_of(prefetch_depth=2, retry_max=1), steps=1,
+            device="cpu", fault_plan=ft.FaultPlan(
+                kernel_faults={"bell": "compile"}))
     assert_no_pipeline_threads()
 
 

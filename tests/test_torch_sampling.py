@@ -18,6 +18,7 @@ from repro_torch.core import decompose as TD
 from repro_torch.core import formats as TF
 from repro_torch.core import gnn as TGNN
 from repro_torch.core.plan import KernelPlan
+from repro_torch.distributed import FaultPlan
 from repro_torch.graphs import graph as TG
 from repro_torch.kernels import ops as TOPS
 from repro_torch.kernels import registry as TR
@@ -485,9 +486,10 @@ def test_telemetry_on_and_off_are_bit_identical(tmp_path):
 
 
 def test_minibatch_refuses_gat_and_unported_knobs():
-    """GAT is no mini-batch model; fault_plan (fault injection) raises,
-    naming ROADMAP section 1 item 7; prefetch_depth, ported now, runs the
-    pipeline and gives the sync run's batches and losses."""
+    """GAT is no mini-batch model; a fault_plan with injected kernel
+    faults (kernel quarantine) raises, naming ROADMAP section 1 item 7;
+    prefetch_depth, ported now, runs the pipeline and gives the sync run's
+    batches and losses."""
     with pytest.raises(ValueError, match="gcn/gin/sage"):
         train(cfg_of(model="gat"), steps=1)
     res = train(cfg_of(), steps=2, eval_batches=0)
@@ -497,7 +499,9 @@ def test_minibatch_refuses_gat_and_unported_knobs():
     assert one.pipeline["delivered"] == 2 and res.pipeline is None
     with pytest.raises(NotImplementedError, match="ROADMAP section 1 item 7"):
         gnn_steps.train_minibatch(small_graph(), cfg_of(), steps=1,
-                                  fault_plan=object(), device="cpu")
+                                  fault_plan=FaultPlan(
+                                      kernel_faults={"bell": "execute"}),
+                                  device="cpu")
     assert plan_payload_keys(KernelPlan(
         ("intra", "inter0", "inter1"),
         (("block_diag_fused", "bell_fused", "coo"),))) == (

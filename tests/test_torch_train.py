@@ -20,6 +20,7 @@ from repro_torch.core import decompose as TD
 from repro_torch.core import formats as TF
 from repro_torch.core import gnn as TGNN
 from repro_torch.core.plan import KernelPlan
+from repro_torch.distributed import FaultPlan
 from repro_torch.graphs import graph as TG
 from repro_torch.kernels import ops
 from repro_torch.kernels.registry import REGISTRY, KernelSpec
@@ -295,19 +296,24 @@ def test_train_leaves_carried_params_untouched_and_learns():
 @pytest.mark.parametrize("field,value", [("sampler", "cluster"),
                                          ("sampler", "neighbor")])
 def test_train_raises_for_unported_options(field, value, tmp_path):
-    """Both samplers train; their unported knobs (retries, fault
-    injection) raise NotImplementedError naming the ROADMAP item, never
-    running another path instead.  ``resume_from``, ported now, runs: from
-    a directory that holds no checkpoint it warns and trains afresh."""
+    """Both samplers train; their one unported knob, injected kernel
+    faults (kernel quarantine), raises NotImplementedError naming the
+    ROADMAP item, never running another path instead.  Retries, ported
+    now, run: ``retry_max=2`` with no fault gives the plain run's losses.
+    ``resume_from``, ported too, runs: from a directory that holds no
+    checkpoint it warns and trains afresh."""
     cfg = dataclasses.replace(TGNN.GNNConfig(hidden=8, comm_size=8),
                               **{field: value})
+    retried = TGNN.train(_graph(), dataclasses.replace(cfg, retry_max=2),
+                         steps=2, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP section 1 item 7"):
-        TGNN.train(_graph(), dataclasses.replace(cfg, retry_max=2), steps=1,
-                   device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP section 1 item 7"):
-        gnn_steps.train_minibatch(_graph(), cfg, steps=1, fault_plan=object(),
+        gnn_steps.train_minibatch(_graph(), cfg, steps=1,
+                                  fault_plan=FaultPlan(
+                                      kernel_faults={"bell": "compile"}),
                                   device="cpu")
     fresh = TGNN.train(_graph(), cfg, steps=2, device="cpu")
+    assert retried.losses == fresh.losses
+    assert retried.faults["retries"] == 0
     with pytest.warns(UserWarning, match="no valid checkpoint"):
         res = TGNN.train(_graph(), dataclasses.replace(
             cfg, resume_from=str(tmp_path / "ckpt")), steps=2, device="cpu")
