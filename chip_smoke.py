@@ -197,6 +197,37 @@ Phases, each of which raises (exit code != 0) on failure:
    called once, no launch beyond the first batch's step.  Per run: wall
    ms beside the fault-free run's, retries and the backoff seconds paid
    (the tracer's retry.backoff spans);
+7a'''''. [serve]: the GNN inference server (repro_torch.serve) on the
+   card: launch.serve.build_server trains GCN 30 steps on pubmed's
+   neighbor sampler (128 seeds, fanouts (8, 4): rungs (8, 4), (4, 2),
+   (2, 1)) and serves over its PlanCache; warmup, then SERVE_REQUESTS
+   requests in step() mode with the launch counts set to 0 just before
+   and read just after: every request ok, n_traces unchanged, the
+   launches what the committed plans imply for each batch; the same
+   requests through a CPU server from the same
+   params and the same PlanCache snapshot (H100_HW prices it): equal
+   preds, logits within atol 5e-3, rtol 1e-2 ([minibatch]'s card-vs-CPU
+   tolerance); a fresh card server warm-started from that snapshot: the
+   same plans, no new record, logits within 1e-6 (the reference's
+   warm-start test); FaultPlan(worker_faults=SERVE_WORKER) retried on the
+   request path (3 retries, no error, the same preds); FaultPlan(
+   kernel_faults=...) raising NotImplementedError; an open-loop burst on
+   the background thread at twice the rate max_batch / est_service_s
+   (from step() mode) implies: every future terminal, no error, no
+   quarantine or recovery, the ladder down at least once, launches as the
+   plans imply; MB_FIXED's mb_fixed_unfused and mb_fixed_tcgnn_fused
+   params served the same way through PlanCaches that commit their fixed
+   plans (serve.server.plan_cache_for(fixed_kernels=)), each against a
+   CPU server over the same params and plan: equal plans and preds,
+   logits within SERVE_FIXED_TOL (float32 atol = rtol = 1e-4, the port's
+   kernel tests' tolerance); block_diag_spmm,
+   bell_spmm, block_diag_spmm_fused and tcgnn_spmm_fused must each have
+   launched on the request paths (the cost-model plans of the main path
+   may launch no hand kernel).  A "serving loop error" log record fails
+   the phase.  Prints
+   p50/p99 latency, service ms, shed %, rung and degrades, the device-busy
+   us of one batch's infer (kernel events checked) and the phase's
+   seconds;
 7b. LM serving, InternLM2-1.8B (24 layers, d_model 2048, 16/8 heads of
    128, d_ff 8192, vocab 92544): flash_attention against its plain
    version is in phase 2 (the reference test's shapes, InternLM2's
@@ -526,6 +557,23 @@ FAULT_FATAL_AT = 2
 FAULT_NONFINITE_AT = 17
 FAULT_WRAPPERS = ("block_diag_spmm", "bell_spmm", "block_diag_spmm_fused",
                   "bell_spmm_fused", "bell_spmm_dw", "block_diag_spmm_dual")
+
+
+# [serve]: requests in step() mode (the card, the CPU, the warm start and
+# each fixed plan), the step() mode's ServeConfig (every request admitted
+# and served), the burst's (the reference's defaults) and its length, and
+# the transient build faults by ego stream index (warmup takes 0..2)
+SERVE_REQUESTS = 256
+SERVE_STEP = dict(deadline_s=60.0, queue_limit=SERVE_REQUESTS, max_batch=16,
+                  max_wait_s=0.0)
+SERVE_BURST = dict(deadline_s=0.25, queue_limit=64, max_batch=16)
+SERVE_BURST_S = 2.0
+SERVE_WORKER = {3: 1, 4: 2}
+SERVE_FIXED = ("mb_fixed_unfused", "mb_fixed_tcgnn_fused")
+SERVE_KERNELS = ("block_diag_spmm", "bell_spmm", "block_diag_spmm_fused",
+                 "tcgnn_spmm_fused")
+WARM_TOL = dict(atol=1e-6, rtol=1e-6)     # tests/test_serving.py:333
+SERVE_FIXED_TOL = dict(atol=1e-4, rtol=1e-4)  # tests/torch_parity.py F32_TOL
 
 
 def plan_launches(layers, steps: int, model: str = "gcn",
@@ -3541,6 +3589,297 @@ def phase_faults(torch, graph, counts: dict, pipe: dict) -> dict:
     return dict(used=used, info=info)
 
 
+def serve_launches(plan_batches: dict) -> dict:
+    """The CUDA-kernel launches of the batches a server served: one GCN
+    forward per batch under its plan (plan_launches at 0 steps)."""
+    out = {k: 0 for k in KERNELS}
+    for layers, n in plan_batches.items():
+        one = plan_launches(layers, 0)
+        for k in out:
+            out[k] += n * one[k]
+    return out
+
+
+def serve_threads() -> list:
+    """Names of the inference server's loop threads still alive."""
+    import threading
+    return [t.name for t in threading.enumerate() if t.name == "serve-loop"]
+
+
+def serve_requests(server, nodes) -> list:
+    """``nodes`` submitted at once, then step() until every future lands
+    (bounded): the (status, value) of each."""
+    futs = [server.submit(int(v)) for v in nodes]
+    for _ in range(4 * len(futs)):
+        if all(f.done() for f in futs):
+            break
+        server.step()
+    return [f.result(0) for f in futs]
+
+
+def phase_serve(torch, counts: dict, mb: dict) -> dict:
+    """[serve]: the GNN inference server on the card (the module
+    docstring's 7a''''').  Raises on any failed check."""
+    import dataclasses
+    import logging
+    import tempfile
+    import numpy as np
+    from repro_torch.core import selector as sel_mod
+    from repro_torch.distributed import FaultPlan
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.serve import OK, SHED, TIMEOUT, InferenceServer
+    from repro_torch.serve import ServeConfig
+    from repro_torch.serve.server import plan_cache_for
+    t_phase = time.perf_counter()
+    used, info = {}, {}
+
+    class Records(logging.Handler):
+        def __init__(self):
+            super().__init__(logging.ERROR)
+            self.records = []
+
+        def emit(self, record):
+            self.records.append(record)
+
+    loop_errors = Records()
+    serve_log = logging.getLogger("repro_torch.serve")
+    serve_log.addHandler(loop_errors)
+
+    def drive(name, server, nodes) -> list:
+        """step() mode with the launch counts set to 0 just before and
+        read just after; every request ok, no new shape record, and the
+        launches what the plans of the served batches imply."""
+        traces, before = server.n_traces, dict(server.plan_batches)
+        for cnt in counts.values():
+            cnt.reset()
+        t0 = time.perf_counter()
+        out = serve_requests(server, nodes)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        used[name] = {k: cnt.value for k, cnt in counts.items()}
+        bad = [s for s, _ in out if s != OK]
+        if bad:
+            raise RuntimeError(f"{name}: {len(bad)} requests not ok: "
+                               f"{[v for s, v in out if s != OK][:3]}")
+        if server.n_traces != traces:
+            raise RuntimeError(f"{name}: n_traces {traces} -> "
+                               f"{server.n_traces} in steady state")
+        served = {k: v - before.get(k, 0)
+                  for k, v in server.plan_batches.items()
+                  if v != before.get(k, 0)}
+        want = serve_launches(served)
+        if used[name] != want:
+            raise RuntimeError(f"{name}: launches {used[name]}, the plans "
+                               f"{served} imply {want}")
+        st = server.stats()
+        info[name] = dict(plans=sorted(served.items()), wall_s=secs,
+                          batches=sum(served.values()),
+                          n_traces=server.n_traces,
+                          launches={k: v for k, v in used[name].items() if v},
+                          service_ms=st["service"]["p50"] * 1e3,
+                          est_service_ms=st["est_service_s"] * 1e3)
+        return out
+
+    def logits(out):
+        return np.stack([v["logits"] for _, v in out])
+
+    rng = np.random.default_rng(0)
+    scfg = ServeConfig(**SERVE_STEP)
+    snap_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_serve_")
+    snap = f"{snap_dir.name}/plans.bin"
+    try:
+        # the main path: train through the user's entry point, then serve
+        t0 = time.perf_counter()
+        main = launch_serve.build_server(
+            "pubmed", scale=1.0, train_steps=MB_STEPS, batch_nodes=128,
+            fanouts=(8, 4), serve_cfg=scfg, device="cuda")
+        t_build = time.perf_counter() - t0
+        graph, cfg = main.ego.graph, main.cfg
+        nodes = rng.integers(0, graph.n, size=SERVE_REQUESTS)
+        t0 = time.perf_counter()
+        warm = main.warmup()
+        t_warm = time.perf_counter() - t0
+        if not warm["new_traces"]:
+            raise RuntimeError(f"main: warmup made no record ({warm})")
+        trained_plans = sorted({p.layers for _, p, _ in
+                                main.cache.state_dict()["entries"]})
+        main.cache.save(snap)
+        saved = {sig: (p, a) for sig, p, a in
+                 main.cache.state_dict()["entries"]}
+        card = drive("main", main, nodes)
+        log("serve", f"build_server (pubmed neighbor, {MB_STEPS} steps) "
+            f"{t_build:.2f} s; warmup {t_warm:.2f} s, {warm['new_traces']} "
+            f"records over {warm['rungs']} rungs "
+            f"{[s.fanouts for s in main.ego.samplers]}; cache plans "
+            f"{trained_plans}; {SERVE_REQUESTS} requests in step() mode: "
+            f"{info['main']}")
+
+        # the CPU from the same params and the same snapshot
+        budget = main.ego.pad_budget(0)
+        cpu_cache = plan_cache_for(graph, cfg, budget, hw=sel_mod.H100_HW,
+                                   device="cpu")
+        cpu = InferenceServer(graph, cfg, main.params, serve_cfg=scfg,
+                              plan_cache=cpu_cache, device="cpu")
+        t0 = time.perf_counter()
+        if not cpu.warmup(path=snap)["loaded"]:
+            raise RuntimeError("cpu: the snapshot did not load")
+        host = serve_requests(cpu, nodes)
+        t_cpu = time.perf_counter() - t0
+        if cpu.plan_batches != main.plan_batches:
+            raise RuntimeError(f"cpu: plans {cpu.plan_batches}, the card's "
+                               f"{main.plan_batches}")
+        if [v["pred"] for _, v in host] != [v["pred"] for _, v in card]:
+            raise RuntimeError("cpu: preds differ from the card's")
+        np.testing.assert_allclose(logits(card), logits(host), **CURVE_TOL)
+        info["cpu"] = dict(max_abs_diff=float(np.abs(
+            logits(card) - logits(host)).max()), wall_s=t_cpu)
+
+        # a warm start from the snapshot in a fresh card server
+        fresh = InferenceServer(graph, cfg, main.params, serve_cfg=scfg,
+                                device="cuda")
+        if not fresh.warmup(path=snap)["loaded"]:
+            raise RuntimeError("warm start: the snapshot did not load")
+        got = {sig: (p, a) for sig, p, a in
+               fresh.cache.state_dict()["entries"]}
+        if got != saved:
+            raise RuntimeError("warm start: plans differ from the snapshot")
+        again = drive("warm_start", fresh, nodes)
+        if [v["pred"] for _, v in again] != [v["pred"] for _, v in card]:
+            raise RuntimeError("warm start: preds differ")
+        np.testing.assert_allclose(logits(again), logits(card), **WARM_TOL)
+        info["warm_start"]["max_abs_diff"] = float(np.abs(
+            logits(again) - logits(card)).max())
+
+        # transient build faults retried on the request path
+        fp = FaultPlan(worker_faults=dict(SERVE_WORKER))
+        retried = InferenceServer(
+            graph, cfg, main.params, fault_plan=fp, device="cuda",
+            serve_cfg=dataclasses.replace(scfg, retry_max=3,
+                                          retry_base_delay_s=0.001))
+        retried.warmup(path=snap)
+        k = 2 * scfg.max_batch
+        out = drive("retried", retried, nodes[:k])
+        st = retried.stats()
+        want = sum(SERVE_WORKER.values())
+        if (st["retries"] != want or fp.injected_worker != want
+                or st["errors"]
+                or [v["pred"] for _, v in out]
+                != [v["pred"] for _, v in card[:k]]):
+            raise RuntimeError(f"retried: {st['retries']} retries, injected "
+                               f"{fp.injected_worker}, errors "
+                               f"{st['errors']}, or other preds")
+        info["retried"]["retries"] = st["retries"]
+
+        # injected kernel faults need quarantine, which is not ported
+        try:
+            InferenceServer(graph, cfg, main.params, device="cuda",
+                            fault_plan=FaultPlan(kernel_faults={
+                                "bell": "execute"}))
+        except NotImplementedError as exc:
+            if "item 7" not in str(exc):
+                raise
+        else:
+            raise RuntimeError("kernel_faults did not raise")
+
+        # an open-loop burst at twice the step() mode's rate
+        est_s = main.stats()["est_service_s"]
+        qps = 2.0 * SERVE_BURST["max_batch"] / est_s
+        burst = InferenceServer(
+            graph, cfg, main.params, device="cuda",
+            serve_cfg=ServeConfig(est_service_s=est_s, **SERVE_BURST))
+        burst.warmup(path=snap)
+        before = dict(burst.plan_batches)
+        for cnt in counts.values():
+            cnt.reset()
+        t0 = time.perf_counter()
+        with burst:
+            futs = launch_serve.open_loop_burst(burst, qps, SERVE_BURST_S)
+            ends = [f.result(timeout=60) for f in futs]
+        torch.cuda.synchronize()
+        t_burst = time.perf_counter() - t0
+        used["burst"] = {k: cnt.value for k, cnt in counts.items()}
+        st = burst.stats()
+        served = {k: v - before.get(k, 0)
+                  for k, v in burst.plan_batches.items()
+                  if v != before.get(k, 0)}
+        if (any(s not in (OK, SHED, TIMEOUT) for s, _ in ends)
+                or st["errors"] or st["quarantined"] or st["recoveries"]
+                or st["degrades"] < 1 or serve_threads()
+                or used["burst"] != serve_launches(served)):
+            raise RuntimeError(f"burst: statuses "
+                               f"{sorted({s for s, _ in ends})}, stats {st},"
+                               f" launches {used['burst']} for {served}")
+        info["burst"] = dict(
+            qps=qps, seconds=t_burst, requests=len(futs),
+            ok=sum(s == OK for s, _ in ends), shed=st["shed"],
+            timeouts=st["timeouts"], shed_pct=st["shed_pct"],
+            p50_ms=st["latency"]["p50"] * 1e3,
+            p99_ms=st["latency"]["p99"] * 1e3,
+            service_p50_ms=st["service"]["p50"] * 1e3,
+            service_p99_ms=st["service"]["p99"] * 1e3,
+            batch_size_p50=st["batch_size"]["p50"],
+            degrades=st["degrades"], restores=st["restores"],
+            rung=st["rung"], n_traces=st["n_traces"],
+            plans=sorted(served.items()))
+        log("serve", f"burst: {info['burst']}")
+
+        # MB_FIXED's params served with their fixed plans (PlanCaches
+        # that commit them), on the card and on the CPU: equal plans and
+        # preds, logits within SERVE_FIXED_TOL
+        for name in SERVE_FIXED:
+            _, pair = MB_FIXED[name]
+            fcfg = dataclasses.replace(cfg, selector="fixed",
+                                       fixed_kernels=pair)
+            fixed, fcpu = (InferenceServer(
+                graph, fcfg, mb["runs"][name].params, serve_cfg=scfg,
+                plan_cache=plan_cache_for(graph, fcfg, budget,
+                                          fixed_kernels=pair, device=d),
+                device=d) for d in ("cuda", "cpu"))
+            fixed.warmup()
+            got = drive(f"fixed_{name}", fixed, nodes)
+            fcpu.warmup()
+            want = serve_requests(fcpu, nodes)
+            if fcpu.plan_batches != fixed.plan_batches:
+                raise RuntimeError(f"{name}: CPU plans {fcpu.plan_batches},"
+                                   f" the card's {fixed.plan_batches}")
+            if [v["pred"] for _, v in got] != [v["pred"] for _, v in want]:
+                raise RuntimeError(f"{name}: preds differ from the CPU's")
+            err = float(np.abs(logits(got) - logits(want)).max())
+            info[f"fixed_{name}"]["max_abs_diff_vs_cpu"] = err
+            np.testing.assert_allclose(logits(got), logits(want),
+                                       **SERVE_FIXED_TOL)
+            info[f"fixed_{name}"]["trained_plans"] = mb["runs"][name].plans
+            log("serve", f"{name}: trained plans "
+                f"{mb['runs'][name].plans}; served {info[f'fixed_{name}']}")
+
+        # the hand kernels the fixed plans must have launched on the
+        # request path (the main path's cost-model plans may launch none)
+        idle = [k for k in SERVE_KERNELS
+                if not sum(u[k] for u in used.values())]
+        if idle:
+            raise RuntimeError(f"the request paths never launched {idle}")
+
+        # one batch's infer on the card, profiled
+        batch = main.ego.build(0, np.unique(nodes[:scfg.max_batch]),
+                               main.ego.next_index())
+        plan, run = main.infer_step(0, batch)
+        infer_ms = eager_ms(torch, run)
+        one = plan_launches(plan.layers, 0)
+        busy = profile_busy(torch, run, 5, infer_ms, "serve infer",
+                            expect=device_events(one))
+        info["infer"] = dict(plan=plan.layers, ms=infer_ms,
+                             busy_us=busy and busy["busy_us"])
+    finally:
+        serve_log.removeHandler(loop_errors)
+        snap_dir.cleanup()
+    if loop_errors.records:
+        raise RuntimeError(f"{len(loop_errors.records)} serving loop error "
+                           f"records: {loop_errors.records[0].getMessage()}")
+    secs = time.perf_counter() - t_phase
+    log("serve", f"phase {secs:.1f} s; " + json.dumps(info, default=str))
+    return dict(used=used, info=info, seconds=secs, per_batch=one)
+
+
 def time_dual_kernel(torch, sdec, flush) -> dict:
     """block_diag_spmm_dual on pubmed's SAGE diagonal blocks (L2 flushed)
     at both layers' widths, beside its plain version, the library
@@ -5148,6 +5487,8 @@ def main() -> int:
     pipe = phase_pipeline(torch, graph, counts, mb)
     # 7a''''. retries and fault injection ----------------------------------
     flt = phase_faults(torch, graph, counts, pipe)
+    # 7a'''''. the GNN inference server ------------------------------------
+    srv = phase_serve(torch, counts, mb)
     # 7b. LM serving: InternLM2-1.8B at full width ----------------------------
     lm2 = phase_lm_two_layer(torch, counts)
     lm32 = phase_lm_f32(torch, counts)
@@ -5177,6 +5518,7 @@ def main() -> int:
                **{f"minibatch_{n}": u for n, u in mb["used"].items()},
                **{f"pipeline_{n}": u for n, u in pipe["used"].items()},
                **{f"faults_{n}": u for n, u in flt["used"].items()},
+               **{f"serve_{n}": u for n, u in srv["used"].items()},
                "lm_prefill_step_2_layers_f32": lm2["launches"],
                "lm_prefill_step_f32": lm32["launches"],
                "lm_softmax_prefill_decode_f32": lm32["other_launches"],
@@ -5395,6 +5737,7 @@ def main() -> int:
                     **{f"minibatch_{n}": t for n, t in mb["per_step"].items()},
                     **{f"pipeline_{n}": t
                        for n, t in pipe["per_step"].items()},
+                    serve_infer=srv["per_batch"],
                     lm_prefill_step=lms["launches"],
                     serve_lm=lms["serve_launches"],
                     rwkv_prefill_step=rws["launches"],
@@ -5438,7 +5781,7 @@ def main() -> int:
         f"{tune['k_best']}, k = {AUTOTUNE_K} nnz {tune['nnz']}, per step "
         f"{tune['per_step']}; minibatch {mb['info']}, fixed card vs CPU "
         f"{mb['fixed']}; pipeline {pipe['info']}, resume {pipe['resume']}; "
-        f"faults {flt['info']}; "
+        f"faults {flt['info']}; serve {srv['info']}; "
         f"train losses "
         + json.dumps(dict({n: r.losses for n, r in
                            trained["results"].items()},

@@ -303,7 +303,8 @@ class PlanCache:
                  spill_min_obs: int = 8,
                  max_slack_changes: int | None = None,
                  telemetry: Telemetry | None = None,
-                 device: str | torch.device = DEFAULT_DEVICE):
+                 device: str | torch.device = DEFAULT_DEVICE,
+                 fixed_kernels: tuple | None = None):
         # telemetry first: the counter attributes below are properties
         # over registry counters, so the registry must exist before any
         # `self.hits = 0` style assignment runs
@@ -330,6 +331,11 @@ class PlanCache:
         # pin the measured winner in the cached entry (0 = cost model only)
         self.probe_every = probe_every
         self.probe_iters = probe_iters
+        # port only: one kernel per tier committed on every miss in place
+        # of selection and probing (a fixed-selector model served on the
+        # plan it trained on); None = the reference's selection
+        self.fixed_kernels = (tuple(fixed_kernels)
+                              if fixed_kernels is not None else None)
         # adaptive probe widening: the probe widens past top-2 (up to
         # probe_k_max) when the modeled margin between candidates sits
         # inside the model's observed relative-error band, accumulated
@@ -721,23 +727,30 @@ class PlanCache:
         scheduled probe times them) — the two-phase hot path uses
         :meth:`lookup` first instead.  Atomic under the cache lock: two
         pipeline workers racing one fresh signature pay exactly one miss
-        (the second blocks, then hits the entry the first minted)."""
+        (the second blocks, then hits the entry the first minted).  A
+        cache made with ``fixed_kernels`` commits that plan on a miss."""
         with self._lock:
             plan = self.lookup(dec)
             if plan is not None:
                 return plan, True
             self.misses += 1
             sig = self.signature(dec)
-            exclude = frozenset(self._quarantine.get(sig, ()))
-            plan = self.select(dec, exclude=exclude)
-            source = "cost_model"
-            if self.probe_every and self.misses % self.probe_every == 0:
-                probed = self._probe_pin(dec)
-                # the probe frontier doesn't know the quarantine; keep the
-                # cost-model fallback if it re-pinned a struck kernel
-                if not (self._plan_kernels(probed) & exclude):
-                    plan = probed
-                    source = "probe"
+            if self.fixed_kernels is not None:
+                plan = KernelPlan.make(dec, self.fixed_kernels,
+                                       n_layers=len(self.pairs),
+                                       epilogues=self.epilogues)
+                source = "fixed"
+            else:
+                exclude = frozenset(self._quarantine.get(sig, ()))
+                plan = self.select(dec, exclude=exclude)
+                source = "cost_model"
+                if self.probe_every and self.misses % self.probe_every == 0:
+                    probed = self._probe_pin(dec)
+                    # the probe frontier doesn't know the quarantine; keep
+                    # the cost-model fallback if it re-pinned a struck kernel
+                    if not (self._plan_kernels(probed) & exclude):
+                        plan = probed
+                        source = "probe"
             if self.tele.audit.enabled:
                 # every committed plan leaves a receipt: per-(layer, tier)
                 # kernel choices with the modeled seconds selection compared

@@ -218,7 +218,7 @@ class _Stager:
             t.record_stream(consumer)
 
 
-def _tensor_shapes(args) -> tuple:
+def tensor_shapes(args) -> tuple:
     """(shape, dtype) of every tensor of a step's argument tail, payloads
     in a fixed order (tier, format key, container, field)."""
     dec, *rest = args
@@ -262,7 +262,7 @@ class _ShapeRecord:
 
     def check(self, args) -> None:
         key = _cap_key(args[0])
-        shapes = _tensor_shapes(args)
+        shapes = tensor_shapes(args)
         seen = self.records.get(key)
         if seen is None:
             self.records[key] = shapes
@@ -458,7 +458,7 @@ class _Prepared:
     staged: list = field(default_factory=list)
 
 
-def _refuse_unported(fault_plan) -> None:
+def refuse_unported(fault_plan) -> None:
     """The reference's injected kernel faults need kernel quarantine,
     which this port does not run yet: raise, naming its ROADMAP item,
     and never fall back."""
@@ -523,11 +523,11 @@ def train_minibatch(graph: graph_mod.Graph, cfg: gnn.GNNConfig,
     unit, before the skeleton, so an aborted attempt never reaches the
     SkeletonCache or the PlanCache) and ``on_committed`` after each
     commit.  A plan with ``kernel_faults`` raises
-    (:func:`_refuse_unported`)."""
+    (:func:`refuse_unported`)."""
     if cfg.model not in MINIBATCH_MODELS:
         raise ValueError(f"mini-batch training supports gcn/gin/sage, "
                          f"not {cfg.model!r}")
-    _refuse_unported(fault_plan)
+    refuse_unported(fault_plan)
     dev = resolve_device(device)
     if verbose:
         enable_verbose("repro_torch.train")

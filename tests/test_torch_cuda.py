@@ -1672,3 +1672,108 @@ def test_cuda_pipeline_staged_tensors_are_recorded_on_the_consumer_stream(
     _, asyn = _mb_async_pair(cuda_device, steps=4)
     assert len(recorded) >= 4 * 5
     assert all(s == consumer for _, s in recorded)
+
+
+# -- the GNN inference server on the card -------------------------------------
+
+def _serve_pair(device, plan, **scfg):
+    """A GCN trained 4 steps on the card with a fixed plan, served on the
+    card and on the CPU from the same params through PlanCaches that
+    commit that plan (cora at scale 0.2, neighbor fanouts (4, 2), three
+    rungs)."""
+    from repro_torch.core import gnn
+    from repro_torch.graphs import graph as TG
+    from repro_torch.serve import EgoNetSampler, InferenceServer, ServeConfig
+    from repro_torch.serve.server import plan_cache_for
+    from repro_torch.train import gnn_steps
+    g = TG.synth_dataset("cora", 0.2, seed=0, comm_size=16)
+    cfg = gnn.GNNConfig(hidden=16, comm_size=16, sampler="neighbor",
+                        batch_nodes=32, fanouts=(4, 2), selector="fixed",
+                        fixed_kernels=plan)
+    res = gnn_steps.train_minibatch(g, cfg, steps=4, eval_batches=0,
+                                    device=device)
+    kw = dict(deadline_s=30.0, queue_limit=64, max_batch=8, max_wait_s=0.0)
+    kw.update(scfg)
+    budget = EgoNetSampler(g, cfg, (cfg.fanouts,)).pad_budget(0)
+    return g, [InferenceServer(g, cfg, res.params,
+                               serve_cfg=ServeConfig(**kw), device=d,
+                               plan_cache=plan_cache_for(
+                                   g, cfg, budget, fixed_kernels=plan,
+                                   device=d))
+               for d in (device, "cpu")]
+
+
+# forward launches per batch of a fixed plan, per kernel wrapper (2 layers,
+# one diagonal and one inter tier: each kernel of the plan once a layer)
+_SERVE_COUNTS = {"block_diag": bd_mod.launches, "bell": bell_mod.launches,
+                 "block_diag_fused": bdf_mod.launches,
+                 "tcgnn_tile_fused": tc_mod.fused_launches}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", [("block_diag", "bell"),
+                                  ("block_diag_fused", "tcgnn_tile_fused")])
+def test_cuda_server_makes_no_record_after_warmup_and_launches_its_plan(
+        cuda_device, plan):  # noqa: F811
+    """After warmup, 32 requests in step() mode on the card make no new
+    shape record, launch each kernel of the committed plan twice a batch
+    (and nothing else), and give the CPU server's preds and logits
+    (float32 atol = rtol = 1e-4)."""
+    import numpy as np
+    g, (card, cpu) = _serve_pair(cuda_device, plan)
+    for srv in (card, cpu):
+        srv.warmup()
+    traces = card.n_traces
+    assert traces == cpu.n_traces == 3        # one plan x three rungs
+    nodes = [(i * 53 + 1) % g.n for i in range(32)]
+    before = {k: c.value for k, c in _SERVE_COUNTS.items()}
+    out = []
+    for srv in (card, cpu):
+        futs = [srv.submit(v) for v in nodes]
+        for _ in range(100):
+            if all(f.done() for f in futs):
+                break
+            srv.step()
+        out.append([f.result(0) for f in futs])
+    used = {k: c.value - before[k] for k, c in _SERVE_COUNTS.items()}
+    batches = card.stats()["batches"]
+    assert batches == 4 and card.plan_batches == {(plan, plan): 4}
+    assert used == {k: (2 * batches if k in plan else 0)
+                    for k in _SERVE_COUNTS}
+    assert card.n_traces == traces
+    for (sa, va), (sb, vb) in zip(*out):
+        assert sa == sb == "ok" and va["pred"] == vb["pred"]
+        np.testing.assert_allclose(va["logits"], vb["logits"], **tp.F32_TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_server_failing_launch_fails_its_requests(cuda_device,
+                                                       monkeypatch):  # noqa: F811
+    """A launch that fails on the card finishes the batch's requests ERROR
+    with that error: no quarantine, no recovery, no CPU or other plan,
+    and warmup raises on it."""
+    from repro_torch.kernels import _build
+    _, (card, _) = _serve_pair(cuda_device, ("block_diag", "bell"))
+    card.warmup()
+    real = _build.Built.launch
+    err = RuntimeError("bell_spmm launch failed: injected")
+
+    def launch(self, *args):
+        if self.name == "bell_spmm":
+            raise err
+        return real(self, *args)
+
+    monkeypatch.setattr(_build.Built, "launch", launch)
+    futs = [card.submit(v) for v in range(8)]
+    for _ in range(20):
+        if all(f.done() for f in futs):
+            break
+        card.step()
+    assert [f.result(0) for f in futs] == [("error", err)] * 8
+    st = card.stats()
+    assert st["errors"] == 8 and st["batches"] == 0
+    assert st["quarantined"] == st["recoveries"] == 0
+    assert card.plan_batches == {}
+    with pytest.raises(RuntimeError) as info:
+        card.warmup()
+    assert info.value is err

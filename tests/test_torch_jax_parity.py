@@ -1719,3 +1719,215 @@ def test_checkpoint_matches_reference_manager(tmp_path):
     for a, b in zip(got["params"], port_params):
         for k in b:
             assert torch.equal(a[k], b[k])
+
+
+# --- the GNN inference server -----------------------------------------------------
+
+def test_serve_rungs_and_ego_batches_match_reference():
+    """default_rungs is the reference's, and EgoNetSampler.build gives the
+    reference's batches byte for byte (every SampledBatch field and its
+    meta) for the same rung, seed set and stream index, with the same
+    budgets."""
+    from repro.serve import EgoNetSampler as REgo
+    from repro.serve import default_rungs as rrungs
+    from repro_torch.serve import EgoNetSampler as TEgo
+    from repro_torch.serve import default_rungs as trungs
+    for fanouts, n in (((8, 4), 3), ((4, 2), 3), ((1, 1), 3), ((16, 8, 4), 5),
+                       ((3,), 2)):
+        assert trungs(fanouts, n) == rrungs(fanouts, n)
+    g, pg = _mb_graphs()
+    for model in ("gcn", "sage"):
+        rcfg, tcfg = _mb_cfgs(sampler="neighbor", model=model)
+        rungs = rrungs(rcfg.fanouts)
+        rego, tego = REgo(g, rcfg, rungs), TEgo(pg, tcfg, rungs)
+        rng = np.random.default_rng(5)
+        for rung in range(len(rungs)):
+            assert tego.pad_budget(rung) == rego.pad_budget(rung)
+            assert tego.max_seeds(rung) == rego.max_seeds(rung)
+            for index in (0, 3, 17):
+                seeds = rng.integers(0, g.n, size=int(rng.integers(1, 17)))
+                rb = rego.build(rung, seeds.tolist(), index)
+                tb = tego.build(rung, seeds.tolist(), index)
+                for f in BATCH_FIELDS:
+                    tp.assert_bytes_equal(getattr(rb, f), getattr(tb, f))
+                assert rb.meta == tb.meta and rb.n == tb.n
+        assert [tego.next_index() for _ in range(3)] == [
+            rego.next_index() for _ in range(3)]
+
+
+def test_serve_admission_and_ladder_match_reference():
+    """Under one scripted fake clock the port's AdmissionController sheds,
+    expires and batches the reference's requests (statuses, batch nodes,
+    queue lengths), and its DegradationLadder takes the reference's
+    decisions on a random load signal, for three hysteresis settings."""
+    from repro.serve import AdmissionController as RAdm
+    from repro.serve import DegradationLadder as RLad
+    from repro_torch.serve import AdmissionController as TAdm
+    from repro_torch.serve import DegradationLadder as TLad
+    import threading
+
+    class Clock:
+        t = 100.0
+
+        def __call__(self):
+            return self.t
+
+    rng = np.random.default_rng(9)
+    script = [(str(rng.choice(["submit", "submit", "tick", "collect"])),
+               float(rng.uniform(0.01, 0.3)), int(rng.integers(1, 5)))
+              for _ in range(300)]
+
+    def play(cls):
+        clk = Clock()
+        est = lambda q: 0.02 * (q // 4 + 1)  # noqa: E731
+        adm = cls(limit=6, estimate_wait=est, clock=clk)
+        futs, trace = [], []
+        stop = threading.Event()
+        stop.set()
+        for i, (op, x, k) in enumerate(script):
+            if op == "submit":
+                futs.append(adm.submit(i, x))
+                trace.append(futs[-1].status)
+            elif op == "tick":
+                clk.t += x / 4
+            else:
+                # a set stop event: an empty queue (after expiry) returns
+                # [] at once instead of waiting for a request
+                got = adm.collect(max_n=k, service_s=0.02, max_wait_s=0.0,
+                                  stop=stop)
+                trace.append([r.node for r in got])
+            trace.append(len(adm))
+        return trace, [f.status for f in futs]
+
+    assert play(TAdm) == play(RAdm)
+    load = (rng.random(400) < 0.55).tolist()
+    for kw in (dict(down_after=2, up_after=4, cooldown=0),
+               dict(down_after=2, up_after=6, cooldown=3),
+               dict(down_after=1, up_after=3, cooldown=1)):
+        rl, tl = RLad(3, **kw), TLad(3, **kw)
+        assert [(tl.observe(o), tl.rung) for o in load] == [
+            (rl.observe(o), rl.rung) for o in load]
+
+
+def test_inference_server_matches_reference_from_its_params():
+    """An InferenceServer in each package over the reference's trained
+    GCN (its parameters carried over with from_jax_params) and the plans
+    both training runs commit (equal, asserted): warmup records as many
+    (plan, shapes) pairs as the reference traces, and 24 requests served
+    in step() mode give the reference's batches, plans, preds and cache
+    counters, logits within float32 atol 1e-5 / rtol 1e-4 (the reference
+    in Pallas interpret mode where its plans reach a kernel)."""
+    from repro.serve import InferenceServer as RServer
+    from repro.serve import ServeConfig as RCfg
+    from repro.train import gnn_steps as RS
+    from repro_torch.serve import InferenceServer as TServer
+    from repro_torch.serve import ServeConfig as TCfg
+    from repro_torch.train import gnn_steps as TS
+    g, pg = _mb_graphs()
+    rcfg, tcfg = _mb_cfgs(sampler="neighbor")
+    ref = RS.train_minibatch(g, rcfg, steps=4, eval_batches=0)
+    params = RGNN.init_model(jax.random.PRNGKey(rcfg.seed), rcfg,
+                             g.features.shape[1], g.n_classes)
+    port = TS.train_minibatch(
+        pg, tcfg, steps=4, eval_batches=0, device="cpu",
+        params=from_jax_params([{k: np.asarray(a) for k, a in p.items()}
+                                for p in params], device="cpu"))
+    assert port.plans == ref.plans and port.cache == ref.cache
+    trained = [{k: np.asarray(a) for k, a in p.items()} for p in ref.params]
+    kw = dict(deadline_s=30.0, queue_limit=32, max_batch=8, max_wait_s=0.0)
+    rsrv = RServer(g, rcfg, ref.params, serve_cfg=RCfg(**kw),
+                   plan_cache=ref.plan_cache)
+    tsrv = TServer(pg, tcfg, from_jax_params(trained, device="cpu"),
+                   serve_cfg=TCfg(**kw), plan_cache=port.plan_cache,
+                   device="cpu")
+    rw, tw = rsrv.warmup(), tsrv.warmup()
+    assert tw == rw and tsrv.n_traces == rsrv.n_traces
+    nodes = [(i * 37 + 5) % g.n for i in range(24)]
+    out = []
+    for srv in (rsrv, tsrv):
+        futs = [srv.submit(v) for v in nodes]
+        for _ in range(50):
+            if all(f.done() for f in futs):
+                break
+            srv.step()
+        out.append([f.result(0) for f in futs])
+    for (rs, rv), (ts, tv) in zip(*out):
+        assert rs == ts == "ok"
+        assert (tv["node"], tv["rung"], tv["pred"]) == (
+            rv["node"], rv["rung"], rv["pred"])
+        tp.assert_close(rv["logits"], tv["logits"], atol=1e-5, rtol=1e-4)
+    rst, tst = rsrv.stats(), tsrv.stats()
+    for k in ("admitted", "shed", "timeouts", "errors", "batches", "retries",
+              "quarantined", "recoveries", "degrades", "rung", "n_traces"):
+        assert tst[k] == rst[k], k
+    assert tst["errors"] == 0 and tsrv.n_traces == tw["new_traces"]
+    assert tsrv.cache.stats == rsrv.cache.stats
+    assert set(rst) <= set(tst)
+
+
+def test_inference_server_fixed_plan_cache_matches_reference():
+    """A fixed-selector GCN served by each package on the plan it trains
+    on, block_diag + bell: the port's server through plan_cache_for(
+    fixed_kernels=), the reference's with its PlanCache's selection made
+    to return that plan.  Warmup records as many (plan, shapes) pairs as
+    the reference traces, every committed entry is the fixed plan, and 24
+    requests give the reference's batches, preds and cache counters,
+    logits within float32 atol 1e-5 / rtol 1e-4 (the reference's kernels
+    in Pallas interpret mode).  Without that cache the port's server
+    commits the reference's cost-model plans for the same model."""
+    from repro.core.plan import KernelPlan as RPlan
+    from repro.serve import InferenceServer as RServer
+    from repro.serve import ServeConfig as RCfg
+    from repro_torch.serve import EgoNetSampler as TEgo
+    from repro_torch.serve import InferenceServer as TServer
+    from repro_torch.serve import ServeConfig as TCfg
+    from repro_torch.serve.server import plan_cache_for
+    fixed = ("block_diag", "bell")
+    g, pg = _mb_graphs()
+    rcfg, tcfg = _mb_cfgs(sampler="neighbor", selector="fixed",
+                          fixed_kernels=fixed)
+    params = RGNN.init_model(jax.random.PRNGKey(rcfg.seed), rcfg,
+                             g.features.shape[1], g.n_classes)
+    host = [{k: np.asarray(a) for k, a in p.items()} for p in params]
+    kw = dict(deadline_s=30.0, queue_limit=32, max_batch=8, max_wait_s=0.0)
+    rsrv = RServer(g, rcfg, params, serve_cfg=RCfg(**kw))
+    rc = rsrv.cache
+    rc.select = lambda dec, exclude=None: RPlan.make(
+        dec, fixed, n_layers=len(rc.pairs), epilogues=rc.epilogues)
+    budget = TEgo(pg, tcfg, (tcfg.fanouts,)).pad_budget(0)
+    tsrv = TServer(pg, tcfg, from_jax_params(host, device="cpu"),
+                   serve_cfg=TCfg(**kw), device="cpu",
+                   plan_cache=plan_cache_for(pg, tcfg, budget,
+                                             fixed_kernels=fixed,
+                                             device="cpu"))
+    rw, tw = rsrv.warmup(), tsrv.warmup()
+    assert tw == rw and tsrv.n_traces == rsrv.n_traces
+    nodes = [(i * 37 + 5) % g.n for i in range(24)]
+    out = []
+    for srv in (rsrv, tsrv):
+        futs = [srv.submit(v) for v in nodes]
+        for _ in range(50):
+            if all(f.done() for f in futs):
+                break
+            srv.step()
+        out.append([f.result(0) for f in futs])
+    for (rs, rv), (ts, tv) in zip(*out):
+        assert rs == ts == "ok"
+        assert (tv["node"], tv["rung"], tv["pred"]) == (
+            rv["node"], rv["rung"], rv["pred"])
+        tp.assert_close(rv["logits"], tv["logits"], atol=1e-5, rtol=1e-4)
+    # one plan, the fixed one (its last kernel carried to the last tier)
+    one = {(fixed + ("bell",),) * 2}
+    for srv in (rsrv, tsrv):
+        assert {p.layers for _, p, _ in
+                srv.cache.state_dict()["entries"]} == one
+    assert tsrv.cache.stats == rsrv.cache.stats
+    assert set(tsrv.plan_batches) == one
+    assert tsrv.stats()["batches"] == rsrv.stats()["batches"]
+    # no fixed cache: the cost model's plans, the reference's own
+    rsel = RServer(g, rcfg, params, serve_cfg=RCfg(**kw))
+    tsel = TServer(pg, tcfg, from_jax_params(host, device="cpu"),
+                   serve_cfg=TCfg(**kw), device="cpu")
+    assert tsel.warmup() == rsel.warmup()
+    assert ([p.layers for _, p, _ in tsel.cache.state_dict()["entries"]]
+            == [p.layers for _, p, _ in rsel.cache.state_dict()["entries"]])

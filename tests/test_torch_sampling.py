@@ -129,7 +129,7 @@ def test_fixed_payload_shapes_across_batches(model):
         plan = KernelPlan.make(dec, ("block_diag", "bell", "coo",
                                           "tcgnn_tile"), n_layers=2)
         args = gnn_steps.step_args(batch, dec, inv, plan, budget, tp.CPU)
-        shapes.add(gnn_steps._tensor_shapes(args))
+        shapes.add(gnn_steps.tensor_shapes(args))
         for sub in args[0].subgraphs:
             for key, p in sub.formats.items():
                 if key == "coo":
