@@ -27,7 +27,11 @@ decode), RWKV6-7B (the rwkv6_chunked kernel in the prefill step,
 sequential cache prefill, greedy decode) and one period of Jamba-v0.1
 (the mamba_scan kernel in the prefill step and the cache prefill, flash
 attention in the prefill step, the MoE rule's sparse path in prefills and
-its dense path in decode).  It goes through the twelve hand-written CUDA
+its dense path in decode); and LM training: InternLM2-1.8B at full width
+through launch/train.py (the flash kernel in each step's forward and in
+the backward's recompute) and the three families' reduced configs on the
+card against the CPU (mamba_scan through mamba_scan_trainable).  It goes
+through the twelve hand-written CUDA
 kernels and checks every result.  ``acc`` (the threaded accumulator, and
 SAGE's dual-weight kernel) takes its default, on for CUDA tensors, except
 where a phase names it.
@@ -311,6 +315,29 @@ Phases, each of which raises (exit code != 0) on failure:
    equal to the reference rounded to bf16; the path that rounded each
    expert's output to bf16 first (the port before this repair) is read
    and timed beside it, in turns;
+7e. LM training ([lm_train]): mamba_scan_trainable at Jamba's published
+   Mamba widths (MAMBA_TRAIN_SHAPE, float32): one launch in the forward,
+   none in the backward, output and all six input gradients against
+   autograd through the plain form on the card (float32 atol = rtol =
+   1e-4), forward and backward timed; each family's REDUCED config in
+   float32 (InternLM2 flash core, Jamba mamba_core "pallas" and flash,
+   RWKV-6 the "xla" chunked core: its kernel is forward only), 2 steps of
+   make_train_step (lr 1e-3) on the card against the CPU in lockstep (the
+   first from one numpy parameter tree, the second from the CPU's state),
+   metrics, gradients and params at float32 atol 1e-5 / rtol 1e-4
+   (params plus what each element's Adam direction differs by between
+   the two runs' own moments: adam_slack_check), the launches a step
+   (LM_TRAIN_REDUCED) asserted;
+   then InternLM2-1.8B FULL in bf16 (flash core, remat "dots") through
+   launch/train.py: 4 steps at sequence 4096, the global batch cut to 2
+   sequences in 2 micro-batches, launch counts set to 0 just before and
+   read just after (48 flash launches a micro-step: each layer's forward
+   and its recompute; nothing else), finite losses; from its params, one
+   step under the softmax core and one with accum_steps 1 against the
+   flash step (loss and grad norm at the reference's bf16 atol 2e-1 /
+   rtol 3e-1), 4 steps on one repeated batch whose loss must fall, step ms
+   (CUDA events), tokens/s, peak memory and the device-busy share of a
+   step, and compress(topk_ef) on an embedding-sized gradient timed;
 8. timing: median forward times (acc off and on) and training-step times
    (CUDA events, host launch included; GCN's unfused and feedback plans
    also with acc off, the SAGE, GIN, GAT and 4-bucket GCN plans), each
@@ -713,6 +740,36 @@ MAMBA_SHAPES = ((1, 16, 8, 2, 8, 8, 0.1), (2, 64, 32, 4, 16, 16, 0.1),
 MAMBA_TOL = dict(atol=1e-4, rtol=1e-4)
 MAMBA_BF16_TOL = dict(atol=1e-3, rtol=8e-3)
 MAMBA_TIMED = ((4, 1024, 8192, 16), (1, 4096, 8192, 16))
+
+# The LM training slice: InternLM2-1.8B FULL (24 layers, bf16) trained by
+# launch/train.py at the train_4k shape's sequence (4096), the global batch
+# cut from 256 to 2 sequences in 2 micro-batches, flash core, remat "dots"
+LM_TRAIN = dict(steps=4, seq=4096, global_batch=2, accum=2)
+LM_TRAIN_PROFILE = dict(attn_core="flash", remat="dots")
+# flash launches in one micro-step: 24 layers' forwards, and again in the
+# backward's recompute of each checkpointed layer ("dots" and "full"; the
+# trainable wrapper's backward recomputes through plain ref.mha and
+# launches nothing)
+LM_TRAIN_FLASH_PER_MICRO = 2 * 24
+# the reference's bfloat16 tolerance (tests/test_fused.py:48-49) for a
+# step's loss and grad norm, flash against softmax core and accum 2 against
+# accum 1
+LM_TRAIN_BF16_TOL = dict(atol=2e-1, rtol=3e-1)
+# card against CPU at the REDUCED configs, float32, 2 steps of lr 1e-3
+# (warmup 1) in lockstep (batch 2 x 128): metrics, gradients and params at
+# float32 atol 1e-5 / rtol 1e-4, params plus each element's Adam slack
+# (adam_slack_check)
+LM_TRAIN_TOL = dict(atol=1e-5, rtol=1e-4)
+LM_TRAIN_REDUCED = {
+    "internlm2_1_8b": (dict(attn_core="flash"),
+                       dict(flash_attention=2 * 3)),
+    "jamba_v0_1_52b": (dict(mamba_core="pallas", attn_core="flash"),
+                       dict(flash_attention=2, mamba_scan=2 * 7)),
+    "rwkv6_7b": (dict(wkv_core="xla"), {})}
+# mamba_scan_trainable at Jamba's published Mamba widths (B, T, d_inner,
+# d_state), gradients of all six inputs against autograd through the plain
+# form at the reference's float32 tolerance (tests/test_kernels_mamba.py)
+MAMBA_TRAIN_SHAPE = (1, 256, 8192, 16)
 
 # (Fi, Fo) of the main path's fused kernels: layer 1, layer 2, and layer
 # 2's dX pass over the transpose with W^T
@@ -5278,6 +5335,353 @@ def time_mamba_kernel(torch, flush) -> dict:
 
 # the spin kernel that opens each profiler window (torch.cuda._sleep), about
 # 1 ms on an H100, and the part of its device events' key
+def phase_mamba_trainable(torch) -> dict:
+    """mamba_scan_trainable at Jamba's published Mamba widths
+    (MAMBA_TRAIN_SHAPE, float32): one kernel launch in the forward and
+    none in the backward, which recomputes through the plain sequential
+    oracle; its output and the gradients of x, dt, Bc, Cc, A and D against
+    autograd through the plain form on the card (MAMBA_TOL); the forward
+    and backward timed (CUDA events, host launch included) after an
+    untimed call of each."""
+    from repro_torch.kernels import mamba_scan as ms
+    B, T, di, ds = MAMBA_TRAIN_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(39)
+    args = mamba_inputs(torch, gen, B, T, di, ds, 0.1)
+    cot = torch.randn((B, T, di), generator=gen, device="cuda")
+
+    def plain(x, dt, Bc, Cc, A, D):
+        return ms.plain(x, dt, A, Bc, Cc, D)
+
+    out, ms_times = {}, {}
+    for name, fn in (("trainable", ms.mamba_scan_trainable),
+                     ("plain", plain)):
+        # one untimed call first: the process's first backward of these
+        # small ops pays their first use
+        warm = [a.clone().requires_grad_() for a in args]
+        torch.autograd.grad((fn(*warm) * cot).sum(), warm)
+        del warm
+        leaves = [a.clone().requires_grad_() for a in args]
+        before = ms.launches.value
+        torch.cuda.synchronize()
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        e[0].record()
+        y = fn(*leaves)
+        e[1].record()
+        fwd = ms.launches.value - before
+        grads = torch.autograd.grad((y * cot).sum(), leaves)
+        e[2].record()
+        torch.cuda.synchronize()
+        out[name] = (y.detach(), grads, fwd, ms.launches.value - before)
+        ms_times[name] = (e[0].elapsed_time(e[1]), e[1].elapsed_time(e[2]))
+    (y, g, fwd, total), (want_y, want_g, _, plain_n) = (out["trainable"],
+                                                         out["plain"])
+    if (fwd, total, plain_n) != (1, 1, 0):
+        raise RuntimeError(f"mamba_scan_trainable launched {fwd} in the "
+                           f"forward and {total} in all, the plain form "
+                           f"{plain_n}: expected 1, 1, 0")
+    errs = {"y": max_err(y, want_y)}
+    torch.testing.assert_close(y, want_y, **MAMBA_TOL)
+    for name, a, b in zip(("x", "dt", "Bc", "Cc", "A", "D"), g, want_g):
+        errs[name] = max_err(a, b)
+        if not bool(torch.isfinite(a).all()):
+            raise RuntimeError(f"mamba_scan_trainable d{name} not finite")
+        torch.testing.assert_close(a, b, **MAMBA_TOL,
+                                   msg=f"mamba_scan_trainable d{name}")
+    log("lm_train", f"mamba_scan_trainable {MAMBA_TRAIN_SHAPE} float32: "
+        f"output and the six input gradients within {MAMBA_TOL} of autograd "
+        f"through the plain form (max|err| {errs}); forward / backward ms "
+        f"(one call each after an untimed one, CUDA events, host included):"
+        f" trainable "
+        f"{ms_times['trainable'][0]:.3f} / {ms_times['trainable'][1]:.3f} "
+        f"(kernel forward, backward recomputed through the sequential "
+        f"oracle ref.mamba_ssm: {T} steps), plain {ms_times['plain'][0]:.3f}"
+        f" / {ms_times['plain'][1]:.3f}")
+    return dict(errs=errs, ms=ms_times)
+
+
+def adam_slack_check(t: int, moments_a, moments_b, lr: float, want, got,
+                     what: str) -> int:
+    """Params ``got`` against ``want`` (lists of numpy leaves) after step
+    ``t`` of two AdamW runs from equal params and state, at LM_TRAIN_TOL
+    plus each element's Adam slack: lr |u_a - u_b|, u = m_hat / (sqrt(
+    v_hat) + eps) computed in float64 from each run's own moments
+    (``moments_*``: (m, v), lists of numpy leaves).  Adam's normalisation
+    turns an element whose gradient is small beside the rounding of its
+    sums into a step in another direction, up to 2 lr, while the
+    gradients agree.  Raises naming each element outside with its |g| and
+    slack; returns how many elements needed their slack."""
+    import numpy as np
+    c1, c2 = 1 - 0.9 ** t, 1 - 0.95 ** t
+    used = 0
+    for i, (ma, va, mb, vb, a, b) in enumerate(zip(*moments_a, *moments_b,
+                                                   want, got)):
+        ma, va, mb, vb, a, b = (np.asarray(x, np.float64)
+                                for x in (ma, va, mb, vb, a, b))
+        ua = (ma / c1) / (np.sqrt(va / c2) + 1e-8)
+        ub = (mb / c1) / (np.sqrt(vb / c2) + 1e-8)
+        slack = lr * np.abs(ua - ub)
+        err = np.abs(b - a)
+        tol = LM_TRAIN_TOL["atol"] + LM_TRAIN_TOL["rtol"] * np.abs(a)
+        bad = err > tol + 1.01 * slack
+        used += int((err > tol).sum())
+        if bad.any():
+            raise RuntimeError(
+                f"{what}: leaf {i}: {int(bad.sum())} params outside "
+                f"{LM_TRAIN_TOL} + their Adam slack: " + ", ".join(
+                    f"{tuple(int(j) for j in k)} want {a[tuple(k)]:.7g} got "
+                    f"{b[tuple(k)]:.7g} |m| {abs(ma[tuple(k)]):.3g} slack "
+                    f"{slack[tuple(k)]:.3g}" for k in np.argwhere(bad)[:5]))
+    return used
+
+
+def phase_lm_train_reduced(torch, counts: dict) -> dict:
+    """make_train_step at each family's REDUCED config in float32 on the
+    card and on the CPU (plain versions), 2 steps of lr 1e-3 on batch 2 x
+    128 under remat "dots", in lockstep: the first from one numpy
+    parameter tree (lm_from_jax_params, as a reference run would carry
+    them over), the second from the CPU's state after the first on both
+    (RWKV-6's chunked form amplifies float32 rounding by e^|c| and a
+    Jamba router's top-k can flip, so two free runs drift apart by more
+    than the tolerance in a step or two).  Each step's metrics, first
+    moments (0.1 g at the first step) and params within LM_TRAIN_TOL
+    (params plus adam_slack_check's slack); the kernels' launches per
+    step on the card (LM_TRAIN_REDUCED)."""
+    import dataclasses
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps
+    from repro_torch.tree import tree_leaves, tree_map
+    from repro_torch.weights import lm_from_jax_params
+    opt_cfg = adamw.OptConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+
+    def host(tree):
+        return [a.detach().cpu().numpy() for a in tree_leaves(tree)]
+
+    launches, info = {}, {}
+    for arch, (changes, per_step) in LM_TRAIN_REDUCED.items():
+        cfg = dataclasses.replace(configs.get_config(arch, reduced=True),
+                                  **changes)
+        step = steps.make_train_step(cfg, opt_cfg)
+        tree = lm._tree_map(lambda a: a.numpy(), lm.init_params(
+            lm.make_generator(0, "cpu"), cfg))
+        toks = lm_tokens(cfg, 2, 129, seed=8)
+        batch = {k: torch.from_numpy(v) for k, v in dict(
+            tokens=toks[:, :-1], labels=toks[:, 1:]).items()}
+        p_cpu = lm_from_jax_params(tree, cfg, device="cpu")
+        p_card = lm_from_jax_params(tree, cfg, device="cuda")
+        o_cpu = adamw.init_state(p_cpu)
+        o_card = adamw.init_state(p_card)
+        losses, used, m_err, total = [], 0, 0.0, {k: 0 for k in counts}
+        for t in (1, 2):
+            if t > 1:
+                p_card, o_card = (tree_map(lambda a: a.cuda(), x)
+                                  for x in (p_cpu, o_cpu))
+            for c in counts.values():
+                c.reset()
+            p_card, o_card, m_card = step(p_card, o_card, {
+                k: v.cuda() for k, v in batch.items()})
+            torch.cuda.synchronize()
+            got = {k: c.value for k, c in counts.items() if c.value}
+            for k in got:
+                total[k] += got[k]
+            if got != per_step:
+                raise RuntimeError(f"{arch} reduced train step {t} launched "
+                                   f"{got}, expected {per_step}")
+            p_cpu, o_cpu, m_cpu = step(p_cpu, o_cpu, batch)
+            a = {k: float(v) for k, v in m_cpu.items()}
+            b = {k: float(v) for k, v in m_card.items()}
+            for k in a:
+                if not (abs(b[k] - a[k]) <= LM_TRAIN_TOL["atol"]
+                        + LM_TRAIN_TOL["rtol"] * abs(a[k])):
+                    raise RuntimeError(f"{arch} reduced step {t} {k}: card "
+                                       f"{b[k]!r}, CPU {a[k]!r}")
+            mom_cpu = tuple(host(o_cpu[k]) for k in ("m", "v"))
+            mom_card = tuple(host(o_card[k]) for k in ("m", "v"))
+            for x, y in zip(mom_cpu[0], mom_card[0]):
+                d = np.abs(y - x)
+                m_err = max(m_err, float(d.max()))
+                if (d > 0.1 * LM_TRAIN_TOL["atol"]
+                        + LM_TRAIN_TOL["rtol"] * np.abs(x)).any():
+                    raise RuntimeError(f"{arch} reduced step {t}: first "
+                                       f"moments card vs CPU differ by "
+                                       f"{float(d.max()):.3g}")
+            used += adam_slack_check(t, mom_cpu, mom_card, a["lr"],
+                                     host(p_cpu), host(p_card),
+                                     f"{arch} reduced step {t}")
+            losses.append((b["loss"], a["loss"]))
+        launches[arch] = total
+        info[arch] = dict(losses_card_cpu=losses, max_m_err=m_err,
+                          params_needing_slack=used)
+        log("lm_train", f"{arch} REDUCED {changes}, float32, 2 steps card vs "
+            f"CPU in lockstep: (card, CPU) losses {losses}, metrics within "
+            f"{LM_TRAIN_TOL}, first moments max|diff| {m_err:.3g}; params: "
+            f"{used} outside the tolerance, each within its Adam slack; "
+            f"launches a step {per_step}")
+    return dict(launches=launches, info=info)
+
+
+def phase_lm_train(torch, counts: dict, smi: str) -> dict:
+    """InternLM2-1.8B FULL (bf16, 24 layers, flash core, remat "dots")
+    trained by launch/train.py: LM_TRAIN["steps"] steps at sequence 4096,
+    global batch 2 in 2 micro-batches, from parameters drawn on the card,
+    launch counts reset just before and read just after (flash
+    LM_TRAIN_FLASH_PER_MICRO a micro-step, nothing else).  Then from the
+    trained params and a fresh optimizer state on one batch: the step
+    under the softmax core and with accum_steps 1 against the flash step
+    (loss and grad norm within LM_TRAIN_BF16_TOL); 4 steps on that batch
+    repeated, after which its loss must be below the first step's; step ms
+    (CUDA events), tokens/s, peak memory and the device-busy share
+    (torch.profiler) of one step; topk_ef's threshold on an
+    embedding-sized gradient timed."""
+    import dataclasses
+    import math
+    from repro_torch import configs
+    from repro_torch.data import pipeline as data_mod
+    from repro_torch.distributed import compression
+    from repro_torch.launch.train import train
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps
+    from repro_torch.tree import tree_leaves
+    per_step = LM_TRAIN_FLASH_PER_MICRO * LM_TRAIN["accum"]
+    for c in counts.values():
+        c.reset()
+    t0 = time.perf_counter()
+    res = train(LM_ARCH, reduced=False, device="cuda",
+                overrides=LM_TRAIN_PROFILE, **LM_TRAIN)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_launches = {k: c.value for k, c in counts.items()}
+    want = dict(flash_attention=per_step * LM_TRAIN["steps"])
+    got = {k: v for k, v in train_launches.items() if v}
+    if got != want:
+        raise RuntimeError(f"launch/train.py on InternLM2 FULL launched "
+                           f"{got}, expected {want} ({LM_TRAIN_FLASH_PER_MICRO}"
+                           f" flash a micro-step: forward and recompute)")
+    losses = res["losses"]
+    if len(losses) != LM_TRAIN["steps"] or not all(map(math.isfinite,
+                                                       losses)):
+        raise RuntimeError(f"launch/train.py losses {losses}")
+    log("lm_train", f"launch/train.py, InternLM2-1.8B FULL bf16 "
+        f"{LM_TRAIN_PROFILE}, {LM_TRAIN}: losses {losses}, {train_s:.1f} s "
+        f"in all (the kernels' first use included); flash launches "
+        f"{train_launches['flash_attention']} = {LM_TRAIN['steps']} steps x "
+        f"{LM_TRAIN['accum']} micro-steps x {LM_TRAIN_FLASH_PER_MICRO}")
+
+    cfg = dataclasses.replace(configs.get_config(LM_ARCH), **LM_TRAIN_PROFILE)
+    params = res.pop("params")
+    del res
+    opt0 = adamw.init_state(params)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    pipe = data_mod.TokenPipeline(cfg.vocab, LM_TRAIN["seq"],
+                                  LM_TRAIN["global_batch"])
+    batch = {k: torch.from_numpy(v).cuda() for k, v in pipe.batch(0).items()}
+    opt_cfg = adamw.OptConfig(lr=3e-4, warmup_steps=max(
+        LM_TRAIN["steps"] // 10, 1), total_steps=LM_TRAIN["steps"])
+    flash_step = steps.make_train_step(cfg, opt_cfg,
+                                       accum_steps=LM_TRAIN["accum"])
+
+    def one(step, what: str, flash_launches: int):
+        for c in counts.values():
+            c.reset()
+        p, o, m = step(params, opt0, batch)
+        torch.cuda.synchronize()
+        n = {k: c.value for k, c in counts.items() if c.value}
+        w = {"flash_attention": flash_launches} if flash_launches else {}
+        if n != w:
+            raise RuntimeError(f"{what} launched {n}, expected {w}")
+        return p, o, {k: float(v) for k, v in m.items()}, n
+
+    gate_launches = {k: 0 for k in counts}
+    soft = one(steps.make_train_step(dataclasses.replace(
+        cfg, attn_core="softmax"), opt_cfg, accum_steps=LM_TRAIN["accum"]),
+        "the softmax-core step", 0)[2]
+    # one micro-step over both sequences
+    acc1 = one(steps.make_train_step(cfg, opt_cfg, accum_steps=1),
+               "the accum_steps=1 step", LM_TRAIN_FLASH_PER_MICRO)
+    gate_launches["flash_attention"] += acc1[3]["flash_attention"]
+    acc1 = acc1[2]
+    params, opt, first, n = one(flash_step, "the flash step", per_step)
+    gate_launches["flash_attention"] += n["flash_attention"]
+    del opt0
+    tol = LM_TRAIN_BF16_TOL
+    for what, other in (("softmax core", soft), ("accum_steps 1", acc1)):
+        for k in (("loss", "grad_norm") if what == "softmax core"
+                  else ("loss",)):
+            a, b = first[k], other[k]
+            log("lm_train", f"{what} vs flash accum {LM_TRAIN['accum']}: "
+                f"{k} {b!r} vs {a!r} (|diff| {abs(a - b):.3g}; atol "
+                f"{tol['atol']}, rtol {tol['rtol']})")
+            if not abs(a - b) <= tol["atol"] + tol["rtol"] * abs(b):
+                raise RuntimeError(f"{what}: {k} {b!r} vs the flash step's "
+                                   f"{a!r}, outside {tol}")
+
+    # the same batch again: steps 2-4 timed, peak memory over them
+    rep_losses, step_ms = [first["loss"]], []
+    torch.cuda.reset_peak_memory_stats()
+    for c in counts.values():
+        c.reset()
+    for _ in range(LM_TRAIN["steps"] - 1):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        params, opt, m = flash_step(params, opt, batch)
+        e1.record()
+        e1.synchronize()
+        step_ms.append(e0.elapsed_time(e1))
+        rep_losses.append(float(m["loss"]))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if counts["flash_attention"].value != per_step * len(step_ms):
+        raise RuntimeError(f"{len(step_ms)} repeated steps launched flash "
+                           f"{counts['flash_attention'].value} times")
+    gate_launches["flash_attention"] += counts["flash_attention"].value
+    with torch.no_grad():
+        after, _ = lm.loss_fn(params, cfg, batch)
+    after = float(after)
+    if not all(map(math.isfinite, rep_losses + [after])) or not (
+            after < rep_losses[0]):
+        raise RuntimeError(f"repeated batch: losses {rep_losses}, after "
+                           f"{LM_TRAIN['steps']} steps {after}: not below "
+                           "the first")
+    med = statistics.median(step_ms)
+    tokens = LM_TRAIN["global_batch"] * LM_TRAIN["seq"]
+    log("lm_train", f"{smi}: repeated batch, losses {rep_losses}, after "
+        f"{LM_TRAIN['steps']} steps {after!r}; step ms (CUDA events, host "
+        f"included) {step_ms} (median {med:.1f}, {tokens / med * 1e3:.0f} "
+        f"tokens/s, {n_params} params); peak memory over the steps "
+        f"{peak_gb:.2f} GB (max_memory_allocated)")
+    busy = profile_busy(torch, lambda: flash_step(params, opt, batch), 1,
+                        med, "InternLM2 train step",
+                        expect={"flash_": per_step})
+
+    # topk_ef's threshold on a gradient the size of the embedding
+    g = torch.randn((cfg.padded_vocab, cfg.d_model), device="cuda",
+                    dtype=torch.bfloat16)
+    ef = torch.zeros(g.shape, device="cuda")
+    compression.compress(dict(e=g), "topk_ef", dict(e=ef))
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(3):
+        compression.compress(dict(e=g), "topk_ef", dict(e=ef))
+    e1.record()
+    e1.synchronize()
+    topk_ms = e0.elapsed_time(e1) / 3
+    log("lm_train", f"{smi}: compress(topk_ef) of a {tuple(g.shape)} bf16 "
+        f"gradient (torch.topk for the k-th largest |acc|, k = "
+        f"{int(g.numel() * 0.01)}): {topk_ms:.2f} ms a call (CUDA events)")
+    del params, opt, g, ef
+    return dict(train_launches=train_launches, gate_launches=gate_launches,
+                per_step={"flash_attention": per_step}, losses=losses,
+                rep_losses=rep_losses, after=after, soft=soft, acc1=acc1,
+                first=first, step_ms=step_ms, median_ms=med,
+                tokens_per_s=tokens / med * 1e3, peak_gb=peak_gb,
+                busy=busy, topk_ms=topk_ms, train_s=train_s,
+                n_params=n_params)
+
+
 SPIN_CYCLES = 2_000_000
 SPIN_KERNEL = "spin_kernel"
 
@@ -5386,7 +5790,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
     log("env", f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
@@ -5506,6 +5911,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     js = phase_jamba_serve(torch, counts)
     torch.cuda.empty_cache()
+    # 7e. LM training: the trainable scan, the reduced configs card vs CPU,
+    # InternLM2-1.8B at full width through launch/train.py
+    mt = phase_mamba_trainable(torch)
+    ltr = phase_lm_train_reduced(torch, counts)
+    torch.cuda.empty_cache()
+    ltf = phase_lm_train(torch, counts, card)
+    torch.cuda.empty_cache()
     by_path = {"forward": launches_fwd, "train": trained["launches"],
                "feedback": fb["launches"], "sage_train": sage["launches"],
                "sage_feedback": sfb["launches"],
@@ -5535,7 +5947,11 @@ def main() -> int:
                                          for k in counts},
                "serve_jamba_bf16": js["serve_launches"],
                "jamba_prefill_step_bf16": js["launches"],
-               "jamba_plain_core_prefill_step_bf16": js["xla_launches"]}
+               "jamba_plain_core_prefill_step_bf16": js["xla_launches"],
+               "lm_train_bf16": ltf["train_launches"],
+               "lm_train_gates_bf16": ltf["gate_launches"],
+               **{f"lm_train_reduced_{a}_f32": v
+                  for a, v in ltr["launches"].items()}}
     launches = {k: sum(p[k] for p in by_path.values()) for k in counts}
     for k, v in launches.items():
         if v == 0:
@@ -5743,7 +6159,10 @@ def main() -> int:
                     rwkv_prefill_step=rws["launches"],
                     serve_rwkv=rws["serve_launches"],
                     jamba_prefill_step=js["launches"],
-                    serve_jamba=js["serve_launches"])
+                    serve_jamba=js["serve_launches"],
+                    lm_train_step=ltf["per_step"],
+                    **{f"train_step_reduced_{a}": w for a, (_, w) in
+                       LM_TRAIN_REDUCED.items()})
     out = []
     for name, meta in KERNELS.items():
         key = ROW_KEY.get(name, "500x16")
@@ -5813,7 +6232,15 @@ def main() -> int:
         f"{js['cache_prefill_ms']:.1f} ms, decode {js['decode_ms']:.3f} "
         f"ms/token, MoE ms {js['moe_ms']}, bf16 dense MoE gate "
         f"{js['moe_bf16']}, busy {js['busy']}, init peak "
-        f"{js['init_peak_gb']:.2f} GB, step peak {js['step_peak_gb']:.2f} GB")
+        f"{js['init_peak_gb']:.2f} GB, step peak {js['step_peak_gb']:.2f} GB"
+        f"; LM train ({card}): mamba_scan_trainable max|err| {mt['errs']}, "
+        f"fwd/bwd ms {mt['ms']}; reduced card vs CPU {ltr['info']}; "
+        f"InternLM2 FULL train losses {ltf['losses']} "
+        f"({ltf['train_s']:.1f} s), repeated batch {ltf['rep_losses']} -> "
+        f"{ltf['after']}, flash step {ltf['first']}, softmax core "
+        f"{ltf['soft']}, accum 1 {ltf['acc1']}, step ms {ltf['step_ms']} "
+        f"({ltf['tokens_per_s']:.0f} tokens/s), peak {ltf['peak_gb']:.2f} "
+        f"GB, busy {ltf['busy']}, topk_ef {ltf['topk_ms']:.2f} ms")
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,7 +19,8 @@ contract:
 
 A tree is nested dicts, lists and tuples whose leaves are tensors, numpy
 arrays or Python numbers (the port's params, a list of dicts of tensors,
-and its Adam state ``dict(m=, v=, t=)``).  Keys are the reference's:
+and its Adam state ``dict(m=, v=, t=)``; the LM's params and AdamW state).
+A bfloat16 tensor is stored as float32 (numpy has no bfloat16).  Keys are the reference's:
 ``"/".join`` of the dict keys and list indices on the path to a leaf,
 dict keys in sorted order (``jax.tree_util.tree_flatten_with_path``'s).
 A Python int leaf is stored as an int32 scalar, as the reference stores
@@ -71,6 +72,10 @@ def _map_leaves(tree, fn: Callable, prefix: tuple = ()):
 
 def _to_host(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
+        if leaf.dtype == torch.bfloat16:
+            # numpy has no bfloat16: float32 holds every value exactly,
+            # and restore casts back to the tree's dtype
+            leaf = leaf.float()
         return leaf.detach().cpu().numpy()
     if isinstance(leaf, int):
         return np.asarray(leaf, np.int32)

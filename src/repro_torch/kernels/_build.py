@@ -98,6 +98,17 @@ def cuda_dtype_code(floats, ints=(), block_size: int = 1) -> int:
     return DTYPE_CODES[x.dtype]
 
 
+def refuse_grad(kernel: str, tensors, instead: str) -> None:
+    """Raise where a forward-only kernel is asked for a result that
+    autograd would differentiate (grad enabled and an input requiring
+    grad): its output has no ``grad_fn``, so the gradient would be lost
+    without a word.  ``instead`` names what to call."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{kernel} is forward only: its result carries "
+                           f"no gradient to inputs that require one; "
+                           f"{instead}")
+
+
 def ptr(t: torch.Tensor | None) -> int | None:
     """Device address of an optional operand (None for an absent one)."""
     return t.data_ptr() if t is not None else None

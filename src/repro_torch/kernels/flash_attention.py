@@ -50,8 +50,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Sq % blk_q == 0 and Skv % blk_k == 0 (the reference's precondition;
     the CUDA kernel tiles on its own).  Scale ``d ** -0.5`` unless given.
     CUDA tensors must be contiguous float32 or bfloat16 with d, dv <= 256.
+    Forward only: raises where autograd would differentiate the result
+    (``flash_attention_trainable`` is the differentiable form).
     """
     _check(q, k, v, blk_q, blk_k)
+    _build.refuse_grad("flash_attention", (q, k, v),
+                       "call flash_attention_trainable")
     B, Hq, Sq, d = q.shape
     _, Hkv, Skv, dv = v.shape
     scale = (d ** -0.5) if scale is None else scale

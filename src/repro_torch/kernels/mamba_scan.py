@@ -11,10 +11,16 @@ its header), which walks T in order with each channel's d_state values in
 the registers of 2 or 4 adjacent lanes and its inputs streamed through a
 ring of copies in shared memory; on CPU tensors it runs the plain version
 ``ref.mamba_ssm`` (the sequential oracle).  There is no fallback
-between the two: a CUDA input launches the kernel or raises.  The
-reference's differentiable wrapper (``mamba_scan_trainable``, a Pallas
-forward with the oracle's VJP) comes with the LM train step (ROADMAP
-section 1 item 8).
+between the two: a CUDA input launches the kernel or raises.
+``mamba_scan`` is forward only and raises where autograd would
+differentiate its result; ``mamba_scan_trainable`` is the differentiable
+form, the reference's ``_trainable``: the kernel forward, saving only its
+inputs, and a backward that recomputes the output through the plain
+sequential oracle ``ref.mamba_ssm`` under autograd and takes its VJP.
+That backward is T steps of small torch ops, a few per step in each
+direction: launch-bound on the card (``chip_smoke.py`` times it at
+Jamba's widths), and its float32 states, one (B, d_inner, d_state) per
+step, are what the recompute holds.
 """
 from __future__ import annotations
 
@@ -61,6 +67,8 @@ def mamba_scan(x: torch.Tensor, dt: torch.Tensor, Bc: torch.Tensor,
     d_inner) == 0 (the reference's preconditions).  CUDA tensors must be
     contiguous, x float32 or bfloat16, the rest float32, d_state <= 16."""
     _check(x, dt, Bc, Cc, A, D, chunk, d_tile)
+    _build.refuse_grad("mamba_scan", (x, dt, Bc, Cc, A, D),
+                       "call mamba_scan_trainable")
     if x.device.type == "cpu":
         return plain(x, dt, A, Bc, Cc, D)
     code = _build.cuda_dtype_code((x,))
@@ -83,6 +91,34 @@ def mamba_scan(x: torch.Tensor, dt: torch.Tensor, Bc: torch.Tensor,
                    code, _build.stream(x))
     launches.add()
     return y
+
+
+class _MambaTrainable(torch.autograd.Function):
+    """The kernel forward; the backward recomputes the scan through plain
+    ``ref.mamba_ssm`` (the reference's ``_trainable`` bwd: only the inputs
+    are kept from the forward)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, Bc, Cc, A, D):
+        ctx.save_for_backward(x, dt, Bc, Cc, A, D)
+        return mamba_scan(x, dt, Bc, Cc, A, D)
+
+    @staticmethod
+    def backward(ctx, dy):
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            x, dt, Bc, Cc, A, D = leaves
+            y = ref.mamba_ssm(x, dt, A, Bc, Cc, D)
+        return torch.autograd.grad(y, leaves, dy)
+
+
+def mamba_scan_trainable(x: torch.Tensor, dt: torch.Tensor, Bc: torch.Tensor,
+                         Cc: torch.Tensor, A: torch.Tensor,
+                         D: torch.Tensor) -> torch.Tensor:
+    """Differentiable selective scan: kernel forward (``mamba_scan``'s
+    arguments and preconditions, its default chunk and d_tile), recompute
+    backward through the plain sequential oracle."""
+    return _MambaTrainable.apply(x, dt, Bc, Cc, A, D)
 
 
 def mamba_scan_hbm_bytes(B, T, di, ds, d_tile: int = 512,

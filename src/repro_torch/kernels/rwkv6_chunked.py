@@ -111,8 +111,12 @@ def rwkv6_chunked_kernel(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     r.dtype.  T % chunk == 0 (the reference's precondition; the result
     does not depend on ``chunk``, and the CUDA kernel runs its own).
     CUDA tensors must be contiguous, r, k, v float32 or bfloat16, w and u
-    float32, dh <= 64."""
+    float32, dh <= 64.  Raises where autograd would differentiate the
+    result (the reference's kernel has no VJP either)."""
     _check(r, k, v, w, u, chunk)
+    _build.refuse_grad("rwkv6_chunked_kernel", (r, k, v, w, u),
+                       "differentiate the plain chunked form "
+                       "(rwkv6_chunked, the model's \"xla\" core)")
     if r.device.type == "cpu":
         return plain(r, k, v, w, u)
     code = _build.cuda_dtype_code((r, k, v))

@@ -1,0 +1,128 @@
+"""End-to-end LM training: the reference's loop on one device.
+
+Counterpart of ``repro/launch/train.py``: deterministic data
+(``data/pipeline.py``), the train step (``train/steps.py``: AdamW, optional
+gradient compression and accumulation), crash-safe checkpoints of
+``(params, opt_state)`` every ``ckpt_every`` steps with resume from the
+latest valid one (``distributed/checkpoint.py``), and straggler monitoring
+(``distributed/fault_tolerance.py``).
+
+It runs on one device and has no mesh: the reference's
+``launch/mesh.py``, ``sharding.py``, ``specs.py`` and ``lm.param_specs``
+(its parameter shardings) and the elastic re-mesh stay queued under
+ROADMAP section 1 item 8.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+        --steps 50 --seq 64 --batch 8 --ckpt-dir /tmp/ckpt
+    PYTHONPATH=src python -m repro_torch.launch.train --full --steps 4 \\
+        --seq 4096 --batch 2 --accum 2        # InternLM2-1.8B on the card
+
+``--full`` trains the published config, whose default cores are the plain
+ones; ``train(overrides=...)`` sets config fields such as
+``attn_core="flash"`` (the flash kernel) or ``mamba_core="pallas"``.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import torch
+
+from repro_torch import DEFAULT_DEVICE, configs, resolve_device
+from repro_torch.data import pipeline as data_mod
+from repro_torch.distributed import checkpoint as ckpt_mod
+from repro_torch.distributed import compression
+from repro_torch.distributed import fault_tolerance as ft
+from repro_torch.models import lm
+from repro_torch.optim import adamw
+from repro_torch.train import steps as steps_mod
+
+
+def train(arch: str, *, reduced: bool = True, steps: int = 20, seq: int = 64,
+          global_batch: int = 8, lr: float = 3e-4, accum: int = 1,
+          ckpt_dir: str | None = None, ckpt_every: int = 10,
+          grad_compression: str = "none", seed: int = 0,
+          device: str | torch.device = DEFAULT_DEVICE,
+          overrides: dict | None = None, verbose: bool = True) -> dict:
+    """Trains ``arch`` (config fields replaced by ``overrides``) for
+    ``steps`` steps on ``device`` from parameters drawn on it from
+    ``seed``; with ``ckpt_dir`` resumes from its latest valid checkpoint
+    and saves every ``ckpt_every`` steps.  Returns the losses of the steps
+    run, the final loss, the params and the stragglers."""
+    dev = resolve_device(device)
+    cfg = configs.get_config(arch, reduced=reduced)
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
+
+    pipe = data_mod.pipeline_for(cfg, seq, global_batch, seed=seed)
+    opt_cfg = adamw.OptConfig(lr=lr, warmup_steps=max(steps // 10, 1),
+                              total_steps=steps)
+    step_fn = steps_mod.make_train_step(cfg, opt_cfg, accum_steps=accum,
+                                        grad_compression=grad_compression)
+
+    params = lm.init_params(lm.make_generator(seed, dev), cfg)
+    opt_state = adamw.init_state(params)
+    if grad_compression == "topk_ef":
+        opt_state["ef"] = compression.init_error_feedback(params)
+
+    start_step = 0
+    mgr = None
+    if ckpt_dir:
+        mgr = ckpt_mod.CheckpointManager(ckpt_dir)
+        latest = mgr.latest_valid_step()
+        if latest is not None:
+            (params, opt_state), start_step = mgr.restore(
+                (params, opt_state), latest, device=dev)
+            if verbose:
+                print(f"restored checkpoint at step {start_step}")
+
+    monitor = ft.StragglerDetector()
+    losses = []
+    try:
+        for i in range(start_step, steps):
+            batch = {k: torch.from_numpy(v).to(dev)
+                     for k, v in pipe.batch(i).items()}
+            t0 = time.perf_counter()
+            params, opt_state, metrics = step_fn(params, opt_state, batch)
+            losses.append(float(metrics["loss"]))   # waits for the device
+            monitor.observe(host=0, step_seconds=time.perf_counter() - t0)
+            if verbose and (i % max(steps // 10, 1) == 0 or i == steps - 1):
+                print(f"step {i:5d} loss={losses[-1]:.4f} "
+                      f"gnorm={float(metrics['grad_norm']):.3f} "
+                      f"lr={float(metrics['lr']):.2e}")
+            if mgr and (i + 1) % ckpt_every == 0:
+                mgr.save(i + 1, (params, opt_state))
+    finally:
+        if mgr:
+            mgr.wait()      # a crash still lands the last save
+    return dict(losses=losses, final_loss=losses[-1] if losses else None,
+                params=params, stragglers=monitor.stragglers())
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="internlm2_1_8b")
+    ap.add_argument("--reduced", action="store_true", default=True)
+    ap.add_argument("--full", dest="reduced", action="store_false",
+                    help="the FULL published config (default: REDUCED)")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--accum", type=int, default=1)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=10)
+    ap.add_argument("--grad-compression", default="none")
+    ap.add_argument("--device", default=DEFAULT_DEVICE)
+    args = ap.parse_args()
+    res = train(args.arch, reduced=args.reduced, steps=args.steps,
+                seq=args.seq, global_batch=args.batch, lr=args.lr,
+                accum=args.accum, ckpt_dir=args.ckpt_dir,
+                ckpt_every=args.ckpt_every,
+                grad_compression=args.grad_compression, device=args.device)
+    print(f"final loss: {res['final_loss']:.4f}")
+
+
+if __name__ == "__main__":
+    main()

@@ -411,9 +411,22 @@ def _ssm_scan(dA: torch.Tensor, dBx: torch.Tensor) -> torch.Tensor:
     as an associative scan of the combine (a1, b1), (a2, b2) -> (a2 a1,
     a2 b1 + b2) (Hillis-Steele doubling: log2 T rounds of plain torch ops,
     the counterpart of the reference's ``jax.lax.associative_scan``).
-    Overwrites and returns ``dBx``; ``dA`` is overwritten too."""
+    Without autograd it overwrites and returns ``dBx`` (``dA`` is
+    overwritten too), which saves a copy of the (B, T, d_inner, d_state)
+    states a round; where autograd records it (grad enabled and an input
+    requiring grad) each round makes new tensors instead, with the same
+    arithmetic, so the backward finds what it saved unchanged."""
     a, b = dA, dBx
     T, step = a.shape[1], 1
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        while step < T:
+            b = torch.cat([b[:, :step], a[:, step:] * b[:, :-step]
+                           + b[:, step:]], dim=1)
+            if 2 * step < T:
+                a = torch.cat([a[:, :step], a[:, step:] * a[:, :-step]],
+                              dim=1)
+            step *= 2
+        return b
     while step < T:
         tmp = a[:, step:] * b[:, :-step]
         tmp += b[:, step:]
@@ -436,10 +449,11 @@ def _mamba_states(dt, xs, Bc, A):
 def mamba_apply(params, cfg: MambaConfig, x, return_state: bool = False):
     """Full-sequence selective scan by ``cfg.scan_core``: the plain
     associative scan (``"xla"``), the CUDA kernel (``"pallas"``, through
-    ``mamba_scan``: the reference's preconditions on T hold) or the
-    identity stand-in.  With ``return_state`` also returns the decode cache
-    (final h + conv tail); under the kernel and identity cores h comes from
-    the plain scan, as in the reference."""
+    ``mamba_scan_trainable``, as the reference calls it: the reference's
+    preconditions on T hold; its backward recomputes through the plain
+    oracle) or the identity stand-in.  With ``return_state`` also returns
+    the decode cache (final h + conv tail); under the kernel and identity
+    cores h comes from the plain scan, as in the reference."""
     xz = einsum("btd,de->bte", x, params["in_proj"]).to(x.dtype)
     xs, z, dt, Bc, Cc, conv_state = _mamba_inner(params, cfg, xz)
     A = -torch.exp(params["A_log"])                        # (di, ds)
@@ -448,10 +462,11 @@ def mamba_apply(params, cfg: MambaConfig, x, return_state: bool = False):
         # roofline isolation: everything but the recurrence
         y = xs.float() * params["D"]
     elif cfg.scan_core == "pallas":
-        from repro_torch.kernels.mamba_scan import mamba_scan
-        y = mamba_scan(xs.float().contiguous(), dt.contiguous(),
-                       Bc.float().contiguous(), Cc.float().contiguous(), A,
-                       params["D"]).float()
+        from repro_torch.kernels.mamba_scan import mamba_scan_trainable
+        y = mamba_scan_trainable(xs.float().contiguous(), dt.contiguous(),
+                                 Bc.float().contiguous(),
+                                 Cc.float().contiguous(), A,
+                                 params["D"]).float()
     else:
         hs = _mamba_states(dt, xs, Bc, A)
         y = einsum("btds,bts->btd", hs, Cc.float())
@@ -591,6 +606,13 @@ def rwkv6_time_mix(params, cfg: RWKV6Config, x, x_prev=None, state=None,
             (B, H, dh, dh), dtype=torch.float32, device=x.device)
     elif (cfg.wkv_core == "pallas" and use_chunked and state is None
           and chunkable):
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (r, k, v, w, params["u"])):
+            raise NotImplementedError(
+                'wkv_core="pallas" runs the forward-only rwkv6_chunked '
+                "kernel, which has no gradient (the reference's "
+                'rwkv6_chunked_pallas has no VJP): train RWKV-6 under '
+                'wkv_core="xla", the plain chunked form')
         from repro_torch.kernels.rwkv6_chunked import rwkv6_chunked_kernel
         o = rwkv6_chunked_kernel(r.contiguous(), k.contiguous(),
                                  v.contiguous(), w.contiguous(), params["u"],

@@ -20,6 +20,7 @@ attention's k/v at ``pos``, RWKV's state ``S`` and token-shift inputs
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, fields
 from typing import Any
 
@@ -29,6 +30,9 @@ from repro_torch import DEFAULT_DEVICE, resolve_device
 from repro_torch.kernels import ref as kref
 from repro_torch.layers import nn
 from repro_torch.models import blocks as blk
+from repro_torch.tree import tree_leaves as _leaves
+from repro_torch.tree import tree_map as _tree_map
+from repro_torch.tree import tree_unflatten as _unflatten
 
 Params = Any
 
@@ -175,8 +179,8 @@ def _require_kind(kind: str) -> None:
 # (``remat`` is a training knob and inference ignores it on any kind)
 _UNPORTED_FIELDS = (
     "q_lora_rank", "kv_lora_rank", "qk_nope_dim", "qk_rope_dim",
-    "v_head_dim", "n_shared_experts", "first_k_dense", "aux_loss_coef",
-    "encoder_seq", "mtp_weight")
+    "v_head_dim", "n_shared_experts", "first_k_dense", "encoder_seq",
+    "mtp_weight")
 
 
 def _require_supported(cfg: ModelConfig) -> None:
@@ -286,30 +290,22 @@ def layer_apply(params, cfg: ModelConfig, kind: str, x, positions):
 # layer stacks
 # ---------------------------------------------------------------------------
 
-def _tree_map(fn, *trees):
-    t0 = trees[0]
-    if isinstance(t0, dict):
-        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in t0}
-    if isinstance(t0, (list, tuple)):
-        return type(t0)(_tree_map(fn, *xs) for xs in zip(*trees))
-    return fn(*trees)
-
-
 def _stack(layers: list) -> Params:
     return _tree_map(lambda *xs: torch.stack(xs), *layers)
 
 
-def _leaves(tree) -> list:
-    out = []
-    _tree_map(out.append, tree)
-    return out
-
-
-def _layers(group, cfg: ModelConfig) -> list:
+def _layers(group, cfg: ModelConfig, unbind: bool = False) -> list:
     """Per-layer views of a group: slices of its stacks (``scan_layers``)
-    or the reference's list of layers."""
+    or the reference's list of layers.  With ``unbind`` the slices come
+    from ``Tensor.unbind``, whose backward stacks the layers' gradients
+    once (an indexing slice's backward would allocate a whole stack per
+    layer); the views must not be written in place."""
     if not cfg.scan_layers:
         return list(group)
+    if unbind:
+        parts = [a.unbind(0) for a in _leaves(group)]
+        return [_unflatten(group, [p[i] for p in parts])
+                for i in range(len(parts[0]))]
     n = _leaves(group)[0].shape[0]
     return [_tree_map(lambda a, i=i: a[i], group) for i in range(n)]
 
@@ -359,12 +355,61 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
     return p
 
 
+def _saves_dots(ctx, op, *args, **kwargs):
+    """The selective-checkpoint policy of ``remat="dots"``, the counterpart
+    of ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``: keep
+    the outputs of plain 2-D matrix products, recompute everything else.
+    ``blk.einsum`` lowers a product with no batch dimensions (``"bsd,dh->
+    bsh"``) to a ``bmm`` over a batch of one, and one with batch dimensions
+    (attention's ``"bhgsd,bhtd->bhgst"``) to a ``bmm`` over their product,
+    so a ``bmm`` counts as plain where its batch is one (as would an
+    attention product at batch 1 with one kv head)."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    aten = torch.ops.aten
+    if op in (aten.mm.default, aten.addmm.default) or (
+            op is aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _checkpointed(cfg: ModelConfig, kind: str):
+    """``layer_apply`` under ``torch.utils.checkpoint`` as ``cfg.remat``
+    asks: ``"full"`` keeps only the layer's inputs and recomputes the layer
+    in the backward, ``"dots"`` also keeps the plain matrix products'
+    outputs (``_saves_dots``)."""
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _saves_dots)
+
+    def run(lp, x, positions):
+        return checkpoint(layer_apply, lp, cfg, kind, x, positions,
+                          use_reentrant=False, **kw)
+
+    return run
+
+
 def _run_group(group_params, cfg: ModelConfig, kind: str, x, positions):
-    """Loop a homogeneous layer group.  ``cfg.remat`` is a training knob
-    (what the backward recomputes) and is ignored here."""
+    """Loop a homogeneous layer group.  Where autograd records the layers
+    (grad enabled, and the params or ``x`` requiring grad), ``cfg.remat``
+    says what the backward recomputes, as the reference's ``jax.checkpoint``
+    around each layer: ``"none"`` nothing, ``"full"`` the whole layer,
+    ``"dots"`` all but the plain matrix products.  A recomputed layer runs
+    its forward again in the backward, kernels included.  Without
+    autograd (prefill, decode) the layers just run."""
+    recorded = torch.is_grad_enabled() and (
+        x.requires_grad or any(t.requires_grad
+                               for t in _leaves(group_params)))
+    if recorded and cfg.remat in ("full", "dots"):
+        run = _checkpointed(cfg, kind)
+    else:
+        def run(lp, x, positions):
+            return layer_apply(lp, cfg, kind, x, positions)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for lp in _layers(group_params, cfg):
-        x, aux = layer_apply(lp, cfg, kind, x, positions)
+    for lp in _layers(group_params, cfg, unbind=recorded):
+        x, aux = run(lp, x, positions)
         aux_total = aux_total + aux
     return x, aux_total
 
@@ -398,6 +443,19 @@ def forward(params, cfg: ModelConfig, batch: dict) -> tuple[torch.Tensor,
         aux_total = aux_total + aux
     h = _norm_apply(params["final_norm"], x, cfg.norm_eps)
     return _logits(params, cfg, h), dict(aux_loss=aux_total)
+
+
+def loss_fn(params, cfg: ModelConfig, batch: dict) -> tuple[torch.Tensor,
+                                                             dict]:
+    """Mean next-token cross-entropy over ``logits[..., :cfg.vocab]`` (the
+    padded vocab tail masked out), under ``batch["mask"]`` where given,
+    plus ``aux_loss_coef`` times the MoE load-balancing loss.  Returns
+    (total, dict(ce=, aux=)), float32 0-d tensors."""
+    logits, out = forward(params, cfg, batch)
+    loss = nn.softmax_cross_entropy(logits[..., : cfg.vocab],
+                                    batch["labels"], batch.get("mask"))
+    total = loss + cfg.aux_loss_coef * out["aux_loss"]
+    return total, dict(ce=loss, aux=out["aux_loss"])
 
 
 # ---------------------------------------------------------------------------

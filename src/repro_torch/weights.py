@@ -1,5 +1,6 @@
 """Carry model parameters over from the JAX reference: the GNN layers
-(``from_jax_params``) and the LM pytree (``lm_from_jax_params``).
+(``from_jax_params``), the LM pytree (``lm_from_jax_params``) and its
+AdamW state (``adamw_state_from_jax``).
 
 ``jax.random`` and torch generators give different numbers from one seed,
 so a comparison of the two packages starts both from the reference's
@@ -7,7 +8,7 @@ parameters, converted to numpy by the caller.
 """
 from __future__ import annotations
 
-from typing import Mapping, Sequence
+from typing import Any, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -195,4 +196,50 @@ def lm_from_jax_params(params_np: Mapping, cfg,
                 raise ValueError(f"{where}: expected {n} layers, got {len(g)}")
             out["groups"].append([_convert(lp, layer, f"{where}[{i}]", dt,
                                            dev) for i, lp in enumerate(g)])
+    return out
+
+
+def _like_tree(tree_np, like, where: str, dev) -> Any:
+    """``tree_np`` (numpy leaves) as float32 tensors on ``dev`` in the
+    structure of ``like`` (a params tree), shapes checked leaf by leaf."""
+    if isinstance(like, Mapping):
+        if not isinstance(tree_np, Mapping) or set(tree_np) != set(like):
+            got = (sorted(tree_np) if isinstance(tree_np, Mapping)
+                   else type(tree_np))
+            raise ValueError(f"{where}: expected keys {sorted(like)}, got "
+                             f"{got}")
+        return {k: _like_tree(tree_np[k], like[k], f"{where}.{k}", dev)
+                for k in like}
+    if isinstance(like, (list, tuple)):
+        if len(tree_np) != len(like):
+            raise ValueError(f"{where}: expected {len(like)} entries, got "
+                             f"{len(tree_np)}")
+        return type(like)(_like_tree(t, l, f"{where}[{i}]", dev)
+                          for i, (t, l) in enumerate(zip(tree_np, like)))
+    a = np.asarray(tree_np, np.float32)
+    if a.shape != tuple(like.shape):
+        raise ValueError(f"{where}: expected shape {tuple(like.shape)}, got "
+                         f"{a.shape}")
+    return torch.from_numpy(a.copy()).to(dev)
+
+
+def adamw_state_from_jax(opt_state_np: Mapping, params,
+                         device: str | torch.device = DEFAULT_DEVICE) -> dict:
+    """The reference's ``repro.optim.adamw`` state (``m``, ``v``, ``step``,
+    and the error feedback ``ef`` where gradient compression carries one;
+    leaves as numpy) for this package's ``params`` (``lm_from_jax_params``'s
+    tree): ``m``, ``v`` (and ``ef``) as float32 tensors in the structure of
+    ``params`` on ``device``, ``step`` a 0-d int32 tensor there, so that a
+    run of ``train.steps.make_train_step`` continues the reference's."""
+    dev = resolve_device(device)
+    keys = set(opt_state_np)
+    if not {"m", "v", "step"} <= keys <= {"m", "v", "step", "ef"}:
+        raise ValueError("expected keys m, v, step (and ef), got "
+                         f"{sorted(keys)}")
+    out = {k: _like_tree(opt_state_np[k], params, k, dev)
+           for k in ("m", "v", "ef") if opt_state_np.get(k) is not None}
+    step = np.asarray(opt_state_np["step"])
+    if step.shape != ():
+        raise ValueError(f"step: expected a scalar, got shape {step.shape}")
+    out["step"] = torch.tensor(int(step), dtype=torch.int32, device=dev)
     return out

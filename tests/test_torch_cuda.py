@@ -1777,3 +1777,111 @@ def test_cuda_server_failing_launch_fails_its_requests(cuda_device,
     with pytest.raises(RuntimeError) as info:
         card.warmup()
     assert info.value is err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt_scale", [0.1, 2.0])
+def test_cuda_mamba_scan_trainable_gradients(cuda_device, dt_scale):  # noqa: F811
+    """mamba_scan_trainable on the card: one kernel launch in the forward,
+    none in the backward (it recomputes through the plain oracle); its
+    output and the gradients of all six inputs against autograd through
+    the plain version on the card (float32, the reference's 1e-4)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(39)
+    args = _mamba_inputs(gen, 2, 256, 512, 16, cuda_device, dt_scale)
+    cot = torch.randn((2, 256, 512), generator=gen, device=cuda_device)
+    out = []
+    for fn in (ms_mod.mamba_scan_trainable,
+               lambda x, dt, Bc, Cc, A, D: ms_mod.plain(x, dt, A, Bc, Cc,
+                                                        D)):
+        leaves = [a.clone().requires_grad_() for a in args]
+        before = ms_mod.launches.value
+        y = fn(*leaves)
+        fwd = ms_mod.launches.value - before
+        grads = torch.autograd.grad((y * cot).sum(), leaves)
+        torch.cuda.synchronize()
+        out.append((y.detach(), grads, fwd, ms_mod.launches.value - before))
+    (y, g, fwd, total), (want_y, want_g, _, plain_launches) = out
+    assert (fwd, total, plain_launches) == (1, 1, 0)
+    torch.testing.assert_close(y, want_y, atol=1e-4, rtol=1e-4)
+    for name, a, b in zip(("x", "dt", "Bc", "Cc", "A", "D"), g, want_g):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4, msg=name)
+
+
+def _np_params(cfg, seed: int = 0):
+    """A parameter tree as numpy (the reference's form, as
+    lm_from_jax_params takes it), drawn by the port on the CPU."""
+    import numpy as np
+    from repro_torch.models import lm
+    p = lm.init_params(lm.make_generator(seed, "cpu"), cfg)
+    return lm._tree_map(lambda a: np.asarray(a.float().numpy()), p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,changes,per_step", [
+    ("internlm2_1_8b", dict(attn_core="flash"), dict(flash_attention=6)),
+    ("jamba_v0_1_52b", dict(mamba_core="pallas", attn_core="flash"),
+     dict(flash_attention=2, mamba_scan=14)),
+    ("rwkv6_7b", dict(wkv_core="xla"), {})])
+def test_cuda_lm_train_step_matches_cpu(cuda_device, arch, changes,  # noqa: F811
+                                        per_step):
+    """make_train_step at each family's REDUCED config in float32, 2 steps
+    (lr 1e-3, warmup 1) on the card and on the CPU in lockstep (the first
+    from one numpy parameter tree, the second from the CPU's state on
+    both: RWKV-6's chunked form and Jamba's router make two free runs
+    drift apart), batch 2 x 128: metrics and gradients (the first moments)
+    at float32 1e-4 / 1e-5, params within tp.AdamSlack; the kernels'
+    launches per step under remat "dots" (each layer's forward again in
+    the backward: 2 flash per InternLM2 layer, 14 mamba_scan and 2 flash
+    per Jamba period), none in RWKV-6's "xla" core."""
+    import dataclasses
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps
+    from repro_torch.tree import tree_leaves, tree_map
+    from repro_torch.weights import lm_from_jax_params
+    cfg = dataclasses.replace(configs.get_config(arch, reduced=True),
+                              **changes)
+    host = _np_params(cfg)
+    toks = np.random.default_rng(1).integers(0, cfg.vocab, (2, 129)).astype(
+        np.int32)
+    batch = {k: torch.from_numpy(v) for k, v in
+             dict(tokens=toks[:, :-1], labels=toks[:, 1:]).items()}
+    counts = {"flash_attention": fa_mod.launches, "mamba_scan":
+              ms_mod.launches, "rwkv6_chunked": rk_mod.launches}
+    step = steps.make_train_step(cfg, adamw.OptConfig(
+        lr=1e-3, warmup_steps=1, total_steps=10))
+
+    def leaves(tree):
+        return [a.detach().cpu().numpy() for a in tree_leaves(tree)]
+
+    p_cpu = lm_from_jax_params(host, cfg, device="cpu")
+    p_card = lm_from_jax_params(host, cfg, device=cuda_device)
+    o_cpu, o_card = adamw.init_state(p_cpu), adamw.init_state(p_card)
+    for t in (1, 2):
+        if t > 1:
+            p_card, o_card = (tree_map(lambda a: a.to(cuda_device), x)
+                              for x in (p_cpu, o_cpu))
+        before = {k: c.value for k, c in counts.items()}
+        p_card, o_card, m_card = step(p_card, o_card, {
+            k: v.to(cuda_device) for k, v in batch.items()})
+        torch.cuda.synchronize()
+        assert {k: c.value - before[k] for k, c in counts.items()
+                if c.value - before[k]} == per_step
+        before = {k: c.value for k, c in counts.items()}
+        p_cpu, o_cpu, m_cpu = step(p_cpu, o_cpu, batch)
+        assert {k: c.value for k, c in counts.items()} == before
+        for k in m_cpu:
+            a, b = float(m_cpu[k]), float(m_card[k])
+            assert abs(a - b) <= 1e-5 + 1e-4 * abs(a), (t, k, a, b)
+        # the gradients' part of m (0.1 g) at 1e-5 / 1e-4
+        for x, y in zip(leaves(o_cpu["m"]), leaves(o_card["m"])):
+            np.testing.assert_allclose(y, x, atol=1e-6, rtol=1e-4)
+        slack = tp.AdamSlack()
+        slack.t = t - 1
+        slack.step(leaves(o_cpu["m"]), leaves(o_cpu["v"]),
+                   leaves(o_card["m"]), leaves(o_card["v"]),
+                   float(m_cpu["lr"]))
+        slack.check(leaves(p_cpu), leaves(p_card),
+                    [str(i) for i in range(len(leaves(p_cpu)))],
+                    f"{arch} step {t} card vs CPU")

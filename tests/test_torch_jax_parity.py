@@ -1931,3 +1931,368 @@ def test_inference_server_fixed_plan_cache_matches_reference():
     assert tsel.warmup() == rsel.warmup()
     assert ([p.layers for _, p, _ in tsel.cache.state_dict()["entries"]]
             == [p.layers for _, p, _ in rsel.cache.state_dict()["entries"]])
+
+
+# --- the LM training slice: AdamW, compression, data, the train step -------
+
+# gradients, losses and metrics: float32 rtol 1e-4, atol 1e-5; updated
+# params the same plus each element's Adam slack (tp.AdamSlack: what its
+# normalised step differs by between the two runs' own moments); a failure
+# names the element and its |g|.  Found on InternLM2 REDUCED at lr 1e-3
+# before the slack: groups[0].attn.wo[1, 21, 8] (|g| 2.5e-9 and 1.3e-9 in
+# the two packages, 8x the tolerance) and two ffn elements at |g| 1e-9
+# and 1.6e-8; on Jamba and RWKV-6 REDUCED a few more, all at |g| <= 1.2e-7.
+TRAIN_TOL = tp.TRAIN_TOL
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10)
+
+
+def _np_leaves(tree):
+    """(path, float32 numpy) of every leaf of a JAX or port tree, in
+    jax.tree.leaves order."""
+    from repro_torch.optim import adamw as TAW
+    from repro_torch.tree import tree_leaves
+    if isinstance(jax.tree.leaves(tree)[0], torch.Tensor):
+        leaves = tree_leaves(tree)
+        return [(str(i), t.detach().float().cpu().numpy())
+                for i, t in enumerate(leaves)]
+    return [(jax.tree_util.keystr(p), np.asarray(a, np.float32))
+            for p, a in jax.tree_util.tree_flatten_with_path(tree)[0]]
+
+
+def _assert_trees_close(ref, port, what: str, **tol) -> None:
+    rl, pl = _np_leaves(ref), _np_leaves(port)
+    assert len(rl) == len(pl), what
+    for (path, a), (_, b) in zip(rl, pl):
+        assert a.shape == b.shape, (what, path)
+        np.testing.assert_allclose(b, a, err_msg=f"{what} {path}",
+                                   **(tol or TRAIN_TOL))
+
+
+class _Slack(tp.AdamSlack):
+    """tp.AdamSlack over the reference's and the port's optimizer states
+    and param trees."""
+
+    def step(self, ref_opt, port_opt, lr: float) -> None:
+        super().step(*(
+            [a for _, a in _np_leaves(o[k])] for o in (ref_opt, port_opt)
+            for k in ("m", "v")), lr)
+
+    def assert_params_close(self, ref_p, port_p, what: str) -> None:
+        rl, pl = _np_leaves(ref_p), _np_leaves(port_p)
+        self.check([a for _, a in rl], [b for _, b in pl],
+                   [p for p, _ in rl], what)
+
+
+def test_adamw_compression_and_pipelines_match_reference():
+    """optim/adamw.py (schedule at steps 0, warmup and total; update and
+    clip_by_global_norm on a small tree, float32 and bfloat16 params),
+    distributed/compression.py (bf16; topk_ef over 3 steps with its error
+    feedback) and data/pipeline.py (TokenPipeline and EmbedsPipeline
+    batches byte for byte over several steps and shards; pipeline_for)
+    against the reference."""
+    from repro.data import pipeline as RP
+    from repro.distributed import compression as RCm
+    from repro.optim import adamw as RAW
+    from repro_torch.data import pipeline as TP
+    from repro_torch.distributed import compression as TCm
+    from repro_torch.optim import adamw as TAW
+    from repro_torch.tree import tree_leaves, tree_map
+    rng = np.random.default_rng(39)
+    kw = dict(lr=1.0, warmup_steps=10, total_steps=100, min_lr_frac=0.1)
+    rcfg, tcfg = RAW.OptConfig(**kw), TAW.OptConfig(**kw)
+    for s in (0, 1, 5, 10, 11, 50, 99, 100, 150):
+        tp.assert_bytes_equal(
+            RAW.schedule(rcfg, jnp.int32(s)),
+            TAW.schedule(tcfg, torch.tensor(s, dtype=torch.int32)))
+    tp.assert_bytes_equal(
+        RAW.schedule(RAW.OptConfig(), jnp.int32(100)),
+        TAW.schedule(TAW.OptConfig(), torch.tensor(100, dtype=torch.int32)))
+
+    tree = dict(b=[rng.standard_normal((4, 3)).astype(np.float32),
+                   rng.standard_normal((5,)).astype(np.float32)],
+                a=rng.standard_normal((2, 2)).astype(np.float32))
+    grads = jax.tree.map(lambda a: (a * 3).astype(np.float32),
+                         dict(b=[rng.standard_normal((4, 3)),
+                                 rng.standard_normal((5,))],
+                              a=rng.standard_normal((2, 2))))
+    gtree = tree_map(torch.from_numpy, grads)
+    for max_norm in (0.5, 100.0):
+        rc, rn = RAW.clip_by_global_norm(grads, max_norm)
+        tc, tn = TAW.clip_by_global_norm(gtree, max_norm)
+        tp.assert_close(rn, tn, atol=0, rtol=1e-6)
+        _assert_trees_close(rc, tc, "clip", atol=0, rtol=1e-6)
+    for dtype, jdt in ((torch.float32, jnp.float32),
+                       (torch.bfloat16, jnp.bfloat16)):
+        cfg_kw = dict(lr=1e-2, warmup_steps=2, total_steps=20)
+        rp = jax.tree.map(lambda a: jnp.asarray(a).astype(jdt), tree)
+        tparams = tree_map(lambda a: torch.from_numpy(a).to(dtype), tree)
+        ro, to = RAW.init_state(rp), TAW.init_state(tparams)
+        assert to["step"].dtype == torch.int32 and to["step"].shape == ()
+        for i in range(3):
+            g = jax.tree.map(lambda a: (a * (i + 1)).astype(np.float32),
+                             grads)
+            rp, ro, rs = RAW.update(rp, jax.tree.map(
+                lambda a: jnp.asarray(a).astype(jdt), g), ro,
+                RAW.OptConfig(**cfg_kw))
+            old = tparams
+            before = [t.clone() for t in tree_leaves(old)]
+            tparams, to, ts = TAW.update(
+                old, tree_map(lambda a: torch.from_numpy(a).to(dtype), g),
+                to, TAW.OptConfig(**cfg_kw))
+            assert all(torch.equal(a, b) for a, b in zip(
+                before, tree_leaves(old))), "update wrote its input"
+            for k in ("grad_norm", "lr"):
+                tp.assert_close(rs[k], ts[k], atol=0, rtol=1e-6)
+            tol = (dict(atol=1e-6, rtol=1e-5) if dtype == torch.float32
+                   else dict(atol=0, rtol=2 ** -7))   # one bf16 step
+            _assert_trees_close(rp, tparams, f"params {dtype}", **tol)
+            _assert_trees_close(ro["m"], to["m"], "m", atol=1e-7, rtol=1e-5)
+            _assert_trees_close(ro["v"], to["v"], "v", atol=1e-7, rtol=1e-5)
+            assert int(to["step"]) == int(ro["step"]) == i + 1
+            assert all(t.dtype == dtype for t in tree_leaves(tparams))
+
+    rb, _ = RCm.compress(grads, "bf16")
+    tb, _ = TCm.compress(gtree, "bf16")
+    _assert_trees_close(rb, tb, "bf16", atol=0, rtol=0)
+    assert TCm.compress(gtree, "none") == (gtree, None)
+    ref_ef = RCm.init_error_feedback(grads)
+    port_ef = TCm.init_error_feedback(gtree)
+    for i in range(3):
+        g = jax.tree.map(lambda a: (a * (1 + 0.5 * i)).astype(np.float32),
+                         grads)
+        rs, ref_ef = RCm.compress(g, "topk_ef", ref_ef, topk_frac=0.25)
+        ts, port_ef = TCm.compress(tree_map(torch.from_numpy, g),
+                                   "topk_ef", port_ef, topk_frac=0.25)
+        _assert_trees_close(rs, ts, f"topk_ef sent, step {i}", atol=0,
+                            rtol=0)
+        _assert_trees_close(ref_ef, port_ef, f"topk_ef residual, step {i}",
+                            atol=1e-7, rtol=1e-6)
+    with pytest.raises(ValueError):
+        TCm.compress(gtree, "topk_ef")
+    with pytest.raises(ValueError):
+        TCm.compress(gtree, "fp8")
+
+    for pr, pt in ((RP.TokenPipeline(256, 16, 8, n_shards=2, seed=3),
+                    TP.TokenPipeline(256, 16, 8, n_shards=2, seed=3)),
+                   (RP.TokenPipeline(92544, 64, 4, seed=0),
+                    TP.TokenPipeline(92544, 64, 4, seed=0)),
+                   (RP.EmbedsPipeline(32, 16, 4, 256, n_shards=2, seed=1),
+                    TP.EmbedsPipeline(32, 16, 4, 256, n_shards=2, seed=1)),
+                   (RP.EmbedsPipeline(32, 8, 2, 100, mrope=True),
+                    TP.EmbedsPipeline(32, 8, 2, 100, mrope=True)),
+                   (RP.EmbedsPipeline(32, 8, 2, 100, encoder_seq=12),
+                    TP.EmbedsPipeline(32, 8, 2, 100, encoder_seq=12))):
+        for step in (0, 1, 7, 1000):
+            shards = getattr(pr, "n_shards", 1)
+            for shard in range(shards):
+                rb, tb = pr.batch(step, shard), pt.batch(step, shard)
+                assert sorted(rb) == sorted(tb)
+                for k in rb:
+                    tp.assert_bytes_equal(rb[k], tb[k])
+            if isinstance(pr, RP.TokenPipeline):
+                rg, tg = pr.global_batch_at(step), pt.global_batch_at(step)
+                for k in rg:
+                    tp.assert_bytes_equal(rg[k], tg[k])
+    x = np.arange(10_000, dtype=np.uint64) * np.uint64(0x9E3779B97F4A7C15)
+    tp.assert_bytes_equal(RP._hash_u32(x), TP._hash_u32(x))
+    from repro import configs as RC
+    from repro_torch import configs as TC
+    for arch in ("internlm2_1_8b", "rwkv6_7b", "jamba_v0_1_52b"):
+        rp_, tp_ = (RP.pipeline_for(RC.get_config(arch, reduced=True), 16,
+                                    4, seed=2),
+                    TP.pipeline_for(TC.get_config(arch, reduced=True), 16,
+                                    4, seed=2))
+        assert type(rp_).__name__ == type(tp_).__name__
+        for k, v in rp_.batch(3).items():
+            tp.assert_bytes_equal(v, tp_.batch(3)[k])
+
+
+def _train_pair(arch: str, **changes):
+    """The reference's and the port's REDUCED config with ``changes``, the
+    reference's parameters (PRNGKey(0)) and the port's copy of them."""
+    import dataclasses
+    rcfg, tcfg, params, port = _lm_pair(True, arch)
+    if changes:
+        rcfg = dataclasses.replace(rcfg, **changes)
+        tcfg = dataclasses.replace(tcfg, **changes)
+    return rcfg, tcfg, params, port
+
+
+def _train_batch(cfg, seed: int, B: int = 4, S: int = 32) -> dict:
+    toks = np.random.default_rng(seed).integers(
+        0, cfg.vocab, (B, S + 1)).astype(np.int32)
+    return dict(tokens=toks[:, :-1], labels=toks[:, 1:])
+
+
+def _check_train_steps(rcfg, tcfg, params, port, batch, what: str,
+                       accum: int = 1, comp: str = "none",
+                       grad_tol: dict | None = None, steps: int = 2,
+                       resync: bool = False):
+    """``steps`` steps of the reference's jitted make_train_step and the
+    port's from the same params: metrics at TRAIN_TOL each step, the
+    optimizer's gradients (m / (1 - b1) after the first step) at
+    ``grad_tol``, v, and the params (``_Slack``).  With ``resync`` each
+    later step of the port starts from the reference's params and state
+    (weights.adamw_state_from_jax), so a step is compared from equal
+    inputs; without it the port carries its own."""
+    from repro_torch.weights import adamw_state_from_jax, lm_from_jax_params
+    from repro.distributed import compression as RCm
+    from repro.optim import adamw as RAW
+    from repro.train import steps as RS
+    from repro_torch.distributed import compression as TCm
+    from repro_torch.optim import adamw as TAW
+    from repro_torch.tree import tree_leaves, tree_map
+    from repro_torch.train import steps as TS
+    rstep = jax.jit(RS.make_train_step(rcfg, RAW.OptConfig(**TRAIN_OPT),
+                                       accum_steps=accum,
+                                       grad_compression=comp))
+    tstep = TS.make_train_step(tcfg, TAW.OptConfig(**TRAIN_OPT),
+                               accum_steps=accum, grad_compression=comp)
+    ro, to = RAW.init_state(params), TAW.init_state(port)
+    if comp == "topk_ef":
+        ro["ef"] = RCm.init_error_feedback(params)
+        to["ef"] = TCm.init_error_feedback(port)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    rp, tparams, slack = params, port, _Slack()
+    for i in range(steps):
+        if resync and i:
+            tparams = lm_from_jax_params(jax.tree.map(np.asarray, rp), tcfg,
+                                         device="cpu")
+            to = adamw_state_from_jax(jax.tree.map(np.asarray, ro), tparams,
+                                      device="cpu")
+            slack = _Slack()
+            slack.t = i
+        before = [t.clone() for t in tree_leaves(tparams)]
+        rp, ro, rm = rstep(rp, ro, jb)
+        new_p, to, tm = tstep(tparams, to, tb)
+        assert all(torch.equal(a, b) for a, b in zip(
+            before, tree_leaves(tparams))), "the step wrote its input"
+        tparams = new_p
+        assert sorted(tm) == sorted(rm) == ["aux", "ce", "grad_norm",
+                                            "loss", "lr"]
+        for k in rm:
+            tp.assert_close(rm[k], tm[k], **TRAIN_TOL)
+        slack.step(ro, to, float(rm["lr"]))
+        if i == 0:
+            g_ref = jax.tree.map(lambda m: m / 0.1, ro["m"])
+            g_port = tree_map(lambda m: m / 0.1, to["m"])
+            _assert_trees_close(g_ref, g_port, f"{what} gradients",
+                                **(grad_tol or TRAIN_TOL))
+        # v holds g^2: twice g's relative error
+        _assert_trees_close(ro["v"], to["v"], f"{what} v step {i}",
+                            atol=1e-9, rtol=max(
+                                1e-3, 2 * (grad_tol or TRAIN_TOL)["rtol"]))
+        if comp == "topk_ef":
+            _assert_trees_close(ro["ef"], to["ef"], f"{what} ef step {i}",
+                                **TRAIN_TOL)
+        slack.assert_params_close(rp, tparams, f"{what} step {i}")
+    return rp, ro, tparams, to
+
+
+def test_lm_train_step_matches_reference():
+    """InternLM2 REDUCED: lm.loss_fn and its gradients against jax.grad of
+    the reference's (softmax core, and the flash core at S = 128 with the
+    Pallas kernel in interpret mode); make_train_step for 2 steps with
+    accum_steps 1 and 4, and with bf16 and topk_ef compression (losses,
+    metrics, the optimizer's gradients, v, the error feedback and the
+    params); and a reference run continued in the port from its state
+    (weights.adamw_state_from_jax)."""
+    import dataclasses
+    from repro.models import lm as RLM
+    from repro_torch.models import lm as TLM
+    from repro_torch.optim import adamw as TAW
+    from repro_torch.tree import tree_leaves, tree_unflatten
+    from repro_torch.train import steps as TS
+    from repro_torch.weights import adamw_state_from_jax, lm_from_jax_params
+    rcfg, tcfg, params, port = _train_pair(LM_ARCH)
+    for core, S in (("softmax", 32), ("flash", 128)):
+        rc = dataclasses.replace(rcfg, attn_core=core)
+        tc = dataclasses.replace(tcfg, attn_core=core)
+        batch = _train_batch(rc, 40, B=2, S=S)
+        (rl, rm), rg = jax.value_and_grad(
+            lambda p: RLM.loss_fn(p, rc, {k: jnp.asarray(v)
+                                          for k, v in batch.items()}),
+            has_aux=True)(params)
+        leaves = [t.clone().requires_grad_()
+                  for t in tree_leaves(port)]
+        tl, tm = TLM.loss_fn(tree_unflatten(port, leaves), tc,
+                             {k: torch.from_numpy(v)
+                              for k, v in batch.items()})
+        tg = torch.autograd.grad(tl, leaves)
+        tp.assert_close(rl, tl.detach(), **TRAIN_TOL)
+        for k in ("ce", "aux"):
+            tp.assert_close(rm[k], tm[k], **TRAIN_TOL)
+        _assert_trees_close(rg, list(tg), f"loss_fn grads, {core} core")
+
+    batch = _train_batch(rcfg, 41)
+    for accum, comp, grad_tol in (
+            (1, "none", None), (4, "none", None),
+            # bf16: the gradients are rounded to bf16 twice (compress,
+            # then the clip in bf16), so a float32 difference can land a
+            # bf16 step (at most 2^-7 relative) apart at each
+            (1, "bf16", dict(atol=1e-5, rtol=2 ** -6)),
+            (1, "topk_ef", None)):
+        _check_train_steps(rcfg, tcfg, params, port, batch,
+                           f"accum {accum}, {comp}", accum, comp, grad_tol)
+
+    # the reference's first step continued by the port's second
+    from repro.optim import adamw as RAW
+    from repro.train import steps as RS
+    rstep = jax.jit(RS.make_train_step(rcfg, RAW.OptConfig(**TRAIN_OPT)))
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    rp1, ro1, _ = rstep(params, RAW.init_state(params), jb)
+    rp2, ro2, rm2 = rstep(rp1, ro1, jb)
+    host = jax.tree.map(np.asarray, rp1)
+    tp1 = lm_from_jax_params(host, tcfg, device="cpu")
+    to1 = adamw_state_from_jax(jax.tree.map(np.asarray, ro1), tp1,
+                               device="cpu")
+    assert to1["step"].dtype == torch.int32 and int(to1["step"]) == 1
+    tp2, to2, tm2 = TS.make_train_step(tcfg, TAW.OptConfig(**TRAIN_OPT))(
+        tp1, to1, {k: torch.from_numpy(v) for k, v in batch.items()})
+    for k in rm2:
+        tp.assert_close(rm2[k], tm2[k], **TRAIN_TOL)
+    slack = _Slack()
+    slack.t = 1
+    slack.step(ro2, to2, float(rm2["lr"]))
+    slack.assert_params_close(rp2, tp2, "continued")
+    with pytest.raises(ValueError):
+        adamw_state_from_jax(dict(m=host, v=host), tp1, device="cpu")
+
+
+@pytest.mark.parametrize("arch,changes", [
+    ("jamba_v0_1_52b", dict(mamba_core="xla")),
+    ("jamba_v0_1_52b", dict(mamba_core="pallas")),
+    ("rwkv6_7b", dict(wkv_core="xla"))])
+def test_recurrent_train_steps_match_reference(arch, changes):
+    """make_train_step on Jamba REDUCED under both Mamba cores (the
+    reference's "pallas" runs its Pallas scan in interpret mode with the
+    oracle's VJP, the port's mamba_scan_trainable its plain forward and the
+    same recompute backward) and on RWKV6-7B REDUCED under the "xla"
+    chunked core, 2 steps against the reference (T = 32); for the Mamba
+    cores also mamba_scan_trainable's input gradients against the
+    reference's at tests/test_kernels_mamba.py's shapes."""
+    rcfg, tcfg, params, port = _train_pair(arch, **changes)
+    # RWKV-6's chunked form multiplies its float32 rounding by e^|c| (c
+    # the in-chunk log-decay sum, up to 8 at chunk 8 here), and its decay
+    # rates sit where a param moved by its Adam slack (tp.AdamSlack) moves
+    # the next step's gradient norm by 1e-3: the second step starts from
+    # the reference's first (resync), where the gradient norms agree to
+    # 6e-6
+    _check_train_steps(rcfg, tcfg, params, port, _train_batch(rcfg, 42),
+                       f"{arch} {changes}", resync=arch == "rwkv6_7b")
+    if arch != "jamba_v0_1_52b":
+        return
+    from repro.kernels import mamba_scan as RMS
+    from repro_torch.kernels import mamba_scan as TMS
+    rng = np.random.default_rng(43)
+    for B, T, di, ds, _, _, dt_scale in MAMBA_CASES[:3]:
+        args = _mamba_inputs(rng, B, T, di, ds, dt_scale)
+        cot = rng.standard_normal((B, T, di)).astype(np.float32)
+        ry, rg = _grads_ref(RMS.mamba_scan_trainable,
+                            [jnp.asarray(a) for a in args], cot)
+        ty, tg = _grads_port(TMS.mamba_scan_trainable,
+                             [torch.from_numpy(a) for a in args], cot)
+        tp.assert_close(ry, ty)
+        for name, a, b in zip(("x", "dt", "Bc", "Cc", "A", "D"), rg, tg):
+            tp.assert_close(a, b, **TRAIN_TOL), name

@@ -98,7 +98,7 @@ def test_configs_registry():
                                     dict(mrope_sections=(2, 3, 3)),
                                     dict(q_lora_rank=64),
                                     dict(first_k_dense=1),
-                                    dict(aux_loss_coef=0.1),
+                                    dict(qk_nope_dim=64),
                                     dict(kv_lora_rank=256)])
 def test_unported_model_kinds_raise(change):
     cfg = dataclasses.replace(CFG, **change)

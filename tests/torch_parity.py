@@ -79,3 +79,61 @@ def cuda_device():
         pytest.skip("needs a CUDA GPU; run `python -m pytest -m cuda "
                     "tests/test_torch_*.py` on a machine with one")
     return torch.device("cuda")
+
+
+# The LM train step's tolerance: gradients, losses and metrics at float32
+# rtol 1e-4, atol 1e-5.  Updated params the same, plus what each element's
+# Adam direction differs by (AdamSlack): Adam divides m_hat by sqrt(v_hat)
+# + eps, so an element whose gradient is small beside the rounding of the
+# sums that make it (a cancellation of terms 1e3-1e5 times larger) can
+# step in another direction in two right computations, up to 2 lr a step,
+# while its gradient agrees at the gradient tolerance.
+TRAIN_TOL = dict(atol=1e-5, rtol=1e-4)
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.95, 1e-8
+
+
+class AdamSlack:
+    """Each element's slack for a comparison of two runs of AdamW from
+    equal params: the sum over steps of lr_t |u_a - u_b|, u = m_hat /
+    (sqrt(v_hat) + eps) computed in float64 from each run's own moments
+    after step t (``step``: lists of float32 numpy leaves, the optimizer's
+    m and v).  ``check`` holds the params to TRAIN_TOL plus that slack,
+    and names each element outside it with its |g| (the first step's, from
+    m) and its slack."""
+
+    def __init__(self):
+        self.t = 0
+        self.slack = None
+        self.g1 = None
+
+    def step(self, m_a, v_a, m_b, v_b, lr: float) -> None:
+        self.t += 1
+        c1, c2 = 1 - ADAM_B1 ** self.t, 1 - ADAM_B2 ** self.t
+
+        def u(m, v):
+            m, v = np.asarray(m, np.float64), np.asarray(v, np.float64)
+            return (m / c1) / (np.sqrt(v / c2) + ADAM_EPS)
+
+        d = [lr * np.abs(u(ma, va) - u(mb, vb))
+             for ma, va, mb, vb in zip(m_a, v_a, m_b, v_b)]
+        if self.slack is None:
+            self.slack = d
+            self.g1 = [np.abs(np.asarray(m, np.float64)) / (1 - ADAM_B1)
+                       for m in m_a]
+        else:
+            self.slack = [s + x for s, x in zip(self.slack, d)]
+
+    def check(self, want_leaves, got_leaves, names, what: str) -> None:
+        for name, a, b, slack, g1 in zip(names, want_leaves, got_leaves,
+                                         self.slack, self.g1):
+            a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+            err = np.abs(b - a)
+            lim = (TRAIN_TOL["atol"] + TRAIN_TOL["rtol"] * np.abs(a)
+                   + 1.01 * slack)
+            bad = err > lim
+            assert not bad.any(), (
+                f"{what} {name}: {int(bad.sum())} elements outside "
+                f"{TRAIN_TOL} + their Adam slack, " + ", ".join(
+                    f"{tuple(int(j) for j in i)} want {a[tuple(i)]:.7g} got "
+                    f"{b[tuple(i)]:.7g} |g| {g1[tuple(i)]:.3g} slack "
+                    f"{slack[tuple(i)]:.3g}" for i in np.argwhere(bad)[:5]))
