@@ -29,8 +29,12 @@ sequential cache prefill, greedy decode) and one period of Jamba-v0.1
 attention in the prefill step, the MoE rule's sparse path in prefills and
 its dense path in decode); and LM training: InternLM2-1.8B at full width
 through launch/train.py (the flash kernel in each step's forward and in
-the backward's recompute) and the three families' reduced configs on the
-card against the CPU (mamba_scan through mamba_scan_trainable).  It goes
+the backward's recompute) and the families' reduced configs on the
+card against the CPU (mamba_scan through mamba_scan_trainable); and the
+DeepSeek family: DeepSeekMoE-16B served whole and DeepSeek-V3 at its
+published widths cut to 4 layers (MLA through the flash kernel's CUDA-core
+path in the prefill step and the cache prefill, the MTP block, shared and
+routed experts).  It goes
 through the twelve hand-written CUDA
 kernels and checks every result.  ``acc`` (the threaded accumulator, and
 SAGE's dual-weight kernel) takes its default, on for CUDA tensors, except
@@ -337,7 +341,31 @@ Phases, each of which raises (exit code != 0) on failure:
    flash step (loss and grad norm at the reference's bf16 atol 2e-1 /
    rtol 3e-1), 4 steps on one repeated batch whose loss must fall, step ms
    (CUDA events), tokens/s, peak memory and the device-busy share of a
-   step, and compress(topk_ef) on an embedding-sized gradient timed;
+   step, and compress(topk_ef) on an embedding-sized gradient timed; the
+   DeepSeek, Qwen2.5, CodeQwen and Mistral-Large reduced configs join the
+   2-step loop;
+7f. the DeepSeek family ([deepseek]): at the published widths in float32
+   (1 x 128 tokens) DeepSeekMoE-16B's first two layers through the prefill
+   step and DeepSeek-V3's first MLA layer through layer_apply, card (2
+   and 1 flash launches) against the CPU within 1e-3, and on the card the
+   cache prefill of 120 tokens and teacher-forced decode to 128 (MLA
+   absorbed) against those forwards within 1e-3; both DeepSeek REDUCED
+   configs in float32, prefill step, cache prefill and decode card against
+   CPU and decode against the forward (1e-3), launches asserted; then in
+   bf16 DeepSeekMoE-16B FULL (28 layers) and DeepSeek-V3 cut to 4 layers
+   (DEEPSEEK_CUT), one at a time and freed: serve_lm (batch 4, prompt
+   1024, 32 tokens), init_params' parameter count and peak memory, the
+   flash prefill step (28 launches; V3 5: 4 layers and the MTP block), the
+   softmax-core step (0), the cache prefill (0; V3 4) and decode (0), the
+   flash kernel at every call of the step against its plain version on
+   its own operands (phase 2's criteria); the bf16 logits read, not gated
+   (flash against softmax core, against the softmax core with layer 1's
+   attention output moved by 2^-8, decode against a forward over the
+   prompt and the decoded tokens: the random-init MoE models turn one
+   bf16 rounding step into O(1) logits); the MoE rule's paths and the
+   assignments its capacity drops; prefill-step ms (both cores, in
+   turns), tokens/s, decode ms a token beside the time to read the
+   routed experts once, device-busy shares and top device ops;
 8. timing: median forward times (acc off and on) and training-step times
    (CUDA events, host launch included; GCN's unfused and feedback plans
    also with acc off, the SAGE, GIN, GAT and 4-bucket GCN plans), each
@@ -346,7 +374,8 @@ Phases, each of which raises (exit code != 0) on failure:
    call (or composite) computing the same function and its bound
    (bell_spmm also over the transpose payload, the backward's dX passes;
    block_diag_spmm also with the transposed read and seeded by a bias
-   row), and
+   row; flash_attention also at MLA's shape MLA_TIMED beside every
+   scaled_dot_product_attention backend that takes dv != d), and
    torch.profiler tables with the device-busy share of a forward and of a
    training step per plan.
 
@@ -765,11 +794,48 @@ LM_TRAIN_REDUCED = {
                        dict(flash_attention=2 * 3)),
     "jamba_v0_1_52b": (dict(mamba_core="pallas", attn_core="flash"),
                        dict(flash_attention=2, mamba_scan=2 * 7)),
-    "rwkv6_7b": (dict(wkv_core="xla"), {})}
+    "rwkv6_7b": (dict(wkv_core="xla"), {}),
+    # the DeepSeek and dense families: 2 a layer, and DeepSeek-V3's MTP
+    # block once (it is not checkpointed, as in the reference)
+    "deepseek_moe_16b": (dict(attn_core="flash"),
+                         dict(flash_attention=2 * 3)),
+    "deepseek_v3_671b": (dict(attn_core="flash"),
+                         dict(flash_attention=2 * 4 + 1)),
+    "qwen2_5_14b": (dict(attn_core="flash"), dict(flash_attention=2 * 3)),
+    "codeqwen1_5_7b": (dict(attn_core="flash"), dict(flash_attention=2 * 3)),
+    "mistral_large_123b": (dict(attn_core="flash"),
+                           dict(flash_attention=2 * 3))}
 # mamba_scan_trainable at Jamba's published Mamba widths (B, T, d_inner,
 # d_state), gradients of all six inputs against autograd through the plain
 # form at the reference's float32 tolerance (tests/test_kernels_mamba.py)
 MAMBA_TRAIN_SHAPE = (1, 256, 8192, 16)
+
+# The DeepSeek slice: DeepSeekMoE-16B FULL (28 layers, 64 routed experts
+# top-6 and 2 shared, the first layer dense) served whole, and DeepSeek-V3 at
+# its published widths (MLA, 256 experts top-8 and 1 shared, MTP) with the
+# depth cut from 61 to 4 layers (its 3 dense MLA layers and one MLA-MoE
+# layer: 31.59 GB of bf16 weights; 61 layers would be 1.34 TB), both in
+# bf16 under the serving profile (attn_core "flash")
+DEEPSEEK_ARCHS = ("deepseek_moe_16b", "deepseek_v3_671b")
+DEEPSEEK_CUT = {"deepseek_v3_671b": dict(n_layers=4)}
+DEEPSEEK_PARAMS = {"deepseek_moe_16b": 16_375_728_128,
+                   "deepseek_v3_671b": 15_797_352_448}
+# flash launches a call: the prefill step's (one a layer, and V3's MTP
+# block), the cache prefill's (MLA layers only: GQA attention there is plain
+# ref.mha, as in the reference) and decode's (none); the device function
+# each runs (DeepSeekMoE d = dv = 128: the wgmma path; MLA d 192 / dv 128:
+# the CUDA-core path)
+DEEPSEEK_FLASH = {
+    "deepseek_moe_16b": dict(step=28, cache_prefill=0, fn="flash_wgmma_"),
+    "deepseek_v3_671b": dict(step=4 + 1, cache_prefill=4, fn="flash_kernel")}
+# generated positions whose decode logits are held against a forward over
+# the prompt and those tokens
+DEEPSEEK_DECODE_CHECK = 4
+# the float32 full-width decode check: cache prefill of this many of 128
+# tokens, then decode to 128
+DEEPSEEK_F32_PREFILL = 120
+# flash_attention at MLA's prefill shape (B, H, S, d, dv), bf16 causal
+MLA_TIMED = (4, 128, 1024, 192, 128)
 
 # (Fi, Fo) of the main path's fused kernels: layer 1, layer 2, and layer
 # 2's dX pass over the transpose with W^T
@@ -4028,11 +4094,13 @@ def phase_kernels_flash(torch, errs: dict) -> None:
         f"{FLASH_BF16_ROW_RMS}); largest errors {errs['flash_attention']}")
 
 
-def check_flash_close(torch, got, want, what: str) -> float:
+def check_flash_close(torch, got, want, what: str,
+                      quiet: bool = False) -> float:
     """Holds a flash_attention output against its plain version: at
     FLASH_TOL; bfloat16 also at FLASH_BF16_TIGHT and, per output row,
     rms(err) <= FLASH_BF16_ROW_RMS * rms(want).  Logs the readings of
-    every criterion, then raises if one fails; returns max|err|."""
+    every criterion (``quiet``: only on a failure), then raises if one
+    fails; returns max|err|."""
     name = str(got.dtype).removeprefix("torch.")
     g, w = got.float(), want.float()
     err = (g - w).abs()
@@ -4058,7 +4126,8 @@ def check_flash_close(torch, got, want, what: str) -> float:
             fails.append(f"{FLASH_BF16_TIGHT} (worst {tight:.3g})")
         if not row_max <= FLASH_BF16_ROW_RMS:
             fails.append(f"row RMS {row_max:.3g} > {FLASH_BF16_ROW_RMS}")
-    log("kernel", msg)
+    if fails or not quiet:
+        log("kernel", msg)
     if fails:
         raise RuntimeError(f"{what} outside " + "; ".join(fails))
     return e
@@ -5682,6 +5751,519 @@ def phase_lm_train(torch, counts: dict, smi: str) -> dict:
                 n_params=n_params)
 
 
+
+# ---------------------------------------------------------------------------
+# the DeepSeek slice: DeepSeekMoE-16B whole, DeepSeek-V3 at 4 layers
+# ---------------------------------------------------------------------------
+
+def deepseek_cfg(arch: str, reduced: bool = False, **changes):
+    """The config (FULL, DeepSeek-V3 cut to DEEPSEEK_CUT's depth, or
+    REDUCED) under the serving profile, with ``changes``."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.launch.serve_lm import serving_profile
+    cfg = configs.get_config(arch, reduced=reduced)
+    cut = {} if reduced else DEEPSEEK_CUT.get(arch, {})
+    cfg = dataclasses.replace(cfg, **serving_profile(cfg), **cut)
+    return dataclasses.replace(cfg, **changes)
+
+
+def read_counts(counts: dict) -> dict:
+    return {k: c.value for k, c in counts.items()}
+
+
+def phase_deepseek_f32(torch, counts: dict) -> dict:
+    """The published widths in float32, card (flash kernel) against CPU
+    (plain versions), 1 x 128 tokens (S % 128 == 0: the flash branch):
+    DeepSeekMoE-16B's first two layers (the dense layer and one MoE layer
+    of 64 routed and 2 shared experts) through the prefill step, embedding
+    and head included; DeepSeek-V3's first layer (MLA, d 192 / dv 128, and
+    the dense FFN of 18432) through layer_apply on a random input.  Each
+    within LM_TOL, with 2 and 1 flash launches.  Then on the card the
+    cache prefill of the first DEEPSEEK_F32_PREFILL tokens and
+    teacher-forced decode to 128 (MLA absorbed; the MoE's dense path, which
+    drops nothing, at both token counts) against those forwards, within
+    LM_TOL: the decode invariant at full width, where float32 rounds
+    finely enough for it to hold (PERF.md section 6, DeepSeek)."""
+    from repro_torch.models import blocks as blk
+    from repro_torch.models import lm
+    from repro_torch.train import steps
+    P = DEEPSEEK_F32_PREFILL
+    errs, launches = {}, {k: 0 for k in counts}
+    cfg = deepseek_cfg("deepseek_moe_16b", n_layers=2, dtype="float32")
+    if {blk.choose_moe_path(cfg.moe_cfg(), n) for n in (1, P, 128)} != {
+            "dense"}:
+        raise RuntimeError("the MoE rule does not pick dense at 1 x 128")
+    params = lm.init_params(lm.make_generator(0, "cuda"), cfg)
+    toks = torch.from_numpy(lm_tokens(cfg, 1, 128, seed=11))
+    step = steps.make_prefill_step(cfg)
+    for c in counts.values():
+        c.reset()
+    card = step(params, dict(tokens=toks.cuda()))
+    torch.cuda.synchronize()
+    got = read_counts(counts)
+    if {k: v for k, v in got.items() if v} != {"flash_attention": 2}:
+        raise RuntimeError(f"DeepSeekMoE 2-layer prefill step launched {got}")
+    launches = {k: launches[k] + got[k] for k in counts}
+    with torch.no_grad():
+        pre, caches = lm.prefill(params, cfg, dict(tokens=toks[:, :P].cuda()),
+                                 s_max=128)
+        serve, dec = steps.make_serve_step(cfg), []
+        for t in range(P, 128):
+            _, lg, caches = serve(params, caches, toks[:, t:t + 1].cuda(), t)
+            dec.append(lg[:, 0])
+    errs["moe_prefill_vs_forward"] = check_lm_close(
+        torch, pre, card[:, :P], LM_TOL, f"DeepSeekMoE 2 layers float32: "
+        f"cache prefill of {P} tokens vs the forward, card")
+    errs["moe_decode_vs_forward"] = check_lm_close(
+        torch, torch.stack(dec, dim=1), card[:, P:], LM_TOL, "DeepSeekMoE "
+        f"2 layers float32: decode {P} -> 128 vs the forward, card")
+    cpu_params = lm._tree_map(lambda a: a.cpu(), params)
+    del params, caches
+    errs["moe_2_layers"] = check_lm_close(
+        torch, card.cpu(), step(cpu_params, dict(tokens=toks)), LM_TOL,
+        "DeepSeekMoE-16B widths, 2 layers (dense, MoE), float32, 1 x 128, "
+        "card (flash kernel) vs CPU (plain versions)")
+    del cpu_params, card
+    torch.cuda.empty_cache()
+
+    cfg = deepseek_cfg("deepseek_v3_671b", dtype="float32")
+    gen = lm.make_generator(1, "cuda")
+    lp = lm.init_layer(gen, cfg, "mla_mlp")
+    x = torch.randn((1, 128, cfg.d_model), generator=gen, device="cuda")
+    pos = torch.arange(128, device="cuda")[None]
+    for c in counts.values():
+        c.reset()
+    with torch.no_grad():
+        card, _ = lm.layer_apply(lp, cfg, "mla_mlp", x, pos)
+        torch.cuda.synchronize()
+        got = read_counts(counts)
+        if {k: v for k, v in got.items() if v} != {"flash_attention": 1}:
+            raise RuntimeError(f"one V3 MLA layer launched {got}")
+        launches = {k: launches[k] + got[k] for k in counts}
+        pre, cache = lm.layer_prefill(lp, cfg, "mla_mlp", x[:, :P],
+                                      pos[:, :P], 128)
+        dec = []
+        for t in range(P, 128):
+            y, cache = lm.layer_decode(lp, cfg, "mla_mlp", x[:, t:t + 1],
+                                       cache, t)
+            dec.append(y)
+        errs["v3_prefill_vs_forward"] = check_lm_close(
+            torch, pre, card[:, :P], LM_TOL, f"DeepSeek-V3 layer 1 float32: "
+            f"MLA cache prefill of {P} tokens vs the forward, card")
+        errs["v3_decode_vs_forward"] = check_lm_close(
+            torch, torch.cat(dec, dim=1), card[:, P:], LM_TOL, "DeepSeek-V3 "
+            f"layer 1 float32: absorbed MLA decode {P} -> 128 vs the "
+            "forward, card")
+        cpu_lp = lm._tree_map(lambda a: a.cpu(), lp)
+        del lp, cache
+        cpu, _ = lm.layer_apply(cpu_lp, cfg, "mla_mlp", x.cpu(), pos.cpu())
+    errs["v3_mla_layer"] = check_lm_close(
+        torch, card.cpu(), cpu, LM_TOL, "DeepSeek-V3 layer 1 (MLA, dense "
+        "FFN) at full width, float32, 1 x 128, card (flash kernel, d 192 / "
+        "dv 128) vs CPU (plain versions)")
+    del cpu_lp, card, cpu
+    torch.cuda.empty_cache()
+    return dict(errs=errs, launches=launches)
+
+
+def phase_deepseek_reduced(torch, counts: dict) -> dict:
+    """DeepSeekMoE and DeepSeek-V3 REDUCED in float32 under the serving
+    profile, card (flash kernel) against CPU (plain versions) from the same
+    parameters: the prefill step (batch 2 x 128), the cache prefill of the
+    128 tokens and teacher-forced decode_step to 136, logits within 1e-3,
+    and the decode against the card's forward over the 136 tokens; the
+    launches of each path on the card."""
+    from repro_torch.models import lm
+    from repro_torch.train import steps
+    launches, errs = {}, {}
+    for arch in DEEPSEEK_ARCHS:
+        cfg = deepseek_cfg(arch, reduced=True)
+        params = lm.init_params(lm.make_generator(0, "cpu"), cfg)
+        card_params = lm._tree_map(lambda a: a.cuda(), params)
+        toks = torch.from_numpy(lm_tokens(cfg, 2, 136, seed=12))
+        P = 128
+
+        def run(p, dev):
+            out, used = {}, {}
+            t = toks.to(dev)
+            for path in ("forward", "prefill", "decode", "forward_136"):
+                for c in counts.values():
+                    c.reset()
+                if path == "forward":
+                    out[path] = steps.make_prefill_step(cfg)(
+                        p, dict(tokens=t[:, :P]))
+                elif path == "forward_136":
+                    out[path] = steps.make_prefill_step(cfg)(
+                        p, dict(tokens=t))
+                elif path == "prefill":
+                    out[path], caches = lm.prefill(
+                        p, cfg, dict(tokens=t[:, :P]), s_max=t.shape[1])
+                else:
+                    serve, dec = steps.make_serve_step(cfg), []
+                    for i in range(P, t.shape[1]):
+                        _, lg, caches = serve(p, caches, t[:, i:i + 1], i)
+                        dec.append(lg[:, 0])
+                    out[path] = torch.stack(dec, dim=1)
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                used[path] = read_counts(counts)
+            return out, used
+
+        card, used = run(card_params, "cuda")
+        n, mla = cfg.n_layers, cfg.attn_type == "mla"
+        want = dict(forward=dict(flash_attention=n + int(cfg.mtp)),
+                    prefill=dict(flash_attention=n) if mla else {},
+                    decode={}, forward_136={})
+        for path, w in want.items():
+            got = {k: v for k, v in used[path].items() if v}
+            if got != w:
+                raise RuntimeError(f"{arch} reduced {path} launched {got}, "
+                                   f"expected {w}")
+        cpu, _ = run(params, "cpu")
+        for path in card:
+            errs[f"{arch}_{path}"] = check_lm_close(
+                torch, card[path].cpu(), cpu[path], LM_TOL, f"{arch} reduced,"
+                f" float32, {path}, card (flash kernel) vs CPU (plain "
+                "versions)")
+        errs[f"{arch}_decode_vs_forward"] = check_lm_close(
+            torch, card["decode"], card["forward_136"][:, P:], LM_TOL,
+            f"{arch} reduced teacher-forced decode vs the forward, card")
+        launches.update({f"{arch}_{p}": u for p, u in used.items()})
+    return dict(launches=launches, errs=errs)
+
+
+def phase_deepseek_serve(torch, counts: dict, arch: str) -> dict:
+    """``arch`` at full width in bfloat16 under the serving profile
+    (DeepSeekMoE-16B whole, DeepSeek-V3 cut to DEEPSEEK_CUT): serve_lm
+    (batch 4, prompt 1024, 32 greedy tokens), then from the same seed's
+    parameters and prompts the prefill step under the flash core and the
+    softmax core, the cache prefill, and DEEPSEEK_DECODE_CHECK decode steps
+    fed serve_lm's tokens, with the flash launches of each call
+    (DEEPSEEK_FLASH) asserted.  The kernel is gated at every one of its
+    calls in the flash step, on that call's own operands, against its
+    plain version (phase 2's criteria).  The bf16 logits are read, not
+    gated: flash against softmax core, the softmax core against itself
+    with layer 1's attention output moved by one bf16 rounding step (what
+    the random-init model makes of that), and decode against a forward
+    over the prompt and the decoded tokens (PERF.md section 6, DeepSeek;
+    phase_deepseek_f32 gates those invariants in float32).  Then the MoE
+    path the rule picks and the assignments its capacity drops, the
+    timings, device-busy shares and peak memory of the serving path."""
+    import dataclasses
+    import math
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.launch.serve_lm import serve_lm
+    from repro_torch.models import blocks as blk
+    from repro_torch.models import lm
+    from repro_torch.train import steps
+    cfg = deepseek_cfg(arch)
+    want = DEEPSEEK_FLASH[arch]
+    B, P, G, seed = SERVE["batch"], SERVE["prompt_len"], SERVE["gen"], 0
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counts.values():
+        c.reset()
+    out = serve_lm(arch, reduced=False, batch=B, prompt_len=P, gen=G,
+                   seed=seed, device="cuda", overrides=DEEPSEEK_CUT.get(arch),
+                   verbose=False)
+    torch.cuda.synchronize()
+    serve_peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    serve_launches = read_counts(counts)
+    if serve_launches["flash_attention"] != want["cache_prefill"] or sum(
+            serve_launches.values()) != want["cache_prefill"]:
+        raise RuntimeError(f"{arch} serve_lm launched {serve_launches}, "
+                           f"expected {want['cache_prefill']} flash (its "
+                           "cache prefill) and nothing else")
+    tokens = out["tokens"]
+    if tokens.shape != (B, G) or not ((tokens >= 0) & (tokens < cfg.vocab)
+                                      ).all():
+        raise RuntimeError(f"{arch} serve_lm tokens {tokens.shape}: {tokens}")
+    log("deepseek", f"serve_lm bf16 {cfg.name} ({cfg.n_layers} layers) batch "
+        f"{B} prompt {P} gen {G}: {out['seconds']:.2f} s "
+        f"({out['tokens_per_s']:.1f} tok/s, first calls included), peak "
+        f"{serve_peak:.2f} GB; {serve_launches['flash_attention']} flash "
+        f"launches; tokens in [0, {cfg.vocab}); first row "
+        f"{tokens[0].tolist()}")
+
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(lm.make_generator(seed, "cuda"), cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(a.numel() for a in lm._leaves(params))
+    n_bytes = sum(a.numel() * a.element_size() for a in lm._leaves(params))
+    init_peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    log("deepseek", f"{cfg.name} init_params: {n_params} parameters, "
+        f"{n_bytes / 1e9:.2f} GB, {init_s:.1f} s; peak {init_peak:.2f} GB")
+    if n_params != DEEPSEEK_PARAMS[arch]:
+        raise RuntimeError(f"{arch} has {n_params} parameters, expected "
+                           f"{DEEPSEEK_PARAMS[arch]}")
+
+    # the assignments the sparse path's capacity drops, call by call
+    moe = cfg.moe_cfg()
+    drops, orig_sparse = [], blk.moe_apply_sparse
+
+    def counted(p, mcfg, x2d):
+        _, idx, _ = blk._moe_gates(p, mcfg, x2d)
+        C = max(math.ceil(x2d.shape[0] * mcfg.top_k / mcfg.n_experts
+                          * mcfg.capacity_factor), 1)
+        load = torch.bincount(idx.reshape(-1), minlength=mcfg.n_experts)
+        drops.append(int((load - C).clamp_min(0).sum()))
+        return orig_sparse(p, mcfg, x2d)
+
+    batch = dict(tokens=torch.from_numpy(lm_tokens(cfg, B, P, seed)).cuda())
+    flash_step = steps.make_prefill_step(cfg)
+    soft_step = steps.make_prefill_step(dataclasses.replace(
+        cfg, attn_core="softmax"))
+    K = DEEPSEEK_DECODE_CHECK
+    gen_toks = torch.from_numpy(tokens[:, :K].copy()).cuda()
+    serve_step = steps.make_serve_step(cfg)
+    blk.moe_apply_sparse = counted
+    try:
+        for c in counts.values():
+            c.reset()
+        torch.cuda.reset_peak_memory_stats()
+        flash = flash_step(params, batch)
+        torch.cuda.synchronize()
+        step_peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        step_launches = read_counts(counts)
+        step_drops, drops[:] = list(drops), []
+        for c in counts.values():
+            c.reset()
+        soft = soft_step(params, batch)
+        torch.cuda.synchronize()
+        soft_launches = read_counts(counts)
+        drops[:] = []
+        for c in counts.values():
+            c.reset()
+        with torch.no_grad():
+            lg_p, caches = lm.prefill(params, cfg, batch, s_max=P + G)
+        torch.cuda.synchronize()
+        prefill_launches = read_counts(counts)
+        prefill_drops, drops[:] = list(drops), []
+        dec = []
+        for i in range(K):
+            _, lg, caches = serve_step(params, caches, gen_toks[:, i:i + 1],
+                                       P + i)
+            dec.append(lg[:, 0])
+        torch.cuda.synchronize()
+        decode_launches = {k: v - prefill_launches[k]
+                           for k, v in read_counts(counts).items()}
+        full = soft_step(params, dict(tokens=torch.cat(
+            [batch["tokens"], gen_toks], dim=1)))
+        torch.cuda.synchronize()
+        full_drops = list(drops)
+    finally:
+        blk.moe_apply_sparse = orig_sparse
+    paths = {n: blk.choose_moe_path(moe, n) for n in (B * P, B * (P + K),
+                                                      B)}
+    log("deepseek", f"{cfg.name}: the MoE rule picks {paths} (tokens -> "
+        f"path); assignments dropped at capacity factor "
+        f"{moe.capacity_factor}, per MoE layer: prefill step "
+        f"{step_drops} (of {B * P * moe.top_k} each), cache prefill "
+        f"{prefill_drops}, forward over {P + K} tokens {full_drops}")
+    for name, got, n in (("prefill step", step_launches, want["step"]),
+                         ("softmax-core step", soft_launches, 0),
+                         ("cache prefill", prefill_launches,
+                          want["cache_prefill"]),
+                         ("decode", decode_launches, 0)):
+        if got["flash_attention"] != n or sum(got.values()) != n:
+            raise RuntimeError(f"{arch} {name} launched {got}, expected {n} "
+                               "flash and nothing else")
+    for name, t in (("flash", flash), ("softmax", soft), ("forward", full)):
+        if not bool(torch.isfinite(t).all()):
+            raise RuntimeError(f"{arch} {name} logits are not finite")
+    if flash.shape != (B, P, cfg.padded_vocab) or soft.shape != flash.shape:
+        raise RuntimeError(f"{arch} logits {tuple(flash.shape)}, "
+                           f"{tuple(soft.shape)}")
+
+    # the kernel at every call of the flash step, on its own operands
+    orig_fa, worst = fa.flash_attention, dict(err=0.0, calls=0)
+
+    def checked(q, k, v, **kw):
+        o = orig_fa(q, k, v, **kw)
+        worst["err"] = max(worst["err"], check_flash_close(
+            torch, o, fa.plain(q, k, v, causal=kw.get("causal", True),
+                               scale=kw.get("scale")),
+            f"{cfg.name} bf16 flash call {worst['calls']} (B, H, S, d, dv) "
+            f"{tuple(q.shape) + (v.shape[-1],)}", quiet=True))
+        worst["calls"] += 1
+        return o
+
+    # the softmax core with layer 1's attention output moved by one bf16
+    # rounding step (relative 2^-8): what two right bf16 paths may differ by
+    orig_mha, hits = ref.mha, []
+
+    def nudged(*a, **kw):
+        o = orig_mha(*a, **kw)
+        if not hits:
+            o = o * (1 + 2 ** -8)
+        hits.append(1)
+        return o
+
+    fa.flash_attention = checked
+    try:
+        flash_step(params, batch)
+    finally:
+        fa.flash_attention = orig_fa
+    if worst["calls"] != want["step"]:
+        raise RuntimeError(f"{arch}: {worst['calls']} checked flash calls")
+    log("deepseek", f"{cfg.name}: every flash call of the bf16 prefill step "
+        f"({worst['calls']}) within phase 2's criteria of its plain version "
+        f"on its own operands; largest max|err| {worst['err']:.3g}")
+    ref.mha = nudged
+    try:
+        nudge = soft_step(params, batch)
+    finally:
+        ref.mha = orig_mha
+    spread = dict(flash_vs_softmax_rms=rms_ratio(flash, soft),
+                  flash_vs_softmax_max=max_err(flash, soft),
+                  nudged_vs_softmax_rms=rms_ratio(nudge, soft),
+                  nudged_vs_softmax_max=max_err(nudge, soft),
+                  prefill_vs_forward_rms=rms_ratio(lg_p[:, -1],
+                                                   full[:, P - 1]),
+                  decode_vs_forward_rms=rms_ratio(torch.stack(dec, dim=1),
+                                                  full[:, P:P + K]),
+                  decode_vs_forward_max=max_err(torch.stack(dec, dim=1),
+                                                full[:, P:P + K]),
+                  max_logit=float(soft.float().abs().max()))
+    log("deepseek", "{name} bf16 logits, batch {B} x {P} (read, not gated): "
+        "flash vs softmax core RMS ratio {flash_vs_softmax_rms:.3g}, "
+        "max|diff| {flash_vs_softmax_max:.3g}; the softmax core with layer "
+        "1's attention output moved by 2^-8 vs itself RMS ratio "
+        "{nudged_vs_softmax_rms:.3g}, max|diff| {nudged_vs_softmax_max:.3g}"
+        "; cache prefill's last logits vs the forward over {PK} tokens RMS "
+        "ratio {prefill_vs_forward_rms:.3g}; decode of serve_lm's first {K} "
+        "tokens vs that forward RMS ratio {decode_vs_forward_rms:.3g}, "
+        "max|diff| {decode_vs_forward_max:.3g} (max|logit| {max_logit:.3g})"
+        .format(name=cfg.name, B=B, P=P, PK=P + K, K=K, **spread))
+    top_f = flash[:, -1, :cfg.vocab].argmax(-1).cpu()
+    top_s = soft[:, -1, :cfg.vocab].argmax(-1).cpu()
+    first = torch.from_numpy(tokens[:, 0]).long()
+    agree = dict(last_argmax_flash_vs_softmax=int((top_f == top_s).sum()),
+                 serve_first_token_vs_flash=int((first == top_f).sum()),
+                 of=B)
+    log("deepseek", "last-position argmax agreement (of {of}): flash vs "
+        "softmax core {last_argmax_flash_vs_softmax}; serve_lm's first "
+        "greedy token vs the flash step's argmax "
+        "{serve_first_token_vs_flash}".format(**agree))
+    del flash, soft, nudge, full, lg_p, dec
+
+    # timing (CUDA events, host launch included), the two cores in turns
+    runs = {"flash": [], "softmax": []}
+    fns = {"flash": lambda: flash_step(params, batch),
+           "softmax": lambda: soft_step(params, batch)}
+    for name in ("flash", "softmax", "softmax", "flash"):
+        runs[name].append(eager_ms(torch, fns[name], iters=3))
+    prefill_ms = {k: statistics.mean(v) for k, v in runs.items()}
+    nxt = gen_toks[:, -1:]
+    decode_ms = eager_ms(torch, lambda: serve_step(params, caches, nxt,
+                                                   P + K), iters=10)
+    n_moe = sum(n for kind, n in cfg.layer_groups() if kind.endswith("moe"))
+    expert_bytes = (n_moe * moe.n_experts * 3 * moe.d_model
+                    * moe.d_ff_expert * 2)
+    floor_ms = expert_bytes / HBM_BYTES_PER_S * 1e3
+    tok = B * P
+    log("timing", f"{cfg.name} bf16 prefill step, batch {B} x {P} (CUDA "
+        f"events, host included, two runs each in turns): flash "
+        f"{runs['flash'][0]:.3f} / {runs['flash'][1]:.3f} ms "
+        f"({tok / prefill_ms['flash'] * 1e3:.0f} tokens/s), softmax core "
+        f"{runs['softmax'][0]:.3f} / {runs['softmax'][1]:.3f} ms "
+        f"({tok / prefill_ms['softmax'] * 1e3:.0f} tokens/s); decode step "
+        f"(batch {B}, the rule's {paths[B]} path over all {moe.n_experts} "
+        f"experts) {decode_ms:.3f} ms per token, against "
+        f"{floor_ms:.3f} ms to read the {n_moe} MoE layers' routed expert "
+        f"weights ({expert_bytes / 1e9:.2f} GB) once at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; peak memory of the step "
+        f"{step_peak:.2f} GB above the baseline")
+    busy = dict(prefill=profile_busy(torch, fns["flash"], 2,
+                                     prefill_ms["flash"],
+                                     f"{cfg.name} prefill step",
+                                     expect={want["fn"]: want["step"]}),
+                decode=profile_busy(torch, lambda: serve_step(
+                    params, caches, nxt, P + K), 5, decode_ms,
+                    f"{cfg.name} decode step"))
+    del params, caches
+    torch.cuda.empty_cache()
+    return dict(serve_launches=serve_launches, launches=step_launches,
+                soft_launches=soft_launches,
+                prefill_launches=prefill_launches,
+                decode_launches=decode_launches, kernel_check=worst,
+                spread=spread, agree=agree, paths=paths,
+                drops=dict(step=step_drops, prefill=prefill_drops,
+                           forward=full_drops),
+                prefill_ms=prefill_ms, prefill_runs=runs,
+                decode_ms=decode_ms, decode_floor_ms=floor_ms, busy=busy,
+                serve_seconds=out["seconds"], serve_peak_gb=serve_peak,
+                init_peak_gb=init_peak, step_peak_gb=step_peak)
+
+
+def time_mla_flash(torch, flush) -> dict:
+    """flash_attention at MLA's prefill shape MLA_TIMED (d 192 / dv 128:
+    the CUDA-core path), bfloat16, causal, L2 flushed, checked against its
+    plain version first; beside the plain version, every
+    F.scaled_dot_product_attention backend that takes dv != d (each
+    checked, the fastest is the row's library time) and the bound: q, k, v
+    read once and o written once over the HBM rate, or the causal half of
+    2 S^2 (d + dv) operations per head over the bf16 tensor-core peak, the
+    larger."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels import flash_attention as fa
+    B, H, S, d, dv = MLA_TIMED
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    q, k = (torch.randn((B, H, S, d), generator=gen, device="cuda")
+            .bfloat16() for _ in range(2))
+    v = torch.randn((B, H, S, dv), generator=gen, device="cuda").bfloat16()
+    scale = d ** -0.5
+    want = fa.plain(q, k, v, causal=True, scale=scale)
+    check_flash_close(torch, fa.flash_attention(q, k, v, scale=scale), want,
+                      f"flash_attention at MLA's shape {MLA_TIMED}, bfloat16")
+    libs = {}
+    for be in (SDPBackend.CUDNN_ATTENTION, SDPBackend.FLASH_ATTENTION,
+               SDPBackend.EFFICIENT_ATTENTION):
+        def lib(be=be):
+            with sdpa_kernel(be):
+                return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                      scale=scale)
+        try:
+            y = lib()
+            torch.cuda.synchronize()
+        except RuntimeError as e:      # the backend refuses dv != d
+            log("timing", f"SDPA {be.name} at {MLA_TIMED}: refused "
+                f"({str(e).splitlines()[0][:120]})")
+            continue
+        torch.testing.assert_close(y.float(), want.float(),
+                                   **FLASH_TOL["bfloat16"])
+        libs[be.name] = graph_ms(torch, lib, flush, inner=5, reps=7)
+    n_bytes = (q.numel() + k.numel() + 2 * v.numel()) * 2   # o is v-sized
+    b_ms, b_by = bound(n_bytes, 2.0 * B * H * S * S * (d + dv) / 2,
+                       "bfloat16")
+    best = min(libs, key=libs.get) if libs else None
+    r = dict(ms=graph_ms(torch, lambda: fa.flash_attention(q, k, v,
+                                                           scale=scale),
+                         flush, inner=2, reps=7),
+             plain_ms=graph_ms(torch, lambda: fa.plain(q, k, v, scale=scale),
+                               flush, inner=2, reps=5),
+             library_ms=libs.get(best), library_call=(
+                 f"F.scaled_dot_product_attention(q, k, v, is_causal=True, "
+                 f"scale=d ** -0.5) under {best}" if best else "none takes "
+                 "dv != d"), library_ms_by_backend=libs,
+             bound_ms=b_ms, bound_by=b_by, dtype="bfloat16",
+             shape=[B, H, H, S, S, d, dv])
+    log("timing", f"flash_attention at MLA's shape {MLA_TIMED} bfloat16 "
+        f"(CUDA-core path): {r['ms']:.4f} ms (L2 cold), plain "
+        f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms "
+        f"({r['library_call']}; by backend {libs}), bound "
+        f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return {"x".join(str(n) for n in (B, H, H, S, d, dv)): r}
+
+
 SPIN_CYCLES = 2_000_000
 SPIN_KERNEL = "spin_kernel"
 
@@ -5918,6 +6500,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     ltf = phase_lm_train(torch, counts, card)
     torch.cuda.empty_cache()
+    # 7f. the DeepSeek family (MLA, shared experts, MTP): full-width layers
+    # card vs CPU, the reduced configs, DeepSeekMoE-16B served whole and
+    # DeepSeek-V3 at 4 layers
+    dsf = phase_deepseek_f32(torch, counts)
+    dsr = phase_deepseek_reduced(torch, counts)
+    dss = {}
+    for arch in DEEPSEEK_ARCHS:
+        torch.cuda.empty_cache()
+        dss[arch] = phase_deepseek_serve(torch, counts, arch)
     by_path = {"forward": launches_fwd, "train": trained["launches"],
                "feedback": fb["launches"], "sage_train": sage["launches"],
                "sage_feedback": sfb["launches"],
@@ -5951,7 +6542,16 @@ def main() -> int:
                "lm_train_bf16": ltf["train_launches"],
                "lm_train_gates_bf16": ltf["gate_launches"],
                **{f"lm_train_reduced_{a}_f32": v
-                  for a, v in ltr["launches"].items()}}
+                  for a, v in ltr["launches"].items()},
+               "deepseek_full_width_f32": dsf["launches"],
+               **{f"deepseek_reduced_{k}_f32": v
+                  for k, v in dsr["launches"].items()},
+               **{f"{a}_{what}_bf16": d[key] for a, d in dss.items()
+                  for what, key in (("serve_lm", "serve_launches"),
+                                    ("prefill_step", "launches"),
+                                    ("softmax_prefill_step", "soft_launches"),
+                                    ("cache_prefill", "prefill_launches"),
+                                    ("decode", "decode_launches"))}}
     launches = {k: sum(p[k] for p in by_path.values()) for k in counts}
     for k, v in launches.items():
         if v == 0:
@@ -6111,6 +6711,7 @@ def main() -> int:
     rows.update(time_tcgnn_kernels(torch, dec, flush))
     rows.update(time_dual_kernel(torch, sdec, flush))
     rows.update(time_flash_kernel(torch, flush))
+    rows["flash_attention"].update(time_mla_flash(torch, flush))
     rows.update(time_rwkv_kernel(torch, flush))
     rows.update(time_mamba_kernel(torch, flush))
     del scratch
@@ -6161,6 +6762,10 @@ def main() -> int:
                     jamba_prefill_step=js["launches"],
                     serve_jamba=js["serve_launches"],
                     lm_train_step=ltf["per_step"],
+                    **{f"{a}_prefill_step": d["launches"]
+                       for a, d in dss.items()},
+                    **{f"serve_{a}": d["serve_launches"]
+                       for a, d in dss.items()},
                     **{f"train_step_reduced_{a}": w for a, (_, w) in
                        LM_TRAIN_REDUCED.items()})
     out = []
@@ -6240,7 +6845,16 @@ def main() -> int:
         f"{ltf['after']}, flash step {ltf['first']}, softmax core "
         f"{ltf['soft']}, accum 1 {ltf['acc1']}, step ms {ltf['step_ms']} "
         f"({ltf['tokens_per_s']:.0f} tokens/s), peak {ltf['peak_gb']:.2f} "
-        f"GB, busy {ltf['busy']}, topk_ef {ltf['topk_ms']:.2f} ms")
+        f"GB, busy {ltf['busy']}, topk_ef {ltf['topk_ms']:.2f} ms; DeepSeek "
+        f"({card}): full-width float32 card vs CPU {dsf['errs']}, reduced "
+        f"{dsr['errs']}; " + "; ".join(
+            f"{a}: bf16 kernel check {d['kernel_check']}, logits (read) "
+            f"{d['spread']}, argmax {d['agree']}, MoE paths "
+            f"{d['paths']}, drops {d['drops']}, prefill ms "
+            f"{d['prefill_ms']}, decode {d['decode_ms']:.3f} ms/token (floor "
+            f"{d['decode_floor_ms']:.3f}), busy {d['busy']}, peaks serve "
+            f"{d['serve_peak_gb']:.2f} / init {d['init_peak_gb']:.2f} / step "
+            f"{d['step_peak_gb']:.2f} GB" for a, d in dss.items()))
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

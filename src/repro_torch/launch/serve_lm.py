@@ -8,20 +8,30 @@ greedy-decode continuations (counterpart of ``examples/serve_lm.py``).
         --full --prompt-len 1024 --gen 32                   # RWKV6-7B
     PYTHONPATH=src python -m repro_torch.launch.serve_lm \\
         --arch jamba_v0_1_52b --full --layers 8 --prompt-len 1024 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve_lm \\
+        --arch deepseek_moe_16b --full --prompt-len 1024 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve_lm \\
+        --arch deepseek_v3_671b --full --layers 4 --prompt-len 1024 --gen 32
 
-Each family is served under the reference's serving profile
-(``repro/launch/profiles.py``, ``optimized_overrides``): its recurrent
-layers take the kernel core, ``mamba_core="pallas"`` for Jamba and
-``wkv_core="pallas"`` for RWKV-6 (whose config default, the ``"xla"``
-chunked form, overflows float32 at RWKV6-7B's published chunk 128 in
-both packages: ROADMAP section 3 fault 7); ``overrides`` replaces any of
-it.  The prefill is the cache-producing ``lm.prefill``, as in the
-reference: plain attention (the profile's ``attn_core="flash"`` would
-change nothing here), RWKV-6's sequential recurrence under its kernel
-core, and Jamba's Mamba layers through the ``mamba_scan`` kernel with the
-final state from the plain scan.  Decode runs no hand kernel.  Jamba-v0.1
-is 32 layers, 106 GB of bf16 weights: on one 80 GB card serve one period,
-``overrides=dict(n_layers=8)`` (``--layers 8``, 26.6 GB).
+Each family is served under the reference's serving profile for a
+prefill (``repro/launch/profiles.py``, ``optimized_overrides``): the
+flash core ``attn_core="flash"`` for every family with attention (all but
+RWKV-6), and the kernel core of the recurrent layers, ``mamba_core=
+"pallas"`` for Jamba and ``wkv_core="pallas"`` for RWKV-6 (whose config
+default, the ``"xla"`` chunked form, overflows float32 at RWKV6-7B's
+published chunk 128 in both packages: ROADMAP section 3 fault 7);
+``overrides`` replaces any of it.  The prefill is the cache-producing
+``lm.prefill``, as in the reference.  Of the attention layers only MLA's
+(DeepSeek-V3) launch the flash kernel there, where the prompt length is
+a multiple of 128; GQA attention (InternLM2, Qwen2.5, CodeQwen,
+Mistral-Large, DeepSeekMoE, Jamba's attention layer) is plain ``ref.mha``
+in the cache prefill whatever the core.  RWKV-6's recurrence is sequential
+under its kernel core, and Jamba's Mamba layers run the ``mamba_scan``
+kernel with the final state from the plain scan.  Decode runs no hand
+kernel.  Jamba-v0.1 is 32 layers, 106 GB of bf16 weights: on one 80 GB
+card serve one period, ``overrides=dict(n_layers=8)`` (``--layers 8``,
+26.6 GB); DeepSeekMoE-16B fits whole (32.7 GB); DeepSeek-V3 at 4 layers,
+its 3 dense MLA layers and one MoE layer (``--layers 4``, 31.6 GB).
 """
 from __future__ import annotations
 
@@ -39,13 +49,15 @@ from repro_torch.train import steps as steps_mod
 
 
 def serving_profile(cfg: lm.ModelConfig) -> dict:
-    """The reference's serving profile for ``cfg``'s family: the kernel
-    core of its recurrent layers."""
-    if cfg.layer_pattern == "jamba":
-        return dict(mamba_core="pallas")
+    """The reference's serving profile for ``cfg``'s family (its
+    ``optimized_overrides`` outside decode): the flash core for every
+    family with attention, and the kernel core of the recurrent
+    layers."""
     if cfg.layer_pattern == "rwkv":
         return dict(wkv_core="pallas")
-    return {}
+    if cfg.layer_pattern == "jamba":
+        return dict(attn_core="flash", mamba_core="pallas")
+    return dict(attn_core="flash")
 
 
 def serve_lm(arch: str, *, reduced: bool = True, batch: int = 4,

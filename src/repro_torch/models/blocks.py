@@ -1,13 +1,14 @@
-"""Transformer building blocks: GQA attention, the dense FFN, the MoE FFN
-(routed top-k, dense or capacity dispatch), Mamba (selective SSM), and
-RWKV-6's time-mix and channel-mix.
+"""Transformer building blocks: GQA attention, MLA (DeepSeek's multi-head
+latent attention), the dense FFN, the MoE FFN (DeepSeek-style: shared
+experts and routed top-k, dense or capacity dispatch), Mamba (selective
+SSM), and RWKV-6's time-mix and channel-mix.
 
-Counterpart of ``repro/models/blocks.py`` for the blocks of the ported LM
-slices.  Every block provides ``init_X(gen, ...)`` (params as a dict of
-tensors on the generator's device), ``X_apply(params, x, ...)`` (full
-sequence) and, where relevant, ``X_decode(params, x, cache, pos)``.  MLA
-and DeepSeekMoE's shared experts come with the models that use them
-(ROADMAP section 1 item 8).
+Counterpart of ``repro/models/blocks.py``.  Every block provides
+``init_X(gen, ...)`` (params as a dict of tensors on the generator's
+device), ``X_apply(params, x, ...)`` (full sequence) and, where relevant,
+``X_decode(params, x, cache, pos)``.  M-RoPE (qwen2-vl) and whisper's
+cross-attention and ungated FFN come with their models (ROADMAP section 1
+item 8).
 
 Matmul-heavy math runs in the model dtype with float32 accumulation;
 softmax and norm statistics run in float32.
@@ -176,6 +177,161 @@ def init_attn_cache(cfg: AttnConfig, batch: int, s_max: int,
 
 
 # ---------------------------------------------------------------------------
+# MLA: multi-head latent attention (DeepSeek-V2/V3)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class MLAConfig:
+    d_model: int
+    n_heads: int
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_dim: int = 128
+    rope_theta: float = 1e4
+    attn_core: str = "softmax"    # see AttnConfig.attn_core
+
+    @property
+    def qk_dim(self):
+        return self.qk_nope_dim + self.qk_rope_dim
+
+
+def init_mla(gen: torch.Generator, cfg: MLAConfig,
+             dtype: torch.dtype = torch.float32) -> dict:
+    H, dev = cfg.n_heads, gen.device
+    return dict(
+        wq_a=_dense(gen, (cfg.d_model, cfg.q_lora_rank), dtype),
+        q_norm=torch.ones((cfg.q_lora_rank,), dtype=dtype, device=dev),
+        wq_b=_dense(gen, (cfg.q_lora_rank, H * cfg.qk_dim), dtype),
+        wkv_a=_dense(gen, (cfg.d_model, cfg.kv_lora_rank + cfg.qk_rope_dim),
+                     dtype),
+        kv_norm=torch.ones((cfg.kv_lora_rank,), dtype=dtype, device=dev),
+        wkv_b=_dense(gen, (cfg.kv_lora_rank,
+                           H * (cfg.qk_nope_dim + cfg.v_dim)), dtype),
+        wo=_dense(gen, (H * cfg.v_dim, cfg.d_model), dtype),
+    )
+
+
+def _mla_qkv(params, cfg: MLAConfig, x, positions):
+    """The query halves q_nope (B, S, H, nope) and q_rope (B, S, H, rope),
+    the normed latent c_kv (B, S, kv_lora_rank) and the shared rotary key
+    k_rope (B, S, 1, rope)."""
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    cq = nn.rms_norm(einsum("bsd,dr->bsr", x, params["wq_a"]).to(x.dtype),
+                     params["q_norm"])
+    q = einsum("bsr,rh->bsh", cq, params["wq_b"]).to(x.dtype)
+    q = q.reshape(B, S, H, cfg.qk_dim)
+    q_nope, q_rope = torch.split(q, [cfg.qk_nope_dim, cfg.qk_rope_dim],
+                                 dim=-1)
+    q_rope = rope_mod.apply_rope(q_rope, positions, cfg.rope_theta)
+    kv = einsum("bsd,dr->bsr", x, params["wkv_a"]).to(x.dtype)
+    c_kv, k_rope = torch.split(kv, [cfg.kv_lora_rank, cfg.qk_rope_dim],
+                               dim=-1)
+    c_kv = nn.rms_norm(c_kv, params["kv_norm"])
+    k_rope = rope_mod.apply_rope(k_rope[:, :, None, :], positions,
+                                 cfg.rope_theta)
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def _mla_expand_kv(params, cfg: MLAConfig, c_kv):
+    """The latent cache expanded to per-head k_nope (B, S, H, nope) and v
+    (B, S, H, v_dim) by ``wkv_b`` (the paper's form; the absorbed decode
+    folds ``wkv_b`` into the query and the output instead)."""
+    B, S, _ = c_kv.shape
+    kv = einsum("bsr,rh->bsh", c_kv, params["wkv_b"]).to(c_kv.dtype)
+    kv = kv.reshape(B, S, cfg.n_heads, cfg.qk_nope_dim + cfg.v_dim)
+    return torch.split(kv, [cfg.qk_nope_dim, cfg.v_dim], dim=-1)
+
+
+def _mla_attend(params, cfg: MLAConfig, x, q_nope, q_rope, c_kv, k_rope):
+    """Causal attention of ``_mla_qkv``'s outputs over the expanded latent
+    and the output projection, by ``cfg.attn_core``: "flash" is the flash
+    kernel where S % 128 == 0 (q = [q_nope; q_rope] and k = [k_nope;
+    k_rope on every head], d = qk_dim, dv = v_dim), else plain
+    ``ref.mha``; "identity" the reference's zero-cost stand-in."""
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    k_nope, v = _mla_expand_kv(params, cfg, c_kv)
+    if cfg.attn_core == "identity":
+        out = torch.mean(v, dim=1, keepdim=True).expand(B, S, H, cfg.v_dim)
+    else:
+        q = torch.cat([q_nope, q_rope], dim=-1).transpose(1, 2)
+        k = torch.cat([k_nope, k_rope.expand(B, S, H, cfg.qk_rope_dim)],
+                      dim=-1).transpose(1, 2)
+        v = v.transpose(1, 2)
+        scale = cfg.qk_dim ** -0.5
+        if cfg.attn_core == "flash" and S % 128 == 0:
+            from repro_torch.kernels.flash_attention import \
+                flash_attention_trainable
+            out = flash_attention_trainable(
+                q.contiguous(), k.contiguous(), v.contiguous(), causal=True,
+                scale=scale)
+        else:
+            out = kref.mha(q, k, v, causal=True, scale=scale)
+        out = out.transpose(1, 2)
+    out = out.reshape(B, S, H * cfg.v_dim)
+    return einsum("bsh,hd->bsd", out, params["wo"]).to(x.dtype)
+
+
+def mla_apply(params, cfg: MLAConfig, x, positions):
+    """Full-sequence causal MLA self-attention. positions: (B, S)."""
+    return _mla_attend(params, cfg, x, *_mla_qkv(params, cfg, x, positions))
+
+
+def init_mla_cache(cfg: MLAConfig, batch: int, s_max: int,
+                   dtype: torch.dtype, device: torch.device) -> dict:
+    return dict(c_kv=torch.zeros((batch, s_max, cfg.kv_lora_rank),
+                                 dtype=dtype, device=device),
+                k_rope=torch.zeros((batch, s_max, cfg.qk_rope_dim),
+                                   dtype=dtype, device=device))
+
+
+def mla_decode(params, cfg: MLAConfig, x, cache, pos: int,
+               absorbed: bool = False):
+    """Single-step MLA decode against the latent cache {c_kv (B, Smax,
+    kv_lora_rank), k_rope (B, Smax, rope)}, in float32 as the reference's
+    einsums: ``absorbed`` folds ``wkv_b`` into the query (scores against
+    c_kv directly) and the output, else the cache is expanded per head.
+    The new c_kv and k_rope are written into ``cache`` in place at ``pos``
+    (the reference returns updated copies); returns (y, cache)."""
+    B = x.shape[0]
+    H = cfg.n_heads
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q_nope, q_rope, c_kv_new, k_rope_new = _mla_qkv(params, cfg, x,
+                                                    positions)
+    cache["c_kv"][:, pos:pos + 1] = c_kv_new.to(cache["c_kv"].dtype)
+    cache["k_rope"][:, pos:pos + 1] = k_rope_new[:, :, 0, :].to(
+        cache["k_rope"].dtype)
+    c_kv, k_rope = cache["c_kv"], cache["k_rope"]
+    Smax = c_kv.shape[1]
+    mask = (torch.arange(Smax, device=x.device) <= pos)[None, None, None, :]
+    scale = cfg.qk_dim ** -0.5
+    rope_logits = einsum("bqhn,btn->bhqt", q_rope.float(), k_rope.float())
+    if absorbed:
+        wkv = params["wkv_b"].reshape(cfg.kv_lora_rank, H,
+                                      cfg.qk_nope_dim + cfg.v_dim)
+        w_k = wkv[:, :, : cfg.qk_nope_dim].float()        # (r, H, nope)
+        w_v = wkv[:, :, cfg.qk_nope_dim:].float()         # (r, H, v)
+        c = c_kv.float()
+        q_lat = einsum("bqhn,rhn->bqhr", q_nope.float(), w_k)
+        logits = (einsum("bqhr,btr->bhqt", q_lat, c) + rope_logits) * scale
+        p = torch.softmax(logits.masked_fill(~mask, kref.NEG_INF), dim=-1)
+        ctx = einsum("bhqt,btr->bqhr", p, c)
+        out = einsum("bqhr,rhv->bqhv", ctx, w_v)
+    else:
+        k_nope, v = _mla_expand_kv(params, cfg, c_kv.to(x.dtype))
+        logits = (einsum("bqhn,bthn->bhqt", q_nope.float(), k_nope.float())
+                  + rope_logits) * scale
+        p = torch.softmax(logits.masked_fill(~mask, kref.NEG_INF), dim=-1)
+        out = einsum("bhqt,bthv->bqhv", p, v.float())
+    out = out.reshape(B, 1, H * cfg.v_dim).to(x.dtype)
+    y = einsum("bsh,hd->bsd", out, params["wo"]).to(x.dtype)
+    return y, cache
+
+
+# ---------------------------------------------------------------------------
 # Dense FFN: gated SiLU (whisper's ungated GELU comes with that model)
 # ---------------------------------------------------------------------------
 
@@ -194,7 +350,8 @@ def mlp_apply(params, x):
 
 
 # ---------------------------------------------------------------------------
-# MoE (routed top-k, capacity dispatch; Jamba's FFN on odd layers)
+# MoE (DeepSeek-style: shared experts + routed top-k, capacity dispatch;
+# also Jamba's FFN on odd layers)
 # ---------------------------------------------------------------------------
 
 @dataclass(frozen=True)
@@ -213,24 +370,22 @@ class MoEConfig:
     dispatch: str = "adaptive"
 
 
-def _no_shared(cfg: MoEConfig) -> None:
-    if cfg.n_shared:
-        raise NotImplementedError("shared experts (DeepSeekMoE) are not "
-                                  "ported yet: ROADMAP section 1 item 8")
-
-
 def init_moe(gen: torch.Generator, cfg: MoEConfig,
              dtype: torch.dtype = torch.float32) -> dict:
-    """Router (float32 whatever ``dtype``, as the reference keeps it) and
-    the experts' gated FFNs stacked on axis 0."""
-    _no_shared(cfg)
+    """Router (float32 whatever ``dtype``, as the reference keeps it), the
+    experts' gated FFNs stacked on axis 0 and, with ``n_shared``, the
+    shared experts as one gated FFN of width ``d_ff_shared``
+    (DeepSeekMoE)."""
     E, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff_expert
-    return dict(
+    p = dict(
         router=_dense(gen, (d, E), torch.float32),
         w_gate=_dense(gen, (E, d, f), dtype),
         w_up=_dense(gen, (E, d, f), dtype),
         w_down=_dense(gen, (E, f, d), dtype),
     )
+    if cfg.n_shared:
+        p["shared"] = init_mlp(gen, d, cfg.d_ff_shared, dtype)
+    return p
 
 
 def moe_density(cfg: MoEConfig) -> float:
@@ -333,14 +488,16 @@ def moe_apply_sparse(params, cfg: MoEConfig, x2d):
 
 def moe_apply(params, cfg: MoEConfig, x):
     """Routed FFN over x (B, S, d) by the path ``choose_moe_path`` picks
-    for B * S tokens.  Returns (out (B, S, d), aux loss)."""
-    _no_shared(cfg)
+    for B * S tokens, plus the shared experts' FFN where there are any.
+    Returns (out (B, S, d), aux loss)."""
     B, S, d = x.shape
     x2d = x.reshape(B * S, d)
     if choose_moe_path(cfg, B * S) == "dense":
         out, aux = moe_apply_dense(params, cfg, x2d)
     else:
         out, aux = moe_apply_sparse(params, cfg, x2d)
+    if cfg.n_shared:
+        out = out + mlp_apply(params["shared"], x).reshape(B * S, d)
     return out.reshape(B, S, d), aux
 
 

@@ -1,22 +1,25 @@
-"""LM-family model: the decoder-only dense GQA transformer, RWKV-6 and
-Jamba.
+"""LM-family model: decoder-only dense, MoE and MLA transformers, RWKV-6
+and Jamba.
 
-Counterpart of ``repro/models/lm.py`` for layer kinds ``attn_mlp`` (GQA
-attention + gated FFN, pre-RMSNorm; InternLM2, Qwen2.5, CodeQwen,
-Mistral-Large), ``rwkv`` (RWKV-6 time-mix + channel-mix, pre-RMSNorm;
-RWKV6-7B) and ``jamba_period`` (8 pre-RMSNorm layers: Mamba mixers with
-attention at layer 3, a dense FFN on even layers and a routed MoE FFN on
-odd ones; Jamba-v0.1).  The other kinds (MoE without Mamba, MLA,
-encoder-decoder) raise ``NotImplementedError`` naming the slice that
-brings them.
+Counterpart of ``repro/models/lm.py`` for layer kinds ``attn_mlp`` /
+``attn_moe`` (GQA attention + a gated FFN or a routed MoE FFN with shared
+experts, pre-RMSNorm; InternLM2, Qwen2.5, CodeQwen, Mistral-Large,
+DeepSeekMoE), ``mla_mlp`` / ``mla_moe`` (multi-head latent attention;
+DeepSeek-V3, with its multi-token prediction block), ``rwkv`` (RWKV-6
+time-mix + channel-mix, pre-RMSNorm; RWKV6-7B) and ``jamba_period`` (8
+pre-RMSNorm layers: Mamba mixers with attention at layer 3, a dense FFN on
+even layers and a routed MoE FFN on odd ones; Jamba-v0.1).  Whisper's
+encoder-decoder kinds and qwen2-vl's M-RoPE raise ``NotImplementedError``
+naming the ROADMAP item that brings them.
 
 A model is a sequence of homogeneous layer groups.  With ``scan_layers``
 each group's parameters and decode caches are stacked on axis 0, as in the
 reference; where the reference scans over a stack, the port loops over it
 (views, no copies), and decoding writes each layer's new cache entries
 into its stacked cache in place instead of returning updated copies:
-attention's k/v at ``pos``, RWKV's state ``S`` and token-shift inputs
-``x_tm`` and ``x_cm``, Mamba's state ``h`` and conv tail ``conv``.
+attention's k/v and MLA's latent c_kv and k_rope at ``pos``, RWKV's
+state ``S`` and token-shift inputs ``x_tm`` and ``x_cm``, Mamba's state
+``h`` and conv tail ``conv``.
 """
 from __future__ import annotations
 
@@ -116,6 +119,14 @@ class ModelConfig:
             rope_theta=self.rope_theta, mrope_sections=self.mrope_sections,
             causal=causal, use_rope=use_rope, attn_core=self.attn_core)
 
+    def mla_cfg(self) -> blk.MLAConfig:
+        return blk.MLAConfig(
+            d_model=self.d_model, n_heads=self.n_heads,
+            q_lora_rank=self.q_lora_rank, kv_lora_rank=self.kv_lora_rank,
+            qk_nope_dim=self.qk_nope_dim, qk_rope_dim=self.qk_rope_dim,
+            v_dim=self.v_head_dim, rope_theta=self.rope_theta,
+            attn_core=self.attn_core)
+
     def moe_cfg(self) -> blk.MoEConfig:
         return blk.MoEConfig(
             d_model=self.d_model, n_experts=self.n_experts, top_k=self.top_k,
@@ -153,15 +164,13 @@ class ModelConfig:
         return [(f"{mixer}_mlp", self.n_layers)]
 
 
-# the ROADMAP slice that brings each layer kind this port lacks
-_UNPORTED_KINDS = {
-    "attn_moe": "MoE without Mamba", "mla_mlp": "MLA",
-    "mla_moe": "MLA and MoE", "enc": "the whisper encoder-decoder",
-    "dec": "the whisper encoder-decoder",
-}
+# the model each layer kind this port lacks comes with (ROADMAP section 1
+# item 8)
+_UNPORTED_KINDS = {"enc": "the whisper encoder-decoder",
+                   "dec": "the whisper encoder-decoder"}
 
-
-_PORTED_KINDS = ("attn_mlp", "rwkv", "jamba_period")
+_PORTED_KINDS = ("attn_mlp", "attn_moe", "mla_mlp", "mla_moe", "rwkv",
+                 "jamba_period")
 
 
 def _require_kind(kind: str) -> None:
@@ -177,10 +186,7 @@ def _require_kind(kind: str) -> None:
 # fields that only the unported kinds read: the ported kinds ignore them, so
 # a value other than the default is refused rather than dropped unseen
 # (``remat`` is a training knob and inference ignores it on any kind)
-_UNPORTED_FIELDS = (
-    "q_lora_rank", "kv_lora_rank", "qk_nope_dim", "qk_rope_dim",
-    "v_head_dim", "n_shared_experts", "first_k_dense", "encoder_seq",
-    "mtp_weight")
+_UNPORTED_FIELDS = ("encoder_seq",)
 
 
 def _require_supported(cfg: ModelConfig) -> None:
@@ -191,11 +197,9 @@ def _require_supported(cfg: ModelConfig) -> None:
         value, default = getattr(cfg, f), defaults[f]
         if value != default:
             raise NotImplementedError(
-                f"{f}={value!r} (default {default!r}) is read only by layer "
-                "kinds that are not ported yet: ROADMAP section 1 item 8")
-    if cfg.mtp:
-        raise NotImplementedError("multi-token prediction (DeepSeek-V3) is "
-                                  "not ported yet: ROADMAP section 1 item 8")
+                f"{f}={value!r} (default {default!r}) is read only by the "
+                "whisper encoder-decoder, which is not ported yet: ROADMAP "
+                "section 1 item 8")
     if cfg.mrope_sections is not None:
         raise NotImplementedError("M-RoPE (qwen2-vl) is not ported yet: "
                                   "ROADMAP section 1 item 8")
@@ -249,8 +253,21 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str) -> Params:
         rc = cfg.rwkv_cfg()
         return dict(p, tm=blk.init_rwkv6(gen, rc, dt),
                     cm=blk.init_rwkv6_cm(gen, rc, dt))
-    return dict(p, attn=blk.init_attention(gen, cfg.attn_cfg(), dt),
-                ffn=blk.init_mlp(gen, d, cfg.d_ff, dt))
+    mixer, ffn = kind.split("_")
+    p["attn"] = (blk.init_attention(gen, cfg.attn_cfg(), dt)
+                 if mixer == "attn" else blk.init_mla(gen, cfg.mla_cfg(), dt))
+    p["ffn"] = (blk.init_mlp(gen, d, cfg.d_ff, dt) if ffn == "mlp"
+                else blk.init_moe(gen, cfg.moe_cfg(), dt))
+    return p
+
+
+def _ffn_apply(params, cfg: ModelConfig, kind: str, h):
+    """The FFN half of a transformer layer on the normed ``h``: the dense
+    FFN for ``*_mlp``, the MoE FFN for ``*_moe``.  Returns (out, aux
+    loss or None)."""
+    if kind.endswith("_moe"):
+        return blk.moe_apply(params["ffn"], cfg.moe_cfg(), h)
+    return blk.mlp_apply(params["ffn"], h), None
 
 
 def layer_apply(params, cfg: ModelConfig, kind: str, x, positions):
@@ -279,11 +296,14 @@ def layer_apply(params, cfg: ModelConfig, kind: str, x, positions):
         h, _ = blk.rwkv6_channel_mix(params["cm"], h)
         return x + h, aux
     h = _norm_apply(params["norm1"], x, eps)
-    h = blk.attention_apply(params["attn"], cfg.attn_cfg(), h, positions)
+    if kind.startswith("attn"):
+        h = blk.attention_apply(params["attn"], cfg.attn_cfg(), h, positions)
+    else:
+        h = blk.mla_apply(params["attn"], cfg.mla_cfg(), h, positions)
     x = x + h
     h = _norm_apply(params["norm2"], x, eps)
-    h = blk.mlp_apply(params["ffn"], h)
-    return x + h, aux
+    h, a = _ffn_apply(params, cfg, kind, h)
+    return x + h, aux if a is None else a
 
 
 # ---------------------------------------------------------------------------
@@ -340,7 +360,9 @@ def _init_stacked(gen: torch.Generator, cfg: ModelConfig, kind: str,
 
 def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
     """Parameters drawn from ``gen`` on its device (the reference's key):
-    embed, the untied head, then each group's layers in order."""
+    embed, the untied head, each group's layers in order, then with
+    ``cfg.mtp`` the multi-token prediction block (``mtp``: norm, proj (2d,
+    d) and one layer of ``mtp_kind``)."""
     _require_supported(cfg)
     dt, dev = cfg.torch_dtype, gen.device
     V = cfg.padded_vocab
@@ -352,7 +374,18 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
         _init_stacked(gen, cfg, kind, n) if cfg.scan_layers
         else [init_layer(gen, cfg, kind) for _ in range(n)]
         for kind, n in cfg.layer_groups()]
+    if cfg.mtp:
+        p["mtp"] = dict(norm=_norm_init(cfg.d_model, dt, dev),
+                        proj=nn.lecun_normal(gen, (2 * cfg.d_model,
+                                                   cfg.d_model)).to(dt),
+                        block=init_layer(gen, cfg, mtp_kind(cfg)))
     return p
+
+
+def mtp_kind(cfg: ModelConfig) -> str:
+    """The layer kind of DeepSeek-V3's multi-token prediction block: one
+    dense-FFN layer with the model's attention."""
+    return "attn_mlp" if cfg.attn_type == "gqa" else "mla_mlp"
 
 
 def _saves_dots(ctx, op, *args, **kwargs):
@@ -434,7 +467,11 @@ def forward(params, cfg: ModelConfig, batch: dict) -> tuple[torch.Tensor,
                                                              dict]:
     """Training/prefill forward pass.  batch: tokens (B, S) in tokens mode,
     embeds (B, S, d) in embeds mode.  Returns (logits (B, S, Vp), aux
-    dict)."""
+    dict): ``aux_loss``, and with ``cfg.mtp`` and tokens ``mtp_logits``
+    (B, S, Vp), DeepSeek-V3's multi-token prediction: one more layer over
+    [norm(h_t); embed(token_{t+1})] projected to d, predicting token t + 2
+    (the last position wraps round to the first token, as the
+    reference's roll does)."""
     _require_supported(cfg)
     x, positions = _embed_inputs(params, cfg, batch)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -442,20 +479,41 @@ def forward(params, cfg: ModelConfig, batch: dict) -> tuple[torch.Tensor,
         x, aux = _run_group(g, cfg, kind, x, positions)
         aux_total = aux_total + aux
     h = _norm_apply(params["final_norm"], x, cfg.norm_eps)
-    return _logits(params, cfg, h), dict(aux_loss=aux_total)
+    out = dict(aux_loss=aux_total)
+    if cfg.mtp and "tokens" in batch:
+        dt, mtp = cfg.torch_dtype, params["mtp"]
+        nxt = torch.roll(batch["tokens"], -1, dims=1)
+        e2 = nn.embed_lookup(params["embed"], nxt).to(dt)
+        hm = torch.cat([_norm_apply(mtp["norm"], x, cfg.norm_eps), e2],
+                       dim=-1)
+        hm = blk.einsum("bsd,de->bse", hm, mtp["proj"]).to(dt)
+        hm, _ = layer_apply(mtp["block"], cfg, mtp_kind(cfg), hm, positions)
+        hm = _norm_apply(params["final_norm"], hm, cfg.norm_eps)
+        out["mtp_logits"] = _logits(params, cfg, hm)
+    return _logits(params, cfg, h), out
 
 
 def loss_fn(params, cfg: ModelConfig, batch: dict) -> tuple[torch.Tensor,
                                                              dict]:
     """Mean next-token cross-entropy over ``logits[..., :cfg.vocab]`` (the
     padded vocab tail masked out), under ``batch["mask"]`` where given,
-    plus ``aux_loss_coef`` times the MoE load-balancing loss.  Returns
-    (total, dict(ce=, aux=)), float32 0-d tensors."""
+    plus ``aux_loss_coef`` times the MoE load-balancing loss and, with
+    multi-token prediction, ``mtp_weight`` times the cross-entropy of
+    ``mtp_logits`` against the labels rolled one step left.  Returns
+    (total, dict(ce=, aux=) and ``mtp=`` with multi-token prediction),
+    float32 0-d tensors."""
     logits, out = forward(params, cfg, batch)
-    loss = nn.softmax_cross_entropy(logits[..., : cfg.vocab],
-                                    batch["labels"], batch.get("mask"))
+    labels, mask = batch["labels"], batch.get("mask")
+    loss = nn.softmax_cross_entropy(logits[..., : cfg.vocab], labels, mask)
     total = loss + cfg.aux_loss_coef * out["aux_loss"]
-    return total, dict(ce=loss, aux=out["aux_loss"])
+    metrics = dict(ce=loss, aux=out["aux_loss"])
+    if cfg.mtp and "mtp_logits" in out:
+        mtp_loss = nn.softmax_cross_entropy(
+            out["mtp_logits"][..., : cfg.vocab],
+            torch.roll(labels, -1, dims=1), mask)
+        total = total + cfg.mtp_weight * mtp_loss
+        metrics["mtp"] = mtp_loss
+    return total, metrics
 
 
 # ---------------------------------------------------------------------------
@@ -481,6 +539,8 @@ def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, s_max: int,
                                      device=dev),
                     x_cm=torch.zeros((batch, 1, cfg.d_model), dtype=dt,
                                      device=dev))
+    if kind.startswith("mla"):
+        return blk.init_mla_cache(cfg.mla_cfg(), batch, s_max, dt, dev)
     return blk.init_attn_cache(cfg.attn_cfg(), batch, s_max, dt, dev)
 
 
@@ -488,10 +548,11 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int,
                device: str | torch.device = DEFAULT_DEVICE):
     """Zero decode caches per group, stacked (n, ...) with ``scan_layers``,
     else a list of per-layer dicts: k and v (B, s_max, KV, dh) per
-    attention layer; S (B, H, dh, dh) float32, x_tm and x_cm (B, 1, d) per
-    RWKV layer; per Jamba period one dict per sub-layer ``l0``..``l7``,
-    Mamba's h (B, d_inner, d_state) float32 and conv (B, d_conv - 1,
-    d_inner), the attention layer's k and v."""
+    attention layer; c_kv (B, s_max, kv_lora_rank) and k_rope (B, s_max,
+    qk_rope_dim) per MLA layer; S (B, H, dh, dh) float32, x_tm and x_cm
+    (B, 1, d) per RWKV layer; per Jamba period one dict per sub-layer
+    ``l0``..``l7``, Mamba's h (B, d_inner, d_state) float32 and conv (B,
+    d_conv - 1, d_inner), the attention layer's k and v."""
     _require_supported(cfg)
     dev = resolve_device(device)
     caches = []
@@ -507,7 +568,8 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int,
 
 
 def layer_decode(params, cfg: ModelConfig, kind: str, x, cache, pos: int):
-    """One token through one layer; writes the layer's cache in place."""
+    """One token through one layer; writes the layer's cache in place.
+    MLA decodes in the absorbed form, as the reference's does."""
     _require_kind(kind)
     eps = cfg.norm_eps
     if kind == "jamba_period":
@@ -540,18 +602,23 @@ def layer_decode(params, cfg: ModelConfig, kind: str, x, cache, pos: int):
         cache["x_cm"].copy_(x_cm)
         return x + h_out, cache
     h = _norm_apply(params["norm1"], x, eps)
-    h, cache = blk.attention_decode(params["attn"], cfg.attn_cfg(), h, cache,
-                                    pos)
+    if kind.startswith("attn"):
+        h, cache = blk.attention_decode(params["attn"], cfg.attn_cfg(), h,
+                                        cache, pos)
+    else:
+        h, cache = blk.mla_decode(params["attn"], cfg.mla_cfg(), h, cache,
+                                  pos, absorbed=True)
     x = x + h
     h = _norm_apply(params["norm2"], x, eps)
-    h = blk.mlp_apply(params["ffn"], h)
+    h, _ = _ffn_apply(params, cfg, kind, h)
     return x + h, cache
 
 
 def decode_step(params, cfg: ModelConfig, caches, tokens, pos: int):
     """One decode step.  tokens: (B, 1) int (or embeds (B, 1, d) in embeds
     mode); pos: int position of the new token.  Updates ``caches`` in place
-    (the new token's k/v; RWKV's S, x_tm and x_cm; Mamba's h and conv).
+    (the new token's k/v, or MLA's c_kv and k_rope; RWKV's S, x_tm and
+    x_cm; Mamba's h and conv).
     Returns (logits (B, 1, Vp), next_token
     (B, 1) int32, caches)."""
     _require_supported(cfg)
@@ -583,11 +650,14 @@ def _pad_cache_seq(arr: torch.Tensor, s_max: int) -> torch.Tensor:
 
 
 def layer_prefill(params, cfg: ModelConfig, kind: str, x, positions, s_max):
-    """Full-sequence layer that also emits its decode cache.  Attention is
-    plain ``ref.mha``, as in the reference (the flash kernel runs in
-    ``forward`` only); RWKV's recurrence is sequential under the kernel
-    core (``wkv_core="pallas"``, whose kernel keeps no state), as in the
-    reference, and the chunked form otherwise where the length allows;
+    """Full-sequence layer that also emits its decode cache.  GQA attention
+    is plain ``ref.mha``, as in the reference (the flash kernel runs in
+    ``forward`` only); MLA attends as ``mla_apply`` does, through the flash
+    kernel under ``attn_core="flash"`` where S % 128 == 0, as in the
+    reference, and caches c_kv and k_rope; RWKV's recurrence is sequential
+    under the kernel core (``wkv_core="pallas"``, whose kernel keeps no
+    state), as in the reference, and the chunked form otherwise where the
+    length allows;
     Mamba runs its core (the CUDA kernel under ``mamba_core="pallas"``)
     and takes its final state from the plain scan, as in the reference."""
     _require_kind(kind)
@@ -617,10 +687,13 @@ def layer_prefill(params, cfg: ModelConfig, kind: str, x, positions, s_max):
         x = x + h_out
         return x, dict(S=S_state, x_tm=x_tm.to(dt), x_cm=x_cm.to(dt))
     h = _norm_apply(params["norm1"], x, eps)
-    h, cache = _attn_prefill(params["attn"], cfg, h, positions, s_max)
+    if kind.startswith("attn"):
+        h, cache = _attn_prefill(params["attn"], cfg, h, positions, s_max)
+    else:
+        h, cache = _mla_prefill(params["attn"], cfg, h, positions, s_max)
     x = x + h
     h = _norm_apply(params["norm2"], x, eps)
-    h = blk.mlp_apply(params["ffn"], h)
+    h, _ = _ffn_apply(params, cfg, kind, h)
     return x + h, cache
 
 
@@ -637,6 +710,18 @@ def _attn_prefill(params, cfg: ModelConfig, h, positions, s_max):
     out = blk.einsum("bsh,hd->bsd", o, params["wo"]).to(h.dtype)
     return out, dict(k=_pad_cache_seq(k.to(dt), s_max),
                      v=_pad_cache_seq(v.to(dt), s_max))
+
+
+def _mla_prefill(params, cfg: ModelConfig, h, positions, s_max):
+    """MLA over the normed input ``h`` (``mla_apply``'s attention, the
+    projections computed once), and its latent cache c_kv and k_rope
+    padded to ``s_max``."""
+    mcfg, dt = cfg.mla_cfg(), cfg.torch_dtype
+    q_nope, q_rope, c_kv, k_rope = blk._mla_qkv(params, mcfg, h, positions)
+    cache = dict(c_kv=_pad_cache_seq(c_kv.to(dt), s_max),
+                 k_rope=_pad_cache_seq(k_rope[:, :, 0, :].to(dt), s_max))
+    return blk._mla_attend(params, mcfg, h, q_nope, q_rope, c_kv,
+                           k_rope), cache
 
 
 def prefill(params, cfg: ModelConfig, batch: dict, s_max: int):

@@ -98,19 +98,38 @@ def _mlp_shapes(d: int, f: int) -> dict:
     return dict(w_up=(d, f), w_down=(f, d), w_gate=(d, f))
 
 
+def _mla_shapes(cfg) -> dict:
+    mc, d = cfg.mla_cfg(), cfg.d_model
+    H, r, kv = mc.n_heads, mc.q_lora_rank, mc.kv_lora_rank
+    return dict(wq_a=(d, r), q_norm=(r,), wq_b=(r, H * mc.qk_dim),
+                wkv_a=(d, kv + mc.qk_rope_dim), kv_norm=(kv,),
+                wkv_b=(kv, H * (mc.qk_nope_dim + mc.v_dim)),
+                wo=(H * mc.v_dim, d))
+
+
+def _moe_shapes(cfg) -> dict:
+    """The routed experts stacked on axis 0, the float32 router and, with
+    shared experts, their FFN ``shared``."""
+    moe, d = cfg.moe_cfg(), cfg.d_model
+    E, f = moe.n_experts, moe.d_ff_expert
+    out = dict(router=_Float32((d, E)), w_gate=(E, d, f), w_up=(E, d, f),
+               w_down=(E, f, d))
+    if moe.n_shared:
+        out["shared"] = _mlp_shapes(d, moe.d_ff_shared)
+    return out
+
+
 def _jamba_period_shapes(cfg) -> dict:
     """The 8 sub-layers ``l0``..``l7`` of a ``jamba_period``."""
     from repro_torch.models import lm
     d = cfg.d_model
-    mc, moe = cfg.mamba_cfg(), cfg.moe_cfg()
+    mc = cfg.mamba_cfg()
     di, ds, r = mc.d_inner, mc.d_state, mc.rank
     mamba = dict(in_proj=(d, 2 * di), conv_w=(mc.d_conv, di), conv_b=(di,),
                  x_proj=(di, r + 2 * ds), dt_proj=(r, di), dt_bias=(di,),
                  A_log=_Float32((di, ds)), D=_Float32((di,)),
                  out_proj=(di, d))
-    E, f = moe.n_experts, moe.d_ff_expert
-    experts = dict(router=_Float32((d, E)), w_gate=(E, d, f),
-                   w_up=(E, d, f), w_down=(E, f, d))
+    experts = _moe_shapes(cfg)
     return {f"l{i}": dict(
         norm1=dict(scale=(d,)), norm2=dict(scale=(d,)),
         mixer=_attn_shapes(cfg) if i == lm.JAMBA_ATTN else mamba,
@@ -120,7 +139,8 @@ def _jamba_period_shapes(cfg) -> dict:
 
 def _lm_layer_shapes(cfg, kind: str) -> dict:
     """Shape of every leaf of one layer of ``kind`` (``attn_mlp``,
-    ``rwkv`` or ``jamba_period``) of ``cfg``."""
+    ``attn_moe``, ``mla_mlp``, ``mla_moe``, ``rwkv`` or ``jamba_period``)
+    of ``cfg``."""
     d = cfg.d_model
     if kind == "jamba_period":
         return _jamba_period_shapes(cfg)
@@ -135,8 +155,12 @@ def _lm_layer_shapes(cfg, kind: str) -> dict:
         return dict(norm1=dict(scale=(d,)), norm2=dict(scale=(d,)), tm=tm,
                     cm=dict(mu_k=(d,), mu_r=(d,), wk=(d, ff), wv=(ff, d),
                             wr=(d, d)))
+    mixer, ffn = kind.split("_")
     return dict(norm1=dict(scale=(d,)), norm2=dict(scale=(d,)),
-                attn=_attn_shapes(cfg), ffn=_mlp_shapes(d, cfg.d_ff))
+                attn=_attn_shapes(cfg) if mixer == "attn" else
+                _mla_shapes(cfg),
+                ffn=_mlp_shapes(d, cfg.d_ff) if ffn == "mlp" else
+                _moe_shapes(cfg))
 
 
 def _convert(tree, shapes, where: str, dtype, dev, lead=()):
@@ -168,7 +192,9 @@ def lm_from_jax_params(params_np: Mapping, cfg,
     same tree of tensors in ``cfg``'s dtype (RWKV-6's ``u`` and ``w0``,
     Mamba's ``A_log`` and ``D`` and the MoE router in float32, as the
     reference keeps them) on ``device``, each with storage of its own.
-    Layer kinds ``attn_mlp``, ``rwkv`` and ``jamba_period``."""
+    Layer kinds ``attn_mlp``, ``attn_moe``, ``mla_mlp``, ``mla_moe``,
+    ``rwkv`` and ``jamba_period``; with ``cfg.mtp`` the ``mtp`` subtree
+    (norm, proj and one layer, not stacked)."""
     from repro_torch.models import lm
     lm._require_supported(cfg)
     dev = resolve_device(device)
@@ -177,6 +203,9 @@ def lm_from_jax_params(params_np: Mapping, cfg,
     top = dict(embed=(V, d), final_norm=dict(scale=(d,)))
     if not cfg.tie_embeddings:
         top["lm_head"] = (d, V)
+    if cfg.mtp:
+        top["mtp"] = dict(norm=dict(scale=(d,)), proj=(2 * d, d),
+                          block=_lm_layer_shapes(cfg, lm.mtp_kind(cfg)))
     if set(params_np) != set(top) | {"groups"}:
         raise ValueError(f"expected keys {sorted(set(top) | {'groups'})}, "
                          f"got {sorted(params_np)}")

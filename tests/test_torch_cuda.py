@@ -1885,3 +1885,101 @@ def test_cuda_lm_train_step_matches_cpu(cuda_device, arch, changes,  # noqa: F81
         slack.check(leaves(p_cpu), leaves(p_card),
                     [str(i) for i in range(len(leaves(p_cpu)))],
                     f"{arch} step {t} card vs CPU")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_mla_flash_core_matches_plain(cuda_device, dtype):  # noqa: F811
+    """MLA at DeepSeek-V3 REDUCED's ranks (4 heads, q/k 16 + 8, v 16) and
+    at a wider head (q/k 128 + 64, v 128, MLA's published head dims, 8
+    heads), 256 tokens: the flash core launches the flash kernel once on
+    q = [q_nope; q_rope] and k = [k_nope; k_rope on every head], and the
+    attention output it feeds matches the same attention by the kernel's
+    plain version on the same operands (the reference's flash tolerances;
+    bf16 also per row); the layer's output matches the softmax core's
+    (float32 1e-4 / the reference's bf16 2e-1 / 3e-1)."""
+    import dataclasses
+    from repro_torch.models import blocks as blk
+    for kw in (dict(d_model=64, n_heads=4, q_lora_rank=32, kv_lora_rank=16,
+                    qk_nope_dim=16, qk_rope_dim=8, v_dim=16),
+               dict(d_model=256, n_heads=8, q_lora_rank=64, kv_lora_rank=32,
+                    qk_nope_dim=128, qk_rope_dim=64, v_dim=128)):
+        cfg = blk.MLAConfig(**kw, attn_core="flash")
+        gen = torch.Generator(device=cuda_device).manual_seed(50)
+        p = {k: v.to(dtype) for k, v in blk.init_mla(gen, cfg).items()}
+        x = torch.randn((2, 256, cfg.d_model), generator=gen,
+                        device=cuda_device).to(dtype)
+        pos = torch.arange(256, device=cuda_device)[None].expand(2, 256)
+        seen = []
+        orig = fa_mod.flash_attention
+
+        def spy(q, k, v, **kw):
+            out = orig(q, k, v, **kw)
+            seen.append((q, k, v, kw, out))
+            return out
+
+        fa_mod.flash_attention = spy
+        try:
+            before = fa_mod.launches.value
+            got = blk.mla_apply(p, cfg, x, pos)
+            torch.cuda.synchronize()
+            assert fa_mod.launches.value - before == 1
+        finally:
+            fa_mod.flash_attention = orig
+        (q, k, v, kw, out), = seen
+        assert q.shape == (2, cfg.n_heads, 256, cfg.qk_dim)
+        assert v.shape == (2, cfg.n_heads, 256, cfg.v_dim)
+        assert kw["scale"] == cfg.qk_dim ** -0.5
+        assert_flash_close(out, fa_mod.plain(q, k, v, causal=True,
+                                             scale=kw["scale"]))
+        want = blk.mla_apply(p, dataclasses.replace(cfg, attn_core="softmax"),
+                             x, pos)
+        tol = (dict(atol=1e-4, rtol=1e-4) if dtype == torch.float32
+               else dict(atol=2e-1, rtol=3e-1))
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,per_step", [("deepseek_moe_16b", 3),
+                                           ("deepseek_v3_671b", 5)])
+def test_cuda_deepseek_reduced_matches_cpu(cuda_device, arch,  # noqa: F811
+                                           per_step):
+    """DeepSeekMoE and DeepSeek-V3 REDUCED in float32 under the serving
+    profile (flash core), batch 2 x 128: the prefill step launches the
+    flash kernel once a layer (V3: and once in the MTP block), the cache
+    prefill only at MLA layers, decode never; the prefill step's logits,
+    the cache prefill's and three decode steps' match the same on the CPU
+    (1e-3, the reference's prefill/decode tolerance)."""
+    import dataclasses
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.launch.serve_lm import serving_profile
+    from repro_torch.models import lm
+    from repro_torch.train import steps
+    cfg = configs.get_config(arch, reduced=True)
+    cfg = dataclasses.replace(cfg, **serving_profile(cfg))
+    params = lm.init_params(lm.make_generator(0, "cpu"), cfg)
+    card_params = lm._tree_map(lambda a: a.to(cuda_device), params)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (2, 131)).astype(np.int32))
+    P = 128
+    out = {}
+    for dev, p in (("cuda", card_params), ("cpu", params)):
+        t = toks.to(dev)
+        before = fa_mod.launches.value
+        step = steps.make_prefill_step(cfg)(p, dict(tokens=t[:, :P]))
+        torch.cuda.synchronize()
+        mid = fa_mod.launches.value
+        lg, caches = lm.prefill(p, cfg, dict(tokens=t[:, :P]), s_max=131)
+        torch.cuda.synchronize()
+        pre = fa_mod.launches.value
+        dec = [lm.decode_step(p, cfg, caches, t[:, i:i + 1], i)[0]
+               for i in range(P, 131)]
+        torch.cuda.synchronize()
+        out[dev] = (step, lg, torch.cat(dec, 1))
+        launches = (mid - before, pre - mid, fa_mod.launches.value - pre)
+        mla_layers = cfg.n_layers if cfg.attn_type == "mla" else 0
+        assert launches == ((per_step, mla_layers, 0) if dev == "cuda"
+                            else (0, 0, 0)), (dev, launches)
+    for a, b in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-3, rtol=1e-3)

@@ -195,8 +195,10 @@ def test_moe_rule_and_capacity_drops():
     # last 24 in token order lose expert 0's share, the first 40 keep it
     diff = (dropped - kept).abs().amax(-1)
     assert bool((diff[:40] < 1e-6).all()) and bool((diff[40:] > 1e-6).all())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        blk.init_moe(gen, dataclasses.replace(cfg, n_shared=1))
+    shared = blk.init_moe(gen, dataclasses.replace(cfg, n_shared=1,
+                                                   d_ff_shared=48))
+    assert tuple(shared["shared"]["w_up"].shape) == (32, 48)
+    assert "shared" not in p
 
 
 # capacity_factor E / k = 2: an expert's capacity is every token, so the
@@ -265,13 +267,16 @@ def test_decode_writes_jamba_caches_in_place():
 
 def test_serve_lm_jamba_under_its_profile():
     """serve_lm applies the reference's serving profile per family (the
-    kernel core of Jamba's Mamba layers, of RWKV-6's recurrence) and then
-    the overrides; the same tokens under the plain core."""
-    assert serve_mod.serving_profile(CFG) == dict(mamba_core="pallas")
+    flash core where there is attention, the kernel core of Jamba's Mamba
+    layers, of RWKV-6's recurrence) and then the overrides; the same
+    tokens under the plain core."""
+    assert serve_mod.serving_profile(CFG) == dict(mamba_core="pallas",
+                                                  attn_core="flash")
     rwkv = configs.get_config("rwkv6_7b", reduced=True)
     assert serve_mod.serving_profile(rwkv) == dict(wkv_core="pallas")
     assert serve_mod.serving_profile(
-        configs.get_config("internlm2_1_8b", reduced=True)) == {}
+        configs.get_config("internlm2_1_8b", reduced=True)) == dict(
+            attn_core="flash")
     runs = [serve_mod.serve_lm(ARCH, batch=2, prompt_len=16, gen=5, seed=3,
                                device="cpu", overrides=ov, verbose=False)
             for ov in (None, dict(mamba_core="xla"))]

@@ -1,7 +1,8 @@
 """Port parity against the JAX reference where the reference compiles:
 the kernel modules (the flash and RWKV-6 kernels' plain versions against
-the Pallas kernels in interpret mode, the LM stack at InternLM2's and
-RWKV6-7B's reduced configs),
+the Pallas kernels in interpret mode, the LM stack at the reduced configs
+of InternLM2, RWKV6-7B, Jamba, DeepSeekMoE, DeepSeek-V3 and the dense
+Qwen2.5, CodeQwen and Mistral-Large),
 the GNN kernel modules (the reference's ``ops.*_matvec(_acc)`` and
 ``tcgnn_tile.*_matvec(_acc)`` run the Pallas kernels in interpret mode on
 the CPU; ``csr``/``sell_cs`` are XLA there) and the whole slice
@@ -2169,8 +2170,9 @@ def _check_train_steps(rcfg, tcfg, params, port, batch, what: str,
         assert all(torch.equal(a, b) for a, b in zip(
             before, tree_leaves(tparams))), "the step wrote its input"
         tparams = new_p
-        assert sorted(tm) == sorted(rm) == ["aux", "ce", "grad_norm",
-                                            "loss", "lr"]
+        assert sorted(tm) == sorted(rm) == sorted(
+            ["aux", "ce", "grad_norm", "loss", "lr"]
+            + (["mtp"] if rcfg.mtp else []))
         for k in rm:
             tp.assert_close(rm[k], tm[k], **TRAIN_TOL)
         slack.step(ro, to, float(rm["lr"]))
@@ -2296,3 +2298,248 @@ def test_recurrent_train_steps_match_reference(arch, changes):
         tp.assert_close(ry, ty)
         for name, a, b in zip(("x", "dt", "Bc", "Cc", "A", "D"), rg, tg):
             tp.assert_close(a, b, **TRAIN_TOL), name
+
+
+# --- the DeepSeek family: MLA, shared experts, MTP ---------------------------
+
+DEEPSEEK_ARCHS = ("deepseek_moe_16b", "deepseek_v3_671b")
+DENSE_ARCHS = ("qwen2_5_14b", "codeqwen1_5_7b", "mistral_large_123b")
+DECODE_TOL = dict(atol=2e-5, rtol=1e-4)    # tests/test_blocks.py:79
+
+
+def test_mla_and_shared_expert_moe_match_reference():
+    """MLA at DeepSeek-V3 REDUCED's ranks (the reference's
+    tests/test_blocks.py config): mla_apply under the softmax and identity
+    cores (S = 16) and the flash core (S = 128: the reference's Pallas
+    kernel in interpret mode at d = 24, dv = 16 against the port's plain
+    version) at float32 1e-4; mla_decode in both forms, step by step from
+    zero caches, against the reference's steps and against mla_apply at
+    the reference's own 2e-5 / 1e-4, the caches too.  moe_apply with two
+    shared experts on the dense path, the sparse path without drops, and
+    the sparse path at capacity factors that drop (0.5 and 0.25, E = 8,
+    top-2): the same assignments kept, outputs at 1e-4."""
+    import dataclasses
+    from repro.models import blocks as RB
+    from repro_torch.models import blocks as TB
+    rng = np.random.default_rng(31)
+    kw = dict(d_model=64, n_heads=4, q_lora_rank=32, kv_lora_rank=16,
+              qk_nope_dim=16, qk_rope_dim=8, v_dim=16)
+    rcfg, tcfg = RB.MLAConfig(**kw), TB.MLAConfig(**kw)
+    assert dataclasses.asdict(rcfg) == dataclasses.asdict(tcfg)
+    assert tcfg.qk_dim == rcfg.qk_dim == 24
+    params = RB.init_mla(jax.random.PRNGKey(5), rcfg)
+    # non-trivial norm scales, which the init leaves at 1
+    params = dict(params, **{k: jnp.asarray(
+        1 + 0.3 * rng.standard_normal(params[k].shape), jnp.float32)
+        for k in ("q_norm", "kv_norm")})
+    tparams = _to_torch(params)
+    x = rng.standard_normal((2, 128, 64)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(128), (2, 128)).astype(np.int32)
+    for core, S in (("softmax", 16), ("identity", 16), ("flash", 128)):
+        rc = dataclasses.replace(rcfg, attn_core=core)
+        tc = dataclasses.replace(tcfg, attn_core=core)
+        ref = RB.mla_apply(params, rc, jnp.asarray(x[:, :S]),
+                           jnp.asarray(pos[:, :S]))
+        got = TB.mla_apply(tparams, tc, torch.from_numpy(x[:, :S]),
+                           torch.from_numpy(pos[:, :S]))
+        assert tuple(got.shape) == (2, S, 64)
+        tp.assert_close(ref, got)
+
+    S = 8
+    full = TB.mla_apply(tparams, tcfg, torch.from_numpy(x[:, :S]),
+                        torch.from_numpy(pos[:, :S]))
+    for absorbed in (True, False):
+        ref_c = RB.init_mla_cache(rcfg, 2, S, jnp.float32)
+        got_c = TB.init_mla_cache(tcfg, 2, S, torch.float32,
+                                  torch.device("cpu"))
+        ys = []
+        for t in range(S):
+            ref_y, ref_c = RB.mla_decode(params, rcfg,
+                                         jnp.asarray(x[:, t:t + 1]), ref_c,
+                                         t, absorbed=absorbed)
+            got_y, got_c = TB.mla_decode(tparams, tcfg,
+                                         torch.from_numpy(x[:, t:t + 1]),
+                                         got_c, t, absorbed=absorbed)
+            tp.assert_close(ref_y, got_y, **DECODE_TOL)
+            for name in ("c_kv", "k_rope"):
+                tp.assert_close(ref_c[name], got_c[name], **DECODE_TOL)
+            ys.append(got_y)
+        tp.assert_close(full, torch.cat(ys, dim=1), **DECODE_TOL)
+
+    d = 32
+    xm = rng.standard_normal((64, d)).astype(np.float32)
+    for n_exp, cap, dispatch, drops in (
+            (8, 1.25, "dense", None), (8, 4.0, "sparse", False),
+            (8, 0.5, "sparse", True), (8, 0.25, "sparse", True)):
+        mk = dict(d_model=d, n_experts=n_exp, top_k=2, d_ff_expert=16,
+                  n_shared=2, d_ff_shared=32, capacity_factor=cap,
+                  dispatch=dispatch)
+        rc, tc = RB.MoEConfig(**mk), TB.MoEConfig(**mk)
+        p = RB.init_moe(jax.random.PRNGKey(6), rc)
+        tparams = _to_torch(p)
+        assert sorted(tparams) == ["router", "shared", "w_down", "w_gate",
+                                   "w_up"]
+        _, idx, _ = TB._moe_gates(tparams, tc, torch.from_numpy(xm))
+        C = int(np.ceil(64 * 2 / n_exp * cap))
+        load = np.bincount(idx.numpy().reshape(-1), minlength=n_exp)
+        if drops is not None:          # the dense path drops nothing
+            assert (load.max() > C) == drops, (load, C)
+        ref_out, ref_aux = RB.moe_apply(p, rc, jnp.asarray(xm).reshape(
+            2, 32, d))
+        got_out, got_aux = TB.moe_apply(tparams, tc, torch.from_numpy(
+            xm).reshape(2, 32, d))
+        tp.assert_close(ref_out, got_out)
+        tp.assert_close(ref_aux, got_aux)
+        if drops:
+            # the dropped assignments are the same ones: the routed part
+            # alone, against the reference's
+            ref_r, _ = RB.moe_apply_sparse(p, rc, jnp.asarray(xm))
+            got_r, _ = TB.moe_apply_sparse(tparams, tc, torch.from_numpy(xm))
+            tp.assert_close(ref_r, got_r)
+            zero = np.abs(np.asarray(ref_r)).max(-1) == 0
+            np.testing.assert_array_equal(
+                zero, got_r.abs().amax(-1).numpy() == 0)
+
+
+def test_deepseek_serving_slice_matches_reference(monkeypatch):
+    """The five configs (DeepSeekMoE-16B, DeepSeek-V3, Qwen2.5-14B,
+    CodeQwen1.5-7B, Mistral-Large) equal the reference's field by field,
+    FULL and REDUCED, with their MLA and MoE configs.  From the
+    reference's parameters at DeepSeekMoE and DeepSeek-V3 REDUCED: forward
+    logits and aux loss under the softmax core and under the serving
+    profile's flash core (128 tokens: the Pallas kernel in interpret mode
+    against the port's plain version), V3's mtp_logits; under the softmax
+    core lm.loss_fn with its mtp metric, and its gradients; prefill, its
+    caches and teacher-forced decode_step (argmax tokens equal); serve_lm
+    against examples/serve_lm.py.  The dense configs' REDUCED forward.  Logits at
+    1e-3 (the reference's prefill/decode tolerance), losses and gradients
+    at float32 1e-4 / 1e-5."""
+    import dataclasses
+    import importlib.util
+    from pathlib import Path
+    from repro import configs as RC
+    from repro.models import lm as RLM
+    from repro_torch import configs as TC
+    from repro_torch.launch import serve_lm as TSL
+    from repro_torch.models import lm as TLM
+    from repro_torch.tree import tree_leaves, tree_unflatten
+    for arch in DEEPSEEK_ARCHS + DENSE_ARCHS:
+        for reduced in (False, True):
+            ref_cfg = RC.get_config(arch, reduced=reduced)
+            port_cfg = TC.get_config(arch, reduced=reduced)
+            assert dataclasses.asdict(port_cfg) == dataclasses.asdict(
+                ref_cfg), arch
+            assert port_cfg.layer_groups() == ref_cfg.layer_groups()
+            assert port_cfg.padded_vocab == ref_cfg.padded_vocab
+            for sub in ("mla_cfg", "moe_cfg", "attn_cfg"):
+                assert (dataclasses.asdict(getattr(port_cfg, sub)())
+                        == dataclasses.asdict(getattr(ref_cfg, sub)())), sub
+
+    spec = importlib.util.spec_from_file_location(
+        "serve_lm_example",
+        Path(__file__).resolve().parents[1] / "examples" / "serve_lm.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    rng = np.random.default_rng(33)
+    for arch in DEEPSEEK_ARCHS:
+        rcfg0, tcfg0, params, port = _lm_pair(arch=arch)
+        toks = rng.integers(0, rcfg0.vocab, (2, 129)).astype(np.int32)
+        for core, S in (("softmax", 32), ("flash", 128)):
+            rcfg = dataclasses.replace(rcfg0, attn_core=core)
+            tcfg = dataclasses.replace(tcfg0, attn_core=core)
+            batch = dict(tokens=toks[:, :S], labels=toks[:, 1:S + 1])
+            ref, ref_aux = RLM.forward(params, rcfg,
+                                       dict(tokens=jnp.asarray(toks[:, :S])))
+            got, got_aux = TLM.forward(port, tcfg,
+                                       dict(tokens=torch.from_numpy(
+                                           toks[:, :S])))
+            assert tuple(got.shape) == (2, S, tcfg.padded_vocab)
+            assert sorted(got_aux) == sorted(ref_aux)
+            tp.assert_close(ref, got, **LM_TOL)
+            tp.assert_close(ref_aux["aux_loss"], got_aux["aux_loss"],
+                            **LM_TOL)
+            assert float(got_aux["aux_loss"]) > 0
+            if tcfg.mtp:
+                tp.assert_close(ref_aux["mtp_logits"],
+                                got_aux["mtp_logits"], **LM_TOL)
+            if core == "flash":
+                continue
+            (rl, rm), rg = jax.value_and_grad(
+                lambda p: RLM.loss_fn(p, rcfg, {k: jnp.asarray(v)
+                                                for k, v in batch.items()}),
+                has_aux=True)(params)
+            leaves = [t.clone().requires_grad_() for t in tree_leaves(port)]
+            tl, tm = TLM.loss_fn(tree_unflatten(port, leaves), tcfg,
+                                 {k: torch.from_numpy(v)
+                                  for k, v in batch.items()})
+            tg = torch.autograd.grad(tl, leaves)
+            assert sorted(tm) == sorted(rm) == sorted(
+                ["aux", "ce"] + (["mtp"] if tcfg.mtp else []))
+            tp.assert_close(rl, tl.detach(), **TRAIN_TOL)
+            for k in rm:
+                tp.assert_close(rm[k], tm[k].detach(), **TRAIN_TOL)
+            _assert_trees_close(rg, list(tg), f"{arch} loss_fn grads, "
+                                f"{core} core")
+
+        rcfg = dataclasses.replace(rcfg0, attn_core="flash")
+        tcfg = dataclasses.replace(tcfg0, **TSL.serving_profile(tcfg0))
+        assert tcfg.attn_core == "flash"
+        P, S = 16, 24
+        ref_lg, ref_c = RLM.prefill(params, rcfg, dict(tokens=jnp.asarray(
+            toks[:, :P])), s_max=S)
+        got_lg, got_c = TLM.prefill(port, tcfg, dict(tokens=torch.from_numpy(
+            toks[:, :P])), s_max=S)
+        tp.assert_close(ref_lg, got_lg, **LM_TOL)
+        names = ("c_kv", "k_rope") if tcfg.attn_type == "mla" else ("k", "v")
+
+        def check_caches():
+            for rc_, gc_ in zip(ref_c, got_c):
+                for name in names:
+                    tp.assert_close(rc_[name], gc_[name], **LM_TOL)
+
+        check_caches()
+        decode = jax.jit(lambda p, c, t, pos: RLM.decode_step(p, rcfg, c, t,
+                                                              pos))
+        for t in range(P, S):
+            ref_lg, ref_tok, ref_c = decode(params, ref_c,
+                                            jnp.asarray(toks[:, t:t + 1]), t)
+            got_lg, got_tok, got_c = TLM.decode_step(
+                port, tcfg, got_c, torch.from_numpy(toks[:, t:t + 1]), t)
+            tp.assert_close(ref_lg, got_lg, **LM_TOL)
+            np.testing.assert_array_equal(np.asarray(ref_tok),
+                                          got_tok.numpy())
+        check_caches()
+
+        B, P, G = 2, 16, 6
+        ref = example.serve_lm(arch, reduced=True, batch=B, prompt_len=P,
+                               gen=G, seed=0, verbose=False)
+        monkeypatch.setattr(TLM, "init_params", lambda gen, cfg: port)
+        got = TSL.serve_lm(arch, reduced=True, batch=B, prompt_len=P,
+                           gen=G, seed=0, device="cpu", verbose=False)
+        monkeypatch.undo()
+        assert got["tokens"].dtype == np.int32
+        np.testing.assert_array_equal(got["tokens"],
+                                      np.asarray(ref["tokens"]))
+
+    for arch in DENSE_ARCHS:
+        rcfg, tcfg, params, port = _lm_pair(arch=arch)
+        for core in ("softmax", "flash"):
+            ref, _ = RLM.forward(params, dataclasses.replace(
+                rcfg, attn_core=core), dict(tokens=jnp.asarray(toks[:, :128])))
+            got, aux = TLM.forward(port, dataclasses.replace(
+                tcfg, attn_core=core), dict(tokens=torch.from_numpy(
+                    toks[:, :128])))
+            assert tuple(got.shape) == (2, 128, tcfg.padded_vocab)
+            tp.assert_close(ref, got, **LM_TOL)
+            assert float(aux["aux_loss"]) == 0.0
+
+
+def test_deepseek_v3_train_steps_match_reference():
+    """make_train_step on DeepSeek-V3 REDUCED (MLA, shared and routed
+    experts, the MTP loss at mtp_weight 0.3) for 2 steps against the
+    reference's jitted step from its parameters: losses, metrics (the
+    mtp metric among them), gradients and v at float32 1e-4 / 1e-5,
+    params within tp.AdamSlack."""
+    rcfg, tcfg, params, port = _train_pair("deepseek_v3_671b")
+    _check_train_steps(rcfg, tcfg, params, port, _train_batch(rcfg, 44),
+                       "deepseek_v3_671b")

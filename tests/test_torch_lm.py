@@ -90,16 +90,21 @@ def test_configs_registry():
     assert not ok and why
 
 
-@pytest.mark.parametrize("change", [dict(n_experts=4, top_k=2),
-                                    dict(attn_type="mla"),
-                                    dict(n_shared_experts=2),
-                                    dict(family="encdec", encoder_layers=2),
-                                    dict(mtp=True),
-                                    dict(mrope_sections=(2, 3, 3)),
-                                    dict(q_lora_rank=64),
-                                    dict(first_k_dense=1),
-                                    dict(qk_nope_dim=64),
-                                    dict(kv_lora_rank=256)])
+# what is still unported (whisper's encoder-decoder and the field only it
+# reads, qwen2-vl's M-RoPE), alone and beside the ported MoE, MLA and MTP
+# fields, which must not make it pass
+@pytest.mark.parametrize("change", [
+    dict(family="encdec", encoder_layers=2),
+    dict(family="encdec", encoder_layers=1, n_experts=4, top_k=2),
+    dict(family="encdec", encoder_layers=2, attn_type="mla"),
+    dict(mrope_sections=(2, 3, 3)),
+    dict(mrope_sections=(4, 2, 2), n_experts=4, top_k=2),
+    dict(mrope_sections=(2, 3, 3), n_experts=4, top_k=2,
+         n_shared_experts=2),
+    dict(encoder_seq=100),
+    dict(encoder_seq=3000, attn_type="mla"),
+    dict(encoder_seq=750, mtp=True),
+    dict(encoder_seq=1, n_experts=4, top_k=2, first_k_dense=1)])
 def test_unported_model_kinds_raise(change):
     cfg = dataclasses.replace(CFG, **change)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
