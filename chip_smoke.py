@@ -34,7 +34,10 @@ card against the CPU (mamba_scan through mamba_scan_trainable); and the
 DeepSeek family: DeepSeekMoE-16B served whole and DeepSeek-V3 at its
 published widths cut to 4 layers (MLA through the flash kernel's CUDA-core
 path in the prefill step and the cache prefill, the MTP block, shared and
-routed experts).  It goes
+routed experts); and the last two families whole at full width:
+Qwen2-VL-7B (M-RoPE over an image's three position streams, the flash
+kernel at GQA 28/4) and Whisper-large-v3 (its 1500-frame encoder, and the
+flash kernel in its decoder's self-attention).  It goes
 through the twelve hand-written CUDA
 kernels and checks every result.  ``acc`` (the threaded accumulator, and
 SAGE's dual-weight kernel) takes its default, on for CUDA tensors, except
@@ -366,6 +369,31 @@ Phases, each of which raises (exit code != 0) on failure:
    assignments its capacity drops; prefill-step ms (both cores, in
    turns), tokens/s, decode ms a token beside the time to read the
    routed experts once, device-busy shares and top device ops;
+7g. the last two families ([qwen2_vl], [whisper]): both REDUCED configs
+   under the serving profile, batch 2 x 128 (an image's distinct M-RoPE
+   streams; 32 encoder frames), the prefill step card against CPU in
+   float32 (1e-3) and bfloat16 (the LM bf16 gates), one flash launch a
+   layer (3; Whisper's 2 decoder layers), and 3 train steps card against
+   CPU in lockstep (train_lockstep at the LM train step's LM_TRAIN_TOL,
+   6 and 4 launches a step); then, one at a time and freed, Qwen2-VL-7B
+   FULL in bf16 (28 layers, 7.62 B params) at batch 4 x 1024 with one 24 x 32
+   patch grid per prompt (QWEN_IMAGE): the flash prefill step (28
+   launches, every call against its plain version on its own operands),
+   the softmax-core step (0), flash against softmax at LM_BF16_TOL /
+   LM_BF16_RMS and against a float32 step no further than LM_BF16_SPREAD
+   times the softmax core, lm.prefill and 32 make_serve_step decodes (0);
+   then in float32 (30.5 GB) with text positions, batch 2 x 512, the flash
+   step against the softmax core and prefill of 480 + decode to 512
+   against the flash step within F32_TOL; and Whisper-large-v3 FULL in
+   bf16 (32 + 32 layers, 1.54 B params) at batch 8 x 1500 frames x 384
+   tokens through the same phase_full_model: the flash prefill step (32
+   launches, every one at the decoder's shape and against its plain
+   version: none from the encoder or the cross-attention), the
+   softmax-core step (0), the same bf16 gates, 32 decode steps from
+   init_cache (0); in float32 the flash step against the softmax core
+   (0 launches) within F32_TOL.  For each: prefill ms and tokens/s,
+   decode ms a token, device-busy shares (kernel events checked) and peak
+   memory, beside the card's name and power limit;
 8. timing: median forward times (acc off and on) and training-step times
    (CUDA events, host launch included; GCN's unfused and feedback plans
    also with acc off, the SAGE, GIN, GAT and 4-bucket GCN plans), each
@@ -374,8 +402,10 @@ Phases, each of which raises (exit code != 0) on failure:
    call (or composite) computing the same function and its bound
    (bell_spmm also over the transpose payload, the backward's dX passes;
    block_diag_spmm also with the transposed read and seeded by a bias
-   row; flash_attention also at MLA's shape MLA_TIMED beside every
-   scaled_dot_product_attention backend that takes dv != d), and
+   row; flash_attention also at Qwen2-VL-7B's and Whisper's shapes
+   (FLASH_TIMED, bound by bytes and by operations printed) and at MLA's
+   shape MLA_TIMED beside every scaled_dot_product_attention backend that
+   takes dv != d), and
    torch.profiler tables with the device-busy share of a forward and of a
    training step per plan.
 
@@ -686,9 +716,11 @@ FLASH_TOL = {"float32": dict(atol=2e-5, rtol=1e-4),
 # KV tile, reads 50-600 times the elementwise limit.
 FLASH_BF16_TIGHT = dict(atol=4e-3, rtol=2e-2)
 FLASH_BF16_ROW_RMS = 1e-2
-# timed shapes (B, Hq, Hkv, S, d): InternLM2's serving prefill, and one
-# 4096-token sequence
-FLASH_TIMED = ((4, 16, 8, 1024, 128), (1, 16, 8, 4096, 128))
+# timed shapes (B, Hq, Hkv, S, d): InternLM2's serving prefill, one
+# 4096-token sequence, Qwen2-VL-7B's prefill (GQA 28/4) and Whisper's
+# decoder self-attention (batch 8 x 384)
+FLASH_TIMED = ((4, 16, 8, 1024, 128), (1, 16, 8, 4096, 128),
+               (4, 28, 4, 1024, 128), (8, 20, 20, 384, 64))
 # logits: float32 as the reference's prefill/decode invariant
 # (tests/test_models_smoke.py:121-123).  bfloat16, flash vs softmax core
 # (batch 4 x 1024, 24 layers): the two cores round their attention output
@@ -836,6 +868,50 @@ DEEPSEEK_DECODE_CHECK = 4
 DEEPSEEK_F32_PREFILL = 120
 # flash_attention at MLA's prefill shape (B, H, S, d, dv), bf16 causal
 MLA_TIMED = (4, 128, 1024, 192, 128)
+
+# The M-RoPE slice: Qwen2-VL-7B FULL (src/repro_torch/configs/qwen2_vl_7b.py:
+# 28 layers, d 3584, GQA 28/4, d_ff 18944, vocab 152064; 15.23 GB of bf16
+# weights, served whole), under the serving profile (flash core), fed
+# precomputed patch and text embeddings (the reference's vision stub)
+QWEN_ARCH = "qwen2_vl_7b"
+QWEN_PARAMS = 7_615_616_512
+# one image in each 1024-token prompt, Qwen2-VL's layout: 16 text tokens at
+# t = h = w = 0..15, a 24 x 32 patch grid at t = 16, h = 16 + row, w = 16 +
+# col, then 240 text tokens from 48 (the grid's largest position + 1) on
+QWEN_IMAGE = dict(text=16, rows=24, cols=32, after=240)
+# the float32 full-width decode check (text positions: the only ones where
+# decode's scalar pos equals the forward's, ROADMAP section 3 fault 17):
+# batch 2 x 512, cache prefill of 480 tokens, decode to 512
+QWEN_F32 = dict(batch=2, seq=512, prefill=480)
+
+# The encoder-decoder slice: Whisper-large-v3 FULL
+# (src/repro_torch/configs/whisper_large_v3.py: 32 encoder + 32 decoder
+# layers, d 1280, 20 heads of 64, d_ff 5120, vocab 51866; 3.07 GB of bf16
+# weights), under the serving profile, fed precomputed frame embeddings (the
+# reference's mel/conv stub): 8 clips of 1500 frames, 384 decoder tokens
+# (the largest multiple of 128 within Whisper's 448 decoder positions: the
+# flash kernel's precondition)
+WHISPER_ARCH = "whisper_large_v3"
+WHISPER_PARAMS = 1_535_308_800
+WHISPER_SERVE = dict(batch=8, dec_len=384, gen=32)
+# the decoder's positions: the length of init_cache's self-attention cache
+WHISPER_DEC_POSITIONS = 448
+# flash launches per prefill-step call, and the device function each runs
+# (d = dv = 128 and 64 in bf16: the wgmma path).  Whisper's: the decoder's
+# causal self-attention only; the encoder's 1500 non-causal frames and the
+# cross-attention run plain ref.mha, as in the reference
+# (src/repro/models/blocks.py:117-118)
+MM_FLASH = {QWEN_ARCH: dict(step=28, fn="flash_wgmma_"),
+            WHISPER_ARCH: dict(step=32, fn="flash_wgmma_")}
+# the REDUCED configs' float32 train steps card vs CPU (train_lockstep),
+# 3 steps on batch 2 x 128 (Whisper: over 32 encoder frames): 2 flash
+# launches a layer with attention through the kernel (its forward and its
+# recompute under remat "dots"), Qwen2-VL's 3 layers and Whisper's 2
+# decoder layers
+MM_TRAIN_REDUCED = {QWEN_ARCH: (dict(attn_core="flash"),
+                                dict(flash_attention=2 * 3)),
+                    WHISPER_ARCH: (dict(attn_core="flash"),
+                                   dict(flash_attention=2 * 2))}
 
 # (Fi, Fo) of the main path's fused kernels: layer 1, layer 2, and layer
 # 2's dX pass over the transpose with W^T
@@ -4058,7 +4134,8 @@ def phase_kernels_flash(torch, errs: dict) -> None:
     d = 192 with dv = 128 (MLA's), and Sq = 64 with Skv = 256 (non-causal:
     the kernel's causal mask is aligned top left, ref.mha's bottom right),
     causal on and off, float32 and bfloat16, at the reference's flash
-    tolerances."""
+    tolerances; Qwen2-VL-7B's (4, 28, 4, 1024, 128) and Whisper's decoder
+    (8, 20, 20, 384, 64), causal."""
     from repro_torch.kernels import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(19)
     cases = [((B, Hq, Hkv, S, S, d), d, causal)
@@ -4067,6 +4144,9 @@ def phase_kernels_flash(torch, errs: dict) -> None:
     cases += [((4, 16, 8, 1024, 1024, 128), 128, c) for c in (True, False)]
     cases += [((2, 4, 2, 256, 256, 192), 128, c) for c in (True, False)]
     cases += [((1, 2, 2, 64, 256, 32), 32, False)]
+    # Qwen2-VL-7B's prefill (GQA group 7) and Whisper's decoder
+    cases += [((4, 28, 4, 1024, 1024, 128), 128, True),
+              ((8, 20, 20, 384, 384, 64), 64, True)]
     n = 0
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).removeprefix("torch.")
@@ -4390,7 +4470,8 @@ def time_flash_kernel(torch, flush) -> dict:
                                        .float(), **FLASH_TOL[name])
             be = q.element_size()
             n_bytes = (2 * q.numel() + k.numel() + v.numel()) * be
-            b_ms, b_by = bound(n_bytes, fa.flash_flops(B, Hq, S, S, d), name)
+            n_ops = fa.flash_flops(B, Hq, S, S, d)
+            b_ms, b_by = bound(n_bytes, n_ops, name)
             key = f"{B}x{Hq}x{Hkv}x{S}x{d}" + ("" if name == "bfloat16"
                                                 else " float32")
             rows[key] = r = dict(
@@ -4406,7 +4487,9 @@ def time_flash_kernel(torch, flush) -> dict:
             log("timing", f"flash_attention {key} {name}: {r['ms']:.4f} ms "
                 f"(L2 cold), plain {r['plain_ms']:.4f} ms, library "
                 f"{r['library_ms']:.4f} ms ({r['library_call']}), bound "
-                f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']}; bytes "
+                f"{n_bytes / HBM_BYTES_PER_S * 1e3:.4f}, operations "
+                f"{n_ops / PEAK_OPS_PER_S[name] * 1e3:.4f})")
     return {"flash_attention": rows}
 
 
@@ -5503,21 +5586,21 @@ def adam_slack_check(t: int, moments_a, moments_b, lr: float, want, got,
     return used
 
 
-def phase_lm_train_reduced(torch, counts: dict) -> dict:
-    """make_train_step at each family's REDUCED config in float32 on the
-    card and on the CPU (plain versions), 2 steps of lr 1e-3 on batch 2 x
-    128 under remat "dots", in lockstep: the first from one numpy
+def train_lockstep(torch, counts: dict, what: str, cfg, batch: dict,
+                   per_step: dict, n_steps: int = 2) -> tuple[dict, dict]:
+    """make_train_step on ``cfg`` in float32 on the card and on the CPU
+    (plain versions), ``n_steps`` steps of lr 1e-3 on ``batch`` (CPU
+    tensors) under ``cfg.remat``, in lockstep: the first from one numpy
     parameter tree (lm_from_jax_params, as a reference run would carry
-    them over), the second from the CPU's state after the first on both
-    (RWKV-6's chunked form amplifies float32 rounding by e^|c| and a
-    Jamba router's top-k can flip, so two free runs drift apart by more
+    them over), each later one from the CPU's state after the step before
+    on both (RWKV-6's chunked form amplifies float32 rounding by e^|c| and
+    a Jamba router's top-k can flip, so two free runs drift apart by more
     than the tolerance in a step or two).  Each step's metrics, first
     moments (0.1 g at the first step) and params within LM_TRAIN_TOL
-    (params plus adam_slack_check's slack); the kernels' launches per
-    step on the card (LM_TRAIN_REDUCED)."""
-    import dataclasses
+    (params plus adam_slack_check's slack); the kernels' launches of each
+    step on the card must be ``per_step``.  Returns the launches summed
+    over the steps and the readings."""
     import numpy as np
-    from repro_torch import configs
     from repro_torch.models import lm
     from repro_torch.optim import adamw
     from repro_torch.train import steps
@@ -5528,66 +5611,76 @@ def phase_lm_train_reduced(torch, counts: dict) -> dict:
     def host(tree):
         return [a.detach().cpu().numpy() for a in tree_leaves(tree)]
 
+    step = steps.make_train_step(cfg, opt_cfg)
+    tree = lm._tree_map(lambda a: a.numpy(), lm.init_params(
+        lm.make_generator(0, "cpu"), cfg))
+    p_cpu = lm_from_jax_params(tree, cfg, device="cpu")
+    p_card = lm_from_jax_params(tree, cfg, device="cuda")
+    o_cpu = adamw.init_state(p_cpu)
+    o_card = adamw.init_state(p_card)
+    losses, used, m_err, total = [], 0, 0.0, {k: 0 for k in counts}
+    for t in range(1, n_steps + 1):
+        if t > 1:
+            p_card, o_card = (tree_map(lambda a: a.cuda(), x)
+                              for x in (p_cpu, o_cpu))
+        for c in counts.values():
+            c.reset()
+        p_card, o_card, m_card = step(p_card, o_card, {
+            k: v.cuda() for k, v in batch.items()})
+        torch.cuda.synchronize()
+        got = {k: c.value for k, c in counts.items() if c.value}
+        for k in got:
+            total[k] += got[k]
+        if got != per_step:
+            raise RuntimeError(f"{what} train step {t} launched {got}, "
+                               f"expected {per_step}")
+        p_cpu, o_cpu, m_cpu = step(p_cpu, o_cpu, batch)
+        a = {k: float(v) for k, v in m_cpu.items()}
+        b = {k: float(v) for k, v in m_card.items()}
+        for k in a:
+            if not (abs(b[k] - a[k]) <= LM_TRAIN_TOL["atol"]
+                    + LM_TRAIN_TOL["rtol"] * abs(a[k])):
+                raise RuntimeError(f"{what} step {t} {k}: card {b[k]!r}, "
+                                   f"CPU {a[k]!r}")
+        mom_cpu = tuple(host(o_cpu[k]) for k in ("m", "v"))
+        mom_card = tuple(host(o_card[k]) for k in ("m", "v"))
+        for x, y in zip(mom_cpu[0], mom_card[0]):
+            d = np.abs(y - x)
+            m_err = max(m_err, float(d.max()))
+            if (d > 0.1 * LM_TRAIN_TOL["atol"]
+                    + LM_TRAIN_TOL["rtol"] * np.abs(x)).any():
+                raise RuntimeError(f"{what} step {t}: first moments card "
+                                   f"vs CPU differ by {float(d.max()):.3g}")
+        used += adam_slack_check(t, mom_cpu, mom_card, a["lr"],
+                                 host(p_cpu), host(p_card),
+                                 f"{what} step {t}")
+        losses.append((b["loss"], a["loss"]))
+    info = dict(losses_card_cpu=losses, max_m_err=m_err,
+                params_needing_slack=used)
+    log("lm_train", f"{what}, float32, {n_steps} steps card vs CPU in "
+        f"lockstep: (card, CPU) losses {losses}, metrics within "
+        f"{LM_TRAIN_TOL}, first moments max|diff| {m_err:.3g}; params: "
+        f"{used} outside the tolerance, each within its Adam slack; "
+        f"launches a step {per_step}")
+    return total, info
+
+
+def phase_lm_train_reduced(torch, counts: dict) -> dict:
+    """make_train_step at each family's REDUCED config (LM_TRAIN_REDUCED)
+    in float32, 2 steps card against CPU in lockstep (train_lockstep) on
+    batch 2 x 128 under remat "dots", the kernels' launches per step on
+    the card asserted."""
+    import dataclasses
+    from repro_torch import configs
     launches, info = {}, {}
     for arch, (changes, per_step) in LM_TRAIN_REDUCED.items():
         cfg = dataclasses.replace(configs.get_config(arch, reduced=True),
                                   **changes)
-        step = steps.make_train_step(cfg, opt_cfg)
-        tree = lm._tree_map(lambda a: a.numpy(), lm.init_params(
-            lm.make_generator(0, "cpu"), cfg))
         toks = lm_tokens(cfg, 2, 129, seed=8)
         batch = {k: torch.from_numpy(v) for k, v in dict(
             tokens=toks[:, :-1], labels=toks[:, 1:]).items()}
-        p_cpu = lm_from_jax_params(tree, cfg, device="cpu")
-        p_card = lm_from_jax_params(tree, cfg, device="cuda")
-        o_cpu = adamw.init_state(p_cpu)
-        o_card = adamw.init_state(p_card)
-        losses, used, m_err, total = [], 0, 0.0, {k: 0 for k in counts}
-        for t in (1, 2):
-            if t > 1:
-                p_card, o_card = (tree_map(lambda a: a.cuda(), x)
-                                  for x in (p_cpu, o_cpu))
-            for c in counts.values():
-                c.reset()
-            p_card, o_card, m_card = step(p_card, o_card, {
-                k: v.cuda() for k, v in batch.items()})
-            torch.cuda.synchronize()
-            got = {k: c.value for k, c in counts.items() if c.value}
-            for k in got:
-                total[k] += got[k]
-            if got != per_step:
-                raise RuntimeError(f"{arch} reduced train step {t} launched "
-                                   f"{got}, expected {per_step}")
-            p_cpu, o_cpu, m_cpu = step(p_cpu, o_cpu, batch)
-            a = {k: float(v) for k, v in m_cpu.items()}
-            b = {k: float(v) for k, v in m_card.items()}
-            for k in a:
-                if not (abs(b[k] - a[k]) <= LM_TRAIN_TOL["atol"]
-                        + LM_TRAIN_TOL["rtol"] * abs(a[k])):
-                    raise RuntimeError(f"{arch} reduced step {t} {k}: card "
-                                       f"{b[k]!r}, CPU {a[k]!r}")
-            mom_cpu = tuple(host(o_cpu[k]) for k in ("m", "v"))
-            mom_card = tuple(host(o_card[k]) for k in ("m", "v"))
-            for x, y in zip(mom_cpu[0], mom_card[0]):
-                d = np.abs(y - x)
-                m_err = max(m_err, float(d.max()))
-                if (d > 0.1 * LM_TRAIN_TOL["atol"]
-                        + LM_TRAIN_TOL["rtol"] * np.abs(x)).any():
-                    raise RuntimeError(f"{arch} reduced step {t}: first "
-                                       f"moments card vs CPU differ by "
-                                       f"{float(d.max()):.3g}")
-            used += adam_slack_check(t, mom_cpu, mom_card, a["lr"],
-                                     host(p_cpu), host(p_card),
-                                     f"{arch} reduced step {t}")
-            losses.append((b["loss"], a["loss"]))
-        launches[arch] = total
-        info[arch] = dict(losses_card_cpu=losses, max_m_err=m_err,
-                          params_needing_slack=used)
-        log("lm_train", f"{arch} REDUCED {changes}, float32, 2 steps card vs "
-            f"CPU in lockstep: (card, CPU) losses {losses}, metrics within "
-            f"{LM_TRAIN_TOL}, first moments max|diff| {m_err:.3g}; params: "
-            f"{used} outside the tolerance, each within its Adam slack; "
-            f"launches a step {per_step}")
+        launches[arch], info[arch] = train_lockstep(
+            torch, counts, f"{arch} REDUCED {changes}", cfg, batch, per_step)
     return dict(launches=launches, info=info)
 
 
@@ -5952,7 +6045,6 @@ def phase_deepseek_serve(torch, counts: dict, arch: str) -> dict:
     timings, device-busy shares and peak memory of the serving path."""
     import dataclasses
     import math
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     from repro_torch.launch.serve_lm import serve_lm
     from repro_torch.models import blocks as blk
@@ -6072,28 +6164,13 @@ def phase_deepseek_serve(torch, counts: dict, arch: str) -> dict:
                          ("cache prefill", prefill_launches,
                           want["cache_prefill"]),
                          ("decode", decode_launches, 0)):
-        if got["flash_attention"] != n or sum(got.values()) != n:
-            raise RuntimeError(f"{arch} {name} launched {got}, expected {n} "
-                               "flash and nothing else")
+        only_flash(got, n, f"{arch} {name}")
     for name, t in (("flash", flash), ("softmax", soft), ("forward", full)):
         if not bool(torch.isfinite(t).all()):
             raise RuntimeError(f"{arch} {name} logits are not finite")
     if flash.shape != (B, P, cfg.padded_vocab) or soft.shape != flash.shape:
         raise RuntimeError(f"{arch} logits {tuple(flash.shape)}, "
                            f"{tuple(soft.shape)}")
-
-    # the kernel at every call of the flash step, on its own operands
-    orig_fa, worst = fa.flash_attention, dict(err=0.0, calls=0)
-
-    def checked(q, k, v, **kw):
-        o = orig_fa(q, k, v, **kw)
-        worst["err"] = max(worst["err"], check_flash_close(
-            torch, o, fa.plain(q, k, v, causal=kw.get("causal", True),
-                               scale=kw.get("scale")),
-            f"{cfg.name} bf16 flash call {worst['calls']} (B, H, S, d, dv) "
-            f"{tuple(q.shape) + (v.shape[-1],)}", quiet=True))
-        worst["calls"] += 1
-        return o
 
     # the softmax core with layer 1's attention output moved by one bf16
     # rounding step (relative 2^-8): what two right bf16 paths may differ by
@@ -6106,11 +6183,10 @@ def phase_deepseek_serve(torch, counts: dict, arch: str) -> dict:
         hits.append(1)
         return o
 
-    fa.flash_attention = checked
-    try:
-        flash_step(params, batch)
-    finally:
-        fa.flash_attention = orig_fa
+    # the kernel at every call of the flash step, on its own operands
+    seen = flash_calls_checked(torch, lambda: flash_step(params, batch),
+                               f"{cfg.name} bf16")
+    worst = dict(calls=seen["calls"], err=seen["err"])
     if worst["calls"] != want["step"]:
         raise RuntimeError(f"{arch}: {worst['calls']} checked flash calls")
     log("deepseek", f"{cfg.name}: every flash call of the bf16 prefill step "
@@ -6262,6 +6338,384 @@ def time_mla_flash(torch, flush) -> dict:
         f"({r['library_call']}; by backend {libs}), bound "
         f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
     return {"x".join(str(n) for n in (B, H, H, S, d, dv)): r}
+
+
+# ---------------------------------------------------------------------------
+# the last two LM families: Qwen2-VL-7B (M-RoPE) and Whisper-large-v3
+# (encoder-decoder), each through the flash kernel
+# ---------------------------------------------------------------------------
+
+def mm_cfg(arch: str, reduced: bool = False, **changes):
+    """The config (FULL or REDUCED) under the serving profile (flash core),
+    with ``changes``."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.launch.serve_lm import serving_profile
+    cfg = configs.get_config(arch, reduced=reduced)
+    cfg = dataclasses.replace(cfg, **serving_profile(cfg))
+    return dataclasses.replace(cfg, **changes)
+
+
+def mm_batch(torch, cfg, B: int, S: int, seed: int, image: dict | None,
+             dev: str = "cuda", labels: bool = False) -> dict:
+    """data.pipeline.stub_batch (Qwen2-VL's stub embeddings with
+    ``image``'s M-RoPE positions or text positions, or Whisper's stub
+    frames and decoder tokens) on ``dev``, with its labels only where
+    ``labels``."""
+    from repro_torch.data.pipeline import stub_batch
+    out = stub_batch(cfg, B, S, seed, image)
+    if not labels:
+        del out["labels"]
+    return {k: torch.from_numpy(v).to(dev) for k, v in out.items()}
+
+
+def flash_calls_checked(torch, fn, what: str) -> dict:
+    """Runs ``fn()`` with every flash_attention call held against its plain
+    version on that call's own operands (phase 2's criteria,
+    check_flash_close); returns the calls, the largest max|err| and each
+    call's (B, Hq, Hkv, Sq, Skv, d, dv)."""
+    from repro_torch.kernels import flash_attention as fa
+    orig, seen = fa.flash_attention, dict(err=0.0, calls=0, shapes=[])
+
+    def checked(q, k, v, **kw):
+        o = orig(q, k, v, **kw)
+        seen["err"] = max(seen["err"], check_flash_close(
+            torch, o, fa.plain(q, k, v, causal=kw.get("causal", True),
+                               scale=kw.get("scale")),
+            f"{what} flash call {seen['calls']} (B, H, S, d, dv) "
+            f"{tuple(q.shape) + (v.shape[-1],)}", quiet=True))
+        seen["calls"] += 1
+        seen["shapes"].append((q.shape[0], q.shape[1], k.shape[1],
+                               q.shape[2], k.shape[2], q.shape[3],
+                               v.shape[3]))
+        return o
+
+    fa.flash_attention = checked
+    try:
+        fn()
+    finally:
+        fa.flash_attention = orig
+    return seen
+
+
+def only_flash(got: dict, n: int, what: str) -> None:
+    """Raises unless ``got`` (launch counts) is ``n`` flash launches and
+    nothing else."""
+    if got["flash_attention"] != n or sum(got.values()) != n:
+        raise RuntimeError(f"{what} launched {got}, expected {n} flash and "
+                           "nothing else")
+
+
+def phase_mm_reduced(torch, counts: dict) -> dict:
+    """Qwen2-VL and Whisper REDUCED under the serving profile (flash core),
+    batch 2 x 128 (Qwen2-VL with one image's three distinct position
+    streams, Whisper over its 32 encoder frames): the prefill step on the
+    card (flash kernel) against the CPU (plain versions) from the same
+    parameters, float32 within LM_TOL and bfloat16 within LM_BF16_TOL and
+    LM_BF16_RMS, one flash launch a layer with attention through the
+    kernel (3; Whisper's 2 decoder layers); then MM_TRAIN_REDUCED's
+    float32 train steps, 3 in lockstep card against CPU
+    (train_lockstep)."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.train import steps
+    image = dict(text=16, rows=8, cols=12, after=16)
+    launches, errs, info = {}, {}, {}
+    for arch, (changes, per_step) in MM_TRAIN_REDUCED.items():
+        n_flash = per_step["flash_attention"] // 2
+        for dtype in ("float32", "bfloat16"):
+            cfg = mm_cfg(arch, reduced=True, dtype=dtype)
+            params = lm.init_params(lm.make_generator(0, "cpu"), cfg)
+            card_params = lm._tree_map(lambda a: a.cuda(), params)
+            batch = mm_batch(torch, cfg, 2, 128, 13, image, dev="cpu")
+            step = steps.make_prefill_step(cfg)
+            for c in counts.values():
+                c.reset()
+            card = step(card_params, {k: v.cuda() for k, v in batch.items()})
+            torch.cuda.synchronize()
+            launches[f"{arch}_prefill_step_{dtype}"] = read_counts(counts)
+            only_flash(read_counts(counts), n_flash,
+                       f"{arch} reduced {dtype} prefill step")
+            cpu = step(params, batch)
+            tol, rms = ((LM_TOL, None) if dtype == "float32"
+                        else (LM_BF16_TOL, LM_BF16_RMS))
+            errs[f"{arch}_{dtype}"] = check_lm_close(
+                torch, card.cpu(), cpu, tol, f"{arch} reduced, {dtype}, "
+                "prefill step 2 x 128, card (flash kernel) vs CPU (plain "
+                "versions)", rms=rms)
+        cfg = dataclasses.replace(configs.get_config(arch, reduced=True),
+                                  **changes)
+        batch = mm_batch(torch, cfg, 2, 128, 14, image, dev="cpu",
+                         labels=True)
+        launches[f"{arch}_train"], info[arch] = train_lockstep(
+            torch, counts, f"{arch} REDUCED {changes}", cfg, batch, per_step,
+            n_steps=3)
+    return dict(launches=launches, errs=errs, info=info)
+
+
+def phase_full_model(torch, counts: dict, card: str, tag: str, arch: str,
+                     n_params_want: int, B: int, S: int, G: int, batch_fn,
+                     decode_fn, f32_batch_fn, f32_decode_fn=None) -> dict:
+    """One of the last two families' models FULL in bfloat16 under the
+    serving profile, whole, at batch ``B`` with ``S`` decoder tokens
+    (``batch_fn(cfg)``: the batch and its description): init_params'
+    parameter count (``n_params_want``) and peak memory; the prefill step
+    under the flash core (MM_FLASH[arch] launches, each held against its
+    plain version on its own operands, every one at the decoder's causal
+    (B, Hq, Hkv, S, S, d, d)) and under the softmax core (0); flash
+    against the softmax core at LM_BF16_TOL / LM_BF16_RMS and against a
+    float32 softmax-core step on the same (bf16-valued) parameters no
+    further than LM_BF16_SPREAD times the softmax core (InternLM2's
+    [lm_serve] gates); ``G`` make_serve_step decodes from
+    ``decode_fn(params, cfg, batch)`` (0 launches; it returns the caches,
+    the token feed, the first position, the cache length and the cache
+    prefill's logits or None).  Then in float32 at full width (the bf16
+    copy freed) on ``f32_batch_fn(cfg32)``: the flash step (the kernel's
+    float32 path) against the softmax core within F32_TOL, and
+    ``f32_decode_fn(p32, cfg32, batch, flash_logits)``'s checks (0
+    launches with the softmax step).  Prefill ms and tokens/s, decode ms a
+    token, device-busy shares and peak memory."""
+    import dataclasses
+    from repro_torch.models import lm
+    from repro_torch.train import steps
+    cfg = mm_cfg(arch)
+    want = MM_FLASH[arch]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(lm.make_generator(0, "cuda"), cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(a.numel() for a in lm._leaves(params))
+    init_peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    if n_params != n_params_want:
+        raise RuntimeError(f"{cfg.name} has {n_params} parameters, expected "
+                           f"{n_params_want}")
+    batch, what = batch_fn(cfg)
+    log(tag, f"{card}: {cfg.name} init_params {n_params} parameters "
+        f"({n_params * 2 / 1e9:.2f} GB bf16), {init_s:.1f} s, peak "
+        f"{init_peak:.2f} GB; {what}")
+    flash_step = steps.make_prefill_step(cfg)
+    soft_step = steps.make_prefill_step(dataclasses.replace(
+        cfg, attn_core="softmax"))
+    serve_step = steps.make_serve_step(cfg)
+
+    for c in counts.values():
+        c.reset()
+    torch.cuda.reset_peak_memory_stats()
+    flash = flash_step(params, batch)
+    torch.cuda.synchronize()
+    step_peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    step_launches = read_counts(counts)
+    only_flash(step_launches, want["step"], f"{cfg.name} prefill step")
+    for c in counts.values():
+        c.reset()
+    soft = soft_step(params, batch)
+    torch.cuda.synchronize()
+    soft_launches = read_counts(counts)
+    only_flash(soft_launches, 0, f"{cfg.name} softmax-core prefill step")
+    for c in counts.values():
+        c.reset()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        caches, feed, pos0, cache_len, lg_p = decode_fn(params, cfg, batch)
+    dec = []
+    for i in range(G):
+        _, lg, caches = serve_step(params, caches, feed(i), pos0 + i)
+        dec.append(lg[:, 0])
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    serve_launches = read_counts(counts)
+    only_flash(serve_launches, 0, f"{cfg.name} decode")
+    dec = torch.stack(dec, dim=1)
+    for name, t in (("flash", flash), ("softmax", soft), ("prefill", lg_p),
+                    ("decode", dec)):
+        if t is not None and not bool(torch.isfinite(t).all()):
+            raise RuntimeError(f"{cfg.name} {name} logits are not finite")
+    if flash.shape != (B, S, cfg.padded_vocab) or dec.shape != (
+            B, G, cfg.padded_vocab):
+        raise RuntimeError(f"{cfg.name} logits {tuple(flash.shape)}, "
+                           f"decode {tuple(dec.shape)}")
+
+    seen = flash_calls_checked(torch, lambda: flash_step(params, batch),
+                               f"{cfg.name} bf16")
+    shape = (B, cfg.n_heads, cfg.kv_heads, S, S, cfg.head_dim, cfg.head_dim)
+    if seen["calls"] != want["step"] or set(seen["shapes"]) != {shape}:
+        raise RuntimeError(f"{cfg.name}: {seen['calls']} checked flash "
+                           f"calls at {set(seen['shapes'])}")
+    log(tag, f"every flash call of the bf16 prefill step ({seen['calls']}, "
+        f"all at the decoder's (B, Hq, Hkv, Sq, Skv, d, dv) {shape}) within "
+        f"phase 2's criteria of its plain version on its own operands; "
+        f"largest max|err| {seen['err']:.3g}")
+    p32 = to_float32(params)
+    ref32 = steps.make_prefill_step(dataclasses.replace(
+        cfg, dtype="float32", attn_core="softmax"))(p32, batch)
+    spread = dict(flash_vs_float32=rms_ratio(flash, ref32),
+                  softmax_vs_float32=rms_ratio(soft, ref32),
+                  flash_vs_float32_max=max_err(flash, ref32),
+                  softmax_vs_float32_max=max_err(soft, ref32))
+    del ref32
+    log(tag, "bfloat16 against the float32 softmax core: RMS ratio flash "
+        "{flash_vs_float32:.3g}, softmax {softmax_vs_float32:.3g}; max|diff| "
+        "flash {flash_vs_float32_max:.3g}, softmax "
+        "{softmax_vs_float32_max:.3g}".format(**spread))
+    err = check_lm_close(torch, flash, soft, LM_BF16_TOL,
+                         f"{cfg.name} bfloat16, flash prefill step vs "
+                         f"softmax core, {what}", rms=LM_BF16_RMS)
+    if not (spread["flash_vs_float32"]
+            <= LM_BF16_SPREAD * spread["softmax_vs_float32"]):
+        raise RuntimeError(f"bfloat16 flash core is further from float32 "
+                           f"than {LM_BF16_SPREAD} x the softmax core's: "
+                           f"{spread}")
+    del flash, soft, lg_p, dec
+
+    runs = {"flash": [], "softmax": []}
+    fns = {"flash": lambda: flash_step(params, batch),
+           "softmax": lambda: soft_step(params, batch)}
+    for name in ("flash", "softmax", "softmax", "flash"):
+        runs[name].append(eager_ms(torch, fns[name], iters=3))
+    prefill_ms = {k: statistics.mean(v) for k, v in runs.items()}
+    nxt, last = feed(G - 1), pos0 + G - 1
+    decode_ms = eager_ms(torch, lambda: serve_step(params, caches, nxt, last),
+                         iters=10)
+    frames = (f", {B * cfg.encoder_seq / prefill_ms['flash'] * 1e3:.0f} "
+              "encoder frames/s" if cfg.family == "encdec" else "")
+    log("timing", f"{card}: {cfg.name} bf16 prefill step, {what} (CUDA "
+        f"events, host included, two runs each in turns): flash "
+        f"{runs['flash'][0]:.3f} / {runs['flash'][1]:.3f} ms "
+        f"({B * S / prefill_ms['flash'] * 1e3:.0f} tokens/s{frames}), "
+        f"softmax core {runs['softmax'][0]:.3f} / {runs['softmax'][1]:.3f} "
+        f"ms ({B * S / prefill_ms['softmax'] * 1e3:.0f} tokens/s); decode "
+        f"step (batch {B}, cache {cache_len}) {decode_ms:.3f} ms per token "
+        f"(the weights read once: "
+        f"{n_params * 2 / HBM_BYTES_PER_S * 1e3:.3f} ms); {G} decode steps "
+        f"{serve_s:.2f} s (first calls); peak memory of the step "
+        f"{step_peak:.2f} GB above the baseline")
+    busy = dict(prefill=profile_busy(torch, fns["flash"], 2,
+                                     prefill_ms["flash"],
+                                     f"{cfg.name} prefill step",
+                                     expect={want["fn"]: want["step"]}),
+                decode=profile_busy(torch, lambda: serve_step(
+                    params, caches, nxt, last), 5, decode_ms,
+                    f"{cfg.name} decode step"))
+    del params, caches, batch
+    torch.cuda.empty_cache()
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    b32, what32 = f32_batch_fn(cfg32)
+    for c in counts.values():
+        c.reset()
+    flash32 = steps.make_prefill_step(cfg32)(p32, b32)
+    torch.cuda.synchronize()
+    f32_launches = read_counts(counts)
+    only_flash(f32_launches, want["step"], f"{cfg.name} float32 step")
+    for c in counts.values():
+        c.reset()
+    soft32 = steps.make_prefill_step(dataclasses.replace(
+        cfg32, attn_core="softmax"))(p32, b32)
+    errs = dict(flash_vs_softmax=check_lm_close(
+        torch, flash32, soft32, F32_TOL, f"{cfg.name} float32, flash step "
+        f"vs softmax core, {what32}"))
+    del soft32
+    if f32_decode_fn is not None:
+        errs.update(f32_decode_fn(p32, cfg32, b32, flash32))
+    torch.cuda.synchronize()
+    other = read_counts(counts)
+    only_flash(other, 0, f"{cfg.name} float32 softmax core"
+               + (", prefill, decode" if f32_decode_fn else ""))
+    del p32, flash32, b32
+    torch.cuda.empty_cache()
+    return dict(launches=step_launches, soft_launches=soft_launches,
+                serve_launches=serve_launches, f32_launches=f32_launches,
+                f32_other_launches=other, kernel_check=dict(
+                    calls=seen["calls"], err=seen["err"]), err=err,
+                spread=spread, f32_errs=errs, prefill_ms=prefill_ms,
+                prefill_runs=runs, decode_ms=decode_ms, busy=busy,
+                init_peak_gb=init_peak, step_peak_gb=step_peak)
+
+
+def phase_qwen2_vl(torch, counts: dict, card: str) -> dict:
+    """Qwen2-VL-7B (28 layers) through phase_full_model at batch 4 x 1024
+    with one image per prompt (QWEN_IMAGE: three distinct position
+    streams, so M-RoPE is not RoPE): 28 flash launches a prefill step; the
+    cache prefill and 32 decode steps fed stub embeddings (decode rotates
+    by the scalar pos on all three streams, ROADMAP section 3 fault 17).
+    In float32 with text positions, batch 2 x 512 (QWEN_F32): also the
+    cache prefill of 480 tokens and teacher-forced decode to 512 against
+    the flash step within F32_TOL."""
+    from repro_torch.models import lm
+    from repro_torch.train import steps
+    B, G = SERVE["batch"], SERVE["gen"]
+    P = QWEN_IMAGE["text"] + QWEN_IMAGE["rows"] * QWEN_IMAGE["cols"] + \
+        QWEN_IMAGE["after"]
+    f = QWEN_F32
+
+    def batch_fn(cfg):
+        batch = mm_batch(torch, cfg, B, P, 0, QWEN_IMAGE)
+        pos = batch["positions"]
+        if torch.equal(pos[0], pos[1]) or torch.equal(pos[1], pos[2]):
+            raise RuntimeError("the image's position streams are not "
+                               "distinct")
+        return batch, (f"batch {B} x {P} embeds, one image, positions "
+                       f"t/h/w max {[int(pos[i].max()) for i in range(3)]}")
+
+    def decode_fn(params, cfg, batch):
+        gen = mm_batch(torch, cfg, B, G, 1, None)["embeds"]
+        lg_p, caches = lm.prefill(params, cfg, batch, s_max=P + G)
+        return caches, lambda i: gen[:, i:i + 1], P, P + G, lg_p
+
+    def f32_batch_fn(cfg32):
+        return (mm_batch(torch, cfg32, f["batch"], f["seq"], 2, None),
+                f"batch {f['batch']} x {f['seq']}, text positions")
+
+    def f32_decode_fn(p32, cfg32, b32, flash32):
+        emb, Pf = b32["embeds"], f["prefill"]
+        with torch.no_grad():
+            pre, caches = lm.prefill(p32, cfg32, dict(embeds=emb[:, :Pf]),
+                                     s_max=f["seq"])
+        serve32, dec = steps.make_serve_step(cfg32), []
+        for t in range(Pf, f["seq"]):
+            _, lg, caches = serve32(p32, caches, emb[:, t:t + 1], t)
+            dec.append(lg[:, 0])
+        return dict(
+            prefill_vs_forward=check_lm_close(
+                torch, pre, flash32[:, :Pf], F32_TOL, f"{cfg32.name} float32 "
+                f"cache prefill of {Pf} tokens vs the flash step"),
+            decode_vs_forward=check_lm_close(
+                torch, torch.stack(dec, dim=1), flash32[:, Pf:], F32_TOL,
+                f"{cfg32.name} float32 teacher-forced decode {Pf} -> "
+                f"{f['seq']} vs the flash step"))
+
+    return phase_full_model(torch, counts, card, "qwen2_vl", QWEN_ARCH,
+                            QWEN_PARAMS, B, P, G, batch_fn, decode_fn,
+                            f32_batch_fn, f32_decode_fn)
+
+
+def phase_whisper(torch, counts: dict, card: str) -> dict:
+    """Whisper-large-v3 (32 + 32 layers) through phase_full_model at batch
+    8 x 1500 encoder frames x 384 decoder tokens: 32 flash launches a
+    prefill step, all the decoder's causal self-attention (none from the
+    encoder or the cross-attention); 32 decode steps from init_cache (the
+    reference has no cache prefill for encoder-decoder models, and its
+    cross k/v stay zero: ROADMAP section 3 fault 18); in float32 the same
+    batch."""
+    from repro_torch.models import lm
+    B, S, G = (WHISPER_SERVE[k] for k in ("batch", "dec_len", "gen"))
+
+    def batch_fn(cfg):
+        return mm_batch(torch, cfg, B, S, 0, None), (
+            f"batch {B} x {cfg.encoder_seq} frames x {S} tokens")
+
+    def decode_fn(params, cfg, batch):
+        caches = lm.init_cache(cfg, B, WHISPER_DEC_POSITIONS, device="cuda")
+        return (caches, lambda i: batch["tokens"][:, i:i + 1], 0,
+                WHISPER_DEC_POSITIONS, None)
+
+    return phase_full_model(torch, counts, card, "whisper", WHISPER_ARCH,
+                            WHISPER_PARAMS, B, S, G, batch_fn, decode_fn,
+                            batch_fn)
 
 
 SPIN_CYCLES = 2_000_000
@@ -6509,6 +6963,12 @@ def main() -> int:
     for arch in DEEPSEEK_ARCHS:
         torch.cuda.empty_cache()
         dss[arch] = phase_deepseek_serve(torch, counts, arch)
+    # 7g. the last two families: Qwen2-VL-7B (M-RoPE) and Whisper-large-v3
+    # (encoder-decoder), the reduced configs card vs CPU, both whole
+    torch.cuda.empty_cache()
+    mmr = phase_mm_reduced(torch, counts)
+    qv = phase_qwen2_vl(torch, counts, card)
+    wh = phase_whisper(torch, counts, card)
     by_path = {"forward": launches_fwd, "train": trained["launches"],
                "feedback": fb["launches"], "sage_train": sage["launches"],
                "sage_feedback": sfb["launches"],
@@ -6551,7 +7011,16 @@ def main() -> int:
                                     ("prefill_step", "launches"),
                                     ("softmax_prefill_step", "soft_launches"),
                                     ("cache_prefill", "prefill_launches"),
-                                    ("decode", "decode_launches"))}}
+                                    ("decode", "decode_launches"))},
+               **{f"mm_reduced_{k}": v for k, v in mmr["launches"].items()},
+               **{f"{name}_{what}": res[key]
+                  for name, res in (("qwen2_vl", qv), ("whisper", wh))
+                  for what, key in (
+                      ("prefill_step_bf16", "launches"),
+                      ("softmax_prefill_step_bf16", "soft_launches"),
+                      ("decode_bf16", "serve_launches"),
+                      ("prefill_step_f32", "f32_launches"),
+                      ("softmax_f32", "f32_other_launches"))}}
     launches = {k: sum(p[k] for p in by_path.values()) for k in counts}
     for k, v in launches.items():
         if v == 0:
@@ -6767,7 +7236,9 @@ def main() -> int:
                     **{f"serve_{a}": d["serve_launches"]
                        for a, d in dss.items()},
                     **{f"train_step_reduced_{a}": w for a, (_, w) in
-                       LM_TRAIN_REDUCED.items()})
+                       (LM_TRAIN_REDUCED | MM_TRAIN_REDUCED).items()},
+                    qwen2_vl_prefill_step=qv["launches"],
+                    whisper_prefill_step=wh["launches"])
     out = []
     for name, meta in KERNELS.items():
         key = ROW_KEY.get(name, "500x16")
@@ -6854,7 +7325,19 @@ def main() -> int:
             f"{d['prefill_ms']}, decode {d['decode_ms']:.3f} ms/token (floor "
             f"{d['decode_floor_ms']:.3f}), busy {d['busy']}, peaks serve "
             f"{d['serve_peak_gb']:.2f} / init {d['init_peak_gb']:.2f} / step "
-            f"{d['step_peak_gb']:.2f} GB" for a, d in dss.items()))
+            f"{d['step_peak_gb']:.2f} GB" for a, d in dss.items())
+        + f"; Qwen2-VL and Whisper ({card}): reduced card vs CPU "
+        f"{mmr['errs']}, train {mmr['info']}; Qwen2-VL-7B bf16 kernel check "
+        f"{qv['kernel_check']}, flash vs softmax {qv['err']:.3g}, vs float32 "
+        f"{qv['spread']}, float32 {qv['f32_errs']}, prefill ms "
+        f"{qv['prefill_ms']}, decode {qv['decode_ms']:.3f} ms/token, busy "
+        f"{qv['busy']}, peaks init {qv['init_peak_gb']:.2f} / step "
+        f"{qv['step_peak_gb']:.2f} GB; Whisper-large-v3 bf16 kernel check "
+        f"{wh['kernel_check']}, flash vs softmax {wh['err']:.3g}, vs float32 "
+        f"{wh['spread']}, float32 {wh['f32_errs']}, prefill ms "
+        f"{wh['prefill_ms']}, decode {wh['decode_ms']:.3f} ms/token, busy "
+        f"{wh['busy']}, peaks init {wh['init_peak_gb']:.2f} / step "
+        f"{wh['step_peak_gb']:.2f} GB")
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

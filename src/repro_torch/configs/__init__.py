@@ -3,9 +3,7 @@
 Counterpart of ``repro/configs``.  ``get_config(name)`` returns the FULL
 published config; ``get_config(name, reduced=True)`` the same-family
 reduced config of the smoke tests.  The configs are copied verbatim from
-the reference; an architecture's file comes with its model family, so the
-names of ``ARCHS`` whose family is not ported yet (qwen2-vl's M-RoPE and
-whisper's encoder-decoder) raise ``NotImplementedError``.
+the reference, all ten of ``ARCHS``.
 """
 from __future__ import annotations
 
@@ -25,13 +23,6 @@ ARCHS = [
     "whisper_large_v3",
     "rwkv6_7b",
 ]
-PORTED = ("deepseek_moe_16b", "deepseek_v3_671b", "qwen2_5_14b",
-          "codeqwen1_5_7b", "mistral_large_123b", "internlm2_1_8b",
-          "jamba_v0_1_52b", "rwkv6_7b")
-# the family each unported architecture waits for
-UNPORTED = {"qwen2_vl_7b": "M-RoPE (qwen2-vl)",
-            "whisper_large_v3": "the whisper encoder-decoder"}
-
 # assigned input-shape set (LM-family): seq_len x global_batch
 SHAPES = {
     "train_4k": dict(seq=4096, batch=256, mode="train"),
@@ -47,11 +38,7 @@ def canonical(name: str) -> str:
 
 def get_config(name: str, reduced: bool = False) -> ModelConfig:
     name = canonical(name)
-    if name not in PORTED:
-        if name in UNPORTED:
-            raise NotImplementedError(
-                f"{name}'s config comes with its model family, "
-                f"{UNPORTED[name]}: ROADMAP section 1 item 8")
+    if name not in ARCHS:
         raise ValueError(f"unknown architecture {name!r}")
     mod = importlib.import_module(f"repro_torch.configs.{name}")
     return mod.REDUCED if reduced else mod.FULL

@@ -97,3 +97,44 @@ def pipeline_for(cfg, seq: int, global_batch: int, n_shards: int = 1,
         return EmbedsPipeline(cfg.d_model, seq, global_batch, cfg.vocab,
                               n_shards, seed, mrope=cfg.mrope_sections is not None)
     return TokenPipeline(cfg.vocab, seq, global_batch, n_shards, seed)
+
+
+def image_positions(B: int, text: int, rows: int, cols: int,
+                    after: int) -> np.ndarray:
+    """Qwen2-VL's (3, B, S) int32 M-RoPE positions (temporal, height,
+    width) for one image on every row: ``text`` tokens at t = h = w =
+    0..text-1, a rows x cols patch grid at t = text, h = text + row, w =
+    text + col, then ``after`` text tokens from the grid's largest
+    position + 1 on."""
+    t = np.arange(text)
+    r, c = np.meshgrid(np.arange(rows), np.arange(cols), indexing="ij")
+    grid = (np.full(rows * cols, text), text + r.ravel(), text + c.ravel())
+    tail = np.arange(after) + text + max(rows, cols)
+    pos = np.stack([np.concatenate([t, g, tail]) for g in grid])
+    return np.broadcast_to(pos[:, None], (3, B, pos.shape[1])).astype(
+        np.int32).copy()
+
+
+def stub_batch(cfg, B: int, S: int, seed: int,
+               image: dict | None = None) -> dict:
+    """One batch of a stub-modality model made from ``seed``: next-token
+    labels (B, S) and, for an encoder-decoder model (Whisper),
+    ``encoder_seq`` frames (B, Se, d) ~ N(0, 1) with decoder tokens (B, S);
+    else embeddings (B, S, d) ~ N(0, 1) (Qwen2-VL's patches and text),
+    with ``image`` (image_positions' keyword arguments, S tokens in all)
+    giving its M-RoPE positions, or none (the text positions)."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab, (B, S + 1)).astype(np.int32)
+    out = dict(labels=toks[:, 1:])
+    if cfg.family == "encdec":
+        out["enc_embeds"] = rng.standard_normal(
+            (B, cfg.encoder_seq, cfg.d_model), dtype=np.float32)
+        out["tokens"] = toks[:, :-1]
+        return out
+    out["embeds"] = rng.standard_normal((B, S, cfg.d_model),
+                                        dtype=np.float32)
+    if image is not None:
+        out["positions"] = image_positions(B, **image)
+        if out["positions"].shape[2] != S:
+            raise ValueError(f"image layout {image} is not {S} tokens")
+    return out

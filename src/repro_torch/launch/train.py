@@ -16,6 +16,15 @@ ROADMAP section 1 item 8.
         --steps 50 --seq 64 --batch 8 --ckpt-dir /tmp/ckpt
     PYTHONPATH=src python -m repro_torch.launch.train --full --steps 4 \\
         --seq 4096 --batch 2 --accum 2        # InternLM2-1.8B on the card
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+        --arch qwen2_vl_7b        # embeds and (3, B, S) M-RoPE positions
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+        --arch whisper_large_v3   # encoder frames and decoder tokens
+
+Every architecture takes its batches from ``data.pipeline_for``: tokens,
+Qwen2-VL's stub patch embeddings with text positions on all three M-RoPE
+streams, or Whisper's stub encoder frames (``encoder_seq`` of them) and
+decoder tokens.
 
 ``--full`` trains the published config, whose default cores are the plain
 ones; ``train(overrides=...)`` sets config fields such as

@@ -6,9 +6,9 @@ SSM), and RWKV-6's time-mix and channel-mix.
 Counterpart of ``repro/models/blocks.py``.  Every block provides
 ``init_X(gen, ...)`` (params as a dict of tensors on the generator's
 device), ``X_apply(params, x, ...)`` (full sequence) and, where relevant,
-``X_decode(params, x, cache, pos)``.  M-RoPE (qwen2-vl) and whisper's
-cross-attention and ungated FFN come with their models (ROADMAP section 1
-item 8).
+``X_decode(params, x, cache, pos)``.  Attention takes RoPE or M-RoPE
+(Qwen2-VL) and whisper's cross-attention (``kv_override``); the dense FFN
+is gated SiLU or whisper's ungated GELU.
 
 Matmul-heavy math runs in the model dtype with float32 accumulation;
 softmax and norm statistics run in float32.
@@ -59,7 +59,7 @@ def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Attention (MHA / GQA, optional QKV bias)
+# Attention (MHA / GQA, optional QKV bias, optional M-RoPE)
 # ---------------------------------------------------------------------------
 
 @dataclass(frozen=True)
@@ -106,25 +106,35 @@ def _qkv(params, cfg: AttnConfig, x, positions):
     v = v.reshape(B, S, cfg.kv_heads, cfg.head_dim)
     if cfg.use_rope:
         if cfg.mrope_sections is not None:
-            raise NotImplementedError("M-RoPE (qwen2-vl) is not ported yet: "
-                                      "ROADMAP section 1 item 8")
-        q = rope_mod.apply_rope(q, positions, cfg.rope_theta)
-        k = rope_mod.apply_rope(k, positions, cfg.rope_theta)
+            q = rope_mod.apply_mrope(q, positions, cfg.mrope_sections,
+                                     cfg.rope_theta)
+            k = rope_mod.apply_mrope(k, positions, cfg.mrope_sections,
+                                     cfg.rope_theta)
+        else:
+            q = rope_mod.apply_rope(q, positions, cfg.rope_theta)
+            k = rope_mod.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
-def attention_apply(params, cfg: AttnConfig, x, positions):
-    """Full-sequence self-attention. positions: (B, S).  (Whisper's
-    cross-attention override comes with that model.)"""
+def attention_apply(params, cfg: AttnConfig, x, positions,
+                    kv_override=None):
+    """Full-sequence attention. positions: (B, S), or (3, B, S) under
+    M-RoPE.  kv_override: (k, v), each (B, Skv, KV, dh), replacing the
+    projected k and v (whisper's cross-attention); q is still projected
+    (and rotated) from ``x``.  The flash kernel runs only for causal
+    self-attention with S % 128 == 0, as in the reference."""
     B, S, _ = x.shape
     q, k, v = _qkv(params, cfg, x, positions)
+    if kv_override is not None:
+        k, v = kv_override
     if cfg.attn_core == "identity":
         g = cfg.n_heads // cfg.kv_heads
         vm = torch.mean(v, dim=1, keepdim=True)          # (B,1,Hkv,dh)
         out = vm.repeat_interleave(g, dim=2).expand(
             B, S, cfg.n_heads, v.shape[-1])
         out = out.reshape(B, S, -1)
-    elif cfg.attn_core == "flash" and cfg.causal and S % 128 == 0:
+    elif (cfg.attn_core == "flash" and cfg.causal and kv_override is None
+          and S % 128 == 0):
         from repro_torch.kernels.flash_attention import \
             flash_attention_trainable
         out = flash_attention_trainable(
@@ -140,11 +150,14 @@ def attention_apply(params, cfg: AttnConfig, x, positions):
 
 def attention_decode(params, cfg: AttnConfig, x, cache, pos: int):
     """Single-step decode. x: (B, 1, d); cache: {k, v: (B, Smax, KV, dh)};
-    pos: int, the new token's position.  The new k and v are written into
+    pos: int, the new token's position (under M-RoPE on all three
+    streams, as in the reference).  The new k and v are written into
     ``cache`` in place at ``pos`` (the reference returns updated copies);
     returns (y, cache)."""
     B = x.shape[0]
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    if cfg.mrope_sections is not None:
+        positions = positions[None].expand(3, B, 1)
     q, k_new, v_new = _qkv(params, cfg, x, positions)
     cache["k"][:, pos:pos + 1] = k_new.to(cache["k"].dtype)
     cache["v"][:, pos:pos + 1] = v_new.to(cache["v"].dtype)
@@ -332,20 +345,27 @@ def mla_decode(params, cfg: MLAConfig, x, cache, pos: int,
 
 
 # ---------------------------------------------------------------------------
-# Dense FFN: gated SiLU (whisper's ungated GELU comes with that model)
+# Dense FFN: gated SiLU, or whisper's ungated GELU
 # ---------------------------------------------------------------------------
 
 def init_mlp(gen: torch.Generator, d_model: int, d_ff: int,
-             dtype: torch.dtype = torch.float32) -> dict:
-    return dict(w_up=_dense(gen, (d_model, d_ff), dtype),
-                w_down=_dense(gen, (d_ff, d_model), dtype),
-                w_gate=_dense(gen, (d_model, d_ff), dtype))
+             dtype: torch.dtype = torch.float32, gated: bool = True) -> dict:
+    p = dict(w_up=_dense(gen, (d_model, d_ff), dtype),
+             w_down=_dense(gen, (d_ff, d_model), dtype))
+    if gated:
+        p["w_gate"] = _dense(gen, (d_model, d_ff), dtype)
+    return p
 
 
-def mlp_apply(params, x):
+def mlp_apply(params, x, gated: bool = True):
+    """silu(x w_gate) * (x w_up), or ungated gelu(x w_up) in the tanh form
+    (``jax.nn.gelu``'s default), then w_down."""
     up = einsum("bsd,df->bsf", x, params["w_up"]).to(x.dtype)
-    gate = einsum("bsd,df->bsf", x, params["w_gate"]).to(x.dtype)
-    h = F.silu(gate) * up
+    if gated:
+        gate = einsum("bsd,df->bsf", x, params["w_gate"]).to(x.dtype)
+        h = F.silu(gate) * up
+    else:
+        h = F.gelu(up, approximate="tanh")
     return einsum("bsf,fd->bsd", h, params["w_down"]).to(x.dtype)
 
 

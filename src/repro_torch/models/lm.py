@@ -1,5 +1,6 @@
-"""LM-family model: decoder-only dense, MoE and MLA transformers, RWKV-6
-and Jamba.
+"""LM-family model: decoder-only dense, MoE and MLA transformers (with
+RoPE or Qwen2-VL's M-RoPE), RWKV-6 and Jamba, and Whisper's
+encoder-decoder.
 
 Counterpart of ``repro/models/lm.py`` for layer kinds ``attn_mlp`` /
 ``attn_moe`` (GQA attention + a gated FFN or a routed MoE FFN with shared
@@ -8,9 +9,12 @@ DeepSeekMoE), ``mla_mlp`` / ``mla_moe`` (multi-head latent attention;
 DeepSeek-V3, with its multi-token prediction block), ``rwkv`` (RWKV-6
 time-mix + channel-mix, pre-RMSNorm; RWKV6-7B) and ``jamba_period`` (8
 pre-RMSNorm layers: Mamba mixers with attention at layer 3, a dense FFN on
-even layers and a routed MoE FFN on odd ones; Jamba-v0.1).  Whisper's
-encoder-decoder kinds and qwen2-vl's M-RoPE raise ``NotImplementedError``
-naming the ROADMAP item that brings them.
+even layers and a routed MoE FFN on odd ones; Jamba-v0.1), and ``enc`` /
+``dec`` (Whisper's encoder and decoder layers: pre-LayerNorm with biases,
+non-causal self-attention without RoPE in the encoder, causal
+self-attention and cross-attention over the encoder's output in the
+decoder, an ungated GELU FFN).  Qwen2-VL is ``attn_mlp`` under M-RoPE:
+positions (3, B, S), temporal, height and width.
 
 A model is a sequence of homogeneous layer groups.  With ``scan_layers``
 each group's parameters and decode caches are stacked on axis 0, as in the
@@ -24,7 +28,7 @@ state ``S`` and token-shift inputs ``x_tm`` and ``x_cm``, Mamba's state
 from __future__ import annotations
 
 import functools
-from dataclasses import dataclass, fields
+from dataclasses import dataclass
 from typing import Any
 
 import torch
@@ -32,6 +36,7 @@ import torch
 from repro_torch import DEFAULT_DEVICE, resolve_device
 from repro_torch.kernels import ref as kref
 from repro_torch.layers import nn
+from repro_torch.layers import rope as rope_mod
 from repro_torch.models import blocks as blk
 from repro_torch.tree import tree_leaves as _leaves
 from repro_torch.tree import tree_map as _tree_map
@@ -164,59 +169,26 @@ class ModelConfig:
         return [(f"{mixer}_mlp", self.n_layers)]
 
 
-# the model each layer kind this port lacks comes with (ROADMAP section 1
-# item 8)
-_UNPORTED_KINDS = {"enc": "the whisper encoder-decoder",
-                   "dec": "the whisper encoder-decoder"}
-
-_PORTED_KINDS = ("attn_mlp", "attn_moe", "mla_mlp", "mla_moe", "rwkv",
-                 "jamba_period")
-
-
-def _require_kind(kind: str) -> None:
-    if kind not in _PORTED_KINDS:
-        what = _UNPORTED_KINDS.get(kind)
-        if what is None:
-            raise ValueError(kind)
-        raise NotImplementedError(
-            f"layer kind {kind!r} ({what}) is not ported yet: ROADMAP "
-            "section 1 item 8")
-
-
-# fields that only the unported kinds read: the ported kinds ignore them, so
-# a value other than the default is refused rather than dropped unseen
-# (``remat`` is a training knob and inference ignores it on any kind)
-_UNPORTED_FIELDS = ("encoder_seq",)
-
-
-def _require_supported(cfg: ModelConfig) -> None:
-    for kind, _ in cfg.layer_groups():
-        _require_kind(kind)
-    defaults = {f.name: f.default for f in fields(ModelConfig)}
-    for f in _UNPORTED_FIELDS:
-        value, default = getattr(cfg, f), defaults[f]
-        if value != default:
-            raise NotImplementedError(
-                f"{f}={value!r} (default {default!r}) is read only by the "
-                "whisper encoder-decoder, which is not ported yet: ROADMAP "
-                "section 1 item 8")
-    if cfg.mrope_sections is not None:
-        raise NotImplementedError("M-RoPE (qwen2-vl) is not ported yet: "
-                                  "ROADMAP section 1 item 8")
-
-
 # ---------------------------------------------------------------------------
 # per-layer init / apply
 # ---------------------------------------------------------------------------
 
-def _norm_init(d, dtype, device):
-    return dict(scale=torch.ones((d,), dtype=dtype, device=device))
+def _norm_init(d, dtype, device, with_bias: bool = False):
+    p = dict(scale=torch.ones((d,), dtype=dtype, device=device))
+    if with_bias:
+        p["bias"] = torch.zeros((d,), dtype=dtype, device=device)
+    return p
 
 
 def _norm_apply(p, x, eps):
-    """RMSNorm (the whisper layers' LayerNorm comes with them)."""
+    """LayerNorm where the norm has a bias (whisper's), else RMSNorm."""
+    if "bias" in p:
+        return nn.layer_norm(x, p["scale"], p["bias"], eps)
     return nn.rms_norm(x, p["scale"], eps)
 
+
+# the kinds of one attention (GQA or MLA) layer and one FFN (dense or MoE)
+TRANSFORMER_KINDS = ("attn_mlp", "attn_moe", "mla_mlp", "mla_moe")
 
 # a jamba_period's 8 sub-layers: attention at JAMBA_ATTN, Mamba elsewhere;
 # the MoE FFN on odd sub-layers, the dense FFN on even ones
@@ -235,8 +207,17 @@ def _jamba_ffn(lp, cfg: ModelConfig, i: int, x):
 
 
 def init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str) -> Params:
-    _require_kind(kind)
     dt, d = cfg.torch_dtype, cfg.d_model
+    if kind in ("enc", "dec"):
+        norms = ("norm1", "norm2") + (("norm3",) if kind == "dec" else ())
+        p = {n: _norm_init(d, dt, gen.device, with_bias=True) for n in norms}
+        p["attn"] = blk.init_attention(
+            gen, cfg.attn_cfg(causal=kind == "dec", use_rope=False), dt)
+        if kind == "dec":
+            p["cross"] = blk.init_attention(
+                gen, cfg.attn_cfg(causal=False, use_rope=False), dt)
+        p["ffn"] = blk.init_mlp(gen, d, cfg.d_ff, dt, gated=False)
+        return p
     if kind == "jamba_period":
         return {f"l{i}": dict(
             norm1=_norm_init(d, dt, gen.device),
@@ -247,6 +228,8 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str) -> Params:
             ffn=(blk.init_moe(gen, cfg.moe_cfg(), dt) if i % 2
                  else blk.init_mlp(gen, d, cfg.d_ff, dt)))
             for i in range(JAMBA_PERIOD)}
+    if kind not in TRANSFORMER_KINDS + ("rwkv",):
+        raise ValueError(kind)
     p = dict(norm1=_norm_init(d, dt, gen.device),
              norm2=_norm_init(d, dt, gen.device))
     if kind == "rwkv":
@@ -270,11 +253,51 @@ def _ffn_apply(params, cfg: ModelConfig, kind: str, h):
     return blk.mlp_apply(params["ffn"], h), None
 
 
-def layer_apply(params, cfg: ModelConfig, kind: str, x, positions):
-    """Full-sequence layer. Returns (x, aux_loss)."""
-    _require_kind(kind)
+def _cross_kv(params, cfg: ModelConfig, enc_out, dtype):
+    """A decoder layer's cross-attention k and v (B, Se, KV, dh) from the
+    encoder's output, with their biases."""
+    B, Se, _ = enc_out.shape
+    shape = (B, Se, cfg.kv_heads, cfg.head_dim)
+    kx = blk.einsum("bsd,dh->bsh", enc_out,
+                    params["wk"]).to(dtype).reshape(shape)
+    vx = blk.einsum("bsd,dh->bsh", enc_out,
+                    params["wv"]).to(dtype).reshape(shape)
+    if cfg.qkv_bias:
+        kx = kx + params["bk"].reshape(cfg.kv_heads, cfg.head_dim)
+        vx = vx + params["bv"].reshape(cfg.kv_heads, cfg.head_dim)
+    return kx, vx
+
+
+def _cross_ffn(params, cfg: ModelConfig, x, positions, kv):
+    """A decoder layer's second half on ``x``: cross-attention over the
+    encoder's (k, v), then the ungated FFN, each pre-LayerNorm with a
+    residual."""
+    eps = cfg.norm_eps
+    h = _norm_apply(params["norm2"], x, eps)
+    x = x + blk.attention_apply(params["cross"], cfg.attn_cfg(
+        causal=False, use_rope=False), h, positions, kv_override=kv)
+    h = _norm_apply(params["norm3"], x, eps)
+    return x + blk.mlp_apply(params["ffn"], h, gated=False)
+
+
+def layer_apply(params, cfg: ModelConfig, kind: str, x, positions,
+                enc_out=None):
+    """Full-sequence layer (``enc_out``: the encoder's output, for a
+    ``dec`` layer). Returns (x, aux_loss)."""
     eps = cfg.norm_eps
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if kind == "enc":
+        h = _norm_apply(params["norm1"], x, eps)
+        x = x + blk.attention_apply(params["attn"], cfg.attn_cfg(
+            causal=False, use_rope=False), h, positions)
+        h = _norm_apply(params["norm2"], x, eps)
+        return x + blk.mlp_apply(params["ffn"], h, gated=False), aux
+    if kind == "dec":
+        h = _norm_apply(params["norm1"], x, eps)
+        x = x + blk.attention_apply(params["attn"], cfg.attn_cfg(
+            causal=True, use_rope=False), h, positions)
+        kv = _cross_kv(params["cross"], cfg, enc_out, x.dtype)
+        return _cross_ffn(params, cfg, x, positions, kv), aux
     if kind == "jamba_period":
         for i in range(JAMBA_PERIOD):
             lp = params[f"l{i}"]
@@ -295,6 +318,8 @@ def layer_apply(params, cfg: ModelConfig, kind: str, x, positions):
         h = _norm_apply(params["norm2"], x, eps)
         h, _ = blk.rwkv6_channel_mix(params["cm"], h)
         return x + h, aux
+    if kind not in TRANSFORMER_KINDS:
+        raise ValueError(kind)
     h = _norm_apply(params["norm1"], x, eps)
     if kind.startswith("attn"):
         h = blk.attention_apply(params["attn"], cfg.attn_cfg(), h, positions)
@@ -362,18 +387,23 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
     """Parameters drawn from ``gen`` on its device (the reference's key):
     embed, the untied head, each group's layers in order, then with
     ``cfg.mtp`` the multi-token prediction block (``mtp``: norm, proj (2d,
-    d) and one layer of ``mtp_kind``)."""
-    _require_supported(cfg)
+    d) and one layer of ``mtp_kind``).  An encoder-decoder model's
+    ``final_norm`` is a LayerNorm (with a bias), and it has the encoder's
+    ``enc_final_norm`` too."""
     dt, dev = cfg.torch_dtype, gen.device
     V = cfg.padded_vocab
+    encdec = cfg.family == "encdec"
     p = dict(embed=nn.trunc_normal(gen, (V, cfg.d_model)).to(dt),
-             final_norm=_norm_init(cfg.d_model, dt, dev))
+             final_norm=_norm_init(cfg.d_model, dt, dev, with_bias=encdec))
     if not cfg.tie_embeddings:
         p["lm_head"] = nn.trunc_normal(gen, (cfg.d_model, V)).to(dt)
     p["groups"] = [
         _init_stacked(gen, cfg, kind, n) if cfg.scan_layers
         else [init_layer(gen, cfg, kind) for _ in range(n)]
         for kind, n in cfg.layer_groups()]
+    if encdec:
+        p["enc_final_norm"] = _norm_init(cfg.d_model, dt, dev,
+                                         with_bias=True)
     if cfg.mtp:
         p["mtp"] = dict(norm=_norm_init(cfg.d_model, dt, dev),
                         proj=nn.lecun_normal(gen, (2 * cfg.d_model,
@@ -417,32 +447,37 @@ def _checkpointed(cfg: ModelConfig, kind: str):
         kw["context_fn"] = functools.partial(
             create_selective_checkpoint_contexts, _saves_dots)
 
-    def run(lp, x, positions):
-        return checkpoint(layer_apply, lp, cfg, kind, x, positions,
+    def run(lp, x, positions, enc_out):
+        return checkpoint(layer_apply, lp, cfg, kind, x, positions, enc_out,
                           use_reentrant=False, **kw)
 
     return run
 
 
-def _run_group(group_params, cfg: ModelConfig, kind: str, x, positions):
-    """Loop a homogeneous layer group.  Where autograd records the layers
-    (grad enabled, and the params or ``x`` requiring grad), ``cfg.remat``
-    says what the backward recomputes, as the reference's ``jax.checkpoint``
-    around each layer: ``"none"`` nothing, ``"full"`` the whole layer,
-    ``"dots"`` all but the plain matrix products.  A recomputed layer runs
-    its forward again in the backward, kernels included.  Without
-    autograd (prefill, decode) the layers just run."""
+def _run_group(group_params, cfg: ModelConfig, kind: str, x, positions,
+               enc_out=None):
+    """Loop a homogeneous layer group (``enc_out``: the encoder's output,
+    for the ``dec`` group).  Where autograd records the layers (grad
+    enabled, and the params, ``x`` or ``enc_out`` requiring grad),
+    ``cfg.remat`` says what the backward recomputes, as the reference's
+    ``jax.checkpoint`` around each layer: ``"none"`` nothing, ``"full"``
+    the whole layer, ``"dots"`` all but the plain matrix products; the
+    encoder's output is an input of each checkpointed decoder layer, so
+    its gradient reaches the encoder through the cross k/v.  A recomputed
+    layer runs its forward again in the backward, kernels included.
+    Without autograd (prefill, decode) the layers just run."""
     recorded = torch.is_grad_enabled() and (
-        x.requires_grad or any(t.requires_grad
-                               for t in _leaves(group_params)))
+        x.requires_grad
+        or (enc_out is not None and enc_out.requires_grad)
+        or any(t.requires_grad for t in _leaves(group_params)))
     if recorded and cfg.remat in ("full", "dots"):
         run = _checkpointed(cfg, kind)
     else:
-        def run(lp, x, positions):
-            return layer_apply(lp, cfg, kind, x, positions)
+        def run(lp, x, positions, enc_out):
+            return layer_apply(lp, cfg, kind, x, positions, enc_out)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in _layers(group_params, cfg, unbind=recorded):
-        x, aux = run(lp, x, positions)
+        x, aux = run(lp, x, positions, enc_out)
         aux_total = aux_total + aux
     return x, aux_total
 
@@ -453,6 +488,10 @@ def _logits(params, cfg: ModelConfig, h):
 
 
 def _embed_inputs(params, cfg: ModelConfig, batch: dict):
+    """The decoder stream's input (token embeddings, or ``embeds`` in
+    embeds mode) and its positions: (B, S), or under M-RoPE
+    ``batch["positions"]`` (3, B, S) where given, else the text positions
+    0..S-1 on all three streams."""
     dt = cfg.torch_dtype
     if cfg.input_mode == "tokens":
         x = nn.embed_lookup(params["embed"], batch["tokens"]).to(dt)
@@ -460,19 +499,55 @@ def _embed_inputs(params, cfg: ModelConfig, batch: dict):
         x = batch["embeds"].to(dt)
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    if cfg.mrope_sections is not None:
+        positions = batch.get("positions")
+        if positions is None:
+            positions = torch.arange(S, device=x.device)[None, None].expand(
+                3, B, S)
     return x, positions
+
+
+def _encdec_forward(params, cfg: ModelConfig, batch: dict):
+    """Whisper: the encoder over ``enc_embeds`` (B, Se, d) plus sinusoidal
+    positions, its final LayerNorm, then the decoder over the ``tokens``'
+    embeddings plus sinusoidal positions, attending to the encoder's
+    output.  Returns (the decoder's final hidden state, aux loss)."""
+    dt = cfg.torch_dtype
+    enc = batch["enc_embeds"].to(dt)
+    B, Se = enc.shape[:2]
+    dev = enc.device
+    enc = enc + rope_mod.sinusoidal_positions(Se, cfg.d_model, dev).to(dt)
+    x, positions = _embed_inputs(params, cfg, batch)
+    x = x + rope_mod.sinusoidal_positions(x.shape[1], cfg.d_model,
+                                          dev).to(dt)
+    enc_positions = torch.arange(Se, device=dev)[None].expand(B, Se)
+    aux_total = torch.zeros((), dtype=torch.float32, device=dev)
+    enc_out = None
+    for g, (kind, _) in zip(params["groups"], cfg.layer_groups()):
+        if kind == "enc":
+            enc, aux = _run_group(g, cfg, kind, enc, enc_positions)
+            enc_out = _norm_apply(params["enc_final_norm"], enc,
+                                  cfg.norm_eps)
+        else:
+            x, aux = _run_group(g, cfg, kind, x, positions, enc_out)
+        aux_total = aux_total + aux
+    return _norm_apply(params["final_norm"], x, cfg.norm_eps), aux_total
 
 
 def forward(params, cfg: ModelConfig, batch: dict) -> tuple[torch.Tensor,
                                                              dict]:
     """Training/prefill forward pass.  batch: tokens (B, S) in tokens mode,
-    embeds (B, S, d) in embeds mode.  Returns (logits (B, S, Vp), aux
-    dict): ``aux_loss``, and with ``cfg.mtp`` and tokens ``mtp_logits``
-    (B, S, Vp), DeepSeek-V3's multi-token prediction: one more layer over
+    embeds (B, S, d) in embeds mode, with positions (3, B, S) under M-RoPE
+    (optional); enc_embeds (B, Se, d) and tokens (B, S) for an
+    encoder-decoder model.  Returns (logits (B, S, Vp), aux dict):
+    ``aux_loss``, and with ``cfg.mtp`` and tokens ``mtp_logits`` (B, S,
+    Vp), DeepSeek-V3's multi-token prediction: one more layer over
     [norm(h_t); embed(token_{t+1})] projected to d, predicting token t + 2
     (the last position wraps round to the first token, as the
     reference's roll does)."""
-    _require_supported(cfg)
+    if cfg.family == "encdec":
+        h, aux = _encdec_forward(params, cfg, batch)
+        return _logits(params, cfg, h), dict(aux_loss=aux)
     x, positions = _embed_inputs(params, cfg, batch)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for g, (kind, _) in zip(params["groups"], cfg.layer_groups()):
@@ -522,8 +597,15 @@ def loss_fn(params, cfg: ModelConfig, batch: dict) -> tuple[torch.Tensor,
 
 def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, s_max: int,
                      device: str | torch.device = DEFAULT_DEVICE):
-    _require_kind(kind)
     dt, dev = cfg.torch_dtype, resolve_device(device)
+    if kind == "enc":
+        return None
+    if kind == "dec":
+        c = blk.init_attn_cache(cfg.attn_cfg(), batch, s_max, dt, dev)
+        kv_shape = (batch, cfg.encoder_seq, cfg.kv_heads, cfg.head_dim)
+        c["cross_k"] = torch.zeros(kv_shape, dtype=dt, device=dev)
+        c["cross_v"] = torch.zeros(kv_shape, dtype=dt, device=dev)
+        return c
     if kind == "jamba_period":
         return {f"l{i}": (
             blk.init_attn_cache(cfg.attn_cfg(), batch, s_max, dt, dev)
@@ -539,8 +621,10 @@ def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, s_max: int,
                                      device=dev),
                     x_cm=torch.zeros((batch, 1, cfg.d_model), dtype=dt,
                                      device=dev))
-    if kind.startswith("mla"):
+    if kind in ("mla_mlp", "mla_moe"):
         return blk.init_mla_cache(cfg.mla_cfg(), batch, s_max, dt, dev)
+    if kind not in ("attn_mlp", "attn_moe"):
+        raise ValueError(kind)
     return blk.init_attn_cache(cfg.attn_cfg(), batch, s_max, dt, dev)
 
 
@@ -552,12 +636,16 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int,
     qk_rope_dim) per MLA layer; S (B, H, dh, dh) float32, x_tm and x_cm
     (B, 1, d) per RWKV layer; per Jamba period one dict per sub-layer
     ``l0``..``l7``, Mamba's h (B, d_inner, d_state) float32 and conv (B,
-    d_conv - 1, d_inner), the attention layer's k and v."""
-    _require_supported(cfg)
+    d_conv - 1, d_inner), the attention layer's k and v; per whisper
+    decoder layer k and v and the cross-attention's cross_k and cross_v (B,
+    encoder_seq, KV, dh), zeros that nothing fills (as in the reference:
+    its prefill is decoder-only); None for the encoder group."""
     dev = resolve_device(device)
     caches = []
     for kind, n in cfg.layer_groups():
-        if cfg.scan_layers:
+        if kind == "enc":
+            caches.append(None)
+        elif cfg.scan_layers:
             one = init_layer_cache(cfg, kind, batch, s_max, dev)
             caches.append(_tree_map(lambda a: a.new_zeros((n,) + a.shape),
                                     one))
@@ -569,9 +657,18 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int,
 
 def layer_decode(params, cfg: ModelConfig, kind: str, x, cache, pos: int):
     """One token through one layer; writes the layer's cache in place.
-    MLA decodes in the absorbed form, as the reference's does."""
-    _require_kind(kind)
+    MLA decodes in the absorbed form, as the reference's does; a whisper
+    decoder layer attends to its cache's cross_k and cross_v."""
     eps = cfg.norm_eps
+    if kind == "dec":
+        h = _norm_apply(params["norm1"], x, eps)
+        h, _ = blk.attention_decode(params["attn"], cfg.attn_cfg(
+            causal=True, use_rope=False), h, cache, pos)
+        positions = torch.zeros((x.shape[0], 1), dtype=torch.int32,
+                                device=x.device)
+        x = _cross_ffn(params, cfg, x + h, positions,
+                       (cache["cross_k"], cache["cross_v"]))
+        return x, cache
     if kind == "jamba_period":
         for i in range(JAMBA_PERIOD):
             lp, lc = params[f"l{i}"], cache[f"l{i}"]
@@ -601,6 +698,8 @@ def layer_decode(params, cfg: ModelConfig, kind: str, x, cache, pos: int):
         cache["x_tm"].copy_(x_tm)
         cache["x_cm"].copy_(x_cm)
         return x + h_out, cache
+    if kind not in TRANSFORMER_KINDS:
+        raise ValueError(kind)
     h = _norm_apply(params["norm1"], x, eps)
     if kind.startswith("attn"):
         h, cache = blk.attention_decode(params["attn"], cfg.attn_cfg(), h,
@@ -618,17 +717,25 @@ def decode_step(params, cfg: ModelConfig, caches, tokens, pos: int):
     """One decode step.  tokens: (B, 1) int (or embeds (B, 1, d) in embeds
     mode); pos: int position of the new token.  Updates ``caches`` in place
     (the new token's k/v, or MLA's c_kv and k_rope; RWKV's S, x_tm and
-    x_cm; Mamba's h and conv).
+    x_cm; Mamba's h and conv).  An encoder-decoder model adds row ``pos``
+    of the sinusoidal table (s_max rows, s_max read from the decoder
+    cache) to the token's embedding and skips the encoder group.
     Returns (logits (B, 1, Vp), next_token
     (B, 1) int32, caches)."""
-    _require_supported(cfg)
     dt = cfg.torch_dtype
     if cfg.input_mode == "tokens":
         x = nn.embed_lookup(params["embed"], tokens).to(dt)
     else:
         x = tokens.to(dt)
+    if cfg.family == "encdec":
+        k = caches[-1]["k"] if cfg.scan_layers else caches[-1][0]["k"]
+        s_max = k.shape[2] if cfg.scan_layers else k.shape[1]
+        x = x + rope_mod.sinusoidal_positions(
+            s_max, cfg.d_model, x.device)[pos:pos + 1].to(dt)
     for g, cache, (kind, _) in zip(params["groups"], caches,
                                    cfg.layer_groups()):
+        if kind == "enc":
+            continue
         for lp, lc in zip(_layers(g, cfg), _layers(cache, cfg)):
             x, _ = layer_decode(lp, cfg, kind, x, lc, pos)
     h = _norm_apply(params["final_norm"], x, cfg.norm_eps)
@@ -660,7 +767,6 @@ def layer_prefill(params, cfg: ModelConfig, kind: str, x, positions, s_max):
     length allows;
     Mamba runs its core (the CUDA kernel under ``mamba_core="pallas"``)
     and takes its final state from the plain scan, as in the reference."""
-    _require_kind(kind)
     eps = cfg.norm_eps
     dt = cfg.torch_dtype
     if kind == "jamba_period":
@@ -686,6 +792,8 @@ def layer_prefill(params, cfg: ModelConfig, kind: str, x, positions, s_max):
         h_out, x_cm = blk.rwkv6_channel_mix(params["cm"], h)
         x = x + h_out
         return x, dict(S=S_state, x_tm=x_tm.to(dt), x_cm=x_cm.to(dt))
+    if kind not in TRANSFORMER_KINDS:
+        raise ValueError(f"prefill unsupported for kind {kind}")
     h = _norm_apply(params["norm1"], x, eps)
     if kind.startswith("attn"):
         h, cache = _attn_prefill(params["attn"], cfg, h, positions, s_max)
@@ -726,9 +834,9 @@ def _mla_prefill(params, cfg: ModelConfig, h, positions, s_max):
 
 def prefill(params, cfg: ModelConfig, batch: dict, s_max: int):
     """Prompt pass producing (logits, caches) for decode handoff.
-    Decoder-only families (token or embeds mode)."""
+    Decoder-only families (token or embeds mode); positions as in
+    ``forward``."""
     assert cfg.family == "decoder"
-    _require_supported(cfg)
     x, positions = _embed_inputs(params, cfg, batch)
     caches = []
     for g, (kind, _) in zip(params["groups"], cfg.layer_groups()):

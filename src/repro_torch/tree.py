@@ -2,7 +2,9 @@
 lists and tuples whose leaves are tensors (the LM's params and decode
 caches, the optimizer's state).  Dict keys are visited in sorted order, as
 ``jax.tree`` visits them, so a sum over the leaves adds them in the
-reference's order; ``tree_map`` keeps each dict's own key order."""
+reference's order; ``tree_map`` keeps each dict's own key order.  None is
+a subtree with no leaves, as in ``jax.tree`` (a whisper encoder group's
+decode cache)."""
 from __future__ import annotations
 
 
@@ -10,6 +12,8 @@ def tree_map(fn, *trees):
     """``fn`` over the leaves of ``trees`` (one structure), as
     ``jax.tree.map``."""
     t0 = trees[0]
+    if t0 is None:
+        return None
     if isinstance(t0, dict):
         return {k: tree_map(fn, *(t[k] for t in trees)) for k in t0}
     if isinstance(t0, (list, tuple)):
@@ -20,6 +24,8 @@ def tree_map(fn, *trees):
 def tree_leaves(tree) -> list:
     """The leaves of ``tree`` in ``jax.tree.leaves`` order (dict keys
     sorted)."""
+    if tree is None:
+        return []
     if isinstance(tree, dict):
         return [a for k in sorted(tree) for a in tree_leaves(tree[k])]
     if isinstance(tree, (list, tuple)):
@@ -33,6 +39,8 @@ def tree_unflatten(like, leaves: list):
     it = iter(leaves)
 
     def build(t):
+        if t is None:
+            return None
         if isinstance(t, dict):
             built = {k: build(t[k]) for k in sorted(t)}
             return {k: built[k] for k in t}

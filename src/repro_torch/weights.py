@@ -94,8 +94,15 @@ def _attn_shapes(cfg) -> dict:
     return attn
 
 
-def _mlp_shapes(d: int, f: int) -> dict:
-    return dict(w_up=(d, f), w_down=(f, d), w_gate=(d, f))
+def _mlp_shapes(d: int, f: int, gated: bool = True) -> dict:
+    out = dict(w_up=(d, f), w_down=(f, d))
+    if gated:
+        out["w_gate"] = (d, f)
+    return out
+
+
+def _norm_shapes(d: int, with_bias: bool = False) -> dict:
+    return dict(scale=(d,), bias=(d,)) if with_bias else dict(scale=(d,))
 
 
 def _mla_shapes(cfg) -> dict:
@@ -139,9 +146,19 @@ def _jamba_period_shapes(cfg) -> dict:
 
 def _lm_layer_shapes(cfg, kind: str) -> dict:
     """Shape of every leaf of one layer of ``kind`` (``attn_mlp``,
-    ``attn_moe``, ``mla_mlp``, ``mla_moe``, ``rwkv`` or ``jamba_period``)
-    of ``cfg``."""
+    ``attn_moe``, ``mla_mlp``, ``mla_moe``, ``rwkv``, ``jamba_period``, or
+    whisper's ``enc`` and ``dec``: biased LayerNorms, attention (and the
+    decoder's cross-attention) with their QKV biases, the ungated FFN) of
+    ``cfg``."""
     d = cfg.d_model
+    if kind in ("enc", "dec"):
+        norms = ("norm1", "norm2") + (("norm3",) if kind == "dec" else ())
+        out = {n: _norm_shapes(d, with_bias=True) for n in norms}
+        out["attn"] = _attn_shapes(cfg)
+        if kind == "dec":
+            out["cross"] = _attn_shapes(cfg)
+        out["ffn"] = _mlp_shapes(d, cfg.d_ff, gated=False)
+        return out
     if kind == "jamba_period":
         return _jamba_period_shapes(cfg)
     if kind == "rwkv":
@@ -193,16 +210,20 @@ def lm_from_jax_params(params_np: Mapping, cfg,
     Mamba's ``A_log`` and ``D`` and the MoE router in float32, as the
     reference keeps them) on ``device``, each with storage of its own.
     Layer kinds ``attn_mlp``, ``attn_moe``, ``mla_mlp``, ``mla_moe``,
-    ``rwkv`` and ``jamba_period``; with ``cfg.mtp`` the ``mtp`` subtree
-    (norm, proj and one layer, not stacked)."""
+    ``rwkv``, ``jamba_period``, ``enc`` and ``dec``; with ``cfg.mtp`` the
+    ``mtp`` subtree (norm, proj and one layer, not stacked); for an
+    encoder-decoder model the biased ``final_norm`` and
+    ``enc_final_norm``."""
     from repro_torch.models import lm
-    lm._require_supported(cfg)
     dev = resolve_device(device)
     dt = cfg.torch_dtype
     V, d = cfg.padded_vocab, cfg.d_model
-    top = dict(embed=(V, d), final_norm=dict(scale=(d,)))
+    encdec = cfg.family == "encdec"
+    top = dict(embed=(V, d), final_norm=_norm_shapes(d, with_bias=encdec))
     if not cfg.tie_embeddings:
         top["lm_head"] = (d, V)
+    if encdec:
+        top["enc_final_norm"] = _norm_shapes(d, with_bias=True)
     if cfg.mtp:
         top["mtp"] = dict(norm=dict(scale=(d,)), proj=(2 * d, d),
                           block=_lm_layer_shapes(cfg, lm.mtp_kind(cfg)))

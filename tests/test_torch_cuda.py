@@ -1983,3 +1983,80 @@ def test_cuda_deepseek_reduced_matches_cpu(cuda_device, arch,  # noqa: F811
                             else (0, 0, 0)), (dev, launches)
     for a, b in zip(out["cuda"], out["cpu"]):
         torch.testing.assert_close(a.cpu(), b, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4, 28, 4, 1024, 128),
+                                   (8, 20, 20, 384, 64)])
+def test_cuda_flash_attention_at_qwen2_vl_and_whisper_shapes(
+        cuda_device, dtype, shape):  # noqa: F811
+    """flash_attention, causal, at Qwen2-VL-7B's prefill (B 4, Hq 28, Hkv
+    4: a GQA group of 7, S 1024, d 128) and Whisper-large-v3's decoder
+    self-attention (B 8, 20 heads, S 384, d 64) against its plain version
+    (the reference's flash tolerances; bf16 also per row): the bfloat16
+    tensor-core path and the float32 CUDA-core path."""
+    B, Hq, Hkv, S, d = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(Hq + S)
+    q, k, v = (torch.randn((B, h, S, d), generator=gen,
+                           device=cuda_device).to(dtype)
+               for h in (Hq, Hkv, Hkv))
+    before = fa_mod.launches.value
+    got = fa_mod.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fa_mod.launches.value - before == 1
+    assert got.dtype == dtype and got.shape == (B, Hq, S, d)
+    assert_flash_close(got, fa_mod.plain(q, k, v, causal=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,per_step", [("qwen2_vl_7b", 3),
+                                           ("whisper_large_v3", 2)])
+def test_cuda_qwen2_vl_and_whisper_reduced_match_cpu(  # noqa: F811
+        cuda_device, arch, per_step):
+    """Qwen2-VL and Whisper REDUCED in float32 under the serving profile
+    (flash core), batch 2 x 128 (Qwen2-VL's three M-RoPE streams distinct,
+    Whisper over 32 encoder frames): the prefill step launches the flash
+    kernel once a layer (Whisper: its decoder layers only) and its logits
+    match the CPU's; Qwen2-VL's cache prefill and three decode steps, and
+    Whisper's three decode steps from init_cache, launch nothing and match
+    the CPU's (1e-3, the reference's prefill/decode tolerance)."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.data.pipeline import stub_batch
+    from repro_torch.launch.serve_lm import serving_profile
+    from repro_torch.models import lm
+    from repro_torch.train import steps
+    cfg = configs.get_config(arch, reduced=True)
+    cfg = dataclasses.replace(cfg, **serving_profile(cfg))
+    params = lm.init_params(lm.make_generator(0, "cpu"), cfg)
+    card_params = lm._tree_map(lambda a: a.to(cuda_device), params)
+    batch = stub_batch(cfg, 2, 131, 4, image=dict(text=16, rows=8, cols=12,
+                                                  after=19))
+    P = 128
+    out = {}
+    for dev, p in (("cuda", card_params), ("cpu", params)):
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        head = {k: (v[:, :, :P] if k == "positions"
+                    else v if k == "enc_embeds" else v[:, :P])
+                for k, v in b.items()}
+        before = fa_mod.launches.value
+        step = steps.make_prefill_step(cfg)(p, head)
+        torch.cuda.synchronize()
+        mid = fa_mod.launches.value
+        if cfg.family == "encdec":
+            caches, start, feed = lm.init_cache(cfg, 2, 8, device=dev), 0, \
+                b["tokens"]
+            lg = step
+        else:
+            lg, caches = lm.prefill(p, cfg, head, s_max=131)
+            start, feed = P, b["embeds"]
+        dec = [lm.decode_step(p, cfg, caches, feed[:, i:i + 1], i)[0]
+               for i in range(start, start + 3)]
+        torch.cuda.synchronize()
+        out[dev] = (step, lg, torch.cat(dec, 1))
+        launches = (mid - before, fa_mod.launches.value - mid)
+        assert launches == ((per_step, 0) if dev == "cuda" else (0, 0)), \
+            (dev, launches)
+    for a, b in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-3, rtol=1e-3)

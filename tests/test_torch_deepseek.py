@@ -1,16 +1,15 @@
 """The port's DeepSeek slice on the CPU, with torch and numpy only (no JAX
-compile): the config registry (eight configs ported, the M-RoPE and
-whisper ones refused by name), MLA's decode in both forms against its
-full-sequence apply, the models' decode and prefill against forward for
-the ``mla_*`` and ``attn_moe`` kinds, the MoE rule's picks at
-DeepSeekMoE's and DeepSeek-V3's published expert counts, shared experts,
-multi-token prediction, the parameter carrier's DeepSeek shapes, the FULL
-configs' sizes on the meta device, the serving profile of every family,
-and serve_lm on DeepSeek-V3 REDUCED.  Parity with the reference is in
-tests/test_torch_jax_parity.py; the flash kernel at MLA's head dims is
-checked on the card by tests/test_torch_cuda.py.  Tolerances are the
-reference's: MLA decode at atol 2e-5 / rtol 1e-4 (tests/test_blocks.py),
-LM logits at 1e-3 (tests/test_models_smoke.py)."""
+compile): the config registry (all ten configs ported), MLA's decode in
+both forms against its full-sequence apply, the models' decode and prefill
+against forward for the ``mla_*`` and ``attn_moe`` kinds, the MoE rule's
+picks at DeepSeekMoE's and DeepSeek-V3's published expert counts, shared
+experts, multi-token prediction, the parameter carrier's DeepSeek shapes,
+the FULL configs' sizes on the meta device, the serving profile of every
+family, and serve_lm on DeepSeek-V3 REDUCED. Parity with the reference is
+in tests/test_torch_jax_parity.py; the flash kernel at MLA's head dims is
+checked on the card by tests/test_torch_cuda.py. Tolerances are the
+reference's: MLA decode at atol 2e-5 / rtol 1e-4 (tests/test_blocks.py), LM
+logits at 1e-3 (tests/test_models_smoke.py)."""
 import torch_parity as tp  # noqa: I001  (first: pins torch to one thread)
 
 import dataclasses
@@ -41,22 +40,31 @@ def _params(cfg, seed: int = 0):
 
 
 def test_registry_ports_eight_configs_and_names_the_rest():
-    """get_config returns the eight ported architectures, FULL and
-    REDUCED, with the published widths of the five this slice adds; the
-    two left (qwen2-vl's M-RoPE, whisper's encoder-decoder) raise naming
-    their family and ROADMAP item 8."""
-    assert set(configs.PORTED) == set(configs.ARCHS) - set(configs.UNPORTED)
-    assert len(configs.PORTED) == 8
-    for name in configs.PORTED:
+    """get_config returns all ten architectures, FULL and REDUCED (the
+    name is kept from when two of them, qwen2-vl's M-RoPE and whisper's
+    encoder-decoder, still raised), each of their layer kinds with the
+    parameter carrier's shapes; the FULL widths of those two and of the
+    five DeepSeek-slice configs are the published ones."""
+    assert len(configs.ARCHS) == 10
+    for name in configs.ARCHS:
         for reduced in (False, True):
             cfg = configs.get_config(name, reduced=reduced)
             assert isinstance(cfg, lm.ModelConfig)
-            lm._require_supported(cfg)
-    for name, what in (("qwen2_vl_7b", "M-RoPE"),
-                       ("whisper_large_v3", "whisper")):
-        with pytest.raises(NotImplementedError,
-                           match=f"{what}.*ROADMAP section 1 item 8"):
-            configs.get_config(name)
+            for kind, _ in cfg.layer_groups():
+                _lm_layer_shapes(cfg, kind)
+    with pytest.raises(ValueError, match="unknown architecture"):
+        configs.get_config("whisper_tiny")
+    qwen = configs.get_config("qwen2-vl-7b")
+    assert (qwen.n_layers, qwen.d_model, qwen.n_heads, qwen.kv_heads,
+            qwen.head_dim, qwen.d_ff, qwen.vocab, qwen.mrope_sections,
+            qwen.input_mode) == (28, 3584, 28, 4, 128, 18944, 152064,
+                                 (16, 24, 24), "embeds")
+    wh = configs.get_config("whisper-large-v3")
+    assert (wh.family, wh.encoder_layers, wh.n_layers, wh.d_model,
+            wh.n_heads, wh.head_dim, wh.d_ff, wh.vocab,
+            wh.encoder_seq) == ("encdec", 32, 32, 1280, 20, 64, 5120,
+                                51866, 1500)
+    assert wh.layer_groups() == [("enc", 32), ("dec", 32)]
     moe = configs.get_config("deepseek-moe-16b")
     assert (moe.n_layers, moe.d_model, moe.n_heads, moe.head_dim, moe.d_ff,
             moe.n_experts, moe.top_k, moe.d_ff_expert, moe.n_shared_experts,
@@ -290,7 +298,7 @@ def test_serving_profile_is_flash_for_every_family_with_attention():
     """serving_profile: attn_core "flash" for every ported family but
     RWKV-6 (no attention), the recurrent kernel cores for Jamba and
     RWKV-6."""
-    for name in configs.PORTED:
+    for name in configs.ARCHS:
         cfg = configs.get_config(name, reduced=True)
         prof = serve_mod.serving_profile(cfg)
         if cfg.layer_pattern == "rwkv":

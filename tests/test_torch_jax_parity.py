@@ -32,6 +32,7 @@ from repro.kernels import ops as ROPS
 from repro_torch.core import adaptgear as TA
 from repro_torch.core import formats as TF
 from repro_torch.core import gnn as TGNN
+from repro_torch.data.pipeline import stub_batch
 from repro_torch.graphs import graph as TG
 from repro_torch.kernels import ops
 from repro_torch.weights import from_jax_params
@@ -2543,3 +2544,239 @@ def test_deepseek_v3_train_steps_match_reference():
     rcfg, tcfg, params, port = _train_pair("deepseek_v3_671b")
     _check_train_steps(rcfg, tcfg, params, port, _train_batch(rcfg, 44),
                        "deepseek_v3_671b")
+
+
+# --- Qwen2-VL's M-RoPE and Whisper's encoder-decoder -------------------------
+
+MM_ARCHS = ("qwen2_vl_7b", "whisper_large_v3")
+
+
+def _mm_batch(cfg, B: int, S: int, seed: int) -> dict:
+    """Numpy inputs of a REDUCED Qwen2-VL or Whisper step (the port's
+    stub_batch): embeds and a square image's three distinct position
+    streams, or ``encoder_seq`` encoder frames and decoder tokens;
+    labels."""
+    side = max(int((S // 2) ** 0.5), 1)
+    text = (S - side * side) // 2
+    return stub_batch(cfg, B, S, seed, image=dict(
+        text=text, rows=side, cols=side, after=S - text - side * side))
+
+
+def test_mrope_and_encoder_decoder_layers_match_reference():
+    """The pieces of the two families against the reference, float32
+    atol = rtol = 1e-5: apply_mrope at sections (2, 3, 3) / d 16 and (16,
+    24, 24) / d 128 (theta 1e6) with distinct streams and with identical
+    ones (which must also equal apply_rope), sinusoidal_positions(1500,
+    1280) and (448, 1280), the ungated GELU MLP, cross-attention through
+    kv_override (Skv != S, QKV biases), and attention_decode under M-RoPE
+    (the scalar pos on all streams) with its cache; both configs field for
+    field (FULL and REDUCED) and lm_from_jax_params' leaf sets for both
+    REDUCED configs."""
+    import dataclasses
+    from repro import configs as RC
+    from repro.layers import rope as RROPE
+    from repro.models import blocks as RB
+    from repro_torch import configs as TC
+    from repro_torch.layers import rope as TROPE
+    from repro_torch.models import blocks as TB
+    from repro_torch.tree import tree_leaves
+    tol = dict(atol=1e-5, rtol=1e-5)
+    rng = np.random.default_rng(51)
+    # eager: under jit XLA's fused power rounds the frequencies otherwise
+    for sections, d in (((2, 3, 3), 16), ((16, 24, 24), 128)):
+        x = rng.standard_normal((2, 9, 3, d)).astype(np.float32) * 3
+        distinct = rng.integers(0, 4096, (3, 2, 9)).astype(np.int32)
+        same = np.broadcast_to(distinct[:1], (3, 2, 9)).copy()
+        for pos in (distinct, same):
+            ref = RROPE.apply_mrope(jnp.asarray(x), jnp.asarray(pos),
+                                    sections, 1e6)
+            got = TROPE.apply_mrope(torch.from_numpy(x),
+                                    torch.from_numpy(pos), sections, 1e6)
+            tp.assert_close(ref, got, **tol)
+        tp.assert_close(RROPE.apply_rope(jnp.asarray(x), jnp.asarray(
+            distinct[0]), 1e6), got, **tol)
+        assert torch.equal(got, TROPE.apply_rope(
+            torch.from_numpy(x), torch.from_numpy(distinct[0]), 1e6))
+    for n in (1500, 448):
+        tp.assert_close(RROPE.sinusoidal_positions(n, 1280),
+                        TROPE.sinusoidal_positions(n, 1280), **tol)
+
+    rp = RB.init_mlp(jax.random.PRNGKey(1), 32, 80, gated=False)
+    tpm = {k: torch.from_numpy(np.array(v)) for k, v in rp.items()}
+    x = rng.standard_normal((2, 7, 32)).astype(np.float32)
+    tp.assert_close(jax.jit(lambda p, x: RB.mlp_apply(p, x, gated=False))(
+        rp, jnp.asarray(x)),
+                    TB.mlp_apply(tpm, torch.from_numpy(x), gated=False),
+                    **tol)
+
+    kw = dict(d_model=32, n_heads=4, kv_heads=2, head_dim=8, qkv_bias=True)
+    for rcfg, tcfg, cross in (
+            (RB.AttnConfig(**kw, causal=False, use_rope=False),
+             TB.AttnConfig(**kw, causal=False, use_rope=False), True),
+            (RB.AttnConfig(**kw, mrope_sections=(2, 1, 1)),
+             TB.AttnConfig(**kw, mrope_sections=(2, 1, 1)), False)):
+        rp = jax.tree.map(lambda a: a + 0.1, RB.init_attention(
+            jax.random.PRNGKey(2), rcfg))
+        tpa = {k: torch.from_numpy(np.array(v)) for k, v in rp.items()}
+        x = rng.standard_normal((2, 12, 32)).astype(np.float32)
+        if cross:
+            kv = [rng.standard_normal((2, 20, 2, 8)).astype(np.float32)
+                  for _ in range(2)]
+            pos = np.zeros((2, 12), np.int32)
+            ref = jax.jit(lambda p, x, pos, k, v: RB.attention_apply(
+                p, rcfg, x, pos, kv_override=(k, v)))(
+                    rp, jnp.asarray(x), jnp.asarray(pos),
+                    *(jnp.asarray(a) for a in kv))
+            got = TB.attention_apply(tpa, tcfg, torch.from_numpy(x),
+                                     torch.from_numpy(pos), kv_override=tuple(
+                                         torch.from_numpy(a) for a in kv))
+            tp.assert_close(ref, got, **tol)
+            continue
+        cache = {k: rng.standard_normal((2, 16, 2, 8)).astype(np.float32)
+                 for k in ("k", "v")}
+        tc = {k: torch.from_numpy(v.copy()) for k, v in cache.items()}
+        dec = jax.jit(lambda p, x, c, t: RB.attention_decode(p, rcfg, x, c,
+                                                              t))
+        for t in (5, 11):
+            ref, rc = dec(rp, jnp.asarray(x[:, t:t + 1]),
+                          {k: jnp.asarray(v) for k, v in cache.items()}, t)
+            got, tc = TB.attention_decode(tpa, tcfg,
+                                          torch.from_numpy(x[:, t:t + 1]),
+                                          tc, t)
+            tp.assert_close(ref, got, **tol)
+            cache = {k: np.asarray(v) for k, v in rc.items()}
+            for k in ("k", "v"):
+                tp.assert_close(rc[k], tc[k], **tol)
+
+    for arch in MM_ARCHS:
+        for reduced in (False, True):
+            assert dataclasses.asdict(TC.get_config(arch, reduced)) == \
+                dataclasses.asdict(RC.get_config(arch, reduced))
+        rcfg, tcfg, params, port = _lm_pair(True, arch)
+        paths = [jax.tree_util.keystr(p) for p, _ in
+                 jax.tree_util.tree_leaves_with_path(params)]
+        assert len(paths) == len(tree_leaves(port))
+        assert sorted(port) == sorted(params)
+        for (_, a), b in zip(jax.tree_util.tree_leaves_with_path(params),
+                             tree_leaves(port)):
+            tp.assert_bytes_equal(np.asarray(a), b)
+
+
+def test_mrope_and_encoder_decoder_models_match_reference():
+    """From the reference's parameters at the REDUCED configs: Qwen2-VL's
+    forward with an image's distinct position streams (32 tokens, softmax
+    core; 128 tokens under the flash core, the Pallas kernel in interpret
+    mode against the port's plain version), its prefill of 24 tokens and
+    teacher-forced decode_step to 32 (caches too); Whisper's forward (32
+    decoder tokens over 32 encoder frames; 128 under the flash core,
+    which takes the decoder's self-attention only) and 4 decode_steps from
+    init_cache; lm.loss_fn and its gradients for both.  Logits at 1e-3 (the
+    reference's prefill/decode tolerance), losses and gradients at the
+    train tolerance (float32 1e-4 / 1e-5)."""
+    import dataclasses
+    from repro.models import lm as RLM
+    from repro_torch.models import lm as TLM
+    from repro_torch.tree import tree_leaves, tree_unflatten
+    for arch in MM_ARCHS:
+        rcfg0, tcfg0, params, port = _lm_pair(True, arch)
+        for core, S in (("softmax", 32), ("flash", 128)):
+            rcfg = dataclasses.replace(rcfg0, attn_core=core)
+            tcfg = dataclasses.replace(tcfg0, attn_core=core)
+            batch = _mm_batch(rcfg, 2, S, 52)
+            jb = {k: jnp.asarray(v) for k, v in batch.items()}
+            tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+            ref, raux = jax.jit(lambda p, b: RLM.forward(p, rcfg, b))(
+                params, jb)
+            got, taux = TLM.forward(port, tcfg, tb)
+            assert tuple(got.shape) == (2, S, tcfg.padded_vocab)
+            tp.assert_close(ref, got, **LM_TOL)
+            tp.assert_close(raux["aux_loss"], taux["aux_loss"], **LM_TOL)
+            if core == "flash":
+                continue
+            (rl, rm), rg = jax.jit(jax.value_and_grad(
+                lambda p: RLM.loss_fn(p, rcfg, jb), has_aux=True))(params)
+            leaves = [t.clone().requires_grad_() for t in tree_leaves(port)]
+            tl, tm = TLM.loss_fn(tree_unflatten(port, leaves), tcfg, tb)
+            tg = torch.autograd.grad(tl, leaves, allow_unused=True,
+                                     materialize_grads=True)
+            tp.assert_close(rl, tl.detach(), **TRAIN_TOL)
+            for k in rm:
+                tp.assert_close(rm[k], tm[k].detach(), **TRAIN_TOL)
+            _assert_trees_close(rg, list(tg), f"{arch} loss_fn grads")
+
+        rcfg, tcfg = rcfg0, tcfg0
+        decode = jax.jit(lambda p, c, t, pos: RLM.decode_step(p, rcfg, c, t,
+                                                              pos))
+        batch = _mm_batch(rcfg, 2, 32, 53)
+        if rcfg.family == "encdec":
+            P, ref_c = 0, RLM.init_cache(rcfg, 2, 8)
+            got_c = TLM.init_cache(tcfg, 2, 8, device="cpu")
+            feed = batch["tokens"][:, :4]
+        else:
+            P = 24
+            pre = {"embeds": batch["embeds"][:, :P],
+                   "positions": batch["positions"][:, :, :P]}
+            ref_lg, ref_c = jax.jit(lambda p, b: RLM.prefill(
+                p, rcfg, b, s_max=32))(params, {k: jnp.asarray(v)
+                                                for k, v in pre.items()})
+            got_lg, got_c = TLM.prefill(port, tcfg, {
+                k: torch.from_numpy(v) for k, v in pre.items()}, s_max=32)
+            tp.assert_close(ref_lg, got_lg, **LM_TOL)
+            feed = batch["embeds"][:, P:]
+        for i in range(feed.shape[1]):
+            ref_lg, ref_tok, ref_c = decode(params, ref_c, jnp.asarray(
+                feed[:, i:i + 1]), P + i)
+            got_lg, got_tok, got_c = TLM.decode_step(
+                port, tcfg, got_c, torch.from_numpy(feed[:, i:i + 1]), P + i)
+            tp.assert_close(ref_lg, got_lg, **LM_TOL)
+            np.testing.assert_array_equal(np.asarray(ref_tok),
+                                          got_tok.numpy())
+        _assert_trees_close(ref_c, got_c, f"{arch} caches", **LM_TOL)
+
+
+@pytest.mark.parametrize("arch", MM_ARCHS)
+def test_mrope_and_encoder_decoder_train_steps_match_reference(arch):
+    """make_train_step on Qwen2-VL REDUCED (embeds, an image's distinct
+    position streams) and Whisper REDUCED (32 encoder frames, 32 decoder
+    tokens) for 3 steps against the reference's jitted step from its
+    parameters: losses, metrics, gradients and v at the LM train-step
+    tolerances (tp.TRAIN_TOL, float32 1e-4 / 1e-5), params within
+    tp.AdamSlack."""
+    rcfg, tcfg, params, port = _train_pair(arch)
+    _check_train_steps(rcfg, tcfg, params, port, _mm_batch(rcfg, 4, 32, 54),
+                       arch, steps=3)
+
+
+@pytest.mark.parametrize("change", tp.MODEL_CHANGES)
+def test_model_changes_match_reference(change):
+    """tests/test_torch_lm.py's config changes (whisper's encoder-decoder,
+    encoder_seq, M-RoPE, beside MoE, MLA and MTP fields) from the
+    reference's parameters: forward logits and aux loss against the
+    reference's at 1e-3 (tests/test_torch_lm.py holds the port's decode
+    against its forward).  The case whose shared experts are 0 wide raises
+    ZeroDivisionError in both."""
+    import dataclasses
+    from repro import configs as RC
+    from repro.models import lm as RLM
+    from repro_torch import configs as TC
+    from repro_torch.models import lm as TLM
+    from repro_torch.weights import lm_from_jax_params
+    rcfg = dataclasses.replace(RC.get_config(LM_ARCH, reduced=True), **change)
+    tcfg = dataclasses.replace(TC.get_config(LM_ARCH, reduced=True), **change)
+    if rcfg.n_shared_experts and not rcfg.d_ff_expert:
+        with pytest.raises(ZeroDivisionError):
+            RLM.init_params(jax.random.PRNGKey(0), rcfg)
+        with pytest.raises(ZeroDivisionError):
+            TLM.init_params(TLM.make_generator(0, "cpu"), tcfg)
+        return
+    params = jax.jit(RLM.init_params, static_argnums=1)(
+        jax.random.PRNGKey(0), rcfg)
+    port = lm_from_jax_params(jax.tree.map(np.asarray, params), tcfg,
+                              device="cpu")
+    batch = tp.model_change_batch(rcfg, 2, 8, 1)
+    ref, raux = jax.jit(lambda p, b: RLM.forward(p, rcfg, b))(
+        params, {k: jnp.asarray(v) for k, v in batch.items()})
+    got, taux = TLM.forward(port, tcfg, {k: torch.from_numpy(v)
+                                         for k, v in batch.items()})
+    tp.assert_close(ref, got, **LM_TOL)
+    tp.assert_close(raux["aux_loss"], taux["aux_loss"], **LM_TOL)

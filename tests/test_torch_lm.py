@@ -78,11 +78,11 @@ def test_configs_registry():
     assert configs.get_config("internlm2-1.8b", reduced=True) is CFG
     assert CFG.layer_groups() == [("attn_mlp", 3)]
     assert configs.canonical("qwen2.5-14b") == "qwen2_5_14b"
-    assert set(configs.PORTED) <= set(configs.ARCHS)
     for name in configs.ARCHS:
-        if name not in configs.PORTED:
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                configs.get_config(name)
+        full_name = configs.get_config(name).name
+        assert configs.canonical(full_name) == name
+        assert configs.get_config(name, reduced=True).name == (
+            full_name + "-smoke")
     with pytest.raises(ValueError):
         configs.get_config("gpt5")
     assert configs.shape_applicable(full, "prefill_32k") == (True, "")
@@ -90,27 +90,40 @@ def test_configs_registry():
     assert not ok and why
 
 
-# what is still unported (whisper's encoder-decoder and the field only it
-# reads, qwen2-vl's M-RoPE), alone and beside the ported MoE, MLA and MTP
-# fields, which must not make it pass
-@pytest.mark.parametrize("change", [
-    dict(family="encdec", encoder_layers=2),
-    dict(family="encdec", encoder_layers=1, n_experts=4, top_k=2),
-    dict(family="encdec", encoder_layers=2, attn_type="mla"),
-    dict(mrope_sections=(2, 3, 3)),
-    dict(mrope_sections=(4, 2, 2), n_experts=4, top_k=2),
-    dict(mrope_sections=(2, 3, 3), n_experts=4, top_k=2,
-         n_shared_experts=2),
-    dict(encoder_seq=100),
-    dict(encoder_seq=3000, attn_type="mla"),
-    dict(encoder_seq=750, mtp=True),
-    dict(encoder_seq=1, n_experts=4, top_k=2, first_k_dense=1)])
+@pytest.mark.parametrize("change", tp.MODEL_CHANGES)
 def test_unported_model_kinds_raise(change):
+    """The config changes that reach whisper's encoder-decoder, its
+    ``encoder_seq`` and qwen2-vl's M-RoPE (they raised while those were
+    unported; the name is kept) now build: params and a decode cache
+    (None for an encoder group, cross_k / cross_v of encoder_seq frames
+    per decoder layer), a finite forward of the expected shape, and one
+    decode step from the zero cache whose logits equal the forward's first
+    position for a decoder-only model (1e-3).  Shared experts with
+    InternLM2's d_ff_expert of 0 are (0, d) weights, whose LeCun scale
+    divides by zero in both packages, so that case raises
+    ZeroDivisionError as the reference does.  The reference's results are
+    in tests/test_torch_jax_parity.py."""
     cfg = dataclasses.replace(CFG, **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lm.init_params(lm.make_generator(0, "cpu"), cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lm.init_cache(cfg, 1, 8, device="cpu")
+    if cfg.n_shared_experts and not cfg.d_ff_expert:
+        with pytest.raises(ZeroDivisionError):
+            lm.init_params(lm.make_generator(0, "cpu"), cfg)
+        return
+    params = lm.init_params(lm.make_generator(0, "cpu"), cfg)
+    caches = lm.init_cache(cfg, 2, 8, device="cpu")
+    batch = {k: torch.from_numpy(v)
+             for k, v in tp.model_change_batch(cfg, 2, 8, 1).items()}
+    logits, aux = lm.forward(params, cfg, batch)
+    assert logits.shape == (2, 8, cfg.padded_vocab)
+    assert bool(torch.isfinite(logits).all())
+    assert bool(torch.isfinite(aux["aux_loss"]))
+    lg, tok, _ = lm.decode_step(params, cfg, caches, batch["tokens"][:, :1],
+                                0)
+    assert lg.shape == (2, 1, cfg.padded_vocab) and tok.shape == (2, 1)
+    if cfg.family == "encdec":
+        assert caches[0] is None
+        assert caches[1]["cross_k"].shape[2] == cfg.encoder_seq
+    else:
+        tp.assert_close(logits[:, :1], lg, atol=1e-3, rtol=1e-3)
 
 
 def test_layer_primitives_against_numpy():

@@ -23,6 +23,35 @@ CPU = torch.device("cpu")
 # the reference's float32 kernel tolerance (tests/test_fused.py)
 F32_TOL = dict(atol=1e-4, rtol=1e-4)
 
+# changes to InternLM2's REDUCED config that reach whisper's
+# encoder-decoder, its ``encoder_seq`` and qwen2-vl's M-RoPE, alone and
+# beside the MoE, MLA and MTP fields (the cases that raised while those
+# families were unported: tests/test_torch_lm.py and
+# tests/test_torch_jax_parity.py run each)
+MODEL_CHANGES = [
+    dict(family="encdec", encoder_layers=2),
+    dict(family="encdec", encoder_layers=1, n_experts=4, top_k=2),
+    dict(family="encdec", encoder_layers=2, attn_type="mla"),
+    dict(mrope_sections=(2, 3, 3)),
+    dict(mrope_sections=(4, 2, 2), n_experts=4, top_k=2),
+    dict(mrope_sections=(2, 3, 3), n_experts=4, top_k=2,
+         n_shared_experts=2),
+    dict(encoder_seq=100),
+    dict(encoder_seq=3000, attn_type="mla"),
+    dict(encoder_seq=750, mtp=True),
+    dict(encoder_seq=1, n_experts=4, top_k=2, first_k_dense=1)]
+
+
+def model_change_batch(cfg, B: int, S: int, seed: int) -> dict:
+    """Numpy inputs for a MODEL_CHANGES config: tokens (B, S), and for an
+    encoder-decoder model 24 encoder frames (B, 24, d)."""
+    rng = np.random.default_rng(seed)
+    out = dict(tokens=rng.integers(0, cfg.vocab, (B, S)).astype(np.int32))
+    if cfg.family == "encdec":
+        out["enc_embeds"] = rng.standard_normal(
+            (B, 24, cfg.d_model)).astype(np.float32)
+    return out
+
 
 def assert_bytes_equal(ref, port) -> None:
     """Same dtype, shape and bytes (numpy, JAX or torch arrays)."""
