@@ -394,6 +394,19 @@ Phases, each of which raises (exit code != 0) on failure:
    (0 launches) within F32_TOL.  For each: prefill ms and tokens/s,
    decode ms a token, device-busy shares (kernel events checked) and peak
    memory, beside the card's name and power limit;
+7h. the mesh tools ([mesh]): while MESH_WORKERS spawned processes run
+   launch/dryrun.py's grid (every (arch x shape) cell on the abstract
+   16 x 16 mesh, on meta tensors: FLOPs, bytes, fallback notes; any
+   FAILED cell fails the run) and count InternLM2-1.8B FULL's train step
+   at [lm_train]'s shape, the spec trees of the ten FULL configs resolve
+   on 16 x 16 and 2 x 16 x 16; launch/train.py on host_local_mesh("cuda")
+   (InternLM2 REDUCED, flash core, 2 x 128) equals the run without a mesh
+   bit for bit with 6 flash launches a step; a mesh run crashed and
+   resumed through the elastic protocol (plan_rescale, make_mesh,
+   restore(shardings=)) equals the uninterrupted run bit for bit; a mesh
+   larger than the card count and placing on an abstract mesh raise; the
+   [lm_train] step's dry-run FLOPs over its median ms, as TFLOP/s and a
+   share of the dense bf16 peak, beside the card's name and power limit;
 8. timing: median forward times (acc off and on) and training-step times
    (CUDA events, host launch included; GCN's unfused and feedback plans
    also with acc off, the SAGE, GIN, GAT and 4-bucket GCN plans), each
@@ -912,6 +925,19 @@ MM_TRAIN_REDUCED = {QWEN_ARCH: (dict(attn_core="flash"),
                                 dict(flash_attention=2 * 3)),
                     WHISPER_ARCH: (dict(attn_core="flash"),
                                    dict(flash_attention=2 * 2))}
+
+# The mesh tools ([mesh]): launch/train.py on a one-device mesh at
+# InternLM2-1.8B REDUCED in float32 under the flash core, at
+# [lm_train_reduced]'s batch and sequence (2 x 128, so the kernel runs),
+# against the same run without use_mesh= and through the elastic protocol
+# (a crash before step MESH_CRASH_AT, checkpointed at it); 2 flash launches
+# a layer a step (forward and remat recompute), 3 layers
+MESH_TRAIN = dict(steps=6, seq=128, global_batch=2)
+MESH_CRASH_AT = 3
+MESH_FLASH_PER_STEP = 2 * 3
+# spawned processes for the dry-run grid (host work; the machine has 8
+# cores and the main process trains beside them)
+MESH_WORKERS = 6
 
 # (Fi, Fo) of the main path's fused kernels: layer 1, layer 2, and layer
 # 2's dX pass over the transpose with W^T
@@ -6718,6 +6744,222 @@ def phase_whisper(torch, counts: dict, card: str) -> dict:
                             batch_fn)
 
 
+def phase_mesh(torch, counts: dict, card: str, lm_train: dict) -> dict:
+    """The mesh tools on one card.  The dry-run grid (every (arch x shape)
+    cell of configs.ARCHS x configs.SHAPES on the abstract 16 x 16 mesh,
+    launch/dryrun.py on meta tensors) and the count of InternLM2-1.8B
+    FULL's train step at [lm_train]'s shape run on MESH_WORKERS spawned
+    processes while this process does (a) the spec trees: every FULL
+    config's params and decode_32k caches resolved on the abstract 16 x 16
+    and 2 x 16 x 16 meshes, fallback notes counted; (b) launch/train.py on
+    host_local_mesh("cuda") (InternLM2 REDUCED, flash core, MESH_TRAIN),
+    losses and params equal to the same run without use_mesh= bit for bit
+    (deterministic algorithms), MESH_FLASH_PER_STEP flash launches a step;
+    (c) the elastic protocol: a mesh run crashed before step MESH_CRASH_AT
+    (checkpointed there), plan_rescale(1, 1, global batch), make_mesh of
+    its shape on the card, and train(use_mesh=) resumed (its restore places
+    every leaf through the new mesh's shardings): the uninterrupted run's
+    losses and params bit for bit; a mesh of more devices than the card
+    count and placing onto the abstract mesh raise.  Then (d) the grid's
+    ok / skipped / FAILED counts and each cell's flops and bytes (any
+    FAILED cell fails the phase) and (e) the dry-run's FLOPs of the
+    [lm_train] step over its measured median ms: TFLOP/s and the share of
+    the card's dense bf16 peak, beside the card's name and power limit."""
+    import dataclasses
+    import tempfile
+    import threading
+    from repro_torch import configs
+    from repro_torch.data import pipeline as data_mod
+    from repro_torch.distributed import SimulatedCrash, elastic
+    from repro_torch.launch import dryrun, sharding, specs
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch.train import train
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_leaves
+    t_phase = time.perf_counter()
+    single = mesh_mod.make_production_mesh()
+    meshes = (single, mesh_mod.make_production_mesh(multi_pod=True))
+    lm_cfg = dataclasses.replace(configs.get_config(LM_ARCH),
+                                 remat=LM_TRAIN_PROFILE["remat"])
+    grid: dict = {}
+
+    def run_grid(pool):
+        try:
+            grid["results"] = dryrun.run(configs.ARCHS, list(configs.SHAPES),
+                                         [single], pool=pool, verbose=False)
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            grid["error"] = e
+
+    pool = dryrun.spawn_pool(MESH_WORKERS)
+    try:
+        # the [lm_train] count first: the grid's longest cells follow it
+        e_future = pool.submit(dryrun.count_step, lm_cfg, "train",
+                               LM_TRAIN["seq"], LM_TRAIN["global_batch"],
+                               accum=LM_TRAIN["accum"])
+        runner = threading.Thread(target=run_grid, args=(pool,),
+                                  name="mesh-dryrun")
+        runner.start()
+
+        # (a) spec trees and shardings on the abstract meshes
+        t0 = time.perf_counter()
+        notes = {}
+        dec = configs.SHAPES["decode_32k"]
+        for arch in configs.ARCHS:
+            cfg = configs.get_config(arch)
+            trees = ((specs.params_shapes(cfg), lm.param_specs(cfg)),
+                     (specs.decode_specs(cfg, dec["seq"], dec["batch"])[0],
+                      lm.cache_specs(cfg)))
+            for m in meshes:
+                rules = sharding.default_rules(m)
+                got = []
+                for shapes, logical in trees:
+                    shard = sharding.tree_shardings(shapes, logical, m, rules)
+                    # one sharding a leaf, and one (replicated) for a
+                    # cache group that has none (whisper's encoder)
+                    n = len(tree_leaves(shapes, lambda t: t is None))
+                    if len(tree_leaves(shard)) != n:
+                        raise RuntimeError(f"{arch} on {m}: "
+                                           f"{len(tree_leaves(shard))} "
+                                           f"shardings for {n} leaves")
+                    got.append(len(sharding.count_unsharded_fallbacks(
+                        shapes, logical, m, rules)))
+                notes[f"{arch} {'x'.join(map(str, m.shape.values()))}"] = \
+                    tuple(got)
+        log("mesh", f"(a) spec trees of the 10 FULL configs (params, "
+            f"decode_32k caches) resolved on 16x16 and 2x16x16 in "
+            f"{time.perf_counter() - t0:.2f} s; fallback notes (params, "
+            f"caches): {notes}")
+
+        # (b) launch/train.py on a one-card mesh against the plain run
+        def run_train(**kw):
+            for c in counts.values():
+                c.reset()
+            res = train(LM_ARCH, reduced=True, device="cuda",
+                        overrides=dict(attn_core="flash"), verbose=False,
+                        **dict(MESH_TRAIN, **kw))
+            torch.cuda.synchronize()
+            return res, {k: c.value for k, c in counts.items() if c.value}
+
+        def same(a, b, what: str) -> None:
+            if a["losses"] != b["losses"] or not all(
+                    torch.equal(x, y) for x, y in zip(
+                        tree_leaves(a["params"]), tree_leaves(b["params"]))):
+                raise RuntimeError(f"{what}: losses {b['losses']} against "
+                                   f"{a['losses']}, or params differ")
+
+        t0 = time.perf_counter()
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            plain, _ = run_train()
+            one = mesh_mod.host_local_mesh("cuda")
+            on_mesh, launches = run_train(use_mesh=one)
+            want = dict(flash_attention=MESH_FLASH_PER_STEP
+                        * MESH_TRAIN["steps"])
+            if launches != want:
+                raise RuntimeError(f"train on {one} launched {launches}, "
+                                   f"expected {want}")
+            same(plain, on_mesh, f"train(use_mesh={one})")
+            log("mesh", f"(b) launch/train.py, {LM_ARCH} REDUCED float32 "
+                f"flash, {MESH_TRAIN}, on {one}: losses {on_mesh['losses']}"
+                f" = the run without use_mesh= bit for bit, params equal; "
+                f"launches {launches}")
+
+            # (c) the elastic protocol
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as d:
+                real = data_mod.TokenPipeline.batch
+
+                def crash(self, step, shard=0):
+                    if step == MESH_CRASH_AT:
+                        raise SimulatedCrash(f"crash before step "
+                                             f"{MESH_CRASH_AT}")
+                    return real(self, step, shard)
+
+                data_mod.TokenPipeline.batch = crash
+                try:
+                    run_train(use_mesh=one, ckpt_dir=d,
+                              ckpt_every=MESH_CRASH_AT)
+                    raise RuntimeError("the crash did not happen")
+                except SimulatedCrash:
+                    pass
+                finally:
+                    data_mod.TokenPipeline.batch = real
+                plan = elastic.plan_rescale(1, 1, MESH_TRAIN["global_batch"])
+                new = mesh_mod.make_mesh(plan["mesh_shape"],
+                                         plan["mesh_axes"], "cuda")
+                resumed, r_launches = run_train(
+                    use_mesh=new, ckpt_dir=d, ckpt_every=MESH_CRASH_AT,
+                    global_batch=plan["global_batch"])
+            n_left = MESH_TRAIN["steps"] - MESH_CRASH_AT
+            if r_launches != dict(flash_attention=MESH_FLASH_PER_STEP
+                                  * n_left):
+                raise RuntimeError(f"the resumed run launched {r_launches}")
+            same(dict(on_mesh, losses=on_mesh["losses"][MESH_CRASH_AT:]),
+                 resumed, "the elastic resume")
+        finally:
+            torch.use_deterministic_algorithms(False)
+        n_dev = torch.cuda.device_count()
+        refused = []
+        for what, fn in (
+                (f"make_mesh(({n_dev + 1}, 1))", lambda: mesh_mod.make_mesh(
+                    (n_dev + 1, 1), ("data", "model"), "cuda")),
+                ("placing on the abstract 16x16 mesh",
+                 lambda: sharding.NamedSharding(single, sharding.P()).place(
+                     torch.zeros(1, device="cuda")))):
+            try:
+                fn()
+            except ValueError as e:
+                refused.append(f"{what}: {e}")
+            else:
+                raise RuntimeError(f"{what} did not raise")
+        log("mesh", f"(c) crash before step {MESH_CRASH_AT}, plan "
+            f"{plan}, resumed on {new}: losses {resumed['losses']} = the "
+            f"uninterrupted run's bit for bit, params equal, launches "
+            f"{r_launches}; raised: {refused}; (b) and (c) "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        runner.join()
+        if "error" in grid:
+            raise grid["error"]
+        e = e_future.result()
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+    # (d) the dry-run grid
+    results = grid["results"]
+    n_ok, n_skip, n_fail = dryrun.summary(results)
+    for r in results:
+        if r["status"] == "ok":
+            log("mesh", f"(d) {r['arch']} {r['shape']} {r['mesh']}: flops "
+                f"{r['flops']} bytes_accessed {r['bytes_accessed']} ops "
+                f"{r['ops']} notes {r['fallback_notes']} trace "
+                f"{r['trace_s']:.2f} s")
+        elif r["status"] == "FAILED":
+            log("mesh", f"(d) FAILED {r['arch']} {r['shape']}: "
+                f"{r['error'][:500]}")
+    log("mesh", f"(d) dry-run grid on {single}: {n_ok} ok / {n_skip} "
+        f"skipped / {n_fail} FAILED")
+    if n_fail or not n_ok:
+        raise RuntimeError(f"the dry-run grid has {n_fail} FAILED cells")
+
+    # (e) the [lm_train] step's model FLOPs over its measured time
+    ms = lm_train["median_ms"]
+    rate = e["flops"] / (ms / 1e3)
+    share = rate / PEAK_OPS_PER_S["bfloat16"]
+    log("mesh", f"(e) {card}: InternLM2-1.8B FULL train step at "
+        f"[lm_train]'s shape ({LM_TRAIN}, remat "
+        f"{LM_TRAIN_PROFILE['remat']!r}): dry-run {e['flops']} FLOPs (plain "
+        f"cores, the remat recompute included), {e['bytes_accessed']} "
+        f"bytes, {e['ops']} ops; [lm_train] median {ms:.1f} ms -> "
+        f"{rate / 1e12:.2f} TFLOP/s, {100 * share:.2f} % of "
+        f"{PEAK_OPS_PER_S['bfloat16'] / 1e12:.0f} TFLOP/s dense bf16")
+    log("mesh", f"{time.perf_counter() - t_phase:.1f} s in all")
+    return dict(launches={k: launches.get(k, 0) + r_launches.get(k, 0)
+                          for k in counts},
+                per_step=dict(flash_attention=MESH_FLASH_PER_STEP),
+                notes=notes, grid=(n_ok, n_skip, n_fail),
+                lm_train_flops=e["flops"], tflops=rate / 1e12, share=share)
+
+
 SPIN_CYCLES = 2_000_000
 SPIN_KERNEL = "spin_kernel"
 
@@ -6969,6 +7211,10 @@ def main() -> int:
     mmr = phase_mm_reduced(torch, counts)
     qv = phase_qwen2_vl(torch, counts, card)
     wh = phase_whisper(torch, counts, card)
+    # 7h. the mesh tools: spec trees, launch/train.py on a one-card mesh,
+    # the elastic resume, the meta-tensor dry-run grid
+    torch.cuda.empty_cache()
+    msh = phase_mesh(torch, counts, card, ltf)
     by_path = {"forward": launches_fwd, "train": trained["launches"],
                "feedback": fb["launches"], "sage_train": sage["launches"],
                "sage_feedback": sfb["launches"],
@@ -7013,6 +7259,7 @@ def main() -> int:
                                     ("cache_prefill", "prefill_launches"),
                                     ("decode", "decode_launches"))},
                **{f"mm_reduced_{k}": v for k, v in mmr["launches"].items()},
+               "mesh_train_f32": msh["launches"],
                **{f"{name}_{what}": res[key]
                   for name, res in (("qwen2_vl", qv), ("whisper", wh))
                   for what, key in (
@@ -7238,7 +7485,8 @@ def main() -> int:
                     **{f"train_step_reduced_{a}": w for a, (_, w) in
                        (LM_TRAIN_REDUCED | MM_TRAIN_REDUCED).items()},
                     qwen2_vl_prefill_step=qv["launches"],
-                    whisper_prefill_step=wh["launches"])
+                    whisper_prefill_step=wh["launches"],
+                    mesh_train_step=msh["per_step"])
     out = []
     for name, meta in KERNELS.items():
         key = ROW_KEY.get(name, "500x16")
@@ -7337,7 +7585,10 @@ def main() -> int:
         f"{wh['spread']}, float32 {wh['f32_errs']}, prefill ms "
         f"{wh['prefill_ms']}, decode {wh['decode_ms']:.3f} ms/token, busy "
         f"{wh['busy']}, peaks init {wh['init_peak_gb']:.2f} / step "
-        f"{wh['step_peak_gb']:.2f} GB")
+        f"{wh['step_peak_gb']:.2f} GB; mesh: dry-run grid (ok, skipped, "
+        f"FAILED) {msh['grid']}, InternLM2 train step "
+        f"{msh['lm_train_flops']} FLOPs, {msh['tflops']:.2f} TFLOP/s "
+        f"({100 * msh['share']:.2f} % of dense bf16 peak, {card})")
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

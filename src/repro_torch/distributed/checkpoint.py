@@ -25,8 +25,9 @@ A bfloat16 tensor is stored as float32 (numpy has no bfloat16).  Keys are the re
 dict keys in sorted order (``jax.tree_util.tree_flatten_with_path``'s).
 A Python int leaf is stored as an int32 scalar, as the reference stores
 its Adam step count.  ``restore`` places the arrays on ``device`` in the
-dtypes of the tree it is given; the reference's ``shardings=`` (its
-elastic re-mesh path) is not ported.
+dtypes of the tree it is given, or with ``shardings=`` (the elastic
+re-mesh path, ``distributed/elastic.py``) each through its
+``launch.sharding.NamedSharding``.
 """
 from __future__ import annotations
 
@@ -226,14 +227,20 @@ class CheckpointManager:
     def restore(self, tree_like: Any, step: int | None = None,
                 device: str | torch.device = DEFAULT_DEVICE,
                 shardings: Any = None) -> tuple[Any, int]:
-        """Restore into the structure of ``tree_like``: tensor leaves on
-        ``device`` in their dtypes, Python numbers as their type."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restore(shardings=...) (the elastic re-mesh path, "
-                "distributed/elastic.py) is not ported yet: ROADMAP "
-                "section 1 item 8")
-        dev = resolve_device(device)
+        """Restore into the structure of ``tree_like``: tensor leaves in
+        their dtypes on ``device`` or, with ``shardings`` (a tree of
+        ``NamedSharding`` matching ``tree_like`` leaf for leaf), each
+        placed through its sharding (``NamedSharding.place``, which raises
+        where it cannot place); Python numbers as their type."""
+        if shardings is None:
+            dev = resolve_device(device)
+            place = None
+        else:
+            place = dict(_flatten_with_paths(shardings))
+            keys = {k for k, _ in _flatten_with_paths(tree_like)}
+            if set(place) != keys:
+                raise ValueError("shardings and the tree differ at the "
+                                 f"leaves {sorted(set(place) ^ keys)}")
         step = self._step_or_latest(step)
         d = os.path.join(self.dir, f"step_{step:012d}")
         with np.load(os.path.join(d, "arrays.npz")) as data:
@@ -245,6 +252,9 @@ class CheckpointManager:
                     raise ValueError(f"checkpoint {key!r}: shape "
                                      f"{arr.shape}, expected {shape}")
                 if isinstance(like, torch.Tensor):
+                    if place is not None:
+                        return place[key].place(
+                            torch.from_numpy(arr).to(like.dtype))
                     return torch.from_numpy(arr).to(dev, like.dtype)
                 if isinstance(like, np.ndarray):
                     return arr.astype(like.dtype)

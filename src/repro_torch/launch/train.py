@@ -7,10 +7,16 @@ gradient compression and accumulation), crash-safe checkpoints of
 latest valid one (``distributed/checkpoint.py``), and straggler monitoring
 (``distributed/fault_tolerance.py``).
 
-It runs on one device and has no mesh: the reference's
-``launch/mesh.py``, ``sharding.py``, ``specs.py`` and ``lm.param_specs``
-(its parameter shardings) and the elastic re-mesh stay queued under
-ROADMAP section 1 item 8.
+The parameters and optimizer state are placed through their shardings
+on a mesh (``use_mesh``, by default ``launch/mesh.host_local_mesh`` of
+``device``): ``sharding.tree_shardings`` of ``lm.param_specs`` under
+``default_rules``, as the reference places them.  The port's meshes
+place on one device (``launch/mesh.py``), so the losses are those of the
+same run without a mesh.  A resume restores the checkpoint onto the
+mesh's shardings (``CheckpointManager.restore(shardings=)``): the
+elastic re-mesh of ``distributed/elastic.py`` is ``plan_rescale``, a
+``mesh.make_mesh`` of its shape, and a resumed ``train(use_mesh=...)``
+with its global batch.
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --steps 50 --seq 64 --batch 8 --ckpt-dir /tmp/ckpt
@@ -43,9 +49,12 @@ from repro_torch.data import pipeline as data_mod
 from repro_torch.distributed import checkpoint as ckpt_mod
 from repro_torch.distributed import compression
 from repro_torch.distributed import fault_tolerance as ft
+from repro_torch.launch import mesh as mesh_mod
+from repro_torch.launch import sharding
 from repro_torch.models import lm
 from repro_torch.optim import adamw
 from repro_torch.train import steps as steps_mod
+from repro_torch.tree import tree_leaves
 
 
 def train(arch: str, *, reduced: bool = True, steps: int = 20, seq: int = 64,
@@ -53,16 +62,21 @@ def train(arch: str, *, reduced: bool = True, steps: int = 20, seq: int = 64,
           ckpt_dir: str | None = None, ckpt_every: int = 10,
           grad_compression: str = "none", seed: int = 0,
           device: str | torch.device = DEFAULT_DEVICE,
-          overrides: dict | None = None, verbose: bool = True) -> dict:
+          overrides: dict | None = None, use_mesh=None,
+          verbose: bool = True) -> dict:
     """Trains ``arch`` (config fields replaced by ``overrides``) for
-    ``steps`` steps on ``device`` from parameters drawn on it from
-    ``seed``; with ``ckpt_dir`` resumes from its latest valid checkpoint
-    and saves every ``ckpt_every`` steps.  Returns the losses of the steps
-    run, the final loss, the params and the stragglers."""
+    ``steps`` steps from parameters drawn on ``device`` from ``seed`` and
+    placed on ``use_mesh`` (default: ``host_local_mesh(device)``), on the
+    mesh's device; with ``ckpt_dir`` resumes from its latest valid
+    checkpoint, restored onto the mesh's shardings, and saves every
+    ``ckpt_every`` steps.  Returns the losses of the steps run, the final
+    loss, the params and the stragglers."""
     dev = resolve_device(device)
     cfg = configs.get_config(arch, reduced=reduced)
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
+    mesh = use_mesh if use_mesh is not None else mesh_mod.host_local_mesh(dev)
+    rules = sharding.default_rules(mesh)
 
     pipe = data_mod.pipeline_for(cfg, seq, global_batch, seed=seed)
     opt_cfg = adamw.OptConfig(lr=lr, warmup_steps=max(steps // 10, 1),
@@ -71,9 +85,15 @@ def train(arch: str, *, reduced: bool = True, steps: int = 20, seq: int = 64,
                                         grad_compression=grad_compression)
 
     params = lm.init_params(lm.make_generator(seed, dev), cfg)
+    logical = lm.param_specs(cfg)
+    pshard = sharding.tree_shardings(params, logical, mesh, rules)
+    params = sharding.place_tree(params, pshard)
+    run_dev = tree_leaves(params)[0].device
     opt_state = adamw.init_state(params)
+    opt_logical = adamw.state_specs(logical)
     if grad_compression == "topk_ef":
         opt_state["ef"] = compression.init_error_feedback(params)
+        opt_logical["ef"] = logical
 
     start_step = 0
     mgr = None
@@ -81,16 +101,19 @@ def train(arch: str, *, reduced: bool = True, steps: int = 20, seq: int = 64,
         mgr = ckpt_mod.CheckpointManager(ckpt_dir)
         latest = mgr.latest_valid_step()
         if latest is not None:
+            oshard = sharding.tree_shardings(opt_state, opt_logical, mesh,
+                                             rules)
             (params, opt_state), start_step = mgr.restore(
-                (params, opt_state), latest, device=dev)
+                (params, opt_state), latest, shardings=(pshard, oshard))
             if verbose:
-                print(f"restored checkpoint at step {start_step}")
+                print(f"restored checkpoint at step {start_step} onto "
+                      f"{mesh}")
 
     monitor = ft.StragglerDetector()
     losses = []
     try:
         for i in range(start_step, steps):
-            batch = {k: torch.from_numpy(v).to(dev)
+            batch = {k: torch.from_numpy(v).to(run_dev)
                      for k, v in pipe.batch(i).items()}
             t0 = time.perf_counter()
             params, opt_state, metrics = step_fn(params, opt_state, batch)

@@ -5,10 +5,13 @@ SSM), and RWKV-6's time-mix and channel-mix.
 
 Counterpart of ``repro/models/blocks.py``.  Every block provides
 ``init_X(gen, ...)`` (params as a dict of tensors on the generator's
-device), ``X_apply(params, x, ...)`` (full sequence) and, where relevant,
-``X_decode(params, x, cache, pos)``.  Attention takes RoPE or M-RoPE
-(Qwen2-VL) and whisper's cross-attention (``kv_override``); the dense FFN
-is gated SiLU or whisper's ungated GELU.
+device), ``spec_X(cfg)`` (the same dict of each leaf's logical axes, a
+tuple of names or None per dim, which ``launch/sharding.py`` resolves to
+mesh axes), ``X_apply(params, x, ...)`` (full sequence) and, where
+relevant, ``X_decode(params, x, cache, pos)`` with ``spec_X_cache``.
+Attention takes RoPE or M-RoPE (Qwen2-VL) and whisper's cross-attention
+(``kv_override``); the dense FFN is gated SiLU or whisper's ungated
+GELU.
 
 Matmul-heavy math runs in the model dtype with float32 accumulation;
 softmax and norm statistics run in float32.
@@ -92,6 +95,16 @@ def init_attention(gen: torch.Generator, cfg: AttnConfig,
         for name, n in (("bq", H * dh), ("bk", KV * dh), ("bv", KV * dh)):
             p[name] = torch.zeros((n,), dtype=dtype, device=gen.device)
     return p
+
+
+def spec_attention(cfg: AttnConfig) -> dict:
+    """Logical axes of ``init_attention``'s leaves (``launch/sharding.py``
+    resolves them to mesh axes)."""
+    s = dict(wq=("embed", "qkv"), wk=("embed", "kv"), wv=("embed", "kv"),
+             wo=("qkv", "embed"))
+    if cfg.qkv_bias:
+        s.update(bq=("qkv",), bk=("kv",), bv=("kv",))
+    return s
 
 
 def _qkv(params, cfg: AttnConfig, x, positions):
@@ -189,6 +202,11 @@ def init_attn_cache(cfg: AttnConfig, batch: int, s_max: int,
                 v=torch.zeros(shp, dtype=dtype, device=device))
 
 
+def spec_attn_cache(cfg: AttnConfig) -> dict:
+    return dict(k=("batch", "kv_seq", "kv", None),
+                v=("batch", "kv_seq", "kv", None))
+
+
 # ---------------------------------------------------------------------------
 # MLA: multi-head latent attention (DeepSeek-V2/V3)
 # ---------------------------------------------------------------------------
@@ -224,6 +242,12 @@ def init_mla(gen: torch.Generator, cfg: MLAConfig,
                            H * (cfg.qk_nope_dim + cfg.v_dim)), dtype),
         wo=_dense(gen, (H * cfg.v_dim, cfg.d_model), dtype),
     )
+
+
+def spec_mla(cfg: MLAConfig) -> dict:
+    return dict(wq_a=("embed", None), q_norm=(None,), wq_b=(None, "qkv"),
+                wkv_a=("embed", None), kv_norm=(None,), wkv_b=(None, "qkv"),
+                wo=("qkv", "embed"))
 
 
 def _mla_qkv(params, cfg: MLAConfig, x, positions):
@@ -301,6 +325,11 @@ def init_mla_cache(cfg: MLAConfig, batch: int, s_max: int,
                                    dtype=dtype, device=device))
 
 
+def spec_mla_cache(cfg: MLAConfig) -> dict:
+    return dict(c_kv=("batch", "kv_seq", None),
+                k_rope=("batch", "kv_seq", None))
+
+
 def mla_decode(params, cfg: MLAConfig, x, cache, pos: int,
                absorbed: bool = False):
     """Single-step MLA decode against the latent cache {c_kv (B, Smax,
@@ -357,6 +386,13 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int,
     return p
 
 
+def spec_mlp(gated: bool = True) -> dict:
+    s = dict(w_up=("embed", "mlp"), w_down=("mlp", "embed"))
+    if gated:
+        s["w_gate"] = ("embed", "mlp")
+    return s
+
+
 def mlp_apply(params, x, gated: bool = True):
     """silu(x w_gate) * (x w_up), or ungated gelu(x w_up) in the tanh form
     (``jax.nn.gelu``'s default), then w_down."""
@@ -406,6 +442,16 @@ def init_moe(gen: torch.Generator, cfg: MoEConfig,
     if cfg.n_shared:
         p["shared"] = init_mlp(gen, d, cfg.d_ff_shared, dtype)
     return p
+
+
+def spec_moe(cfg: MoEConfig) -> dict:
+    s = dict(router=("embed", None),
+             w_gate=("expert", "embed", None),
+             w_up=("expert", "embed", None),
+             w_down=("expert", None, "embed"))
+    if cfg.n_shared:
+        s["shared"] = spec_mlp()
+    return s
 
 
 def moe_density(cfg: MoEConfig) -> float:
@@ -561,6 +607,13 @@ def init_mamba(gen: torch.Generator, cfg: MambaConfig,
     )
 
 
+def spec_mamba(cfg: MambaConfig) -> dict:
+    return dict(in_proj=("embed", "mlp"), conv_w=(None, "mlp"),
+                conv_b=("mlp",), x_proj=("mlp", None), dt_proj=(None, "mlp"),
+                dt_bias=("mlp",), A_log=("mlp", None), D=("mlp",),
+                out_proj=("mlp", "embed"))
+
+
 def _mamba_inner(params, cfg: MambaConfig, xz, conv_state=None):
     """Shared pre-scan compute. xz: (B, T, 2*d_inner).  Returns x, z, dt
     (float32, post-softplus), Bc, Cc and the new conv state (the last
@@ -665,6 +718,10 @@ def init_mamba_cache(cfg: MambaConfig, batch: int, dtype: torch.dtype,
                                  dtype=dtype, device=device))
 
 
+def spec_mamba_cache(cfg: MambaConfig) -> dict:
+    return dict(h=("batch", "mlp", None), conv=("batch", None, "mlp"))
+
+
 def mamba_decode(params, cfg: MambaConfig, x, cache):
     """Single-token recurrent step. x: (B, 1, d).  Returns (y, new cache);
     the caller writes the cache."""
@@ -730,6 +787,15 @@ def init_rwkv6(gen: torch.Generator, cfg: RWKV6Config,
         ln_x=torch.ones((d,), dtype=dtype, device=dev),           # group-norm
         wo=_dense(gen, (d, d), dtype),
     )
+
+
+def spec_rwkv6(cfg: RWKV6Config) -> dict:
+    return dict(mu_r=(None,), mu_k=(None,), mu_v=(None,), mu_w=(None,),
+                mu_g=(None,),
+                wr=("embed", "mlp"), wk=("embed", "mlp"), wv=("embed", "mlp"),
+                wg=("embed", "mlp"), w0=(None,), w_lora_a=("embed", None),
+                w_lora_b=(None, "mlp"), u=(None, None), ln_x=(None,),
+                wo=("mlp", "embed"))
 
 
 def _rwkv6_rkvwg(params, cfg: RWKV6Config, x, x_prev):
@@ -827,6 +893,11 @@ def init_rwkv6_cm(gen: torch.Generator, cfg: RWKV6Config,
                 mu_r=torch.full((d,), 0.5, dtype=dtype, device=dev),
                 wk=_dense(gen, (d, ff), dtype), wv=_dense(gen, (ff, d), dtype),
                 wr=_dense(gen, (d, d), dtype))
+
+
+def spec_rwkv6_cm(cfg: RWKV6Config) -> dict:
+    return dict(mu_k=(None,), mu_r=(None,), wk=("embed", "mlp"),
+                wv=("mlp", "embed"), wr=("embed", "mlp"))
 
 
 def rwkv6_channel_mix(params, x, x_prev=None):

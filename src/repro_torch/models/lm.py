@@ -24,6 +24,10 @@ into its stacked cache in place instead of returning updated copies:
 attention's k/v and MLA's latent c_kv and k_rope at ``pos``, RWKV's
 state ``S`` and token-shift inputs ``x_tm`` and ``x_cm``, Mamba's state
 ``h`` and conv tail ``conv``.
+
+``param_specs`` and ``cache_specs`` give the logical axes of every leaf
+of ``init_params`` and ``init_cache`` (the reference's spec trees), which
+``launch/sharding.py`` resolves onto a mesh.
 """
 from __future__ import annotations
 
@@ -180,6 +184,13 @@ def _norm_init(d, dtype, device, with_bias: bool = False):
     return p
 
 
+def _norm_spec(with_bias: bool = False) -> dict:
+    s = dict(scale=(None,))
+    if with_bias:
+        s["bias"] = (None,)
+    return s
+
+
 def _norm_apply(p, x, eps):
     """LayerNorm where the norm has a bias (whisper's), else RMSNorm."""
     if "bias" in p:
@@ -242,6 +253,54 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str) -> Params:
     p["ffn"] = (blk.init_mlp(gen, d, cfg.d_ff, dt) if ffn == "mlp"
                 else blk.init_moe(gen, cfg.moe_cfg(), dt))
     return p
+
+
+def spec_layer(cfg: ModelConfig, kind: str) -> dict:
+    """The logical axes of ``init_layer``'s leaves (the reference's
+    ``spec_layer``)."""
+    if kind in TRANSFORMER_KINDS:
+        mixer, ffn = kind.split("_")
+        return dict(
+            norm1=_norm_spec(), norm2=_norm_spec(),
+            attn=(blk.spec_attention(cfg.attn_cfg()) if mixer == "attn"
+                  else blk.spec_mla(cfg.mla_cfg())),
+            ffn=(blk.spec_mlp() if ffn == "mlp"
+                 else blk.spec_moe(cfg.moe_cfg())))
+    if kind == "rwkv":
+        rc = cfg.rwkv_cfg()
+        return dict(norm1=_norm_spec(), norm2=_norm_spec(),
+                    tm=blk.spec_rwkv6(rc), cm=blk.spec_rwkv6_cm(rc))
+    if kind == "jamba_period":
+        return {f"l{i}": dict(
+            norm1=_norm_spec(), norm2=_norm_spec(),
+            mixer=(blk.spec_attention(cfg.attn_cfg()) if i == JAMBA_ATTN
+                   else blk.spec_mamba(cfg.mamba_cfg())),
+            ffn=(blk.spec_moe(cfg.moe_cfg()) if i % 2 else blk.spec_mlp()))
+            for i in range(JAMBA_PERIOD)}
+    if kind == "enc":
+        return dict(norm1=_norm_spec(True), norm2=_norm_spec(True),
+                    attn=blk.spec_attention(cfg.attn_cfg(causal=False)),
+                    ffn=blk.spec_mlp(gated=False))
+    if kind == "dec":
+        return dict(norm1=_norm_spec(True), norm2=_norm_spec(True),
+                    norm3=_norm_spec(True),
+                    attn=blk.spec_attention(cfg.attn_cfg()),
+                    cross=blk.spec_attention(cfg.attn_cfg(causal=False)),
+                    ffn=blk.spec_mlp(gated=False))
+    raise ValueError(kind)
+
+
+def is_logical(t) -> bool:
+    """A leaf of a logical-axis spec tree: a tuple of axis names and
+    None."""
+    return isinstance(t, tuple) and all(isinstance(e, (str, type(None)))
+                                        for e in t)
+
+
+def _stacked_spec(spec, lead):
+    """``spec`` with ``lead`` (the stacked layer axis's name, or None)
+    before every leaf's axes."""
+    return _tree_map(lambda t: (lead,) + t, spec, is_leaf=is_logical)
 
 
 def _ffn_apply(params, cfg: ModelConfig, kind: str, h):
@@ -410,6 +469,27 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
                                                    cfg.d_model)).to(dt),
                         block=init_layer(gen, cfg, mtp_kind(cfg)))
     return p
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """The logical axes of every leaf of ``init_params`` (the reference's
+    ``param_specs``): a tuple of names or None per dim, each group's
+    stacked layer axis ``"layer"`` with ``scan_layers``, else a list of
+    one spec per layer."""
+    s = dict(embed=("vocab", "embed"),
+             final_norm=_norm_spec(cfg.family == "encdec"))
+    if not cfg.tie_embeddings:
+        s["lm_head"] = ("embed", "vocab")
+    s["groups"] = [
+        _stacked_spec(spec_layer(cfg, kind), "layer") if cfg.scan_layers
+        else [spec_layer(cfg, kind)] * n
+        for kind, n in cfg.layer_groups()]
+    if cfg.family == "encdec":
+        s["enc_final_norm"] = _norm_spec(True)
+    if cfg.mtp:
+        s["mtp"] = dict(norm=_norm_spec(), proj=("embed", "embed"),
+                        block=spec_layer(cfg, mtp_kind(cfg)))
+    return s
 
 
 def mtp_kind(cfg: ModelConfig) -> str:
@@ -628,6 +708,31 @@ def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, s_max: int,
     return blk.init_attn_cache(cfg.attn_cfg(), batch, s_max, dt, dev)
 
 
+def spec_layer_cache(cfg: ModelConfig, kind: str):
+    """The logical axes of ``init_layer_cache``'s leaves (None for the
+    encoder group, which has no cache)."""
+    if kind in ("attn_mlp", "attn_moe"):
+        return blk.spec_attn_cache(cfg.attn_cfg())
+    if kind in ("mla_mlp", "mla_moe"):
+        return blk.spec_mla_cache(cfg.mla_cfg())
+    if kind == "rwkv":
+        return dict(S=("batch", "heads", None, None),
+                    x_tm=("batch", None, None), x_cm=("batch", None, None))
+    if kind == "jamba_period":
+        return {f"l{i}": (blk.spec_attn_cache(cfg.attn_cfg())
+                          if i == JAMBA_ATTN
+                          else blk.spec_mamba_cache(cfg.mamba_cfg()))
+                for i in range(JAMBA_PERIOD)}
+    if kind == "dec":
+        s = blk.spec_attn_cache(cfg.attn_cfg())
+        s["cross_k"] = ("batch", None, "kv", None)
+        s["cross_v"] = ("batch", None, "kv", None)
+        return s
+    if kind == "enc":
+        return None
+    raise ValueError(kind)
+
+
 def init_cache(cfg: ModelConfig, batch: int, s_max: int,
                device: str | torch.device = DEFAULT_DEVICE):
     """Zero decode caches per group, stacked (n, ...) with ``scan_layers``,
@@ -653,6 +758,22 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int,
             caches.append([init_layer_cache(cfg, kind, batch, s_max, dev)
                            for _ in range(n)])
     return caches
+
+
+def cache_specs(cfg: ModelConfig) -> list:
+    """The logical axes of ``init_cache``'s leaves: each group's stacked
+    layer axis unnamed (None) with ``scan_layers``, as in the
+    reference."""
+    out = []
+    for kind, n in cfg.layer_groups():
+        s = spec_layer_cache(cfg, kind)
+        if s is None:
+            out.append(None)
+        elif cfg.scan_layers:
+            out.append(_stacked_spec(s, None))
+        else:
+            out.append([s] * n)
+    return out
 
 
 def layer_decode(params, cfg: ModelConfig, kind: str, x, cache, pos: int):

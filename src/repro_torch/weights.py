@@ -1,6 +1,7 @@
 """Carry model parameters over from the JAX reference: the GNN layers
 (``from_jax_params``), the LM pytree (``lm_from_jax_params``) and its
-AdamW state (``adamw_state_from_jax``).
+AdamW state (``adamw_state_from_jax``); and the LM's shape tree as meta
+tensors (``lm_meta_params``, what ``launch/specs.py`` traces against).
 
 ``jax.random`` and torch generators give different numbers from one seed,
 so a comparison of the two packages starts both from the reference's
@@ -180,6 +181,47 @@ def _lm_layer_shapes(cfg, kind: str) -> dict:
                 _moe_shapes(cfg))
 
 
+def _lm_top_shapes(cfg) -> dict:
+    """Shape of every leaf of the LM's params outside its layer groups:
+    embed, the untied head, the final norm (biased in an encoder-decoder
+    model, which has ``enc_final_norm`` too) and with ``cfg.mtp`` the
+    multi-token prediction block."""
+    from repro_torch.models import lm
+    V, d = cfg.padded_vocab, cfg.d_model
+    encdec = cfg.family == "encdec"
+    top = dict(embed=(V, d), final_norm=_norm_shapes(d, with_bias=encdec))
+    if not cfg.tie_embeddings:
+        top["lm_head"] = (d, V)
+    if encdec:
+        top["enc_final_norm"] = _norm_shapes(d, with_bias=True)
+    if cfg.mtp:
+        top["mtp"] = dict(norm=dict(scale=(d,)), proj=(2 * d, d),
+                          block=_lm_layer_shapes(cfg, lm.mtp_kind(cfg)))
+    return top
+
+
+def lm_meta_params(cfg) -> dict:
+    """``lm.init_params(cfg)``'s tree as meta tensors (shapes and dtypes,
+    no storage): ``cfg``'s dtype, float32 where the reference keeps it
+    (RWKV-6's ``u`` and ``w0``, Mamba's ``A_log`` and ``D``, the MoE
+    router); each group stacked (n, ...) with ``scan_layers``, else a list
+    of its n layers."""
+    dt = cfg.torch_dtype
+
+    def meta(shapes, lead=()):
+        if isinstance(shapes, dict):
+            return {k: meta(v, lead) for k, v in shapes.items()}
+        return torch.empty(lead + tuple(shapes), device="meta", dtype=(
+            torch.float32 if isinstance(shapes, _Float32) else dt))
+
+    out = meta(_lm_top_shapes(cfg))
+    out["groups"] = [
+        meta(_lm_layer_shapes(cfg, kind), (n,)) if cfg.scan_layers
+        else [meta(_lm_layer_shapes(cfg, kind)) for _ in range(n)]
+        for kind, n in cfg.layer_groups()]
+    return out
+
+
 def _convert(tree, shapes, where: str, dtype, dev, lead=()):
     """``tree`` (numpy leaves) as tensors of ``dtype`` (float32 where the
     shape is ``_Float32``) on ``dev``, checked leaf by leaf against
@@ -214,19 +256,9 @@ def lm_from_jax_params(params_np: Mapping, cfg,
     ``mtp`` subtree (norm, proj and one layer, not stacked); for an
     encoder-decoder model the biased ``final_norm`` and
     ``enc_final_norm``."""
-    from repro_torch.models import lm
     dev = resolve_device(device)
     dt = cfg.torch_dtype
-    V, d = cfg.padded_vocab, cfg.d_model
-    encdec = cfg.family == "encdec"
-    top = dict(embed=(V, d), final_norm=_norm_shapes(d, with_bias=encdec))
-    if not cfg.tie_embeddings:
-        top["lm_head"] = (d, V)
-    if encdec:
-        top["enc_final_norm"] = _norm_shapes(d, with_bias=True)
-    if cfg.mtp:
-        top["mtp"] = dict(norm=dict(scale=(d,)), proj=(2 * d, d),
-                          block=_lm_layer_shapes(cfg, lm.mtp_kind(cfg)))
+    top = _lm_top_shapes(cfg)
     if set(params_np) != set(top) | {"groups"}:
         raise ValueError(f"expected keys {sorted(set(top) | {'groups'})}, "
                          f"got {sorted(params_np)}")

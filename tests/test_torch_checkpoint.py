@@ -20,6 +20,9 @@ import torch
 
 from repro_torch.core import gnn as TGNN
 from repro_torch.distributed import checkpoint as ckpt_mod
+from repro_torch.launch import mesh as mesh_mod
+from repro_torch.launch import sharding
+from repro_torch.tree import tree_leaves, tree_map
 from repro_torch.train import gnn_steps
 from test_torch_pipeline import cfg_of, small_graph
 
@@ -129,8 +132,9 @@ def test_checkpoint_aux_roundtrip_keep_and_corruption(tmp_path):
 
 def test_checkpoint_keys_follow_the_reference_scheme(tmp_path):
     """Dict keys sorted, list indices, "/" between; an int leaf is an
-    int32 scalar and comes back an int; restore keeps the tree's dtypes
-    and refuses what it does not port (shardings=) or a shape mismatch."""
+    int32 scalar and comes back an int; restore keeps the tree's dtypes,
+    places the leaves through shardings= (the elastic path) where they can
+    be placed and raises where not, and refuses a shape mismatch."""
     params = [dict(w=torch.ones(2, 3), b=torch.zeros(3))]
     state = dict(params=params, opt=dict(m=[dict(w=torch.ones(2, 3),
                                                  b=torch.ones(3))],
@@ -147,8 +151,20 @@ def test_checkpoint_keys_follow_the_reference_scheme(tmp_path):
     got, _ = mgr.restore(state, device="cpu")
     assert got["opt"]["t"] == 4 and isinstance(got["opt"]["t"], int)
     assert list(got["params"][0]) == ["w", "b"]  # the tree's own order
-    with pytest.raises(NotImplementedError, match="ROADMAP section 1 item 8"):
-        mgr.restore(state, device="cpu", shardings=object())
+    one = mesh_mod.host_local_mesh("cpu")
+    placed, step = mgr.restore(state, shardings=tree_map(
+        lambda _: sharding.NamedSharding(one, sharding.P()), state))
+    assert step == 1 and placed["opt"]["t"] == 4
+    for a, b in zip(tree_leaves(placed), tree_leaves(got)):
+        assert (a == b if isinstance(a, int) else
+                a.device.type == "cpu" and a.dtype == b.dtype
+                and torch.equal(a, b))
+    with pytest.raises(ValueError, match="abstract"):
+        mgr.restore(state, shardings=tree_map(lambda _: sharding.NamedSharding(
+            mesh_mod.make_production_mesh(), sharding.P()), state))
+    with pytest.raises(ValueError, match="differ at the leaves"):
+        mgr.restore(state, shardings=dict(params=tree_map(
+            lambda _: sharding.NamedSharding(one, sharding.P()), params)))
     with pytest.raises(ValueError, match="shape"):
         mgr.restore(dict(state, params=[dict(w=torch.ones(3, 3),
                                              b=torch.zeros(3))]),

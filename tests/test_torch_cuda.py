@@ -2060,3 +2060,33 @@ def test_cuda_qwen2_vl_and_whisper_reduced_match_cpu(  # noqa: F811
             (dev, launches)
     for a, b in zip(out["cuda"], out["cpu"]):
         torch.testing.assert_close(a.cpu(), b, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_places_leaves_on_the_card(cuda_device):
+    """A 1 x 1 mesh over cuda:0 (make_mesh and host_local_mesh) places
+    InternLM2 REDUCED's params through their resolved shardings on the
+    card, values unchanged; a mesh of more devices than the card count
+    raises, and so does placing onto the abstract production mesh."""
+    from repro_torch import configs
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import sharding
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_leaves
+    cfg = configs.get_config("internlm2_1_8b", reduced=True)
+    params = lm.init_params(lm.make_generator(0, "cpu"), cfg)
+    for mesh in (mesh_mod.make_mesh((1, 1), ("data", "model"), "cuda"),
+                 mesh_mod.host_local_mesh("cuda:0")):
+        assert mesh.devices[0].type == "cuda"
+        shard = sharding.tree_shardings(params, lm.param_specs(cfg), mesh)
+        placed = sharding.place_tree(params, shard)
+        for a, b in zip(tree_leaves(params), tree_leaves(placed)):
+            assert b.device.type == "cuda" and b.device.index == 0
+            assert torch.equal(a, b.cpu())
+    n = torch.cuda.device_count()
+    with pytest.raises(ValueError, match=f"needs {n + 1} devices"):
+        mesh_mod.make_mesh((n + 1, 1), ("data", "model"), "cuda")
+    with pytest.raises(ValueError, match="abstract"):
+        sharding.NamedSharding(mesh_mod.make_production_mesh(),
+                               sharding.P()).place(
+            torch.zeros(2, device=cuda_device))

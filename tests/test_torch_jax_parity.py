@@ -2780,3 +2780,160 @@ def test_model_changes_match_reference(change):
                                          for k, v in batch.items()})
     tp.assert_close(ref, got, **LM_TOL)
     tp.assert_close(raux["aux_loss"], taux["aux_loss"], **LM_TOL)
+
+
+# ---------------------------------------------------------------------------
+# the mesh tools: spec trees, resolved layouts, meta stand-ins, profiles and
+# the elastic arithmetic against the reference's, which resolves on
+# jax.sharding.AbstractMesh (no devices, nothing traced)
+# ---------------------------------------------------------------------------
+
+MESH_SHAPES = (((1, 1), ("data", "model")), ((16, 16), ("data", "model")),
+               ((2, 16, 16), ("pod", "data", "model")))
+# the reference's dtypes as the port's
+DTYPE_MAP = {jnp.dtype(jnp.float32): torch.float32,
+             jnp.dtype(jnp.bfloat16): torch.bfloat16,
+             jnp.dtype(jnp.int32): torch.int32}
+
+
+def _mesh_pairs():
+    from jax.sharding import AbstractMesh
+    from repro_torch.launch.mesh import Mesh
+    return [(AbstractMesh(shape, axes), Mesh(shape, axes))
+            for shape, axes in MESH_SHAPES]
+
+
+def _same_leaves(ref_tree, port_tree, what: str) -> int:
+    """Shapes and dtypes of a tree of ShapeDtypeStructs against one of
+    meta tensors, leaf by leaf in jax.tree order; returns the count."""
+    from repro_torch.tree import tree_leaves
+    ref, port = jax.tree.leaves(ref_tree), tree_leaves(port_tree)
+    assert len(ref) == len(port), what
+    for r, t in zip(ref, port):
+        assert tuple(r.shape) == tuple(t.shape), what
+        assert DTYPE_MAP[jnp.dtype(r.dtype)] == t.dtype, what
+        assert t.device.type == "meta", what
+    return len(ref)
+
+
+def _same_shardings(ref_tree, port_tree, what: str) -> None:
+    from repro_torch.tree import tree_leaves
+    ref, port = jax.tree.leaves(ref_tree), tree_leaves(port_tree)
+    assert len(ref) == len(port), what
+    for r, t in zip(ref, port):
+        assert tuple(r.spec) == tuple(t.spec), (what, r.spec, t.spec)
+
+
+@pytest.mark.parametrize("arch", [
+    "deepseek_moe_16b", "deepseek_v3_671b", "qwen2_5_14b", "codeqwen1_5_7b",
+    "mistral_large_123b", "internlm2_1_8b", "jamba_v0_1_52b", "qwen2_vl_7b",
+    "whisper_large_v3", "rwkv6_7b"])
+def test_mesh_specs_match_reference(arch):
+    """At FULL size: param_specs and cache_specs equal the reference's
+    leaf for leaf; params_shapes (and the decode caches) equal
+    jax.eval_shape of the reference's init in shape and dtype; the
+    resolved param and cache specs and the fallback notes equal the
+    reference's on 1x1, 16x16 and 2x16x16 with shard_seq off and on."""
+    from repro import configs as RC
+    from repro.launch import sharding as RS
+    from repro.launch import specs as RSP
+    from repro.models import lm as RLM
+    from repro_torch import configs as TC
+    from repro_torch.launch import sharding as TS
+    from repro_torch.launch import specs as TSP
+    from repro_torch.models import lm as TLM
+    rcfg, tcfg = RC.get_config(arch), TC.get_config(arch)
+    assert TLM.param_specs(tcfg) == RLM.param_specs(rcfg)
+    assert TLM.cache_specs(tcfg) == RLM.cache_specs(rcfg)
+    r_p, t_p = RSP.params_shapes(rcfg), TSP.params_shapes(tcfg)
+    _same_leaves(r_p, t_p, f"{arch} params")
+    r_c, _, _ = RSP.decode_specs(rcfg, 4096, 8)
+    t_c, _, _ = TSP.decode_specs(tcfg, 4096, 8)
+    _same_leaves(r_c, t_c, f"{arch} caches")
+    for rmesh, tmesh in _mesh_pairs():
+        for shard_seq in (False, True):
+            rr = RS.default_rules(rmesh, shard_seq=shard_seq)
+            tr = TS.default_rules(tmesh, shard_seq=shard_seq)
+            assert rr == tr
+            what = f"{arch} {tmesh.shape} shard_seq={shard_seq}"
+            for rt, tt, rl, tl in ((r_p, t_p, RLM.param_specs(rcfg),
+                                    TLM.param_specs(tcfg)),
+                                   (r_c, t_c, RLM.cache_specs(rcfg),
+                                    TLM.cache_specs(tcfg))):
+                _same_shardings(RS.tree_shardings(rt, rl, rmesh, rr),
+                                TS.tree_shardings(tt, tl, tmesh, tr), what)
+                assert TS.count_unsharded_fallbacks(tt, tl, tmesh, tr) == \
+                    RS.count_unsharded_fallbacks(rt, rl, rmesh, rr), what
+
+
+def test_mesh_input_specs_and_batch_shardings_match_reference():
+    """Every (arch x shape) cell: input_specs' batch (or caches, token and
+    position) in shape and dtype (jnp.int32 -> torch.int32, bfloat16 ->
+    torch.bfloat16, float32 -> torch.float32; the port's stand-ins are
+    meta tensors), and the batch shardings on each mesh; the optimizer
+    state's shapes against jax.eval_shape of the reference's init_state
+    for InternLM2."""
+    from repro import configs as RC
+    from repro.launch import sharding as RS
+    from repro.launch import specs as RSP
+    from repro_torch.launch import sharding as TS
+    from repro_torch.launch import specs as TSP
+    n = 0
+    for arch in RC.ARCHS:
+        for shape in RC.SHAPES:
+            r, t = RSP.input_specs(arch, shape), TSP.input_specs(arch, shape)
+            assert set(r) == set(t) and r["mode"] == t["mode"]
+            if r["mode"] == "decode":
+                n += _same_leaves((r["cache_specs"], r["token_specs"],
+                                   r["pos_specs"]),
+                                  (t["cache_specs"], t["token_specs"],
+                                   t["pos_specs"]), f"{arch} {shape}")
+                continue
+            n += _same_leaves(r["batch_specs"], t["batch_specs"],
+                              f"{arch} {shape}")
+            assert list(r["batch_specs"]) == list(t["batch_specs"])
+            for rmesh, tmesh in _mesh_pairs():
+                _same_shardings(RS.batch_specs(r["batch_specs"], rmesh),
+                                TS.batch_specs(t["batch_specs"], tmesh),
+                                f"{arch} {shape} {tmesh.shape}")
+    assert n > 0
+    _same_leaves(RSP.opt_state_shapes(RC.get_config(LM_ARCH)),
+                 TSP.opt_state_shapes(TSP.configs.get_config(LM_ARCH)),
+                 "opt state")
+
+
+def test_mesh_profiles_match_reference(monkeypatch):
+    """padded_heads and optimized_overrides (every arch, train and decode,
+    mesh_model 16 and 1) given the reference's own HBM_BYTES as the
+    device memory."""
+    import functools
+    from repro import configs as RC
+    from repro.launch import profiles as RP
+    from repro.launch import specs as RSP
+    from repro_torch import configs as TC
+    from repro_torch.launch import profiles as TP
+    # the reference re-traces its init for each call: once per config here
+    monkeypatch.setattr(RSP, "params_shapes",
+                        functools.lru_cache(RSP.params_shapes))
+    for arch in RC.ARCHS:
+        rcfg, tcfg = RC.get_config(arch), TC.get_config(arch)
+        for mm in (16, 1):
+            assert TP.padded_heads(tcfg, mm) == RP.padded_heads(rcfg, mm)
+            assert TP.weights_fit_zero1(tcfg, mm, hbm_bytes=RP.HBM_BYTES) \
+                == RP.weights_fit_zero1(rcfg, mm)
+            for mode in ("train", "decode"):
+                assert TP.optimized_overrides(
+                    tcfg, mode, mm, hbm_bytes=RP.HBM_BYTES) == \
+                    RP.optimized_overrides(rcfg, mode, mm), (arch, mm, mode)
+
+
+def test_mesh_elastic_arithmetic_matches_reference():
+    from repro.distributed import elastic as RE
+    from repro_torch.distributed import elastic as TE
+    for n in range(1, 1101):
+        assert TE.best_mesh_shape(n) == RE.best_mesh_shape(n)
+        for mp in (1, 4, 16):
+            assert TE.best_mesh_shape(n, mp, 64) == \
+                RE.best_mesh_shape(n, mp, 64)
+        for gb in (1, 7, 8, 256, 1000):
+            assert TE.plan_rescale(n, n, gb) == RE.plan_rescale(n, n, gb)
